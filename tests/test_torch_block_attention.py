@@ -1,0 +1,84 @@
+"""Port K4 (vision_toolbox_tpu_torch/ops/block_attention.py) vs the JAX kernel.
+
+The port's op runs its plain PyTorch version on CPU tensors; the JAX side is
+``fused_attention_block`` in interpret mode, as tests/test_block_kernels.py
+runs it. Same numpy inputs; weights go to the port in the (out, in) layout.
+Both sides round y/q/k/v/p/o to bf16 at the same points, so only the f32
+summation order differs: tolerance as in tests/torch_parity.py (most
+elements within 1e-4, all within 1e-2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from torch_parity import assert_matches_kernel
+
+import vision_toolbox_tpu.ops.block_attention as ba
+from vision_toolbox_tpu_torch.ops import block_attention as port
+
+_W = ("wq", "wk", "wv", "wo")
+_B = ("bq", "bk", "bv", "bo")
+
+
+def _args(B=3, T=19, D=128, H=4, seed=0, ls=True, dp=True):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    a = {"x": f(B, T, D), "H": H}
+    for n in _W:
+        a[n] = f(D, D) * D**-0.5
+    for n in _B:
+        a[n] = 0.1 * f(D)
+    a["lns"] = 1.0 + 0.1 * f(D)
+    a["lnb"] = 0.1 * f(D)
+    a["ls"] = 0.5 + 0.2 * f(D) if ls else None
+    a["dp"] = ((rng.random((B, 1)) < 0.8) / 0.8).astype(np.float32) if dp else None
+    return a
+
+
+def _jax(a, group=1):
+    j = lambda v: None if v is None else jnp.asarray(v)
+    wb = [j(a[n]) for pair in zip(_W, _B) for n in pair]
+    out = ba.fused_attention_block(
+        j(a["x"]), j(a["lns"]), j(a["lnb"]), *wb, a["H"], j(a["ls"]), j(a["dp"]), group=group,
+    )
+    return np.asarray(out)
+
+
+def _port(a, fn=port.fused_attention_block):
+    t = lambda v: None if v is None else torch.from_numpy(np.ascontiguousarray(v))
+    wb = [t(a[w].T) if w in _W else t(a[w]) for pair in zip(_W, _B) for w in pair]
+    return fn(t(a["x"]), t(a["lns"]), t(a["lnb"]), *wb, a["H"], t(a["ls"]), t(a["dp"])).numpy()
+
+
+@pytest.mark.parametrize("ls,dp,group", [(True, True, 1), (False, False, 3), (True, False, 1)])
+def test_fused_attention_matches_jax_kernel(ls, dp, group):
+    a = _args(ls=ls, dp=dp, seed=group)
+    assert_matches_kernel(_port(a), _jax(a, group))
+
+
+def test_fused_attention_ragged_tokens():
+    # T = 50 fills neither a 16-row tensor-core tile nor a 32-row query tile
+    a = _args(B=2, T=50, D=128, H=2, seed=5)
+    assert_matches_kernel(_port(a), _jax(a))
+
+
+def test_op_on_cpu_is_the_plain_version():
+    a = _args(seed=6)
+    np.testing.assert_array_equal(_port(a), _port(a, port.fused_attention_block_plain))
+
+
+def test_dispatch_rules():
+    assert port.use_fused_attention(768, 12, 197, 0.0, True)  # vit_b_16 @224
+    assert port.use_fused_attention(1280, 16, 257, 0.0, True)  # vit_h_14 @224, head_dim 80
+    assert port.use_fused_attention(768, 12, 512, 0.0, True)
+    assert not port.use_fused_attention(768, 12, 513, 0.0, True)  # keys exceed one block
+    assert not port.use_fused_attention(768, 12, 197, 0.1, True)  # dropout
+    assert not port.use_fused_attention(768, 12, 197, 0.0, False)  # no bias
+    assert not port.use_fused_attention(768, 32, 197, 0.0, True)  # head_dim 24: not 16-wide
+    assert not port.use_fused_attention(768, 3, 197, 0.0, True)  # head_dim 256 > 128
+    # head_dim 128 at T=512: K/V, logits and probs need 241.5 KB of shared memory
+    assert port._attn_smem_bytes(512, 128) > port.SMEM_LIMIT
+    assert not port.use_fused_attention(1024, 8, 512, 0.0, True)
+    assert port._attn_smem_bytes(197, 64) == 75520

@@ -1,0 +1,97 @@
+"""Port K3 (vision_toolbox_tpu_torch/ops/block_mlp.py) vs the JAX kernel.
+
+The port's op runs its plain PyTorch version on CPU tensors; the JAX side is
+``fused_mlp_block`` in interpret mode, as tests/test_block_kernels.py runs
+it. Same numpy inputs to both; the weights go to the port in the nn.Linear
+(out, in) layout. Both sides round at the same points (bf16 y2/h/g, f32
+accumulation), so only the f32 summation order differs: tolerance as in
+tests/torch_parity.py (most elements within 1e-4, all within 1e-2).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+from torch_parity import assert_matches_kernel
+
+import vision_toolbox_tpu.ops.block_mlp as bm
+from vision_toolbox_tpu_torch.ops import block_mlp as port
+
+
+def _args(B=3, T=17, D=128, Dh=256, seed=0, ls=True, dp=True, res=False):
+    rng = np.random.default_rng(seed)
+    f = lambda *s: rng.standard_normal(s).astype(np.float32)
+    a = {
+        "x": f(B, T, D),
+        "lns": 1.0 + 0.1 * f(D),
+        "lnb": 0.1 * f(D),
+        "w1": f(D, Dh) * D**-0.5,
+        "b1": 0.1 * f(Dh),
+        "w2": f(Dh, D) * Dh**-0.5,
+        "b2": 0.1 * f(D),
+    }
+    a["ls"] = 0.5 + 0.2 * f(D) if ls else None
+    a["dp"] = ((rng.random((B, 1)) < 0.8) / 0.8).astype(np.float32) if dp else None
+    a["res"] = f(B, T, D) if res else None
+    return a
+
+
+def _jax(a, group=1):
+    j = lambda v: None if v is None else jnp.asarray(v)
+    out = bm.fused_mlp_block(
+        j(a["x"]), j(a["lns"]), j(a["lnb"]), j(a["w1"]), j(a["b1"]), j(a["w2"]), j(a["b2"]),
+        j(a["ls"]), j(a["dp"]), residual=j(a["res"]), group=group,
+    )
+    return np.asarray(out)
+
+
+def _port(a, fn=port.fused_mlp_block):
+    t = lambda v: None if v is None else torch.from_numpy(np.ascontiguousarray(v))
+    out = fn(
+        t(a["x"]), t(a["lns"]), t(a["lnb"]), t(a["w1"].T), t(a["b1"]), t(a["w2"].T), t(a["b2"]),
+        t(a["ls"]), t(a["dp"]), residual=t(a["res"]),
+    )
+    return out.numpy()
+
+
+@pytest.mark.parametrize(
+    "ls,dp,group,res",
+    [
+        (True, True, 1, False),
+        (False, False, 2, False),
+        (True, False, 3, False),
+        (True, True, 1, True),
+        (False, True, 2, True),
+    ],
+)
+def test_fused_mlp_matches_jax_kernel(ls, dp, group, res):
+    a = _args(ls=ls, dp=dp, res=res, seed=group)
+    assert_matches_kernel(_port(a), _jax(a, group))
+
+
+def test_fused_mlp_hidden_wider_than_1536():
+    # Dh > 1536: the JAX kernel tiles the hidden dimension (nj > 1); the
+    # port's GEMM streams it, the result must not care
+    a = _args(B=2, T=9, D=256, Dh=2048, seed=3)
+    assert_matches_kernel(_port(a), _jax(a))
+
+
+def test_op_on_cpu_is_the_plain_version():
+    a = _args(seed=4, res=True)
+    np.testing.assert_array_equal(_port(a), _port(a, port.fused_mlp_block_plain))
+
+
+def test_gelu_as_matches_jax():
+    h = np.linspace(-6, 6, 1001, dtype=np.float32)
+    got = port.gelu_as(torch.from_numpy(h)).numpy()
+    np.testing.assert_allclose(got, np.asarray(bm._gelu_f32(jnp.asarray(h))), rtol=0, atol=1e-6)
+
+
+def test_dispatch_rules():
+    assert port.use_fused_mlp(768, 3072, 0.0)  # vit_b_16
+    assert port.use_fused_mlp(192, 768, 0.0)  # vit_ti_16
+    assert port.use_fused_mlp(1280, 5120, 0.0)  # vit_h_14: weights stream, no split
+    assert not port.use_fused_mlp(768, 3072, 0.1)  # dropout
+    assert not port.use_fused_mlp(96, 384, 0.0)  # Swin-T stage 1: 96 is no 64-column tile
+    assert not port.use_fused_mlp(100, 400, 0.0)

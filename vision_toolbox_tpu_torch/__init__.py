@@ -1,0 +1,17 @@
+"""vision_toolbox_tpu_torch — the PyTorch/CUDA port of ``vision_toolbox_tpu``.
+
+This slice serves ViT backbones on an NVIDIA H100: the transformer blocks run
+hand-written CUDA kernels for the fused attention and MLP half-blocks
+(``ops/block_attention.py``, ``ops/block_mlp.py``, sources in ``csrc/``,
+built with ``nvcc`` at first use). The JAX package is the reference the port
+is held against; this package imports ``torch`` and never ``jax``.
+
+    import torch, vision_toolbox_tpu_torch as vtt
+    model = vtt.create_backbone("vit_b_16", dtype=torch.bfloat16, device="cuda")
+    feats = model(torch.rand(8, 224, 224, 3, device="cuda"))  # NHWC in, (8, 768) out
+"""
+
+from . import models
+from .models.base import Backbone, create_backbone, list_backbones, register_model
+
+__all__ = ["Backbone", "create_backbone", "list_backbones", "models", "register_model"]

@@ -1,0 +1,146 @@
+"""Transformer building blocks: MHA, MLP, ViTBlock, MHAPooling — port of
+``vision_toolbox_tpu/nn/attention.py``.
+
+Pre-LN blocks with separate q/k/v/out projections, exact-erf GELU on the
+unfused path, optional LayerScale and StochasticDepth. ``ViTBlock`` sends
+each half to its fused kernel (``ops/block_attention.py``,
+``ops/block_mlp.py``) when the kernel's shape rule admits it, on every
+device: on CPU tensors the fused ops run their plain versions, so a module
+computes the same function wherever it runs. ``force_unfused`` keeps the
+block on the plain module chain.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor, nn
+
+from ..ops import block_attention, block_mlp
+from ..ops.attention import dot_product_attention
+from .layers import LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact
+
+
+class MHA(nn.Module):
+    """Multi-head attention with separate q/k/v/out projections."""
+
+    def __init__(self, d_model: int, n_heads: int, bias: bool = True, dropout: float = 0.0, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.d_model, self.n_heads, self.dropout = d_model, n_heads, dropout
+        for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            setattr(self, name, Linear(d_model, d_model, bias, generator=generator))
+
+    def _split(self, x: Tensor) -> Tensor:
+        return x.reshape(*x.shape[:-1], self.n_heads, -1)
+
+    def forward(self, q: Tensor, k: Tensor | None = None, v: Tensor | None = None, *,
+                attn_bias: Tensor | None = None, train: bool = False) -> Tensor:
+        k = q if k is None else k
+        v = k if v is None else v
+        out = dot_product_attention(
+            self._split(self.q_proj(q)), self._split(self.k_proj(k)), self._split(self.v_proj(v)),
+            bias=attn_bias, dropout_rate=self.dropout if train else 0.0,
+        )
+        return self.out_proj(out.reshape(*out.shape[:-2], self.d_model))
+
+
+class MLP(nn.Module):
+    """linear1 → GELU → linear2 → dropout."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, dropout: float = 0.0, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.linear1 = Linear(in_dim, hidden_dim, generator=generator)
+        self.linear2 = Linear(hidden_dim, in_dim, generator=generator)
+        self.dropout = nn.Dropout(dropout)
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        x = self.linear2(_gelu_exact(self.linear1(x)))
+        return self.dropout(x) if train else x
+
+
+def fused_mlp_halfblock(
+    x: Tensor, norm: LayerNorm, mlp: MLP, scale: LayerScale | None,
+    droppath: StochasticDepth, *, train: bool, plain: bool = False,
+) -> Tensor:
+    """LN → W1 → GELU → W2 → LayerScale → drop-path → residual through the
+    fused MLP op (``ops/block_mlp.py``), reading the parameters of the same
+    modules the unfused path uses. ``plain`` runs the op's plain PyTorch
+    version on any device (for checking the kernel)."""
+    fn = block_mlp.fused_mlp_block_plain if plain else block_mlp.fused_mlp_block
+    return fn(
+        x, norm.weight, norm.bias, mlp.linear1.weight, mlp.linear1.bias,
+        mlp.linear2.weight, mlp.linear2.bias,
+        None if scale is None else scale.gamma,
+        droppath.sample_scale(x.shape[0], train, device=x.device), eps=norm.eps,
+    )
+
+
+class ViTBlock(nn.Module):
+    """Pre-LN transformer block with optional LayerScale + StochasticDepth."""
+
+    def __init__(self, d_model: int, n_heads: int, bias: bool = True, mlp_ratio: float = 4.0,
+                 dropout: float = 0.0, layer_scale_init: float | None = None,
+                 stochastic_depth: float = 0.0, norm_eps: float = 1e-6, *,
+                 generator: torch.Generator):
+        super().__init__()
+        self.d_model, self.n_heads, self.bias, self.dropout = d_model, n_heads, bias, dropout
+        self.hidden = int(d_model * mlp_ratio)
+        ls = layer_scale_init
+        self.mha_norm = LayerNorm(d_model, norm_eps)
+        self.mha = MHA(d_model, n_heads, bias, dropout, generator=generator)
+        self.mha_scale = LayerScale(d_model, ls) if ls is not None else None
+        self.mha_droppath = StochasticDepth(stochastic_depth)
+        self.mlp_norm = LayerNorm(d_model, norm_eps)
+        self.mlp = MLP(d_model, self.hidden, dropout, generator=generator)
+        self.mlp_scale = LayerScale(d_model, ls) if ls is not None else None
+        self.mlp_droppath = StochasticDepth(stochastic_depth)
+
+    def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
+                plain: bool = False) -> Tensor:
+        """``plain`` routes the fused halves through their plain PyTorch
+        versions instead of the kernels."""
+        fused = x.ndim == 3 and not force_unfused
+        if fused and block_attention.use_fused_attention(
+                self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias):
+            a = self.mha
+            fn = (block_attention.fused_attention_block_plain if plain
+                  else block_attention.fused_attention_block)
+            x = fn(
+                x, self.mha_norm.weight, self.mha_norm.bias,
+                a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
+                a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias,
+                self.n_heads, None if self.mha_scale is None else self.mha_scale.gamma,
+                self.mha_droppath.sample_scale(x.shape[0], train, device=x.device),
+                eps=self.mha_norm.eps,
+            )
+        else:
+            y = self.mha(self.mha_norm(x), train=train)
+            if self.mha_scale is not None:
+                y = self.mha_scale(y)
+            x = x + self.mha_droppath(y, train=train)
+
+        if fused and block_mlp.use_fused_mlp(self.d_model, self.hidden, self.dropout):
+            return fused_mlp_halfblock(x, self.mlp_norm, self.mlp, self.mlp_scale,
+                                       self.mlp_droppath, train=train, plain=plain)
+        y = self.mlp(self.mlp_norm(x), train=train)
+        if self.mlp_scale is not None:
+            y = self.mlp_scale(y)
+        return x + self.mlp_droppath(y, train=train)
+
+
+class MHAPooling(nn.Module):
+    """SigLIP MAP head: a learned probe attends over the tokens."""
+
+    def __init__(self, d_model: int, n_heads: int, bias: bool = True, mlp_ratio: float = 4.0,
+                 norm_eps: float = 1e-6, *, generator: torch.Generator):
+        super().__init__()
+        self.probe = nn.Parameter(torch.zeros(1, 1, d_model))
+        self.mha = MHA(d_model, n_heads, bias, generator=generator)
+        self.norm = LayerNorm(d_model, norm_eps)
+        self.mlp = MLP(d_model, int(d_model * mlp_ratio), generator=generator)
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        probe = self.probe.expand(x.shape[0], 1, -1).to(x.dtype)
+        out = self.mha(probe, x, train=train)[:, 0]
+        return out + self.mlp(self.norm(out), train=train)

@@ -1,0 +1,56 @@
+"""Attention core op — port of ``vision_toolbox_tpu/ops/attention.py``.
+
+Layout (batch, seq, heads, head_dim), scale head_dim**-0.5, optional
+additive bias broadcasting against (B, N, T, S).
+
+The JAX package sends short unbiased attention to its short-attention
+kernel (K2, ``ops/short_attention.py``) and long 128-aligned sequences to its
+flash kernel (K6, ``ops/flash_attention.py``). Neither is ported yet, so on a
+CUDA tensor those shapes raise ``NotImplementedError`` instead of running the
+plain math in their place; every other shape, and every CPU tensor, runs the
+plain math below.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+MAX_SHORT_SEQ = 512  # ops/short_attention.py use_short
+FLASH_MIN_SEQ = 1024  # ops/flash_attention.py PALLAS_MIN_SEQ
+
+
+def _unported_kernel(t: int, s: int, h: int, n_pairs: int, has_bias: bool) -> str | None:
+    """Name of the TPU kernel the JAX package would dispatch this shape to."""
+    if not has_bias and 2 <= t <= MAX_SHORT_SEQ and 2 <= s <= MAX_SHORT_SEQ and h <= 128 \
+            and n_pairs >= 64:
+        return "K2 (short attention, vision_toolbox_tpu/ops/short_attention.py)"
+    if t >= FLASH_MIN_SEQ and t % 128 == 0:
+        return "K6 (flash attention, vision_toolbox_tpu/ops/flash_attention.py)"
+    return None
+
+
+def dot_product_attention(
+    q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, dropout_rate: float = 0.0,
+) -> Tensor:
+    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands, in f32."""
+    B, T, N, H = q.shape
+    scale = H**-0.5
+    if dropout_rate == 0.0:
+        if q.is_cuda:
+            kernel = _unported_kernel(T, k.shape[1], H, B * N, bias is not None)
+            if kernel is not None:
+                raise NotImplementedError(
+                    f"attention at T={T}, S={k.shape[1]}, head_dim={H} runs kernel {kernel} "
+                    "in the JAX package; that kernel has no CUDA port yet"
+                )
+        logits = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
+    else:  # manual path with attention dropout
+        logits = torch.einsum("btnh,bsnh->bnts", q.float() * scale, k.float())
+    if bias is not None:
+        logits = logits + bias.float()
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_rate > 0.0:
+        keep = torch.rand(probs.shape, device=probs.device) >= dropout_rate
+        probs = probs * keep / (1.0 - dropout_rate)
+    return torch.einsum("bnts,bsnh->btnh", probs, v.float()).to(q.dtype)
