@@ -1,10 +1,11 @@
 """Model registry and backbones."""
 
-from . import vit  # noqa: F401  (registers the vit_* names)
+from . import darknet, vit  # noqa: F401  (register the darknet* and vit_* names)
 from .base import Backbone, create_backbone, list_backbones, register_model
+from .darknet import Darknet, DarknetYOLOv5
 from .vit import VIT_VARIANTS, ViT, vit_from_config
 
 __all__ = [
-    "Backbone", "VIT_VARIANTS", "ViT", "create_backbone", "list_backbones", "register_model",
-    "vit", "vit_from_config",
+    "Backbone", "Darknet", "DarknetYOLOv5", "VIT_VARIANTS", "ViT", "create_backbone",
+    "darknet", "list_backbones", "register_model", "vit", "vit_from_config",
 ]

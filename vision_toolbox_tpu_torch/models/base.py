@@ -18,7 +18,9 @@ class Backbone(nn.Module):
     def get_feature_maps(self, x: Tensor, train: bool = False) -> list[Tensor]:
         raise NotImplementedError
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False, generator=None) -> Tensor:
+        """The last feature map. ``generator`` feeds a backbone's random
+        draws in training (none in the convnets)."""
         return self.get_feature_maps(x, train=train)[-1]
 
     @property

@@ -3,9 +3,10 @@
 
 Images are NHWC, as in the JAX package. Parameters are drawn on the CPU in
 float32 from an explicit ``torch.Generator`` (seed 0 when none is given),
-then moved to ``device`` and cast to ``dtype``; ``dtype`` is the compute type
-of the whole model (bf16 for serving). Not ported yet: ``token_sharding``
-(sequence parallelism) and ``resize_pe``.
+then moved to ``device`` and cast to ``dtype``, the compute type of the
+whole model (bf16 for serving) — all but the LayerNorm parameters, which
+stay float32 and are applied in f32, as flax keeps them. Not ported yet:
+``token_sharding`` (sequence parallelism) and ``resize_pe``.
 """
 
 from __future__ import annotations
@@ -70,7 +71,12 @@ class ViT(nn.Module):
             MHAPooling(d_model, n_heads, bias, mlp_ratio, norm_eps, generator=gen)
             if pool_type == "mha" else None
         )
-        self.to(device=device, dtype=dtype)
+        self.to(device=device)
+        if dtype is not None:
+            for m in self.modules():
+                if not isinstance(m, LayerNorm):
+                    for p in m.parameters(recurse=False):
+                        p.data = p.data.to(dtype)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -81,21 +87,22 @@ class ViT(nn.Module):
         return self.patch_embed(x.to(self.dtype)) + self.pe
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
-                plain: bool = False) -> Tensor:
+                plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
         """x: (B, H, W, 3) → (B, D) pooled features. ``force_unfused`` keeps
         every block on the plain module chain; ``plain`` runs the fused
         half-blocks through their plain PyTorch versions instead of the
-        kernels (for checking the kernels on the card)."""
+        kernels (for checking the kernels on the card); ``generator`` feeds
+        dropout and stochastic depth in training."""
         out = self._embed(x)
         if self.cls_token is not None:
             out = torch.cat([self.cls_token.expand(out.shape[0], -1, -1), out], dim=1)
         for block in self.blocks:
-            out = block(out, train, force_unfused=force_unfused, plain=plain)
+            out = block(out, train, force_unfused=force_unfused, plain=plain, generator=generator)
         if self.pool_type == "cls_token":
             return self.norm(out[:, 0])
         if self.pool_type == "gap":
             return self.norm(out).mean(dim=1)
-        return self.pooler(self.norm(out), train=train)
+        return self.pooler(self.norm(out), train=train, generator=generator)
 
     @property
     def last_out_channels(self) -> int:

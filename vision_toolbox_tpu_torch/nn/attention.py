@@ -7,7 +7,10 @@ each half to its fused kernel (``ops/block_attention.py``,
 ``ops/block_mlp.py``) when the kernel's shape rule admits it, on every
 device: on CPU tensors the fused ops run their plain versions, so a module
 computes the same function wherever it runs. ``force_unfused`` keeps the
-block on the plain module chain.
+block on the plain module chain. LayerNorm parameters are float32; where
+the JAX package's fused kernels take them rounded to the compute dtype, the
+port rounds them at the same point. Dropout, attention dropout and
+stochastic depth draw from the ``generator`` threaded through ``forward``.
 """
 
 from __future__ import annotations
@@ -17,7 +20,7 @@ from torch import Tensor, nn
 
 from ..ops import block_attention, block_mlp
 from ..ops.attention import dot_product_attention
-from .layers import LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact
+from .layers import LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, dropout
 
 
 class MHA(nn.Module):
@@ -34,12 +37,13 @@ class MHA(nn.Module):
         return x.reshape(*x.shape[:-1], self.n_heads, -1)
 
     def forward(self, q: Tensor, k: Tensor | None = None, v: Tensor | None = None, *,
-                attn_bias: Tensor | None = None, train: bool = False) -> Tensor:
+                attn_bias: Tensor | None = None, train: bool = False,
+                generator: torch.Generator | None = None) -> Tensor:
         k = q if k is None else k
         v = k if v is None else v
         out = dot_product_attention(
             self._split(self.q_proj(q)), self._split(self.k_proj(k)), self._split(self.v_proj(v)),
-            bias=attn_bias, dropout_rate=self.dropout if train else 0.0,
+            bias=attn_bias, dropout_rate=self.dropout if train else 0.0, generator=generator,
         )
         return self.out_proj(out.reshape(*out.shape[:-2], self.d_model))
 
@@ -52,27 +56,30 @@ class MLP(nn.Module):
         super().__init__()
         self.linear1 = Linear(in_dim, hidden_dim, generator=generator)
         self.linear2 = Linear(hidden_dim, in_dim, generator=generator)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = dropout
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> Tensor:
         x = self.linear2(_gelu_exact(self.linear1(x)))
-        return self.dropout(x) if train else x
+        return dropout(x, self.dropout, generator) if train else x
 
 
 def fused_mlp_halfblock(
     x: Tensor, norm: LayerNorm, mlp: MLP, scale: LayerScale | None,
     droppath: StochasticDepth, *, train: bool, plain: bool = False,
+    generator: torch.Generator | None = None,
 ) -> Tensor:
     """LN → W1 → GELU → W2 → LayerScale → drop-path → residual through the
     fused MLP op (``ops/block_mlp.py``), reading the parameters of the same
-    modules the unfused path uses. ``plain`` runs the op's plain PyTorch
+    modules the unfused path uses (LN parameters rounded to ``x.dtype``, as
+    the JAX package promotes them). ``plain`` runs the op's plain PyTorch
     version on any device (for checking the kernel)."""
     fn = block_mlp.fused_mlp_block_plain if plain else block_mlp.fused_mlp_block
     return fn(
-        x, norm.weight, norm.bias, mlp.linear1.weight, mlp.linear1.bias,
+        x, norm.weight.to(x.dtype), norm.bias.to(x.dtype), mlp.linear1.weight, mlp.linear1.bias,
         mlp.linear2.weight, mlp.linear2.bias,
         None if scale is None else scale.gamma,
-        droppath.sample_scale(x.shape[0], train, device=x.device), eps=norm.eps,
+        droppath.sample_scale(x.shape[0], train, generator, device=x.device), eps=norm.eps,
     )
 
 
@@ -97,9 +104,10 @@ class ViTBlock(nn.Module):
         self.mlp_droppath = StochasticDepth(stochastic_depth)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
-                plain: bool = False) -> Tensor:
+                plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
         """``plain`` routes the fused halves through their plain PyTorch
         versions instead of the kernels."""
+        g = generator
         fused = x.ndim == 3 and not force_unfused
         if fused and block_attention.use_fused_attention(
                 self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias):
@@ -107,26 +115,26 @@ class ViTBlock(nn.Module):
             fn = (block_attention.fused_attention_block_plain if plain
                   else block_attention.fused_attention_block)
             x = fn(
-                x, self.mha_norm.weight, self.mha_norm.bias,
+                x, self.mha_norm.weight.to(x.dtype), self.mha_norm.bias.to(x.dtype),
                 a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
                 a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias,
                 self.n_heads, None if self.mha_scale is None else self.mha_scale.gamma,
-                self.mha_droppath.sample_scale(x.shape[0], train, device=x.device),
+                self.mha_droppath.sample_scale(x.shape[0], train, g, device=x.device),
                 eps=self.mha_norm.eps,
             )
         else:
-            y = self.mha(self.mha_norm(x), train=train)
+            y = self.mha(self.mha_norm(x), train=train, generator=g)
             if self.mha_scale is not None:
                 y = self.mha_scale(y)
-            x = x + self.mha_droppath(y, train=train)
+            x = x + self.mha_droppath(y, train=train, generator=g)
 
         if fused and block_mlp.use_fused_mlp(self.d_model, self.hidden, self.dropout):
             return fused_mlp_halfblock(x, self.mlp_norm, self.mlp, self.mlp_scale,
-                                       self.mlp_droppath, train=train, plain=plain)
-        y = self.mlp(self.mlp_norm(x), train=train)
+                                       self.mlp_droppath, train=train, plain=plain, generator=g)
+        y = self.mlp(self.mlp_norm(x), train=train, generator=g)
         if self.mlp_scale is not None:
             y = self.mlp_scale(y)
-        return x + self.mlp_droppath(y, train=train)
+        return x + self.mlp_droppath(y, train=train, generator=g)
 
 
 class MHAPooling(nn.Module):
@@ -140,7 +148,8 @@ class MHAPooling(nn.Module):
         self.norm = LayerNorm(d_model, norm_eps)
         self.mlp = MLP(d_model, int(d_model * mlp_ratio), generator=generator)
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+    def forward(self, x: Tensor, train: bool = False,
+                generator: torch.Generator | None = None) -> Tensor:
         probe = self.probe.expand(x.shape[0], 1, -1).to(x.dtype)
-        out = self.mha(probe, x, train=train)[:, 0]
-        return out + self.mlp(self.norm(out), train=train)
+        out = self.mha(probe, x, train=train, generator=generator)[:, 0]
+        return out + self.mlp(self.norm(out), train=train, generator=generator)

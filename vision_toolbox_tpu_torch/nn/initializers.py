@@ -1,5 +1,5 @@
 """Parameter initializers — port of ``vision_toolbox_tpu/nn/initializers.py``
-(the part ViT uses).
+(the part ViT and the convnets use).
 
 Each initializer is ``init(shape, generator) -> Tensor`` and draws on the CPU
 in float32 from an explicit ``torch.Generator``, so a seed gives the same
@@ -23,6 +23,24 @@ def _fan_in(shape: tuple[int, ...]) -> int:
 
 def _uniform(shape: tuple[int, ...], bound: float, generator: torch.Generator) -> torch.Tensor:
     return torch.empty(shape).uniform_(-bound, bound, generator=generator)
+
+
+def kaiming_normal(nonlinearity: str = "relu", a: float = 0.2, mode: str = "fan_out") -> Init:
+    """``torch.nn.init.kaiming_normal_``: N(0, (gain/√fan)²) with gain √2 for
+    relu and √(2/(1+a²)) for leaky_relu (``a`` is read only there)."""
+    if nonlinearity == "relu":
+        gain = math.sqrt(2.0)
+    elif nonlinearity == "leaky_relu":
+        gain = math.sqrt(2.0 / (1.0 + a**2))
+    else:
+        raise ValueError(f"unsupported nonlinearity {nonlinearity}")
+
+    def init(shape, generator):
+        fan_in = _fan_in(shape)
+        fan = shape[0] * math.prod(shape[2:]) if mode == "fan_out" else fan_in
+        return torch.empty(shape).normal_(0.0, gain / math.sqrt(fan), generator=generator)
+
+    return init
 
 
 def torch_default_kernel(shape: tuple[int, ...], generator: torch.Generator) -> torch.Tensor:

@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libvtt_kernels.so"
 
-LAUNCHES: dict[str, int] = {"block_mlp": 0, "block_attention": 0}
+LAUNCHES: dict[str, int] = {"block_mlp": 0, "block_attention": 0, "warp_shear3": 0}
 
 _lib: ctypes.CDLL | None = None
 
@@ -53,6 +53,11 @@ _SIGNATURES = {
          _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,  # wq bq wk bk wv bv wo bo
          _P, _I, _P,  # ls, dp
          _I, _I, _I, _I, _F, _F, _P),  # B, T, D, H, scale, eps, stream
+        _I,
+    ),
+    "vtt_warp_shear3": (
+        (_P, _P, _P, _P,  # x, out, flags, coef
+         _I, _I, _I, _I, _I, _I, _P),  # B, H, W, C, S, P, stream
         _I,
     ),
 }

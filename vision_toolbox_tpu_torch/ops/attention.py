@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 from torch import Tensor
 
+from ..nn.layers import dropout
+
 MAX_SHORT_SEQ = 512  # ops/short_attention.py use_short
 FLASH_MIN_SEQ = 1024  # ops/flash_attention.py PALLAS_MIN_SEQ
 
@@ -32,8 +34,10 @@ def _unported_kernel(t: int, s: int, h: int, n_pairs: int, has_bias: bool) -> st
 
 def dot_product_attention(
     q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, dropout_rate: float = 0.0,
+    generator: torch.Generator | None = None,
 ) -> Tensor:
-    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands, in f32."""
+    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands, in f32. Attention
+    dropout draws its mask from ``generator``."""
     B, T, N, H = q.shape
     scale = H**-0.5
     if dropout_rate == 0.0:
@@ -50,7 +54,5 @@ def dot_product_attention(
     if bias is not None:
         logits = logits + bias.float()
     probs = torch.softmax(logits, dim=-1)
-    if dropout_rate > 0.0:
-        keep = torch.rand(probs.shape, device=probs.device) >= dropout_rate
-        probs = probs * keep / (1.0 - dropout_rate)
+    probs = dropout(probs, dropout_rate, generator)
     return torch.einsum("bnts,bsnh->btnh", probs, v.float()).to(q.dtype)
