@@ -44,7 +44,7 @@ def test_registry_has_every_darknet_name():
 
 @pytest.mark.parametrize("name", NAMES)
 def test_contract_matches_jax(name):
-    pm, jm = create_backbone(name), jvtt.create_backbone(name)
+    pm, jm = create_backbone(name, device="cpu"), jvtt.create_backbone(name)
     assert pm.out_channels_list == jm.out_channels_list
     assert pm.stride == jm.stride
     with torch.no_grad():
@@ -66,7 +66,7 @@ def test_forward_train_and_eval_match_jax(variant):
         lambda a: a + 0.1 * rng.standard_normal(a.shape).astype(np.float32), _np(t))
     variables = {"params": perturb(variables["params"]),
                  "batch_stats": jax.tree.map(np.abs, perturb(variables["batch_stats"]))}
-    pm = port_cls(**kw)
+    pm = port_cls(**kw, device="cpu")
     pm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"]),
                        strict=True)
     x = rng.random((3, 32, 32, 3), dtype=np.float32)
@@ -94,17 +94,33 @@ def test_bridge_loads_a_whole_jax_classifier_strictly():
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
     zeros = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
     sd = flax_to_state_dict(zeros["params"], zeros["batch_stats"])
-    pm = ImageClassifier(create_backbone("cspdarknet53"), 1000)
+    pm = ImageClassifier(create_backbone("cspdarknet53", device="cpu"), 1000)
     result = pm.load_state_dict(sd, strict=True)
     assert not result.missing_keys and not result.unexpected_keys
     assert len(sd) == len(pm.state_dict())
 
 
 def test_bf16_compute_keeps_f32_params():
-    m = create_backbone("cspdarknet53", dtype=torch.bfloat16,
+    m = create_backbone("cspdarknet53", dtype=torch.bfloat16, device="cpu",
                         generator=torch.Generator().manual_seed(0))
     assert all(p.dtype == torch.float32 for p in m.parameters())
-    small = Darknet(**NARROW["csp"][0], dtype=torch.bfloat16)
+    small = Darknet(**NARROW["csp"][0], dtype=torch.bfloat16, device="cpu")
     with torch.no_grad():
         out = small(torch.rand(2, 32, 32, 3), train=True)
     assert out.dtype == torch.bfloat16 and bool(torch.isfinite(out.float()).all())
+
+
+@pytest.mark.parametrize("kind", list(NARROW))
+def test_cast_for_serving_keeps_the_forward(kind):
+    """The serving layout (``Backbone.cast_for_serving``, what export stores)
+    rounds the convolutions to the compute type once and keeps BatchNorm in
+    f32; the eval forward is bit-equal to the f32-parameter model's."""
+    kw, cls, _ = NARROW[kind]
+    make = lambda: cls(**kw, dtype=torch.bfloat16, device="cpu",
+                       generator=torch.Generator().manual_seed(3))
+    m, cast = make(), make().cast_for_serving()
+    for n, p in cast.named_parameters():
+        assert p.dtype == (torch.float32 if ".norm." in n else torch.bfloat16), n
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(4))
+    with torch.no_grad():
+        assert torch.equal(m(x), cast(x))

@@ -14,7 +14,7 @@ TINY = dict(d_model=128, depth=2, n_heads=4, patch_size=8, img_size=32)
 
 
 def test_export_roundtrip_matches_eager():
-    model = ViT(**TINY)
+    model = ViT(**TINY, device="cpu")
     blob = export_model(model, (2, 32, 32, 3))
     assert isinstance(blob, bytes)
     served = load_exported(blob)
@@ -27,7 +27,7 @@ def test_export_roundtrip_matches_eager():
 
 
 def test_exported_program_calls_the_fused_ops():
-    model = ViT(**{**TINY, "depth": 1})
+    model = ViT(**{**TINY, "depth": 1}, device="cpu")
     program = torch.export.load(io.BytesIO(export_model(model, (2, 32, 32, 3))))
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
     assert targets.count("vtt.fused_attention_block.default") == 1
@@ -35,7 +35,7 @@ def test_exported_program_calls_the_fused_ops():
 
 
 def test_export_bf16():
-    model = ViT(**TINY, dtype=torch.bfloat16)
+    model = ViT(**TINY, dtype=torch.bfloat16, device="cpu")
     served = load_exported(export_model(model, (3, 32, 32, 3)))
     x = torch.rand(3, 32, 32, 3)
     with torch.no_grad():

@@ -86,7 +86,7 @@ def test_vit_training_draws_follow_the_generator(force_unfused):
     dropout on the unfused path."""
     kw = dict(d_model=64, depth=2, n_heads=2, patch_size=8, img_size=16, stochastic_depth=0.5,
               dropout=0.2 if force_unfused else 0.0)
-    m = ViT(**kw)
+    m = ViT(**kw, device="cpu")
     x = torch.rand(8, 16, 16, 3, generator=torch.Generator().manual_seed(1))
     outs = []
     for global_seed in (0, 1):

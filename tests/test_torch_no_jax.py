@@ -19,11 +19,11 @@ from vision_toolbox_tpu_torch.ops import augment, trivial_augment, warp
 from vision_toolbox_tpu_torch.models import darknet
 from vision_toolbox_tpu_torch import train
 from vision_toolbox_tpu_torch.train import classifier, optim, step
-m = vtt.models.ViT(128, 2, 4, 8, 32)
+m = vtt.models.ViT(128, 2, 4, 8, 32, device="cpu")
 with torch.no_grad():
     out = m(torch.rand(2, 32, 32, 3))
 assert out.shape == (2, 128), out.shape
-clf = train.ImageClassifier(darknet.Darknet(8, ((1, 16), (1, 32)), csp=True), 10)
+clf = train.ImageClassifier(darknet.Darknet(8, ((1, 16), (1, 32)), csp=True, device="cpu"), 10)
 state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
 fn = train.make_train_step(10, trivial_augment=True, random_erasing_p=0.5)
 g = torch.Generator().manual_seed(0)

@@ -21,6 +21,7 @@ from vision_toolbox_tpu.models.darknet import Darknet as JaxDarknet
 from vision_toolbox_tpu.models.vit import ViT as JaxViT
 from vision_toolbox_tpu.train import ImageClassifier as JaxClassifier
 from vision_toolbox_tpu.train import optim as joptim
+from vision_toolbox_tpu_torch import create_backbone
 from vision_toolbox_tpu_torch.models.darknet import Darknet
 from vision_toolbox_tpu_torch.models.vit import ViT
 from vision_toolbox_tpu_torch.train import ImageClassifier, optim
@@ -59,7 +60,7 @@ def test_param_groups_match_jax():
     shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
     params = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)
     stages = ((1, 64), (2, 128), (8, 256), (8, 512), (4, 1024))
-    pm = ImageClassifier(Darknet(32, stages, csp=True), 10)
+    pm = ImageClassifier(Darknet(32, stages, csp=True, device="cpu"), 10)
     pairs = _port_groups(pm, params["params"])
     assert {g for g, _ in pairs.values()} == {"norm", "bias", "other"}
     assert all(a == b for a, b in pairs.values()), pairs
@@ -67,8 +68,22 @@ def test_param_groups_match_jax():
     kw = dict(d_model=64, depth=1, n_heads=2, patch_size=8, img_size=16, pool_type="mha",
               cls_token=False, layer_scale_init=0.1)
     vparams = JaxViT(**kw).init_variables(0)["params"]
-    pairs = _port_groups(ViT(**kw), jax.tree.map(np.asarray, vparams))
+    pairs = _port_groups(ViT(**kw, device="cpu"), jax.tree.map(np.asarray, vparams))
     assert all(a == b for a, b in pairs.values()), pairs
+
+
+@pytest.mark.parametrize("name", ["vit_ti_16", "deit_ti_16", "deit3_ti_16"])
+def test_transformer_param_groups_match_jax(name):
+    """Registry transformers (cls token, DeiT's dist token, DeiT3's γ) in a
+    classifier: the same group for every parameter as the JAX package's
+    ``param_group`` gives the flax leaf the bridge maps onto it."""
+    jm = JaxClassifier(backbone=jvtt.create_backbone(name, img_size=32), num_classes=10)
+    shapes = jax.eval_shape(lambda: jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3))))
+    params = jax.tree.map(lambda s: np.zeros(s.shape, np.float32), shapes)["params"]
+    pm = ImageClassifier(create_backbone(name, img_size=32, device="cpu"), 10)
+    pairs = _port_groups(pm, params)
+    assert {g for g, _ in pairs.values()} == {"norm", "bias", "other"}
+    assert all(a == b for a, b in pairs.values()), {n: p for n, p in pairs.items() if p[0] != p[1]}
 
 
 def _trace(opt_state):
@@ -87,7 +102,7 @@ def test_sgd_three_updates_match_optax(nesterov):
                                       momentum=0.9, nesterov=nesterov, **wd)
     state = tx.init(params)
 
-    pm = ImageClassifier(Darknet(**NARROW), 5)
+    pm = ImageClassifier(Darknet(**NARROW, device="cpu"), 5)
     pm.load_state_dict(flax_to_state_dict(params), strict=False)
     opt = optim.sgd_with_param_groups(pm, optim.warmup_cosine_schedule(**schedule_kw),
                                       momentum=0.9, nesterov=nesterov, **wd)

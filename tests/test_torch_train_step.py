@@ -75,7 +75,7 @@ def _pair(jdt, tdt):
     variables = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 32, 32, 3)), train=False)
     tx = jax_sgd(variables["params"], jax_schedule(**SCHEDULE), momentum=0.9, weight_decay=2e-5)
     jstate = JaxState.create(jm.apply, variables, tx)
-    pm = ImageClassifier(Darknet(**NARROW, dtype=tdt), CLASSES, dtype=tdt)
+    pm = ImageClassifier(Darknet(**NARROW, dtype=tdt, device="cpu"), CLASSES, dtype=tdt)
     pm.load_state_dict(flax_to_state_dict(_np(variables["params"]), _np(variables["batch_stats"])),
                        strict=True)
     opt = sgd_with_param_groups(pm, warmup_cosine_schedule(**SCHEDULE), momentum=0.9,

@@ -32,7 +32,7 @@ def _pair(pool: str, seed: int = 0):
     kw = {**TINY, **POOLS[pool]}
     jm = JaxViT(**kw)
     variables = jm.init_variables(seed)
-    pm = ViT(**kw)
+    pm = ViT(**kw, device="cpu")
     pm.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, variables["params"])))
     x = np.random.default_rng(seed + 1).random((3, 32, 32, 3), dtype=np.float32)
     return jm, variables, pm, x
@@ -70,7 +70,7 @@ def test_vit_bf16_matches_jax_bf16(jax_fused_on, pool):
     kw = {**TINY, **POOLS[pool]}
     jm = JaxViT(**kw, dtype=jnp.bfloat16)
     variables = jm.init_variables(2)
-    pm = ViT(**kw, dtype=torch.bfloat16)
+    pm = ViT(**kw, dtype=torch.bfloat16, device="cpu")
     pm.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, variables["params"])))
     x = np.random.default_rng(3).random((3, 32, 32, 3), dtype=np.float32)
     want = np.asarray(jm.apply(variables, jnp.asarray(x)).astype(jnp.float32))
@@ -130,7 +130,7 @@ def test_vit_bf16_trained_layernorms_match_jax(monkeypatch, pool, path):
     kw = {**TINY, **POOLS[pool]}
     jm = JaxViT(**kw, dtype=jnp.bfloat16)
     params = _trained_layernorms(jm.init_variables(2)["params"], seed=4)
-    pm = ViT(**kw, dtype=torch.bfloat16)
+    pm = ViT(**kw, dtype=torch.bfloat16, device="cpu")
     pm.load_state_dict(flax_to_state_dict(jax.tree.map(np.asarray, params)))
     assert all(m.weight.dtype == torch.float32 for m in pm.modules() if isinstance(m, LayerNorm))
     x = np.random.default_rng(3).random((3, 32, 32, 3), dtype=np.float32)
@@ -172,7 +172,7 @@ def test_bridge_covers_every_parameter():
         kw = {**TINY, **kw}
         params = JaxViT(**kw).init_variables(0)["params"]
         sd = flax_to_state_dict(jax.tree.map(np.asarray, params))
-        ViT(**kw).load_state_dict(sd, strict=True)
+        ViT(**kw, device="cpu").load_state_dict(sd, strict=True)
 
 
 def test_registry_names_and_shapes():
@@ -180,23 +180,57 @@ def test_registry_names_and_shapes():
     assert names == sorted(
         f"vit_{v}" for v in ("ti_16", "s_32", "s_16", "m_16", "b_32", "b_16", "l_16", "h_14")
     )
-    m = create_backbone("vit_ti_16", img_size=32)
+    m = create_backbone("vit_ti_16", img_size=32, device="cpu")
     assert m.last_out_channels == 192
     assert len(m.blocks) == 12
     with torch.no_grad():
         assert m(torch.zeros(2, 32, 32, 3)).shape == (2, 192)
-    assert create_backbone("vit_b_16").pe.shape == (1, 196, 768)
+    assert create_backbone("vit_b_16", device="cpu").pe.shape == (1, 196, 768)
 
 
 def test_seeded_init_is_reproducible():
-    a = ViT(**TINY, generator=torch.Generator().manual_seed(3))
-    b = ViT(**TINY, generator=torch.Generator().manual_seed(3))
+    a = ViT(**TINY, device="cpu", generator=torch.Generator().manual_seed(3))
+    b = ViT(**TINY, device="cpu", generator=torch.Generator().manual_seed(3))
     for (k, va), vb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(va, vb), k
 
 
+@pytest.mark.parametrize("name", ["vit_b_16", "deit3_ti_16", "cspdarknet53", "darknet_yolov5n"])
+def test_default_device_is_the_card(name):
+    """With no ``device`` a model is built on the card; without a card the
+    constructor raises instead of staying on the CPU. Decided here, not at
+    import."""
+    if torch.cuda.is_available():
+        assert next(create_backbone(name).parameters()).is_cuda
+    else:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            create_backbone(name)
+    assert next(create_backbone(name, device="cpu").parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("pool", list(POOLS))
+def test_bf16_compute_keeps_f32_params(pool):
+    """A bf16 ViT keeps f32 parameters (an SGD step updates f32 master
+    weights, as the JAX package's does) and rounds them to bf16 where flax's
+    promote_dtype does, so its forward is bit-equal to the same model with
+    every non-LayerNorm parameter stored in bf16 (the layout served models
+    export, ``cast_for_serving``)."""
+    kw = {**TINY, **POOLS[pool], "layer_scale_init": 0.1}
+    m = ViT(**kw, dtype=torch.bfloat16, device="cpu", generator=torch.Generator().manual_seed(5))
+    assert all(p.dtype == torch.float32 for p in m.parameters())
+    cast = ViT(**kw, dtype=torch.bfloat16, device="cpu",
+               generator=torch.Generator().manual_seed(5)).cast_for_serving()
+    assert {p.dtype for n, p in cast.named_parameters() if "norm" not in n} == {torch.bfloat16}
+    x = torch.rand(3, 32, 32, 3, generator=torch.Generator().manual_seed(6))
+    with torch.no_grad():
+        for unfused in (False, True):
+            out = m(x, force_unfused=unfused)
+            assert out.dtype == torch.bfloat16
+            assert torch.equal(out, cast(x, force_unfused=unfused)), unfused
+
+
 def test_bf16_model_runs_fused_path():
-    m = ViT(**TINY, dtype=torch.bfloat16)
+    m = ViT(**TINY, dtype=torch.bfloat16, device="cpu")
     x = torch.rand(2, 32, 32, 3)
     with torch.no_grad():
         out = m(x)

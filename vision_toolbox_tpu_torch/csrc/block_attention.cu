@@ -1,11 +1,15 @@
-// Fused transformer self-attention half-block, forward (inference):
+// Fused transformer self-attention half-block, forward:
 //   out = x + dp·γ_ls·(MHA(LN(x))·Woᵀ + bo),
 // q/k/v projected from the LayerNorm output, unbiased softmax attention per
 // image and head.
 //
 // Replaces the TPU kernel vision_toolbox_tpu/ops/block_attention.py
-// `_run_attn` (`_fwd_kernel`, save=False), reached through
-// `fused_attention_block`.
+// `_run_attn` (`_fwd_kernel`), reached through `fused_attention_block`:
+// inference (save=False) when the caller passes null save pointers, and the
+// backward-save variant (save=True), which also writes xhat (bf16), rstd
+// (f32), the softmax probabilities p (B, H, T, T) bf16 and, with γ_ls, the
+// pre-scale projection (bf16) for block_attention_bwd.cu; q/k/v/o, the
+// other saves, go through device memory in both variants.
 //
 // The TPU design runs one grid program per image with Wq/k/v/o (4·D² bf16 =
 // 4.7 MB at D=768) resident in VMEM and y/q/k/v/o never leaving the chip.
@@ -51,22 +55,11 @@ size_t attn_smem_bytes(int t, int hd) {
 
 constexpr size_t kMaxSmem = 227 * 1024;
 
-// rows [0, n_rows) of one head of a (B·T, D) bf16 buffer → smem with pitch
-// ld; rows at or past `valid` are zero-filled.
-__device__ __forceinline__ void load_rows(const bf16* src, int row0, int n_rows, int valid,
-                                          int D, int hd, bf16* dst, int ld) {
-  const int vecs = hd / 8;
-  for (int i = threadIdx.x; i < n_rows * vecs; i += ATTN_THREADS) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * D + c);
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
+// SAVE also writes the probabilities p (B, H, T, T) for the backward.
+template <bool SAVE>
 __global__ void __launch_bounds__(ATTN_THREADS)
 attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            bf16* __restrict__ o, int T, int D, int hd, float scale) {
+            bf16* __restrict__ o, bf16* __restrict__ p_out, int T, int D, int hd, float scale) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int sp = padded_keys(T), lw = logit_pitch(sp, hd);
@@ -80,8 +73,8 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   const size_t base = static_cast<size_t>(b) * T * D + static_cast<size_t>(h) * hd;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  load_rows(q + base, q0, BQ, T, D, hd, qs, ldh);
-  load_rows(k + base, 0, sp, T, D, hd, kv, ldh);
+  load_head_rows<ATTN_THREADS>(q + base, q0, BQ, T, D, hd, qs, ldh);
+  load_head_rows<ATTN_THREADS>(k + base, 0, sp, T, D, hd, kv, ldh);
   __syncthreads();
 
   // logits = q·kᵀ (f32), tiles of 16×16 spread over the warps
@@ -101,9 +94,10 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
   }
   __syncthreads();
 
-  load_rows(v + base, 0, sp, T, D, hd, kv, ldh);  // V replaces K
+  load_head_rows<ATTN_THREADS>(v + base, 0, sp, T, D, hd, kv, ldh);  // V replaces K
 
   // softmax over the T valid keys, one warp per query row; p rounded to bf16
+  // (and saved, (B, H, T, T), in the backward-save variant)
   for (int r = warp; r < BQ; r += ATTN_THREADS / 32) {
     float* row = ls + r * lw;
     float mx = -INFINITY;
@@ -120,6 +114,12 @@ attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
     bf16* prow = ps + r * ldp;
     for (int c = lane; c < sp; c += 32) prow[c] = __float2bfloat16(c < T ? row[c] / sum : 0.0f);
+    if constexpr (SAVE) {
+      if (q0 + r < T) {
+        bf16* psave = p_out + ((static_cast<size_t>(b) * gridDim.y + h) * T + q0 + r) * T;
+        for (int c = lane; c < T; c += 32) psave[c] = prow[c];
+      }
+    }
   }
   __syncthreads();
 
@@ -159,6 +159,7 @@ extern "C" int vtt_block_attention_fwd(
     const void* wv, const void* bv, int bv_bf16,
     const void* wo, const void* bo, int bo_bf16,
     const void* ls, int ls_bf16, const float* dp,
+    void* xhat, float* rstd, void* p, void* proj_out,
     int B, int T, int D, int H, float scale, float eps, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = D / H;
@@ -186,6 +187,8 @@ extern "C" int vtt_block_attention_fwd(
   qkv.ln_scale = vec(ln_scale, ln_scale_bf16);
   qkv.ln_bias = vec(ln_bias, ln_bias_bf16);
   qkv.eps = eps;
+  qkv.xhat = static_cast<bf16*>(xhat);
+  qkv.rstd = rstd;
 
   GemmArgs proj{};
   proj.a = o;
@@ -199,20 +202,23 @@ extern "C" int vtt_block_attention_fwd(
   proj.ls = vec(ls, ls_bf16);
   proj.dp = dp;
   proj.rows_per_image = T;
+  proj.aux = proj_out;
 
-  cudaError_t err = x_bf16 ? launch_gemm<A_LAYERNORM, EPI_BIAS, bf16>(qkv, 3, st)
-                           : launch_gemm<A_LAYERNORM, EPI_BIAS, float>(qkv, 3, st);
+  const bool save = xhat != nullptr;  // the caller passes all of xhat, rstd, p or none
+  cudaError_t err = x_bf16 ? launch_forward_gemm<A_LAYERNORM, EPI_BIAS, bf16>(qkv, 3, save, st)
+                           : launch_forward_gemm<A_LAYERNORM, EPI_BIAS, float>(qkv, 3, save, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+  auto* kernel = save ? attn_kernel<true> : attn_kernel<false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + BQ - 1) / BQ, H, B);
-  attn_kernel<<<grid, ATTN_THREADS, smem, st>>>(
+  kernel<<<grid, ATTN_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), T, D, hd, scale);
+      static_cast<bf16*>(o), static_cast<bf16*>(p), T, D, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = x_bf16 ? launch_gemm<A_BF16, EPI_RESIDUAL, bf16>(proj, 1, st)
-               : launch_gemm<A_BF16, EPI_RESIDUAL, float>(proj, 1, st);
+  err = x_bf16 ? launch_forward_gemm<A_BF16, EPI_RESIDUAL, bf16>(proj, 1, save, st)
+               : launch_forward_gemm<A_BF16, EPI_RESIDUAL, float>(proj, 1, save, st);
   return static_cast<int>(err);
 }

@@ -1,8 +1,12 @@
-// Fused transformer MLP half-block, forward (inference):
+// Fused transformer MLP half-block, forward:
 //   out = res + dp·γ_ls·(gelu_AS(LN(x)·W1ᵀ + b1)·W2ᵀ + b2),  res = residual or x.
 //
 // Replaces the TPU kernel vision_toolbox_tpu/ops/block_mlp.py `_run_mlp`
-// (`_fwd_kernel`, save=False), reached through `fused_mlp_block`.
+// (`_fwd_kernel`), reached through `fused_mlp_block`: inference (save=False)
+// when the caller passes null save pointers, and the backward-save variant
+// (save=True), which also writes xhat (bf16), rstd (f32), h (bf16) and, with
+// γ_ls, the pre-scale projection mlpout (bf16) for block_mlp_bwd.cu; g, the
+// other save, is the hidden activation both variants write anyway.
 //
 // The TPU design keeps W1ᵀ and W2 resident in VMEM for the whole grid and
 // never writes the hidden activation. On Hopper the weights (2·D·Dh bf16 =
@@ -33,6 +37,7 @@ extern "C" int vtt_block_mlp_fwd(
     const void* w1, const void* b1, int b1_bf16,
     const void* w2, const void* b2, int b2_bf16,
     const void* ls, int ls_bf16, const float* dp,
+    void* xhat, float* rstd, void* h, void* mlpout,
     int M, int T, int D, int Dh, float eps, void* stream) {
   if (!gemm_shape_ok(M, Dh, D) || !gemm_shape_ok(M, D, Dh) || T <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -50,6 +55,9 @@ extern "C" int vtt_block_mlp_fwd(
   up.ln_scale = vec(ln_scale, ln_scale_bf16);
   up.ln_bias = vec(ln_bias, ln_bias_bf16);
   up.eps = eps;
+  up.aux = h;
+  up.xhat = static_cast<bf16*>(xhat);
+  up.rstd = rstd;
 
   GemmArgs down{};
   down.a = g;
@@ -63,11 +71,14 @@ extern "C" int vtt_block_mlp_fwd(
   down.ls = vec(ls, ls_bf16);
   down.dp = dp;
   down.rows_per_image = T;
+  down.aux = mlpout;
 
-  cudaError_t err = x_bf16 ? launch_gemm<A_LAYERNORM, EPI_BIAS_GELU, bf16>(up, 1, st)
-                           : launch_gemm<A_LAYERNORM, EPI_BIAS_GELU, float>(up, 1, st);
+  const bool save = xhat != nullptr;  // the caller passes all of xhat, rstd, h or none
+  cudaError_t err =
+      x_bf16 ? launch_forward_gemm<A_LAYERNORM, EPI_BIAS_GELU, bf16>(up, 1, save, st)
+             : launch_forward_gemm<A_LAYERNORM, EPI_BIAS_GELU, float>(up, 1, save, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = x_bf16 ? launch_gemm<A_BF16, EPI_RESIDUAL, bf16>(down, 1, st)
-               : launch_gemm<A_BF16, EPI_RESIDUAL, float>(down, 1, st);
+  err = x_bf16 ? launch_forward_gemm<A_BF16, EPI_RESIDUAL, bf16>(down, 1, save, st)
+               : launch_forward_gemm<A_BF16, EPI_RESIDUAL, float>(down, 1, save, st);
   return static_cast<int>(err);
 }

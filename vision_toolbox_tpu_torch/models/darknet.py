@@ -10,10 +10,11 @@
 Images and feature maps are NHWC, as in the JAX package (``channels_last``
 NCHW inside the convolutions, no copies). Parameters are float32, drawn on
 the CPU from an explicit ``torch.Generator`` (seed 0 when none is given) and
-moved to ``device``; ``dtype`` is the compute type (bf16 for training), cast
-at use. Module names follow the flax tree (``stem``, ``stage_<i>``,
-``blocks.<i>`` for ``block_<i>``, ``conv``/``conv1``/``conv2``/``out_conv``,
-``norm``), so ``utils/jax_bridge.py`` maps a JAX model's variables onto it.
+moved to ``device``, the card unless the caller asks for another; ``dtype``
+is the compute type (bf16 for training), cast at use. Module names follow
+the flax tree (``stem``, ``stage_<i>``, ``blocks.<i>`` for ``block_<i>``,
+``conv``/``conv1``/``conv2``/``out_conv``, ``norm``), so
+``utils/jax_bridge.py`` maps a JAX model's variables onto it.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import torch
 from torch import Tensor, nn
 
 from ..nn.layers import ConvNormAct
-from .base import Backbone, register_model
+from .base import Backbone, register_model, to_device
 
 
 class DarknetBlock(nn.Module):
@@ -89,11 +90,12 @@ class Darknet(Backbone):
 
     def __init__(self, stem_channels: int, stage_configs: tuple[tuple[int, int], ...],
                  csp: bool = False, *, dtype: torch.dtype | None = None,
-                 device: torch.device | str | None = None,
+                 device: torch.device | str = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = _generator(generator)
         kw = dict(dtype=dtype, generator=gen)
+        self.compute_dtype = torch.float32 if dtype is None else dtype
         self.stage_configs = tuple(stage_configs)
         self.stem = ConvNormAct(3, stem_channels, 3, **kw)
         in_ch = stem_channels
@@ -106,7 +108,7 @@ class Darknet(Backbone):
                 stage = DarknetStage(in_ch, n_blocks, out_ch, **kw)
             self.add_module(f"stage_{i}", stage)
             in_ch = out_ch
-        self.to(device)
+        to_device(self, device)
 
     @property
     def out_channels_list(self) -> tuple[int, ...]:
@@ -130,11 +132,12 @@ class DarknetYOLOv5(Backbone):
     maps include the stem output."""
 
     def __init__(self, stem_channels: int, stage_configs: tuple[tuple[int, int], ...], *,
-                 dtype: torch.dtype | None = None, device: torch.device | str | None = None,
+                 dtype: torch.dtype | None = None, device: torch.device | str = "cuda",
                  generator: torch.Generator | None = None):
         super().__init__()
         gen = _generator(generator)
         kw = dict(dtype=dtype, generator=gen)
+        self.compute_dtype = torch.float32 if dtype is None else dtype
         self.stem_channels = stem_channels
         self.stage_configs = tuple(stage_configs)
         self.stem = ConvNormAct(3, stem_channels, 6, stride=2, **kw)
@@ -142,7 +145,7 @@ class DarknetYOLOv5(Backbone):
         for i, (n_blocks, out_ch) in enumerate(self.stage_configs):
             self.add_module(f"stage_{i}", CSPDarknetStage(in_ch, n_blocks, out_ch, **kw))
             in_ch = out_ch
-        self.to(device)
+        to_device(self, device)
 
     @property
     def out_channels_list(self) -> tuple[int, ...]:

@@ -3,10 +3,12 @@
 
 Images are NHWC, as in the JAX package. Parameters are drawn on the CPU in
 float32 from an explicit ``torch.Generator`` (seed 0 when none is given),
-then moved to ``device`` and cast to ``dtype``, the compute type of the
-whole model (bf16 for serving) — all but the LayerNorm parameters, which
-stay float32 and are applied in f32, as flax keeps them. Not ported yet:
-``token_sharding`` (sequence parallelism) and ``resize_pe``.
+then moved to ``device`` — the card unless the caller asks for another —
+and stay float32, as flax keeps them. ``dtype`` is the compute type of the
+whole model (bf16 for training and serving): weights, biases, the patch
+embedding, PE and tokens are rounded to it at use, where flax's
+``promote_dtype`` rounds them, and LayerNorms apply theirs in f32. Not ported
+yet: ``token_sharding`` (sequence parallelism) and ``resize_pe``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,8 @@ from torch import Tensor, nn
 
 from ..nn.attention import MHAPooling, ViTBlock
 from ..nn.initializers import normal, torch_default_bias, torch_default_kernel
-from ..nn.layers import LayerNorm
-from .base import register_model
+from ..nn.layers import LayerNorm, as_dtype
+from .base import Backbone, register_model, to_device
 
 POOL_TYPES = ("cls_token", "gap", "mha")
 
@@ -37,17 +39,19 @@ class PatchEmbed(nn.Module):
         self.bias = nn.Parameter(torch_default_bias(3 * p * p)((d_model,), generator))
 
     def forward(self, x: Tensor) -> Tensor:
-        x = F.conv2d(x.permute(0, 3, 1, 2), self.weight, self.bias, stride=self.patch_size)
+        """Computes in ``x.dtype``."""
+        x = F.conv2d(x.permute(0, 3, 1, 2), as_dtype(self.weight, x.dtype),
+                     as_dtype(self.bias, x.dtype), stride=self.patch_size)
         return x.flatten(2).transpose(1, 2)
 
 
-class ViT(nn.Module):
+class ViT(Backbone):
     def __init__(
         self, d_model: int, depth: int, n_heads: int, patch_size: int, img_size: int,
         cls_token: bool = True, pool_type: str = "cls_token", bias: bool = True,
         mlp_ratio: float = 4.0, dropout: float = 0.0, layer_scale_init: float | None = None,
         stochastic_depth: float = 0.0, norm_eps: float = 1e-6, *,
-        dtype: torch.dtype | None = None, device: torch.device | str | None = None,
+        dtype: torch.dtype | None = None, device: torch.device | str = "cuda",
         generator: torch.Generator | None = None,
     ):
         super().__init__()
@@ -56,6 +60,7 @@ class ViT(nn.Module):
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.d_model, self.patch_size, self.img_size = d_model, patch_size, img_size
         self.pool_type = pool_type
+        self.compute_dtype = torch.float32 if dtype is None else dtype
 
         self.patch_embed = PatchEmbed(d_model, patch_size, generator=gen)
         n_tokens = (img_size // patch_size) ** 2
@@ -63,28 +68,28 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, d_model)) if cls_token else None
         self.blocks = nn.ModuleList(
             ViTBlock(d_model, n_heads, bias, mlp_ratio, dropout, layer_scale_init,
-                     stochastic_depth, norm_eps, generator=gen)
+                     stochastic_depth, norm_eps, dtype=dtype, generator=gen)
             for _ in range(depth)
         )
         self.norm = LayerNorm(d_model, norm_eps)
         self.pooler = (
-            MHAPooling(d_model, n_heads, bias, mlp_ratio, norm_eps, generator=gen)
+            MHAPooling(d_model, n_heads, bias, mlp_ratio, norm_eps, dtype=dtype, generator=gen)
             if pool_type == "mha" else None
         )
-        self.to(device=device)
-        if dtype is not None:
-            for m in self.modules():
-                if not isinstance(m, LayerNorm):
-                    for p in m.parameters(recurse=False):
-                        p.data = p.data.to(dtype)
-
-    @property
-    def dtype(self) -> torch.dtype:
-        return self.pe.dtype
+        to_device(self, device)
 
     def _embed(self, x: Tensor) -> Tensor:
-        """NHWC image → (B, H·W, D) tokens + learned PE."""
-        return self.patch_embed(x.to(self.dtype)) + self.pe
+        """NHWC image → (B, H·W, D) tokens + learned PE, in the compute type."""
+        dt = self.compute_dtype
+        return self.patch_embed(as_dtype(x, dt)) + as_dtype(self.pe, dt)
+
+    def _tokens(self, x: Tensor) -> Tensor:
+        """Embedded tokens with the cls token in front, if any."""
+        out = self._embed(x)
+        if self.cls_token is None:
+            return out
+        cls = as_dtype(self.cls_token, out.dtype).expand(out.shape[0], -1, -1)
+        return torch.cat([cls, out], dim=1)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
@@ -93,9 +98,7 @@ class ViT(nn.Module):
         half-blocks through their plain PyTorch versions instead of the
         kernels (for checking the kernels on the card); ``generator`` feeds
         dropout and stochastic depth in training."""
-        out = self._embed(x)
-        if self.cls_token is not None:
-            out = torch.cat([self.cls_token.expand(out.shape[0], -1, -1), out], dim=1)
+        out = self._tokens(x)
         for block in self.blocks:
             out = block(out, train, force_unfused=force_unfused, plain=plain, generator=generator)
         if self.pool_type == "cls_token":

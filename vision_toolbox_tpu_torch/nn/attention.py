@@ -6,11 +6,13 @@ unfused path, optional LayerScale and StochasticDepth. ``ViTBlock`` sends
 each half to its fused kernel (``ops/block_attention.py``,
 ``ops/block_mlp.py``) when the kernel's shape rule admits it, on every
 device: on CPU tensors the fused ops run their plain versions, so a module
-computes the same function wherever it runs. ``force_unfused`` keeps the
-block on the plain module chain. LayerNorm parameters are float32; where
-the JAX package's fused kernels take them rounded to the compute dtype, the
-port rounds them at the same point. Dropout, attention dropout and
-stochastic depth draw from the ``generator`` threaded through ``forward``.
+computes the same function wherever it runs. The fused ops are
+differentiable: training runs their backward kernels. ``force_unfused``
+keeps the block on the plain module chain. Parameters are float32; ``dtype``
+is the compute type, to which they are rounded at use where the JAX package
+promotes them (LayerNorms apply theirs in f32 on the unfused path, as flax
+does). Dropout, attention dropout and stochastic depth draw from the
+``generator`` threaded through ``forward``.
 """
 
 from __future__ import annotations
@@ -20,18 +22,20 @@ from torch import Tensor, nn
 
 from ..ops import block_attention, block_mlp
 from ..ops.attention import dot_product_attention
-from .layers import LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, dropout
+from .layers import (
+    LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, as_dtype, dropout,
+)
 
 
 class MHA(nn.Module):
     """Multi-head attention with separate q/k/v/out projections."""
 
     def __init__(self, d_model: int, n_heads: int, bias: bool = True, dropout: float = 0.0, *,
-                 generator: torch.Generator):
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
         super().__init__()
         self.d_model, self.n_heads, self.dropout = d_model, n_heads, dropout
         for name in ("q_proj", "k_proj", "v_proj", "out_proj"):
-            setattr(self, name, Linear(d_model, d_model, bias, generator=generator))
+            setattr(self, name, Linear(d_model, d_model, bias, dtype=dtype, generator=generator))
 
     def _split(self, x: Tensor) -> Tensor:
         return x.reshape(*x.shape[:-1], self.n_heads, -1)
@@ -52,10 +56,10 @@ class MLP(nn.Module):
     """linear1 → GELU → linear2 → dropout."""
 
     def __init__(self, in_dim: int, hidden_dim: int, dropout: float = 0.0, *,
-                 generator: torch.Generator):
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
         super().__init__()
-        self.linear1 = Linear(in_dim, hidden_dim, generator=generator)
-        self.linear2 = Linear(hidden_dim, in_dim, generator=generator)
+        self.linear1 = Linear(in_dim, hidden_dim, dtype=dtype, generator=generator)
+        self.linear2 = Linear(hidden_dim, in_dim, dtype=dtype, generator=generator)
         self.dropout = dropout
 
     def forward(self, x: Tensor, train: bool = False,
@@ -71,15 +75,18 @@ def fused_mlp_halfblock(
 ) -> Tensor:
     """LN → W1 → GELU → W2 → LayerScale → drop-path → residual through the
     fused MLP op (``ops/block_mlp.py``), reading the parameters of the same
-    modules the unfused path uses (LN parameters rounded to ``x.dtype``, as
-    the JAX package promotes them). ``plain`` runs the op's plain PyTorch
-    version on any device (for checking the kernel)."""
-    fn = block_mlp.fused_mlp_block_plain if plain else block_mlp.fused_mlp_block
-    return fn(
-        x, norm.weight.to(x.dtype), norm.bias.to(x.dtype), mlp.linear1.weight, mlp.linear1.bias,
-        mlp.linear2.weight, mlp.linear2.bias,
-        None if scale is None else scale.gamma,
+    modules the unfused path uses: LN parameters, biases and γ rounded to
+    ``x.dtype`` as the JAX package promotes them, weights as they are (the op
+    rounds them to bf16). ``plain`` runs the op's plain PyTorch versions on
+    any device (for checking the kernels)."""
+    dt = x.dtype
+    return block_mlp.fused_mlp_block(
+        x, norm.weight.to(dt), norm.bias.to(dt),
+        mlp.linear1.weight, as_dtype(mlp.linear1.bias, dt),
+        mlp.linear2.weight, as_dtype(mlp.linear2.bias, dt),
+        None if scale is None else as_dtype(scale.gamma, dt),
         droppath.sample_scale(x.shape[0], train, generator, device=x.device), eps=norm.eps,
+        plain=plain,
     )
 
 
@@ -89,38 +96,36 @@ class ViTBlock(nn.Module):
     def __init__(self, d_model: int, n_heads: int, bias: bool = True, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, layer_scale_init: float | None = None,
                  stochastic_depth: float = 0.0, norm_eps: float = 1e-6, *,
-                 generator: torch.Generator):
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
         super().__init__()
         self.d_model, self.n_heads, self.bias, self.dropout = d_model, n_heads, bias, dropout
         self.hidden = int(d_model * mlp_ratio)
         ls = layer_scale_init
         self.mha_norm = LayerNorm(d_model, norm_eps)
-        self.mha = MHA(d_model, n_heads, bias, dropout, generator=generator)
+        self.mha = MHA(d_model, n_heads, bias, dropout, dtype=dtype, generator=generator)
         self.mha_scale = LayerScale(d_model, ls) if ls is not None else None
         self.mha_droppath = StochasticDepth(stochastic_depth)
         self.mlp_norm = LayerNorm(d_model, norm_eps)
-        self.mlp = MLP(d_model, self.hidden, dropout, generator=generator)
+        self.mlp = MLP(d_model, self.hidden, dropout, dtype=dtype, generator=generator)
         self.mlp_scale = LayerScale(d_model, ls) if ls is not None else None
         self.mlp_droppath = StochasticDepth(stochastic_depth)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
         """``plain`` routes the fused halves through their plain PyTorch
-        versions instead of the kernels."""
+        versions (forward and backward) instead of the kernels."""
         g = generator
         fused = x.ndim == 3 and not force_unfused
         if fused and block_attention.use_fused_attention(
                 self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias):
-            a = self.mha
-            fn = (block_attention.fused_attention_block_plain if plain
-                  else block_attention.fused_attention_block)
-            x = fn(
-                x, self.mha_norm.weight.to(x.dtype), self.mha_norm.bias.to(x.dtype),
-                a.q_proj.weight, a.q_proj.bias, a.k_proj.weight, a.k_proj.bias,
-                a.v_proj.weight, a.v_proj.bias, a.out_proj.weight, a.out_proj.bias,
-                self.n_heads, None if self.mha_scale is None else self.mha_scale.gamma,
+            a, dt = self.mha, x.dtype
+            wb = [t for proj in (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
+                  for t in (proj.weight, as_dtype(proj.bias, dt))]
+            x = block_attention.fused_attention_block(
+                x, self.mha_norm.weight.to(dt), self.mha_norm.bias.to(dt), *wb, self.n_heads,
+                None if self.mha_scale is None else as_dtype(self.mha_scale.gamma, dt),
                 self.mha_droppath.sample_scale(x.shape[0], train, g, device=x.device),
-                eps=self.mha_norm.eps,
+                eps=self.mha_norm.eps, plain=plain,
             )
         else:
             y = self.mha(self.mha_norm(x), train=train, generator=g)
@@ -141,12 +146,13 @@ class MHAPooling(nn.Module):
     """SigLIP MAP head: a learned probe attends over the tokens."""
 
     def __init__(self, d_model: int, n_heads: int, bias: bool = True, mlp_ratio: float = 4.0,
-                 norm_eps: float = 1e-6, *, generator: torch.Generator):
+                 norm_eps: float = 1e-6, *, dtype: torch.dtype | None = None,
+                 generator: torch.Generator):
         super().__init__()
         self.probe = nn.Parameter(torch.zeros(1, 1, d_model))
-        self.mha = MHA(d_model, n_heads, bias, generator=generator)
+        self.mha = MHA(d_model, n_heads, bias, dtype=dtype, generator=generator)
         self.norm = LayerNorm(d_model, norm_eps)
-        self.mlp = MLP(d_model, int(d_model * mlp_ratio), generator=generator)
+        self.mlp = MLP(d_model, int(d_model * mlp_ratio), dtype=dtype, generator=generator)
 
     def forward(self, x: Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> Tensor:

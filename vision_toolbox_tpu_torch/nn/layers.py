@@ -39,6 +39,13 @@ ACTIVATIONS: dict[str, Callable | None] = {
 }
 
 
+def as_dtype(t: Tensor, dtype: torch.dtype) -> Tensor:
+    """``t`` in ``dtype``: ``t`` itself when it already is, so that a model
+    exported with its parameters cast once (``torch.export``) carries no
+    cast nodes for them."""
+    return t if t.dtype == dtype else t.to(dtype)
+
+
 def torch_pad(kernel_size: int, stride: int = 1) -> int:
     """Symmetric per-side padding of every reference conv: ceil((k − s)/2)."""
     return math.ceil((kernel_size - stride) / 2)
@@ -147,8 +154,8 @@ class Linear(nn.Module):
         if self.dtype is None:
             return F.linear(x, self.weight, self.bias)
         dt = self.dtype
-        bias = None if self.bias is None else self.bias.to(dt)
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        bias = None if self.bias is None else as_dtype(self.bias, dt)
+        return F.linear(as_dtype(x, dt), as_dtype(self.weight, dt), bias)
 
 
 def layer_norm(x: Tensor, weight: Tensor, bias: Tensor, eps: float) -> Tensor:
@@ -211,4 +218,4 @@ class LayerScale(nn.Module):
         self.gamma = nn.Parameter(torch.full((dim,), float(init)))
 
     def forward(self, x: Tensor) -> Tensor:
-        return x * self.gamma
+        return x * as_dtype(self.gamma, x.dtype)

@@ -31,7 +31,10 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libvtt_kernels.so"
 
-LAUNCHES: dict[str, int] = {"block_mlp": 0, "block_attention": 0, "warp_shear3": 0}
+LAUNCHES: dict[str, int] = {
+    "block_mlp": 0, "block_attention": 0, "block_mlp_bwd": 0, "block_attention_bwd": 0,
+    "warp_shear3": 0,
+}
 
 _lib: ctypes.CDLL | None = None
 
@@ -44,7 +47,16 @@ _SIGNATURES = {
          _P, _I, _P, _I,  # ln scale, ln bias
          _P, _P, _I, _P, _P, _I,  # w1, b1, w2, b2
          _P, _I, _P,  # ls, dp
+         _P, _P, _P, _P,  # saves (null for inference): xhat, rstd, h, mlpout
          _I, _I, _I, _I, _F, _P),  # M, T, D, Dh, eps, stream
+        _I,
+    ),
+    "vtt_block_mlp_bwd": (
+        (_P, _I, _P, _P, _P, _P,  # dout, x_bf16, xhat, rstd, h, mlpout
+         _P, _P, _P, _I, _P, _I, _P,  # w1, w2, ln scale, ls, dp
+         _P, _P, _P, _P,  # dx, dh, douts (scratch), dy2 (scratch)
+         _P, _P, _P, _P, _P,  # db1, db2, dln scale, dln bias, dls
+         _I, _I, _I, _I, _I, _P),  # has_res, M, T, D, Dh, stream
         _I,
     ),
     "vtt_block_attention_fwd": (
@@ -52,7 +64,17 @@ _SIGNATURES = {
          _P, _I, _P, _I,  # ln scale, ln bias
          _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,  # wq bq wk bk wv bv wo bo
          _P, _I, _P,  # ls, dp
+         _P, _P, _P, _P,  # saves (null for inference): xhat, rstd, p, proj
          _I, _I, _I, _I, _F, _F, _P),  # B, T, D, H, scale, eps, stream
+        _I,
+    ),
+    "vtt_block_attention_bwd": (
+        (_P, _I, _P, _P,  # dout, x_bf16, xhat, rstd
+         _P, _P, _P, _P, _P,  # q, k, v, p, proj
+         _P, _P, _P, _I, _P, _I, _P,  # wo, wqkv, ln scale, ls, dp
+         _P, _P, _P, _P, _P, _P,  # dx, dqkv, douts, do, ds, dy (the last four scratch)
+         _P, _P, _P, _P, _P,  # dbqkv, dbo, dln scale, dln bias, dls
+         _I, _I, _I, _I, _F, _P),  # B, T, D, H, scale, stream
         _I,
     ),
     "vtt_warp_shear3": (

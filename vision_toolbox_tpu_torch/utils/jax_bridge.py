@@ -10,9 +10,9 @@ for the port's module of the same name, with each layout fixed once here:
 - LayerNorm and BatchNorm ``scale`` → ``weight``;
 - BatchNorm statistics ``mean`` → ``running_mean``, ``var`` → ``running_var``;
 - ``block_<i>`` → ``blocks.<i>``;
-- everything else (``bias``, ``pe``, ``cls_token``, ``gamma``, ``probe``,
-  ``stem``, ``stage_<i>``, ``conv1``/``conv2``/``out_conv``, ``norm``,
-  ``head``, ``backbone``) keeps its name and layout.
+- everything else (``bias``, ``pe``, ``cls_token``, DeiT's ``dist_token``,
+  ``gamma``, ``probe``, ``stem``, ``stage_<i>``, ``conv1``/``conv2``/
+  ``out_conv``, ``norm``, ``head``, ``backbone``) keeps its name and layout.
 """
 
 from __future__ import annotations
