@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``vision_toolbox_tpu_torch/csrc`` (nvcc,
-sm_90a) and drives both of the port's paths:
+sm_90a, one process per source) and drives the port's paths:
 
 - serving (slice 1): holds the fused attention/MLP kernels against their
   plain PyTorch versions at the vit_b_16 shapes the model gives them, runs a
@@ -22,7 +22,16 @@ sm_90a) and drives both of the port's paths:
   224 px, CutMix⊕MixUp, label smoothing 0.1, bf16 compute, f32 params, SGD)
   for 3 warm-up and 10 timed steps, one step through the kernels against
   one through the plain versions, and a few deit3_b_16 steps with
-  stochastic depth 0.1 (the LayerScale and drop-path branches).
+  stochastic depth 0.1 (the LayerScale and drop-path branches);
+- CaiT (slice 4): holds the talking-head attention kernels (K5 forward and
+  backward) against their plain versions at the cait_s_24 shapes and
+  others, f32 and bf16, times both against their plain versions at batch
+  128, serves a seeded bf16 cait_s_24 (eager vs plain path, then export →
+  load → requests at batch 1, 8 and 32), and runs the cait_s_24 train step
+  at bs128@224 with ViT's recipe for 3 warm-up and 10 timed steps, then
+  one step through the kernels against one through the plain versions and
+  an f32 reference. CaiT's LayerScale γs are spread around 0.1 on both
+  paths: at their init, 1e-6, every residual branch rounds away in bf16.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -77,9 +86,31 @@ KERNELS = {
         "source": "vision_toolbox_tpu_torch/csrc/warp_shear3.cu",
         "replaces": "vision_toolbox_tpu/ops/warp_pallas.py:166",
     },
+    "talking_head": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/talking_head.cu",
+        "replaces": "vision_toolbox_tpu/ops/cait_attention.py:177",
+    },
+    "talking_head_bwd": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/talking_head_bwd.cu",
+        "replaces": "vision_toolbox_tpu/ops/cait_attention.py:205",
+    },
 }
 SERVE_KERNELS = ("block_mlp", "block_attention")
 BLOCK_KERNELS = ("block_mlp", "block_attention", "block_mlp_bwd", "block_attention_bwd")
+NO_LAUNCHES = dict.fromkeys(KERNELS, 0)
+CAIT_S = dict(D=384, H=8, T=196)  # cait_s_24 at 224 px: 8 heads of 48, 196 patch tokens
+# K5 cases (B, T, S, heads, head width): cait_s_24 at batch 8 and 128,
+# cait_xxs and cait_m widths, a ragged T, T ≠ S, and head width 64
+TALKING_HEAD_CASES = ((8, 196, 196, 8, 48), (128, 196, 196, 8, 48), (4, 196, 196, 4, 48),
+                      (2, 196, 196, 16, 48), (3, 50, 50, 8, 48), (2, 24, 72, 4, 48),
+                      (2, 40, 40, 4, 64))
+# CaiT's LayerScale init (1e-6) rounds every residual branch away in bf16;
+# its paths run with γ drawn around this value, as a trained CaiT has them
+CAIT_LAYER_SCALE = 0.1
+CAIT_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                  layer_scale=CAIT_LAYER_SCALE)
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 VIT_B = dict(D=768, H=12, Dh=3072)
 SERVE_BATCHES = (1, 8, 32)
@@ -92,9 +123,10 @@ GRAD_REL_L2 = 2e-2  # every parameter gradient, kernel-path step vs plain-path s
 VIT_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1)
 DEIT3 = dict(batch=16, img=224, classes=1000, steps=3, stochastic_depth=0.1)
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): bf16 tensor
-# cores and device memory; the least time of a kernel is the larger of its
-# operations and its bytes over these.
+# cores, f32 on the CUDA cores, and device memory; the least time of a
+# kernel is the larger of its operations and its bytes over these.
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -131,17 +163,39 @@ def alternate(plain, kernel, **kw) -> tuple[float, float]:
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor, ref: torch.Tensor | None = None) -> float:
-    """‖a − b‖ / ‖ref‖ (ref defaults to b)."""
-    a, b = a.float(), b.float()
-    return ((a - b).norm() / (b if ref is None else ref.float()).norm()).item()
+    """‖a − b‖ / ‖ref‖ (ref defaults to b); 0 where a equals b, a zero
+    reference included (CaiT's first class-attention query weights get an
+    exactly zero gradient from the zero cls token)."""
+    diff = (a.float() - b.float()).norm()
+    if diff == 0:
+        return 0.0
+    return (diff / (b if ref is None else ref).float().norm()).item()
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """(least ms on the card, what sets it): operations over the bf16 peak
-    against bytes (each input read once, each output written once) over the
-    memory rate."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES_PER_S * 1e3
+def bound(flops: float, nbytes: float, f32_flops: float = 0.0) -> tuple[float, str]:
+    """(least ms on the card, what sets it): operations against bytes (each
+    input read once, each output written once) over the memory rate. The
+    products of bf16-typed operands count at the bf16 tensor-core peak,
+    ``f32_flops`` (elementwise f32 work such as K5's head mixes) at the
+    f32 peak; the two units run side by side, so the larger counts."""
+    t_ops = max(flops / PEAK_BF16_FLOPS, f32_flops / PEAK_F32_FLOPS) * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def talking_head_work(name: str, B: int, T: int, S: int, H: int, D: int,
+                      x_bytes: int) -> tuple[float, float, float]:
+    """(product operations, bytes, f32 operations) of one K5 call: the
+    forward's q·kᵀ and pw·v per head and its two head mixes; the
+    backward's five products (the recomputed logits, dout·vᵀ, dv, dq, dk),
+    four mixes and the two mix-parameter sums. Bytes: q/k/v (and dout) in,
+    o (dq/dk/dv) out, the f32 mixes (and their gradients)."""
+    mix_bytes = (2 * H * H + 2 * H) * 4
+    if name == "talking_head":
+        return (4 * B * T * S * D, (2 * T + 2 * S) * B * D * x_bytes + mix_bytes,
+                4 * B * H * H * T * S)
+    return (10 * B * T * S * D, (3 * T + 4 * S) * B * D * x_bytes + 2 * mix_bytes,
+            12 * B * H * H * T * S)
 
 
 def block_work(name: str, B: int, T: int, x_bytes: int, ls: bool = False) -> tuple[float, float]:
@@ -569,10 +623,22 @@ def time_backward(report: dict) -> dict[str, tuple[float, float]]:
     return out
 
 
+def spread_layer_scale(model: torch.nn.Module, center: float, seed: int = 3) -> None:
+    """Every LayerScale γ of ``model`` ← center·(1 + U(0, 1)), seeded."""
+    from vision_toolbox_tpu_torch.nn.layers import LayerScale
+
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LayerScale):
+                m.gamma.copy_(center * (1 + torch.rand(m.gamma.shape, generator=g)))
+
+
 def vit_step_parts(name: str, cfg: dict, **model_kw):
-    """A seeded bf16 classifier on ``name`` (built on the card by default),
-    its SGD state and train step (label smoothing 0.1, CutMix⊕MixUp 1.0/0.2),
-    uint8 images and labels made on the card, and the step's generator."""
+    """A seeded bf16 classifier on ``name`` (built on the card by default;
+    LayerScale γs spread around ``cfg["layer_scale"]`` where given), its SGD
+    state and train step (label smoothing 0.1, CutMix⊕MixUp 1.0/0.2), uint8
+    images and labels made on the card, and the step's generator."""
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.train import (
         ImageClassifier, TrainState, make_train_step, sgd_with_param_groups,
@@ -581,6 +647,8 @@ def vit_step_parts(name: str, cfg: dict, **model_kw):
     B, S, classes = cfg["batch"], cfg["img"], cfg["classes"]
     gen = torch.Generator().manual_seed(0)
     backbone = vtt.create_backbone(name, dtype=torch.bfloat16, generator=gen, **model_kw)
+    if cfg.get("layer_scale"):
+        spread_layer_scale(backbone, cfg["layer_scale"])
     model = ImageClassifier(backbone, classes, dtype=torch.bfloat16, generator=gen)
     opt = sgd_with_param_groups(model, cfg.get("lr", 0.1), momentum=0.9, weight_decay=2e-5)
     step = make_train_step(classes, label_smoothing=0.1, mixup_alpha=0.2, cutmix_alpha=1.0,
@@ -598,18 +666,43 @@ def train_vit(report: dict, name_power: str) -> dict[str, int]:
     and backward kernels; then phase 11, one step through the kernels
     against one through the plain versions from one state and one set of
     draws. Returns the launches of the training run."""
-    from vision_toolbox_tpu_torch.ops import _cuda
-
-    cfg = VIT_TRAIN
-    state, step, images, labels, g = vit_step_parts("vit_b_16", cfg)
-    model, B = state.model, cfg["batch"]
-    assert next(model.parameters()).is_cuda, "the default device is the card"
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[vit-train] vit_b_16 + head {cfg['classes']}: {n_params / 1e6:.2f} M f32 params, bf16 "
-        f"compute, bs{B}@{cfg['img']}, CutMix⊕MixUp, LS 0.1, SGD 0.9 lr {cfg['lr']}, "
-        "wd 2e-5 (3 groups)")
     watched = ("head.weight", "backbone.pe", "backbone.blocks.0.mha.q_proj.weight",
                "backbone.blocks.5.mlp_norm.weight", "backbone.blocks.11.mlp.linear2.bias")
+    per_step = NO_LAUNCHES | dict.fromkeys(BLOCK_KERNELS, 12)
+    return train_transformer(report, "vit_train", "vit_b_16", VIT_TRAIN, per_step, watched,
+                             name_power)
+
+
+def train_cait(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 15: the cait_s_24 step at bs128@224 with ViT's recipe, 3
+    warm-up + 10 timed steps, each of the 24 self-attention blocks through
+    K5 and K3 forward and backward; then phase 16, one step through the
+    kernels against one through the plain versions and an f32 reference,
+    the four head-mix parameters and the LayerScale γs included."""
+    watched = ("head.weight", "backbone.pe", "backbone.sa_blocks.0.mha.proj_l_kernel",
+               "backbone.sa_blocks.23.mha.proj_w_bias", "backbone.sa_blocks.5.mlp_scale.gamma",
+               "backbone.ca_blocks.1.mlp.linear2.bias", "backbone.cls_token")
+    per_step = NO_LAUNCHES | dict.fromkeys(
+        ("talking_head", "talking_head_bwd", "block_mlp", "block_mlp_bwd"), 24)
+    return train_transformer(report, "cait_train", "cait_s_24", CAIT_TRAIN, per_step, watched,
+                             name_power)
+
+
+def train_transformer(report: dict, key: str, name: str, cfg: dict, per_step: dict[str, int],
+                      watched: tuple[str, ...], name_power: str) -> dict[str, int]:
+    """The transformer train step of ``name`` at ``cfg``'s batch and size:
+    warm-up and timed steps with each kernel launched ``per_step`` times a
+    step, then one step through the kernels against one through the plain
+    versions (``kernel_vs_plain_step``). Returns the launches of the run."""
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    state, step, images, labels, g = vit_step_parts(name, cfg)
+    model, B, tag = state.model, cfg["batch"], key.replace("_", "-")
+    assert next(model.parameters()).is_cuda, "the default device is the card"
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] {name} + head {cfg['classes']}: {n_params / 1e6:.2f} M f32 params, bf16 "
+        f"compute, bs{B}@{cfg['img']}, CutMix⊕MixUp, LS 0.1, SGD 0.9 lr {cfg['lr']}, "
+        "wd 2e-5 (3 groups)")
     before = {k: model.state_dict()[k].detach().clone() for k in watched}
     initial = copy.deepcopy(state)
 
@@ -632,64 +725,81 @@ def train_vit(report: dict, name_power: str) -> dict[str, int]:
     losses = [float(v) for v in losses]
     n_steps = cfg["warmup"] + cfg["steps"]
     changed = {k: not torch.equal(v, model.state_dict()[k]) for k, v in before.items()}
-    log(f"[vit-train] losses {['%.4f' % v for v in losses]}")
-    log(f"[vit-train] {ms:.2f} ms/step, {B / ms * 1e3:.1f} img/s (CUDA events over {cfg['steps']} "
+    log(f"[{tag}] losses {['%.4f' % v for v in losses]}")
+    log(f"[{tag}] {ms:.2f} ms/step, {B / ms * 1e3:.1f} img/s (CUDA events over {cfg['steps']} "
         f"steps; host clock {wall_ms:.2f} ms/step); peak memory {peak:.1f} GiB  [{name_power}]")
-    log(f"[vit-train] launches in {n_steps} steps: {launches}")
-    report["vit_train"] = dict(ms_per_step=ms, img_per_s=B / ms * 1e3, host_ms_per_step=wall_ms,
-                               losses=losses, launches=launches, changed=changed, peak_gib=peak)
+    log(f"[{tag}] launches in {n_steps} steps: {launches}")
+    report[key] = dict(ms_per_step=ms, img_per_s=B / ms * 1e3, host_ms_per_step=wall_ms,
+                       losses=losses, launches=launches, changed=changed, peak_gib=peak)
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not all(changed.values()):
         raise AssertionError(f"parameters did not change: {changed}")
-    want = {k: 12 * n_steps for k in BLOCK_KERNELS} | {"warp_shear3": 0}
-    if launches != want:
-        raise AssertionError(f"expected 12 launches of each block kernel per step: {launches}")
+    if launches != {k: n * n_steps for k, n in per_step.items()}:
+        raise AssertionError(f"expected {per_step} launches per step: {launches}")
 
-    # phase 11: one step through the kernels vs one through the plain
+    # one step through the kernels vs one through the plain
     # versions, from the seeded initial state and one set of draws
     draws = step.sample_draws(g, tuple(images.shape))
-    res = kernel_vs_plain_step(initial, step, images, labels, draws)
-    report["vit_train_vs_plain"] = res
+    res = kernel_vs_plain_step(name, cfg, initial, step, images, labels, draws)
+    report[f"{key}_vs_plain"] = res
     loss_rel = abs(res["loss_kernel"] - res["loss_plain"]) / abs(res["loss_plain"])
     worst = sorted(res["grads"].items(), key=lambda kv: -kv[1]["kernel_vs_plain"])[:4]
     wide = {n: r for n, r in res["grads"].items() if r["bound"] > GRAD_REL_L2}
-    log(f"[vit-train] kernel vs plain path, one step from the seeded state and one set of draws: "
+    log(f"[{tag}] kernel vs plain path, one step from the seeded state and one set of draws: "
         f"loss {res['loss_kernel']:.6f} vs {res['loss_plain']:.6f}, rel {loss_rel:.3e} (bound "
         f"{LOSS_REL_BOUND}); gradient rel L2, worst of {len(res['grads'])}: "
         f"{[(n, '%.2e' % r['kernel_vs_plain'], 'bound %.2e' % r['bound']) for n, r in worst]}")
-    log(f"[vit-train] {len(wide)} gradients whose plain bf16 version is itself > {GRAD_REL_L2 / 2} "
+    log(f"[{tag}] {len(wide)} gradients whose plain bf16 version is itself > {GRAD_REL_L2 / 2} "
         f"from the f32 reference (bound 2× that): "
         f"{[(n, '%.2e' % r['plain_vs_f32']) for n, r in list(wide.items())[:8]]}")
+    closer = sorted(r["kernel_vs_f32"] / r["plain_vs_f32"] for r in res["grads"].values()
+                    if r["plain_vs_f32"] > 0)
+    log(f"[{tag}] each path against the f32 reference: kernel / plain rel L2 per gradient, "
+        f"median {closer[len(closer) // 2]:.3f}, max {closer[-1]:.3f}")
     bad = {n: r for n, r in res["grads"].items() if not r["kernel_vs_plain"] <= r["bound"]}
     if not loss_rel <= LOSS_REL_BOUND or bad:
         raise AssertionError(f"the kernel path and the plain path disagree: {bad}")
     return launches
 
 
-def kernel_vs_plain_step(state, step, images, labels, draws) -> dict:
+def zero_gradient_ref(name: str) -> str | None:
+    """The parameter whose gradient a zero-in-exact-arithmetic gradient is
+    held against, else None: a key-projection bias shifts each query's
+    logits by a constant, and CaiT's pre-softmax mix bias shifts whole
+    logit rows, both removed by the softmax; they are held against the
+    value bias and the pre-softmax mix."""
+    if name.endswith("k_proj.bias"):
+        return name.replace("k_proj", "v_proj")
+    if name.endswith("proj_l_bias"):
+        return name.replace("proj_l_bias", "proj_l_kernel")
+    return None
+
+
+def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draws) -> dict:
     """One step through the kernels and one through the plain versions, each
     from a copy of ``state``, and the f32 reference gradient: the same model
-    in f32 on the unfused module chain (no bf16 rounding, TF32 off). Every
+    in f32 on the unfused module chain, CaiT's talking-head attention through
+    its plain f32 version (no bf16 rounding, TF32 off). Every
     parameter's gradient is held to rel L2 ≤ GRAD_REL_L2 against the plain
     path's, or to twice the plain path's own bf16 error where that is larger:
     the softmax backward rounds ds to bf16, and where the keys (queries) of a
     block are nearly alike the query (key) gradient Σ ds·k cancels down to
     that rounding noise, in the JAX kernel as in both versions here; two
-    independent bf16 roundings differ by about √2 times either's error. The
-    key bias is zero in exact arithmetic, so it is held against the value
-    bias."""
+    independent bf16 roundings differ by about √2 times either's error.
+    Gradients that are zero in exact arithmetic are held against a
+    neighbour's (``zero_gradient_ref``)."""
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.train import ImageClassifier, TrainState, sgd_with_param_groups
 
     states = [copy.deepcopy(state) for _ in range(2)]
     backbone = states[1].model.backbone
     backbone.forward = functools.partial(type(backbone).forward, backbone, plain=True)
-    ref_backbone = vtt.create_backbone("vit_b_16")  # f32 compute
-    ref_model = ImageClassifier(ref_backbone, VIT_TRAIN["classes"])
+    ref_backbone = vtt.create_backbone(name)  # f32 compute
+    ref_model = ImageClassifier(ref_backbone, cfg["classes"])
     ref_model.load_state_dict(state.model.state_dict())
     ref_backbone.forward = functools.partial(type(ref_backbone).forward, ref_backbone,
-                                             force_unfused=True)
+                                             force_unfused=True, plain=True)
     states.append(TrainState(ref_model, sgd_with_param_groups(ref_model, 0.0)))
     losses = [float(step(st, images, labels, draws=draws)["loss"]) for st in states[:2]]
     with plain_attention():
@@ -697,10 +807,11 @@ def kernel_vs_plain_step(state, step, images, labels, draws) -> dict:
     kernel, plain, f32 = ({n: p.grad for n, p in st.model.named_parameters()} for st in states)
     grads = {}
     for n in kernel:
-        v = n.replace("k_proj", "v_proj") if n.endswith("k_proj.bias") else None
+        v = zero_gradient_ref(n)
         own = rel_l2(plain[n], f32[n], f32[v] if v else None)
         grads[n] = dict(kernel_vs_plain=rel_l2(kernel[n], plain[n], plain[v] if v else None),
-                        plain_vs_f32=own, bound=max(GRAD_REL_L2, 2 * own))
+                        plain_vs_f32=own, bound=max(GRAD_REL_L2, 2 * own),
+                        kernel_vs_f32=rel_l2(kernel[n], f32[n], f32[v] if v else None))
     return dict(loss_kernel=losses[0], loss_plain=losses[1], loss_f32=losses[2], grads=grads)
 
 
@@ -731,6 +842,154 @@ def train_deit3(report: dict) -> None:
         raise AssertionError("deit3_b_16 training failed")
     if any(launches[k] != 12 * cfg["steps"] for k in BLOCK_KERNELS):
         raise AssertionError(f"expected 12 launches of each block kernel per step: {launches}")
+
+
+def talking_head_args(g, B, T, S, H, hd, dtype):
+    """q (B, T, H·hd), k and v (B, S, H·hd) in ``dtype``, f32 head mixes
+    near the identity with small biases, and a cotangent like q."""
+    D = H * hd
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g) * scale
+    eye = torch.eye(H)
+    a = dict(q=r(B, T, D), k=r(B, S, D), v=r(B, S, D))
+    a = {n: t.to("cuda", dtype) for n, t in a.items()}
+    a |= dict(ml=r(H, H, scale=0.3) + eye, mlb=r(H, scale=0.1), mw=r(H, H, scale=0.3) + eye,
+              mwb=r(H, scale=0.1))
+    a = {n: t.cuda() for n, t in a.items()}
+    return a, r(B, T, D).to("cuda", dtype)
+
+
+def compare_talking_head(report: dict) -> dict[str, float]:
+    """Phase 13: K5 forward and backward vs their plain versions at
+    TALKING_HEAD_CASES, f32 and bf16 inputs. Tensors by max abs error
+    against BOUND·max|plain|, the four mix-parameter gradients by rel L2
+    ≤ BWD_REL_L2 (the pre-softmax bias's, zero in exact arithmetic,
+    relative to the pre-softmax mix's). Returns the max abs error of the forward and of the
+    backward (worst of dq, dk, dv) at cait_s_24's training shapes (batch
+    128, bf16), where they are also timed."""
+    from vision_toolbox_tpu_torch.ops import cait_attention as ca
+
+    g = torch.Generator().manual_seed(13)
+    checks, main_err = Checks(), {}
+    for B, T, S, H, hd in TALKING_HEAD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, dout = talking_head_args(g, B, T, S, H, hd, dtype)
+            args = tuple(a.values())
+            case = dict(kernel="talking_head", B=B, T=T, S=S, H=H, hd=hd,
+                        dtype=str(dtype).split(".")[-1])
+            err = checks.elementwise(case, "out", ca.talking_head_cuda(*args),
+                                     ca.talking_head_plain(*args))
+            got, want = ca.talking_head_bwd_cuda(*args, dout), ca.talking_head_bwd_plain(*args, dout)
+            torch.cuda.synchronize()
+            errs = [checks.elementwise(case, n, got[i], want[i]) for i, n in enumerate("qkv")]
+            for n in ("ml", "mw", "mwb"):
+                checks.reduced(case, f"d{n}", getattr(got[3], n), getattr(want[3], n))
+            # zero in exact arithmetic (the bias shifts whole softmax rows): noise, held to ‖dml‖
+            checks.reduced(case, "dmlb (vs ‖dml‖)", got[3].mlb, want[3].mlb, ref=want[3].ml)
+            log(f"[talking-head] B={B:3d} T={T} S={S} H={H:2d} hd={hd} {case['dtype']:8s} "
+                f"{checks.summary(case)}")
+            if (B, T, H, dtype) == (CAIT_TRAIN["batch"], 196, 8, torch.bfloat16):
+                main_err["talking_head"], main_err["talking_head_bwd"] = err, max(errs)
+    report["compare_talking_head"] = checks.rows
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K5 comparisons out of bounds: {bad[:8]}")
+    return main_err
+
+
+def time_talking_head(report: dict) -> dict[str, tuple[float, float]]:
+    """K5 forward and backward against their plain versions, in turns, at
+    cait_s_24's training shapes (batch 128, bf16)."""
+    from vision_toolbox_tpu_torch.ops import cait_attention as ca
+
+    g = torch.Generator().manual_seed(14)
+    B, (D, H, T) = CAIT_TRAIN["batch"], CAIT_S.values()
+    a, dout = talking_head_args(g, B, T, T, H, D // H, torch.bfloat16)
+    args, out, rows = tuple(a.values()), {}, []
+    for name, plain, kernel in (
+        ("talking_head", lambda: ca.talking_head_plain(*args), lambda: ca.talking_head_cuda(*args)),
+        ("talking_head_bwd", lambda: ca.talking_head_bwd_plain(*args, dout),
+         lambda: ca.talking_head_bwd_cuda(*args, dout)),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=10)
+        rows.append(dict(kernel=name, B=B, T=T, dtype="bfloat16", ms=ms, plain_ms=plain_ms))
+        log(f"[time] {name:19s} B={B:3d} T={T} bf16 kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
+        out[name] = (ms, plain_ms)
+    report["talking_head_times"] = rows
+    return out
+
+
+def serve_cait(report: dict, name_power: str) -> int:
+    """Phase 14: a seeded bf16 cait_s_24 (224 px, LayerScale γs around
+    CAIT_LAYER_SCALE), eager through the kernels against its plain versions
+    (24 K5 and 24 K3 forward launches per forward; logits rel L2 ≤
+    REL_L2_BOUND or twice the plain bf16 path's own distance from an f32
+    forward of the same weights, whichever is larger: over 24 residual
+    blocks with γ ≈ 0.1, bf16 rounding flips in either path add up), then
+    served: export → load → three requests at each of
+    SERVE_BATCHES, each against eager and launching no backward kernel.
+    Returns K5's launches in the served requests."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.utils.export import export_model, load_exported
+
+    model = vtt.create_backbone("cait_s_24", dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0))
+    spread_layer_scale(model, CAIT_LAYER_SCALE)
+    model.eval()
+    depth, width = len(model.sa_blocks), model.last_out_channels
+    per_forward = NO_LAUNCHES | {"talking_head": depth, "block_mlp": depth}
+    images = torch.rand(32, 224, 224, 3, generator=torch.Generator().manual_seed(1)).cuda()
+    ref = vtt.create_backbone("cait_s_24")  # f32 compute, the same weights
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        _cuda.reset_launch_counts()
+        logits = model(images[:8])
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        plain_logits = model(images[:8], plain=True)
+        f32_logits = ref(images[:8], force_unfused=True, plain=True)
+    err, own = rel_l2(logits, plain_logits), rel_l2(plain_logits, f32_logits)
+    bound = max(REL_L2_BOUND, 2 * own)
+    log(f"[cait-serve] cait_s_24 bf16 bs8 forward: launches {counts}; logits kernel vs plain "
+        f"path rel L2 {err:.3e} (bound {bound:.3e}: the plain bf16 path is {own:.3e} from the "
+        f"f32 reference; the kernel path {rel_l2(logits, f32_logits):.3e})")
+    if counts != per_forward:
+        raise AssertionError(f"expected {per_forward}, got {counts}")
+    if logits.shape != (8, width) or not torch.isfinite(logits.float()).all() \
+            or not err <= bound:
+        raise AssertionError(f"cait_s_24 logits: shape {tuple(logits.shape)}, rel L2 {err}")
+    del ref
+
+    t0 = time.perf_counter()
+    blob = export_model(model, (8, 224, 224, 3))
+    served = load_exported(blob)
+    log(f"[cait-serve] export+load {time.perf_counter() - t0:.1f} s, artifact "
+        f"{len(blob) / 2**20:.1f} MiB")
+    with torch.inference_mode():
+        eager = {b: model(images[:b]) for b in SERVE_BATCHES}
+        _cuda.reset_launch_counts()
+        answers = {b: [served(images[:b]) for _ in range(3)] for b in SERVE_BATCHES}
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    n_forwards = 3 * len(SERVE_BATCHES)
+    log(f"[cait-serve] {n_forwards} requests at batch {SERVE_BATCHES}: launches {launches}")
+    if launches != {k: n_forwards * v for k, v in per_forward.items()}:
+        raise AssertionError(f"served path launched {launches}, expected {n_forwards}× "
+                             f"{per_forward}")
+    rows = []
+    for b in SERVE_BATCHES:
+        for out in answers[b]:
+            e = rel_l2(out, eager[b])
+            if out.shape != (b, width) or not torch.isfinite(out.float()).all() or e > 1e-3:
+                raise AssertionError(f"served batch {b} disagrees with eager: rel L2 {e}")
+        with torch.inference_mode():
+            ms = time_ms(lambda: served(images[:b]), iters=10)
+        rows.append(dict(batch=b, ms_per_batch=ms, rel_l2_vs_eager=e))
+        log(f"[cait-serve] batch {b:2d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
+            f"rel L2 vs eager {e:.2e}  [{name_power}]")
+    report["cait_serve"] = dict(launches_per_forward=counts, rel_l2_vs_plain=err,
+                                plain_vs_f32=own, bound=bound, requests=rows)
+    return launches["talking_head"]
 
 
 def main() -> int:
@@ -784,8 +1043,7 @@ def main() -> int:
         plain_logits = model(images[:8], plain=True)
         torch.cuda.synchronize()
     log(f"[model] vit_b_16 bf16 bs8 forward: launches {counts}")
-    if counts != {"block_mlp": 12, "block_attention": 12, "block_mlp_bwd": 0,
-                  "block_attention_bwd": 0, "warp_shear3": 0}:
+    if counts != NO_LAUNCHES | dict.fromkeys(SERVE_KERNELS, 12):
         raise AssertionError(f"expected 12 launches of each forward kernel, got {counts}")
     width = model.last_out_channels
     if logits.shape != (8, width) or not torch.isfinite(logits.float()).all():
@@ -809,8 +1067,7 @@ def main() -> int:
         launches = dict(_cuda.LAUNCHES)
     n_forwards = 3 * len(SERVE_BATCHES)
     log(f"[serve] {n_forwards} requests at batch {SERVE_BATCHES}: launches {launches}")
-    if any(launches[k] != 12 * n_forwards for k in SERVE_KERNELS) or any(
-            launches[k] for k in ("block_mlp_bwd", "block_attention_bwd")):
+    if launches != NO_LAUNCHES | dict.fromkeys(SERVE_KERNELS, 12 * n_forwards):
         raise AssertionError(f"served path launched {launches}, expected {12 * n_forwards} of "
                              "each forward kernel and no backward kernel")
     serve_rows = []
@@ -844,13 +1101,23 @@ def main() -> int:
         launches[k] = vit_launches[k]
     train_deit3(report)
 
+    # phases 13-16: CaiT serving and training
+    with torch.no_grad():
+        errors |= compare_talking_head(report)
+        times |= time_talking_head(report)
+    launches["talking_head"] = serve_cait(report, name_power)
+    launches["talking_head_bwd"] = train_cait(report, name_power)["talking_head_bwd"]
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
+    cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
         "block_mlp": block_work("block_mlp", B8, T, 2),
         "block_attention": block_work("block_attention", B8, T, 2),
         "block_mlp_bwd": block_work("block_mlp_bwd", B128, T, 2),
         "block_attention_bwd": block_work("block_attention_bwd", B128, T, 2),
         "warp_shear3": (0.0, 2 * TRAIN["batch"] * TRAIN["img"] ** 2 * 3 * 4),
+        "talking_head": talking_head_work("talking_head", B128, **cait),
+        "talking_head_bwd": talking_head_work("talking_head_bwd", B128, **cait),
     }
     kernels = []
     for k in KERNELS:

@@ -1,21 +1,24 @@
-"""Where the time of the port's vit_b_16 train step goes, on one NVIDIA card.
+"""Where the time of the port's transformer train step goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_vit_train.py
+    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24]
 
-Builds the step of ``chip_smoke.py``'s transformer-training phase (vit_b_16,
-bs128@224, bf16 compute, f32 parameters, CutMix⊕MixUp, label smoothing 0.1,
-SGD momentum 0.9 with weight decay 2e-5 in three groups) and its warm-up
-and timed step counts, times it unprofiled with CUDA events and the host
-clock, then traces ``PROFILED_STEPS`` more steps with ``torch.profiler`` and
-sums the device kernels by class:
+Builds the step of one of ``chip_smoke.py``'s transformer-training phases
+(vit_b_16 by default, or cait_s_24; bs128@224, bf16 compute, f32 parameters,
+CutMix⊕MixUp, label smoothing 0.1, SGD momentum 0.9 with weight decay 2e-5
+in three groups) and its warm-up and timed step counts, times it unprofiled
+with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
+steps with ``torch.profiler`` and sums the device kernels by class:
 
+- talking-head kernels (CaiT): the K5 forward, and the K5 backward's row
+  pass, key pass and mix-gradient sum;
 - forward kernels: the K3/K4 forward (the GEMM template with the weight
   read (N, K), the attention kernel);
 - backward kernels: the K3/K4 backward (the GEMM template with the weight
   read (K, N), the attention backward kernels, the cotangent and LayerNorm
   row kernels);
 - library products: cuBLAS/CUTLASS GEMMs, i.e. the weight gradients of the
-  blocks (``torch.matmul``) and the head's three small products;
+  blocks (``torch.matmul``), CaiT's q/k/v/out projections (``F.linear``
+  around K5) and class attention, and the head's three small products;
 - patch-embedding convolution (cuDNN), optimizer (SGD's foreach kernels),
   and the rest (casts of the f32 parameters to bf16, the loss, the final
   LayerNorm, CutMix⊕MixUp, copies).
@@ -23,7 +26,7 @@ sums the device kernels by class:
 The input pipeline alone is traced the same way over the same number of
 steps. The idle share is 1 − kernel time / profiled window (kernels run one
 at a time on one stream). Prints the table and one JSON line, and writes
-``chiprun_out/profile_vit_train.json``. Needs a CUDA card.
+``chiprun_out/profile_<model>_train.json``. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -52,6 +55,9 @@ def _gemm_layout(name: str) -> str | None:
 
 
 CLASSES = (
+    ("talking-head forward (K5 fwd)", lambda n: "th_fwd_kernel" in n),
+    ("talking-head backward (K5 bwd)", lambda n: any(
+        k in n for k in ("th_bwd_rows_kernel", "th_bwd_keys_kernel", "th_param_reduce_kernel"))),
     ("forward kernels (K3/K4 fwd)",
      lambda n: _gemm_layout(n) == "0" or "attn_kernel" in n),
     ("backward kernels (K3/K4 bwd)", lambda n: _gemm_layout(n) == "1"
@@ -105,8 +111,13 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    cfg = chip_smoke.VIT_TRAIN
-    state, step, images, labels, g = chip_smoke.vit_step_parts("vit_b_16", cfg)
+    model = sys.argv[1] if len(sys.argv) > 1 else "vit_b_16"
+    configs = {"vit_b_16": chip_smoke.VIT_TRAIN, "cait_s_24": chip_smoke.CAIT_TRAIN}
+    if model not in configs:
+        print(f"profile_torch_vit_train: model must be one of {sorted(configs)}", file=sys.stderr)
+        return 2
+    cfg = configs[model]
+    state, step, images, labels, g = chip_smoke.vit_step_parts(model, cfg)
     for _ in range(cfg["warmup"]):
         step(state, images, labels, g)
     torch.cuda.synchronize()
@@ -135,7 +146,7 @@ def main() -> int:
 
     window /= PROFILED_STEPS
     result = dict(
-        card=card, model="vit_b_16", batch=cfg["batch"], img=cfg["img"],
+        card=card, model=model, batch=cfg["batch"], img=cfg["img"],
         ms_per_step_events=ms_events, ms_per_step_host=ms_host,
         img_per_s=cfg["batch"] / ms_events * 1e3,
         profiled_window_ms=window, kernel_ms=total, idle_share=1 - total / window,
@@ -143,7 +154,7 @@ def main() -> int:
         input_pipeline_ms=pipeline,
         top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:25]),
     )
-    print(f"vit_b_16 bs{cfg['batch']}@{cfg['img']} train step [{card}]: {ms_events:.2f} ms/step "
+    print(f"{model} bs{cfg['batch']}@{cfg['img']} train step [{card}]: {ms_events:.2f} ms/step "
           f"(events, {n} steps; host {ms_host:.2f}), {result['img_per_s']:.1f} img/s")
     print(f"profiled: window {window:.2f} ms/step, kernels {total:.2f} ms/step, idle share "
           f"{result['idle_share']:.3f}")
@@ -154,7 +165,7 @@ def main() -> int:
         print(f"    {ms:8.3f} ms  {name[:110]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_vit_train.json").write_text(json.dumps(result, indent=1))
+    (out / f"profile_{model.split('_')[0]}_train.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({k: v for k, v in result.items() if k != "top_kernels_ms"}))
     return 0
 

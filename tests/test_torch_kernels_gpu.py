@@ -15,7 +15,10 @@ kernels, whose column sums add block partials with atomics in a varying
 order: rel L2 ≤ 1e-2. The backward is compared from one set of saves (the
 kernel forward's) and one output cotangent. The three-shear warp (K1) forms
 every value with the same f32 operations as its plain version: max abs error
-≤ 1e-5 on [0, 1] images (measured 0).
+≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) compute
+in f32 like their plain versions and are held to the same bounds; their
+pre-softmax bias gradient, zero in exact arithmetic, against the
+pre-softmax mix's.
 """
 
 import pytest
@@ -24,6 +27,7 @@ import torch
 from vision_toolbox_tpu_torch.ops import _cuda
 from vision_toolbox_tpu_torch.ops import block_attention as ba
 from vision_toolbox_tpu_torch.ops import block_mlp as bm
+from vision_toolbox_tpu_torch.ops import cait_attention as ca
 from vision_toolbox_tpu_torch.ops import trivial_augment as ta
 from vision_toolbox_tpu_torch.ops import warp
 
@@ -267,3 +271,71 @@ def test_warp_kernel_checks_its_operands(cuda):
         warp.shear3_warp_cuda(x[:, :, :16].contiguous(), warp.shear3_params(op, mag))
     on_cpu = warp.shear3_warp(x.cpu(), op.cpu(), mag.cpu())  # the plain version
     assert (on_cpu - warp.shear3_warp(x, op, mag).cpu()).abs().max().item() <= 1e-5
+
+
+# K5 (talking-head attention) at chip_smoke.py's shapes: cait_s_24 at batch
+# 8, cait_xxs and cait_m widths, a ragged T, T ≠ S and head width 64
+TALKING_HEAD_SHAPES = [(8, 196, 196, 8, 48), (4, 196, 196, 4, 48), (2, 196, 196, 16, 48),
+                       (3, 50, 50, 8, 48), (2, 24, 72, 4, 48), (2, 40, 40, 4, 64)]
+
+
+def _talking_head_args(g, B, T, S, H, hd, dtype, device):
+    D = H * hd
+    eye = torch.eye(H)
+    qkv = [_rand(g, B, n, D).to(device, dtype) for n in (T, S, S)]
+    mixes = [_rand(g, H, H, scale=0.3) + eye, _rand(g, H, scale=0.1),
+             _rand(g, H, H, scale=0.3) + eye, _rand(g, H, scale=0.1)]
+    return (*qkv, *(m.to(device) for m in mixes)), _rand(g, B, T, D).to(device, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,hd", TALKING_HEAD_SHAPES)
+def test_talking_head_kernels_match_plain(cuda, dtype, B, T, S, H, hd):
+    """K5 forward and backward against their plain versions: tensors within
+    the dtype's bound, the mix gradients by rel L2 (the pre-softmax bias's,
+    zero in exact arithmetic, against the pre-softmax mix's); each wrapper
+    launches its kernel once."""
+    args, dout = _talking_head_args(torch.Generator().manual_seed(T + H), B, T, S, H, hd, dtype,
+                                    cuda)
+    before = dict(_cuda.LAUNCHES)
+    out = ca.talking_head_attention(*args)  # no grad needed: the custom op → the kernel
+    got = ca.talking_head_bwd_cuda(*args, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["talking_head"] == before["talking_head"] + 1
+    assert _cuda.LAUNCHES["talking_head_bwd"] == before["talking_head_bwd"] + 1
+    _check(out, ca.talking_head_plain(*args))
+    want = ca.talking_head_bwd_plain(*args, dout)
+    for g, w in zip(got[:3], want[:3]):
+        _check(g, w)
+    for name in ("ml", "mw", "mwb"):
+        _check_rel_l2(getattr(got[3], name), getattr(want[3], name), name)
+    _check_rel_l2(got[3].mlb, want[3].mlb, "mlb", ref=want[3].ml)
+
+
+def test_talking_head_refuses_what_its_gate_refuses(cuda):
+    """No fallback: a CUDA shape outside the kernels' rule raises."""
+    args, _ = _talking_head_args(torch.Generator().manual_seed(0), 2, 16, 16, 4, 32,
+                                 torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="use_talking_head_kernel"):
+        ca.talking_head_attention(*args)
+
+
+@pytest.mark.parametrize("name", ["cait_xxs_24", "cait_xxs_36", "cait_xs_24", "cait_s_24",
+                                  "cait_s_36", "cait_m_36", "cait_m_48"])
+def test_cait_builds_on_the_card_and_runs_its_kernels(cuda, name):
+    """Every registered CaiT is built on the card by default; a bf16
+    forward at 224 px runs K5 and, where its width fills the 64-column
+    tiles, K3 in each self-attention block (cait_xs, D = 288, runs its MLP
+    halves as plain modules)."""
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone(name, dtype=torch.bfloat16)
+    assert next(m.parameters()).is_cuda
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        out = m(torch.rand(2, 224, 224, 3, device=cuda))
+    torch.cuda.synchronize()
+    depth = len(m.sa_blocks)
+    assert out.shape == (2, m.last_out_channels) and torch.isfinite(out.float()).all()
+    assert _cuda.LAUNCHES["talking_head"] == depth
+    assert _cuda.LAUNCHES["block_mlp"] == (0 if m.d_model % 64 else depth)

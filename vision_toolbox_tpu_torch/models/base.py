@@ -24,11 +24,14 @@ class Backbone(nn.Module):
     compute_dtype: torch.dtype = torch.float32
 
     def cast_for_serving(self) -> "Backbone":
-        """In place: every parameter but the norm layers' rounded to
-        ``compute_dtype`` once, so that a served request pays no casts. The
-        forward is unchanged (it rounds at use to the same values)."""
+        """In place: every parameter but the norm layers' (and those of a
+        module whose ``keeps_f32_params`` is set, such as CaiT's head mixes,
+        which its kernels read in f32) rounded to ``compute_dtype`` once, so
+        that a served request pays no casts. The forward is unchanged (it
+        rounds at use to the same values)."""
         for m in self.modules():
-            if not isinstance(m, (LayerNorm, BatchNorm)):
+            if not isinstance(m, (LayerNorm, BatchNorm)) and not getattr(m, "keeps_f32_params",
+                                                                         False):
                 for p in m.parameters(recurse=False):
                     p.data = p.data.to(self.compute_dtype)
         return self

@@ -17,6 +17,8 @@ does). Dropout, attention dropout and stochastic depth draw from the
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 from torch import Tensor, nn
 
@@ -91,18 +93,25 @@ def fused_mlp_halfblock(
 
 
 class ViTBlock(nn.Module):
-    """Pre-LN transformer block with optional LayerScale + StochasticDepth."""
+    """Pre-LN transformer block with optional LayerScale + StochasticDepth
+    and a pluggable attention module: ``attention(generator)`` builds it
+    (CaiT's talking-head attention); such a block runs its attention half
+    through the module chain, never the fused attention op, and keeps the
+    fused MLP half."""
 
     def __init__(self, d_model: int, n_heads: int, bias: bool = True, mlp_ratio: float = 4.0,
                  dropout: float = 0.0, layer_scale_init: float | None = None,
                  stochastic_depth: float = 0.0, norm_eps: float = 1e-6, *,
+                 attention: Callable[[torch.Generator], nn.Module] | None = None,
                  dtype: torch.dtype | None = None, generator: torch.Generator):
         super().__init__()
         self.d_model, self.n_heads, self.bias, self.dropout = d_model, n_heads, bias, dropout
         self.hidden = int(d_model * mlp_ratio)
         ls = layer_scale_init
         self.mha_norm = LayerNorm(d_model, norm_eps)
-        self.mha = MHA(d_model, n_heads, bias, dropout, dtype=dtype, generator=generator)
+        self.custom_attention = attention is not None
+        self.mha = (attention(generator) if attention is not None
+                    else MHA(d_model, n_heads, bias, dropout, dtype=dtype, generator=generator))
         self.mha_scale = LayerScale(d_model, ls) if ls is not None else None
         self.mha_droppath = StochasticDepth(stochastic_depth)
         self.mlp_norm = LayerNorm(d_model, norm_eps)
@@ -116,7 +125,12 @@ class ViTBlock(nn.Module):
         versions (forward and backward) instead of the kernels."""
         g = generator
         fused = x.ndim == 3 and not force_unfused
-        if fused and block_attention.use_fused_attention(
+        if self.custom_attention:
+            y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g)
+            if self.mha_scale is not None:
+                y = self.mha_scale(y)
+            x = x + self.mha_droppath(y, train=train, generator=g)
+        elif fused and block_attention.use_fused_attention(
                 self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias):
             a, dt = self.mha, x.dtype
             wb = [t for proj in (a.q_proj, a.k_proj, a.v_proj, a.out_proj)

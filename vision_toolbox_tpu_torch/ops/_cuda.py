@@ -1,8 +1,8 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
 The sources in ``vision_toolbox_tpu_torch/csrc/*.cu`` have a plain C
-interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library under ``csrc/_build/<hash of sources and flags>/`` (a
+interface. At first use they are compiled with ``nvcc`` for ``sm_90a``, one
+process per source, all at once, and linked into one shared library under ``csrc/_build/<hash of sources and flags>/`` (a
 directory git ignores) and loaded with ``ctypes``; later calls and later
 processes reuse the library as long as the sources are unchanged. Nothing
 here runs at import: the CPU tests import every module on machines that
@@ -27,13 +27,13 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 LIB_NAME = "libvtt_kernels.so"
 
 LAUNCHES: dict[str, int] = {
     "block_mlp": 0, "block_attention": 0, "block_mlp_bwd": 0, "block_attention_bwd": 0,
-    "warp_shear3": 0,
+    "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -82,6 +82,18 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I, _I, _P),  # B, H, W, C, S, P, stream
         _I,
     ),
+    "vtt_talking_head_rows": ((_I, _I, _I, _I), _I),  # S, H, hd, bwd → query rows per block
+    "vtt_talking_head_fwd": (
+        (_P, _P, _P, _I, _P, _P,  # q, k, v, is_bf16, mix, out
+         _I, _I, _I, _I, _I, _F, _P),  # B, T, S, H, hd, scale, stream
+        _I,
+    ),
+    "vtt_talking_head_bwd": (
+        (_P, _P, _P, _P, _I, _P,  # q, k, v, dout, is_bf16, mix
+         _P, _P, _P, _P, _P, _P, _P,  # dq, dk, dv, pw, draw, partials (scratch), dmix
+         _I, _I, _I, _I, _I, _F, _P),  # B, T, S, H, hd, scale, stream
+        _I,
+    ),
 }
 
 
@@ -122,12 +134,32 @@ def library_path() -> Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{LIB_NAME}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out.parent / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n{proc.stderr[-6000:]}")
+    nvcc, tag = _nvcc(), os.getpid()
+    tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
+    # one nvcc per source, all started together; then one link
+    compiles = []
+    for src in sorted(CSRC.glob("*.cu")):
+        obj = out.parent / f"{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        compiles.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                     stderr=subprocess.PIPE, text=True)))
+    log, errors = [], []
+    for cmd, _, proc in compiles:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            errors.append(f"{cmd[-1]}: exit code {proc.returncode}\n{stderr[-6000:]}")
+    if not errors:
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in compiles)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            errors.append(f"link: exit code {proc.returncode}\n{proc.stderr[-6000:]}")
+    for _, obj, _ in compiles:
+        obj.unlink(missing_ok=True)
+    (out.parent / "build.log").write_text("".join(log))
+    if errors:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
     return out
 

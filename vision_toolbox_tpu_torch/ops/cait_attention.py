@@ -1,0 +1,250 @@
+"""CaiT talking-head attention (K5 forward and backward) — port of
+``vision_toolbox_tpu/ops/cait_attention.py``.
+
+Per image, with q/k/v in the projections' packed (B, T, N·H) layout and
+f32 (N, N) head mixes with (N,) biases::
+
+    raw_h = (q_h·scale)·k_hᵀ          p_g  = softmax_s(mlb_g + Σ_h ml[g, h]·raw_h)
+    o_g   = pw_g·v_g                  pw_g = mwb_g + Σ_h mw[g, h]·p_h
+
+``talking_head_attention`` is the entry point. Without gradients (serving,
+``torch.export``) it runs the custom op ``vtt::talking_head_attention``: on
+CPU tensors ``talking_head_plain``, on CUDA tensors the hand-written kernel
+in ``csrc/talking_head.cu``. Under autograd it runs ``TalkingHeadFunction``,
+whose backward is the kernel in ``csrc/talking_head_bwd.cu`` on CUDA tensors
+and ``talking_head_bwd_plain`` on CPU tensors or with ``plain=True``. A CUDA
+tensor launches the kernels or raises.
+
+Rounding points are the TPU kernels' (``_fwd_kernel``, ``_bwd_kernel``):
+q, k, v and dout are read in their type and widened to f32; q·scale, the
+raw logits, both mixes, the softmax and every backward intermediate are
+f32; the output, dq, dk and dv are rounded once to the input type; the four
+mix-parameter gradients are f32 sums over the batch. That is the kernel's
+rounding on every device, not the JAX package's XLA branch, which rounds
+the logits of a bf16 model to bf16 (``models/cait.py:58-70``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+from torch import Tensor
+
+from . import _cuda
+
+MAX_SEQ = 512
+MAX_HEADS = 16
+HEAD_DIMS = (48, 64)  # the kernels' register-resident key rows
+SMEM_LIMIT = 227 * 1024
+_MIN_ROWS = 4  # csrc/talking_head.cuh: the smallest query-row tile
+
+
+def _bwd_smem_bytes(s: int, n_heads: int, head_dim: int) -> int:
+    """Shared memory of a backward row block of the fewest query rows
+    (csrc/talking_head.cuh ``row_tile_smem``): three (H, rows, S padded to
+    4) f32 planes, the q and dout row tiles in f32 and the mix parameters."""
+    sp, rows = -(-s // 4) * 4, _MIN_ROWS
+    return (3 * n_heads * rows * sp + 2 * rows * n_heads * head_dim
+            + 2 * n_heads * n_heads + 2 * n_heads) * 4
+
+
+def use_talking_head_kernel(t: int, s: int, n_heads: int, head_dim: int) -> bool:
+    """Shape rule of the CUDA kernels: T, S ≤ 512, at most 16 heads of
+    width 48 or 64, and a backward row block of four query rows for all
+    heads fits one block's shared memory (the forward's is smaller).
+    cait_s_24 at 224 px (T = 196, 8 heads of 48) takes 88 KB; every
+    registered CaiT passes, cait_m_* (16 heads, 175 KB) included."""
+    return (
+        1 <= t <= MAX_SEQ and 1 <= s <= MAX_SEQ and 1 <= n_heads <= MAX_HEADS
+        and head_dim in HEAD_DIMS and _bwd_smem_bytes(s, n_heads, head_dim) <= SMEM_LIMIT
+    )
+
+
+class MixGrads(NamedTuple):
+    """Gradients of the pre-softmax mix (ml, mlb) and the post-softmax mix
+    (mw, mwb), f32."""
+
+    ml: Tensor
+    mlb: Tensor
+    mw: Tensor
+    mwb: Tensor
+
+
+def _heads(t: Tensor, n_heads: int) -> Tensor:
+    """(B, T, N·H) → (B, N, T, H) f32."""
+    B, T, D = t.shape
+    return t.float().reshape(B, T, n_heads, D // n_heads).transpose(1, 2)
+
+
+def _merge(t: Tensor, dtype: torch.dtype) -> Tensor:
+    """(B, N, T, H) → (B, T, N·H) in ``dtype``."""
+    B, N, T, H = t.shape
+    return t.transpose(1, 2).reshape(B, T, N * H).to(dtype)
+
+
+def _mix(w: Tensor, x: Tensor, b: Tensor | None = None) -> Tensor:
+    """Σ_h w[g, h]·x[:, h] (+ b[g]) over the heads axis of (B, N, T, S)."""
+    out = torch.einsum("gh,bhts->bgts", w.float(), x)
+    return out if b is None else out + b.float()[:, None, None]
+
+
+def _forward_plain(q, k, v, ml, mlb, mw, mwb):
+    """The forward's raw logits, probabilities, mixed probabilities (N
+    heads, (B, N, T, S)) and q·scale, f32."""
+    n = ml.shape[0]
+    qs = _heads(q, n) * (q.shape[-1] // n) ** -0.5
+    raw = qs @ _heads(k, n).transpose(-1, -2)
+    p = torch.softmax(_mix(ml, raw, mlb), dim=-1)
+    return raw, p, _mix(mw, p, mwb), qs
+
+
+def talking_head_plain(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
+                       mwb: Tensor) -> Tensor:
+    """Plain PyTorch version of the forward kernel, same rounding points."""
+    _, _, pw, _ = _forward_plain(q, k, v, ml, mlb, mw, mwb)
+    return _merge(pw @ _heads(v, ml.shape[0]), q.dtype)
+
+
+def talking_head_bwd_plain(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
+                           mwb: Tensor, dout: Tensor) -> tuple[Tensor, Tensor, Tensor, MixGrads]:
+    """Plain PyTorch version of the backward kernel (recompute, then the
+    gradients), same rounding points: (dq, dk, dv, mix gradients)."""
+    n = ml.shape[0]
+    scale = (q.shape[-1] // n) ** -0.5
+    raw, p, pw, qs = _forward_plain(q, k, v, ml, mlb, mw, mwb)
+    go = _heads(dout, n)
+    dv = pw.transpose(-1, -2) @ go
+    dmixw = go @ _heads(v, n).transpose(-1, -2)
+    dmw = torch.einsum("bgts,bhts->gh", dmixw, p)
+    dp = _mix(mw.t(), dmixw)
+    dmixl = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dml = torch.einsum("bgts,bhts->gh", dmixl, raw)
+    draw = _mix(ml.t(), dmixl)
+    dq = (draw @ _heads(k, n)) * scale
+    dk = draw.transpose(-1, -2) @ qs
+    grads = MixGrads(dml, dmixl.sum((0, 2, 3)), dmw, dmixw.sum((0, 2, 3)))
+    return _merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype), grads
+
+
+def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor, n_heads: int) -> None:
+    B, T, D = q.shape
+    if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
+        raise TypeError("talking_head_attention: q, k and v must share one type, float32 or "
+                        f"bfloat16; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[2] != D or D % n_heads:
+        raise ValueError(f"talking_head_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit {n_heads} heads")
+    if not use_talking_head_kernel(T, k.shape[1], n_heads, D // n_heads):
+        raise ValueError(f"talking_head_attention: no CUDA kernel for t={T}, s={k.shape[1]}, "
+                         f"n_heads={n_heads}, head_dim={D // n_heads}; gate calls with "
+                         "use_talking_head_kernel()")
+
+
+def _mix_buffer(ml: Tensor, mlb: Tensor, mw: Tensor, mwb: Tensor) -> Tensor:
+    """ml, mlb, mw, mwb flattened into one contiguous f32 buffer, the
+    kernels' layout."""
+    return torch.cat([t.float().reshape(-1) for t in (ml, mlb, mw, mwb)])
+
+
+def talking_head_cuda(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
+                      mwb: Tensor) -> Tensor:
+    """Launch ``csrc/talking_head.cu`` on the current stream."""
+    n = ml.shape[0]
+    _check_cuda_args(q, k, v, n)
+    B, T, D = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    mix = _mix_buffer(ml, mlb, mw, mwb)
+    out = torch.empty_like(q)
+    if q.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        err = _cuda.lib().vtt_talking_head_fwd(
+            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), int(q.dtype == torch.bfloat16),
+            _cuda.ptr(mix), _cuda.ptr(out), B, T, k.shape[1], n, D // n,
+            float((D // n) ** -0.5), _cuda.stream(),
+        )
+        _cuda.check(err, "talking_head_attention")
+    _cuda.LAUNCHES["talking_head"] += 1
+    return out
+
+
+def talking_head_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
+                          mwb: Tensor, dout: Tensor) -> tuple[Tensor, Tensor, Tensor, MixGrads]:
+    """Launch ``csrc/talking_head_bwd.cu`` on the current stream."""
+    n = ml.shape[0]
+    _check_cuda_args(q, k, v, n)
+    if dout.shape != q.shape or dout.dtype != q.dtype:
+        raise ValueError("talking_head_attention backward: dout must match q in shape and type")
+    B, T, D = q.shape
+    S, dev = k.shape[1], q.device
+    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    mix = _mix_buffer(ml, mlb, mw, mwb)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dmix = torch.zeros(2 * n * n + 2 * n, device=dev)
+    if q.numel() > 0:
+        rows = _cuda.lib().vtt_talking_head_rows(S, n, D // n, 1)
+        pw = torch.empty(B, n, T, S, device=dev)  # mixed probabilities and logit gradients,
+        draw = torch.empty(B, n, T, S, device=dev)  # summed over query rows by the key pass
+        partials = torch.empty(B * -(-T // rows), dmix.numel(), device=dev)
+        with torch.cuda.device(dev):
+            err = _cuda.lib().vtt_talking_head_bwd(
+                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(dout),
+                int(q.dtype == torch.bfloat16), _cuda.ptr(mix), _cuda.ptr(dq), _cuda.ptr(dk),
+                _cuda.ptr(dv), _cuda.ptr(pw), _cuda.ptr(draw), _cuda.ptr(partials),
+                _cuda.ptr(dmix), B, T, S, n, D // n, float((D // n) ** -0.5), _cuda.stream(),
+            )
+            _cuda.check(err, "talking_head_attention backward")
+        _cuda.LAUNCHES["talking_head_bwd"] += 1
+    sizes = (n * n, n, n * n, n)
+    dml, dmlb, dmw, dmwb = dmix.split(sizes)
+    return dq, dk, dv, MixGrads(dml.reshape(n, n), dmlb, dmw.reshape(n, n), dmwb)
+
+
+class TalkingHeadFunction(torch.autograd.Function):
+    """Differentiable talking-head attention: the kernels on CUDA tensors,
+    the plain versions on CPU tensors or with ``plain``. Gradients for q, k,
+    v and the four mix parameters (in their dtypes)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, ml, mlb, mw, mwb, plain):
+        fwd = talking_head_plain if plain or not q.is_cuda else talking_head_cuda
+        ctx.save_for_backward(q, k, v, ml, mlb, mw, mwb)
+        ctx.plain = plain
+        return fwd(q, k, v, ml, mlb, mw, mwb)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, ml, mlb, mw, mwb = ctx.saved_tensors
+        bwd = talking_head_bwd_plain if ctx.plain or not dout.is_cuda else talking_head_bwd_cuda
+        dq, dk, dv, g = bwd(q, k, v, ml, mlb, mw, mwb, dout.to(q.dtype))
+        return (dq, dk, dv, g.ml.to(ml.dtype), g.mlb.to(mlb.dtype), g.mw.to(mw.dtype),
+                g.mwb.to(mwb.dtype), None)
+
+
+@torch.library.custom_op("vtt::talking_head_attention", mutates_args=(), device_types="cpu")
+def _talking_head_op(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
+                     mwb: Tensor) -> Tensor:
+    return talking_head_plain(q, k, v, ml, mlb, mw, mwb)
+
+
+_talking_head_op.register_kernel("cuda")(talking_head_cuda)
+
+
+@_talking_head_op.register_fake
+def _(q, k, v, ml, mlb, mw, mwb):
+    return torch.empty_like(q)
+
+
+def talking_head_attention(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
+                           mwb: Tensor, *, plain: bool = False) -> Tensor:
+    """Talking-head attention; q: (B, T, N·H), k/v: (B, S, N·H), ml/mw:
+    (N, N), mlb/mwb: (N,). Returns (B, T, N·H) in q's type. Differentiable;
+    ``plain`` runs the plain PyTorch versions on any device (for checking
+    the kernels)."""
+    args = (q, k, v, ml, mlb, mw, mwb)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in args):
+        return TalkingHeadFunction.apply(*args, plain)
+    if plain:
+        return talking_head_plain(*args)
+    return _talking_head_op(*args)

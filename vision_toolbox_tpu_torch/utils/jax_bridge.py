@@ -9,10 +9,13 @@ for the port's module of the same name, with each layout fixed once here:
 - ``<conv>/kernel`` HWIO → ``<conv>.weight`` OIHW;
 - LayerNorm and BatchNorm ``scale`` → ``weight``;
 - BatchNorm statistics ``mean`` → ``running_mean``, ``var`` → ``running_var``;
-- ``block_<i>`` → ``blocks.<i>``;
+- ``block_<i>`` → ``blocks.<i>``, CaiT's ``sa_block_<i>`` → ``sa_blocks.<i>``
+  and ``ca_block_<i>`` → ``ca_blocks.<i>``;
 - everything else (``bias``, ``pe``, ``cls_token``, DeiT's ``dist_token``,
   ``gamma``, ``probe``, ``stem``, ``stage_<i>``, ``conv1``/``conv2``/
-  ``out_conv``, ``norm``, ``head``, ``backbone``) keeps its name and layout.
+  ``out_conv``, ``norm``, ``head``, ``backbone``, and CaiT's (H, H) head
+  mixes ``proj_l_kernel``/``proj_w_kernel`` with their biases, which are no
+  Dense kernels: ``mix[g, h]`` on both sides) keeps its name and layout.
 """
 
 from __future__ import annotations
@@ -23,7 +26,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-_BLOCK = re.compile(r"^block_(\d+)$")
+_BLOCK = re.compile(r"^((?:sa_|ca_)?block)_(\d+)$")
 _RENAMED = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
@@ -36,7 +39,7 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
 
 
 def _convert(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
-    parts = [f"blocks.{m.group(1)}" if (m := _BLOCK.match(p)) else p for p in path]
+    parts = [f"{m.group(1)}s.{m.group(2)}" if (m := _BLOCK.match(p)) else p for p in path]
     leaf = parts[-1]
     if leaf == "kernel":
         parts[-1] = "weight"
