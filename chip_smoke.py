@@ -31,7 +31,18 @@ sm_90a, one process per source) and drives the port's paths:
   at bs128@224 with ViT's recipe for 3 warm-up and 10 timed steps, then
   one step through the kernels against one through the plain versions and
   an f32 reference. CaiT's LayerScale γs are spread around 0.1 on both
-  paths: at their init, 1e-6, every residual branch rounds away in bf16.
+  paths: at their init, 1e-6, every residual branch rounds away in bf16;
+- SigLIP at 512 px (slice 5): holds the flash-attention kernels (K6 forward,
+  with and without a bias, and backward) against their plain versions at
+  the siglip vit_b_16 shapes (T = S = 1024, 12 heads of 64) and others, f32
+  and bf16, times both and torch's scaled_dot_product_attention (the
+  library yardstick, used nowhere in the port) at batch 32 and reads K6's
+  peak extra memory there, serves a seeded bf16 vit_b_16 SigLIP at 512 px
+  (its position table carried from 224 px by ``resize_pe``; eager vs plain
+  path, then export → load → requests at batch 1, 8 and 32), runs its
+  train step at bs64@512 with ViT's recipe for 3 warm-up and 10 timed
+  steps, and one step at bs8 through the kernels against one through the
+  plain versions and an f32 reference.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -96,6 +107,16 @@ KERNELS = {
         "source": "vision_toolbox_tpu_torch/csrc/talking_head_bwd.cu",
         "replaces": "vision_toolbox_tpu/ops/cait_attention.py:205",
     },
+    "flash_attention": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/flash_attention.cu",
+        "replaces": "vision_toolbox_tpu/ops/flash_attention.py:120",
+    },
+    "flash_attention_bwd": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "vision_toolbox_tpu/ops/flash_attention.py:226",
+    },
 }
 SERVE_KERNELS = ("block_mlp", "block_attention")
 BLOCK_KERNELS = ("block_mlp", "block_attention", "block_mlp_bwd", "block_attention_bwd")
@@ -111,7 +132,26 @@ TALKING_HEAD_CASES = ((8, 196, 196, 8, 48), (128, 196, 196, 8, 48), (4, 196, 196
 CAIT_LAYER_SCALE = 0.1
 CAIT_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
                   layer_scale=CAIT_LAYER_SCALE)
+# vit_b_16 SigLIP at 512 px: no cls token, MAP head, T = (512 / 16)² = 1024
+SIGLIP = dict(img_size=512, weights="siglip")
+SIGLIP_HEADS, SIGLIP_T = 12, 1024
+# K6 cases (B, N, T, S, head width, dtype, biased): siglip at batch 8 and 32,
+# one f32 shape, a ragged T ≠ S straight through the op, head widths 128
+# and 80 (vit_h_14's)
+FLASH_CASES = ((8, 12, 1024, 1024, 64, torch.bfloat16, True),
+               (32, 12, 1024, 1024, 64, torch.bfloat16, False),
+               (2, 12, 1024, 1024, 64, torch.float32, True),
+               (2, 4, 1000, 1100, 64, torch.bfloat16, True),
+               (2, 8, 1024, 1024, 128, torch.bfloat16, True),
+               (2, 16, 1024, 1024, 80, torch.bfloat16, False))
+FLASH_TIME_BATCH = 32
+SIGLIP_TRAIN = dict(batch=64, img=512, classes=1000, warmup=3, steps=10, lr=0.1,
+                    compare_batch=8)
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
+# K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
+# so it is held closer (measured 1.07e-5); a control that rounds p and ds to
+# bf16 once, as a one-plane kernel would, must fail this bound
+FLASH_BOUND = BOUND | {torch.float32: 1e-4}
 VIT_B = dict(D=768, H=12, Dh=3072)
 SERVE_BATCHES = (1, 8, 32)
 REL_L2_BOUND = 1e-2
@@ -485,13 +525,14 @@ class Checks:
     def __init__(self):
         self.rows: list[dict] = []
 
-    def elementwise(self, case: dict, name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    def elementwise(self, case: dict, name: str, got: torch.Tensor, want: torch.Tensor,
+                    bounds: dict = BOUND) -> float:
         err = (got.float() - want.float()).abs().max().item()
         scale = want.float().abs().max().item()
         ok = (got.shape == want.shape and bool(torch.isfinite(got.float()).all())
-              and err <= BOUND[want.dtype] * scale)
+              and err <= bounds[want.dtype] * scale)
         self.rows.append(dict(**case, tensor=name, max_abs_err=err, rel=err / max(scale, 1e-30),
-                              bound=BOUND[want.dtype], ok=ok))
+                              bound=bounds[want.dtype], ok=ok))
         return err
 
     def reduced(self, case: dict, name: str, got: torch.Tensor, want: torch.Tensor,
@@ -689,14 +730,17 @@ def train_cait(report: dict, name_power: str) -> dict[str, int]:
 
 
 def train_transformer(report: dict, key: str, name: str, cfg: dict, per_step: dict[str, int],
-                      watched: tuple[str, ...], name_power: str) -> dict[str, int]:
-    """The transformer train step of ``name`` at ``cfg``'s batch and size:
-    warm-up and timed steps with each kernel launched ``per_step`` times a
-    step, then one step through the kernels against one through the plain
-    versions (``kernel_vs_plain_step``). Returns the launches of the run."""
+                      watched: tuple[str, ...], name_power: str,
+                      **model_kw) -> dict[str, int]:
+    """The transformer train step of ``name`` (built with ``model_kw``) at
+    ``cfg``'s batch and size: warm-up and timed steps with each kernel
+    launched ``per_step`` times a step, then one step through the kernels
+    against one through the plain versions (``kernel_vs_plain_step``), on
+    the first ``cfg["compare_batch"]`` images where given. Returns the
+    launches of the run."""
     from vision_toolbox_tpu_torch.ops import _cuda
 
-    state, step, images, labels, g = vit_step_parts(name, cfg)
+    state, step, images, labels, g = vit_step_parts(name, cfg, **model_kw)
     model, B, tag = state.model, cfg["batch"], key.replace("_", "-")
     assert next(model.parameters()).is_cuda, "the default device is the card"
     n_params = sum(p.numel() for p in model.parameters())
@@ -740,13 +784,16 @@ def train_transformer(report: dict, key: str, name: str, cfg: dict, per_step: di
 
     # one step through the kernels vs one through the plain
     # versions, from the seeded initial state and one set of draws
+    n = cfg.get("compare_batch", B)
+    images, labels = images[:n], labels[:n]
     draws = step.sample_draws(g, tuple(images.shape))
-    res = kernel_vs_plain_step(name, cfg, initial, step, images, labels, draws)
+    res = kernel_vs_plain_step(name, cfg, initial, step, images, labels, draws, **model_kw)
     report[f"{key}_vs_plain"] = res
     loss_rel = abs(res["loss_kernel"] - res["loss_plain"]) / abs(res["loss_plain"])
     worst = sorted(res["grads"].items(), key=lambda kv: -kv[1]["kernel_vs_plain"])[:4]
     wide = {n: r for n, r in res["grads"].items() if r["bound"] > GRAD_REL_L2}
-    log(f"[{tag}] kernel vs plain path, one step from the seeded state and one set of draws: "
+    log(f"[{tag}] kernel vs plain path, one step at bs{n} from the seeded state and one set of "
+        "draws: "
         f"loss {res['loss_kernel']:.6f} vs {res['loss_plain']:.6f}, rel {loss_rel:.3e} (bound "
         f"{LOSS_REL_BOUND}); gradient rel L2, worst of {len(res['grads'])}: "
         f"{[(n, '%.2e' % r['kernel_vs_plain'], 'bound %.2e' % r['bound']) for n, r in worst]}")
@@ -776,11 +823,13 @@ def zero_gradient_ref(name: str) -> str | None:
     return None
 
 
-def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draws) -> dict:
+def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draws,
+                         **model_kw) -> dict:
     """One step through the kernels and one through the plain versions, each
     from a copy of ``state``, and the f32 reference gradient: the same model
     in f32 on the unfused module chain, CaiT's talking-head attention through
-    its plain f32 version (no bf16 rounding, TF32 off). Every
+    its plain f32 version and flash attention through its plain version (no
+    bf16 rounding, TF32 off). Every
     parameter's gradient is held to rel L2 ≤ GRAD_REL_L2 against the plain
     path's, or to twice the plain path's own bf16 error where that is larger:
     the softmax backward rounds ds to bf16, and where the keys (queries) of a
@@ -795,7 +844,7 @@ def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draw
     states = [copy.deepcopy(state) for _ in range(2)]
     backbone = states[1].model.backbone
     backbone.forward = functools.partial(type(backbone).forward, backbone, plain=True)
-    ref_backbone = vtt.create_backbone(name)  # f32 compute
+    ref_backbone = vtt.create_backbone(name, **model_kw)  # f32 compute
     ref_model = ImageClassifier(ref_backbone, cfg["classes"])
     ref_model.load_state_dict(state.model.state_dict())
     ref_backbone.forward = functools.partial(type(ref_backbone).forward, ref_backbone,
@@ -992,6 +1041,266 @@ def serve_cait(report: dict, name_power: str) -> int:
     return launches["talking_head"]
 
 
+def flash_work(name: str, BN: int, T: int, S: int, H: int, x_bytes: int) -> tuple[float, float]:
+    """(product operations, bytes) of one K6 call on (B·N, T, H) operands:
+    the forward's q·kᵀ and p·v; the backward's five products (the
+    recomputed logits, g·vᵀ, dv, dk, dq). Bytes: q, k, v (and out, g) in,
+    out (dq, dk, dv) out, lse f32."""
+    if name == "flash_attention":
+        return 4 * BN * T * S * H, (2 * T + 2 * S) * BN * H * x_bytes + 4 * BN * T
+    return 10 * BN * T * S * H, (4 * T + 4 * S) * BN * H * x_bytes + 4 * BN * T
+
+
+def flash_args(g, BN: int, T: int, S: int, H: int, dtype, biased: bool):
+    """q (BN, T, H), k and v (BN, S, H) in ``dtype``, an f32 (BN, T, S) bias
+    or None, and a cotangent like q, all on the card."""
+    r = lambda *s: torch.randn(s, generator=g)
+    q, k, v = (r(BN, n, H).to("cuda", dtype) for n in (T, S, S))
+    bias = r(BN, T, S).cuda() if biased else None
+    return q, k, v, bias, r(BN, T, H).to("cuda", dtype)
+
+
+def flash_one_plane(q, k, v, g) -> tuple[torch.Tensor, ...]:
+    """The control for K6's f32 bound: the plain forward and backward with
+    p and ds rounded to bf16 once before their products, as a kernel that
+    kept them in one bf16 plane would compute; every other value f32.
+    (out, dq, dk, dv) on f32 (B·N, T, H) operands."""
+    one = lambda x: x.bfloat16().float()
+    qs = q * q.shape[-1] ** -0.5
+    logits = qs @ k.transpose(-1, -2)
+    m = logits.amax(-1, keepdim=True)
+    p = torch.exp(logits - m)
+    l = p.sum(-1, keepdim=True)
+    out = (one(p) @ v) / l
+    p = p / l  # exp(logits − lse)
+    ds = p * (g @ v.transpose(-1, -2) - (g * out).sum(-1, keepdim=True))
+    return out, one(ds) @ k * q.shape[-1] ** -0.5, one(ds).transpose(-1, -2) @ qs, \
+        one(p).transpose(-1, -2) @ g
+
+
+def compare_flash(report: dict) -> dict[str, float]:
+    """Phase 17, part 1: K6 forward (out and lse; with a bias where the case
+    has one) and backward (dq, dk, dv) vs their plain versions at
+    FLASH_CASES. Tensors by max abs error against FLASH_BOUND·max|plain|,
+    the gradients also by rel L2 ≤ BWD_REL_L2. At the f32 case the one-plane
+    control (``flash_one_plane``) must fail FLASH_BOUND on out, dq, dk and
+    dv: the bound tells a kernel that keeps p and ds in f32 from one that
+    rounds them to bf16 once. Returns the forward's and the backward's
+    (worst of dq, dk, dv) max abs error at the timed case (siglip, batch
+    FLASH_TIME_BATCH, bf16)."""
+    from vision_toolbox_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(17)
+    checks, main_err, control = Checks(), {}, {}
+    check = lambda case, name, got, want: checks.elementwise(case, name, got, want, FLASH_BOUND)
+    for B, N, T, S, H, dtype, biased in FLASH_CASES:
+        q, k, v, bias, dout = flash_args(g, B * N, T, S, H, dtype, biased)
+        case = dict(kernel="flash_attention", B=B, N=N, T=T, S=S, H=H,
+                    dtype=str(dtype).split(".")[-1])
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v)
+        err = check(case, "out", out, want_out)
+        check(case, "lse", lse, want_lse)
+        if biased:
+            got_b, want_b = fa.flash_attention_cuda(q, k, v, bias), fa.flash_attention_plain(
+                q, k, v, bias)
+            check(case, "out (biased)", got_b[0], want_b[0])
+            check(case, "lse (biased)", got_b[1], want_b[1])
+            del got_b, want_b, bias
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        errs = [check(case, n, a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)]
+        for n, a, b in zip(("dq", "dk", "dv"), got, want):
+            checks.reduced(case, f"{n} (rel L2)", a, b)
+        log(f"[flash] B={B:2d} N={N:2d} T={T} S={S} H={H:3d} {case['dtype']:8s} "
+            f"{'biased ' if biased else ''}{checks.summary(case)}")
+        if dtype == torch.float32:
+            ones = flash_one_plane(q, k, v, dout)
+            for n, a, b in zip(("out", "dq", "dk", "dv"), ones, (want_out, *want)):
+                control[n] = (a - b).abs().max().item() / b.abs().max().item()
+            log(f"[flash] one-plane control (p and ds rounded to bf16 once), f32, error / "
+                f"max|plain|: {', '.join(f'{n} {e:.2e}' for n, e in control.items())}; each "
+                f"must exceed the f32 bound {FLASH_BOUND[torch.float32]:.0e}")
+            del ones
+        if (B, dtype) == (FLASH_TIME_BATCH, torch.bfloat16):
+            main_err["flash_attention"], main_err["flash_attention_bwd"] = err, max(errs)
+        del q, k, v, dout, out, lse, got, want, want_out, want_lse
+        torch.cuda.empty_cache()
+    report["compare_flash"] = checks.rows
+    report["flash_one_plane_control"] = control
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K6 comparisons out of bounds: {bad[:8]}")
+    if not control or min(control.values()) <= FLASH_BOUND[torch.float32]:
+        raise AssertionError(f"K6's f32 bound does not refuse the one-plane control: {control}")
+    return main_err
+
+
+def time_flash(report: dict, name_power: str) -> dict[str, tuple[float, float, float]]:
+    """Phase 17, part 2: at siglip's shapes, batch FLASH_TIME_BATCH, bf16, on
+    one set of (B, N, T, H) tensors: K6, its plain version and torch's
+    scaled_dot_product_attention (the library yardstick; the port never
+    calls it), forward alone and forward + backward, in turns; and K6's
+    peak memory beyond its inputs for one forward + backward, held below one
+    bf16 (B, N, T, S) tensor. Returns (kernel, plain, library) ms of the
+    forward and of the backward (forward + backward less the forward)."""
+    import torch.nn.functional as F
+
+    from vision_toolbox_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(18)
+    B, N, T, H = FLASH_TIME_BATCH, SIGLIP_HEADS, SIGLIP_T, 64
+    q, k, v, _, dout = flash_args(g, B * N, T, T, H, torch.bfloat16, False)
+    as_bnth = lambda t: t.view(B, N, T, H)  # SDPA's layout, the same memory
+
+    def kernel_fb():
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+
+    def plain_fb():
+        out, lse = fa.flash_attention_plain(q, k, v)
+        fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+
+    leaves = [as_bnth(t).detach().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fb():
+        out = F.scaled_dot_product_attention(*leaves)
+        torch.autograd.grad(out, leaves, as_bnth(dout))
+
+    rows = {}
+    for what, plain, kernel, library in (
+        ("forward", lambda: fa.flash_attention_plain(q, k, v),
+         lambda: fa.flash_attention_cuda(q, k, v),
+         lambda: F.scaled_dot_product_attention(*map(as_bnth, (q, k, v)))),
+        ("forward+backward", plain_fb, kernel_fb, sdpa_fb),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=10)
+        library_ms = time_ms(library, iters=10)
+        rows[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+        log(f"[flash-time] {what:16s} B={B} N={N} T=S={T} H={H} bf16: kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  scaled_dot_product_attention {library_ms:.4f} ms  [{name_power}]")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kernel_fb()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    scores = B * N * T * T * 2
+    log(f"[flash-time] K6 forward + backward at B={B}: peak memory beyond its inputs "
+        f"{peak / 1e6:.1f} MB (one bf16 (B, N, T, S) tensor: {scores / 1e6:.1f} MB)")
+    report["flash_times"] = dict(rows, peak_extra_bytes=peak, scores_bytes=scores)
+    if not peak < scores:
+        raise AssertionError(f"K6 forward + backward took {peak} bytes, a (B, N, T, S) tensor "
+                             f"is {scores}")
+    f, fb = rows["forward"], rows["forward+backward"]
+    return {"flash_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
+            "flash_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
+                                                                      "library_ms"))}
+
+
+def serve_siglip(report: dict, name_power: str) -> int:
+    """Phase 18: a seeded bf16 vit_b_16 SigLIP at 512 px whose position
+    table is a 224 px one carried over by ``resize_pe``: eager through the
+    kernels (12 K6 and 12 K3 forward launches per forward) against its plain
+    versions (logits rel L2 ≤ REL_L2_BOUND or twice the plain bf16 path's
+    own distance from an f32 forward of the same weights), then served:
+    export (12 ``vtt::flash_attention`` calls in the program, no backward
+    op) → load → three requests at each of SERVE_BATCHES, each against eager
+    and launching no backward kernel. Returns K6's launches in the served
+    requests."""
+    import io
+
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.models.vit import resize_pe
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.utils.export import export_model
+
+    gen = lambda: torch.Generator().manual_seed(0)
+    model = vtt.create_backbone("vit_b_16", dtype=torch.bfloat16, generator=gen(), **SIGLIP)
+    table = vtt.create_backbone("vit_b_16", weights="siglip", generator=gen()).pe  # 224 px
+    with torch.no_grad():
+        model.pe.copy_(resize_pe(table, 512, 16))
+    model.eval()
+    depth, width = len(model.blocks), model.last_out_channels
+    per_forward = NO_LAUNCHES | {"flash_attention": depth, "block_mlp": depth}
+    images = torch.rand(32, 512, 512, 3, generator=torch.Generator().manual_seed(1)).cuda()
+    ref = vtt.create_backbone("vit_b_16", **SIGLIP)  # f32 compute, the same weights
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        _cuda.reset_launch_counts()
+        logits = model(images[:8])
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        plain_logits = model(images[:8], plain=True)
+        f32_logits = ref(images[:8], force_unfused=True, plain=True)
+    err, own = rel_l2(logits, plain_logits), rel_l2(plain_logits, f32_logits)
+    bound = max(REL_L2_BOUND, 2 * own)
+    log(f"[siglip-serve] vit_b_16 siglip@512 (pe from 224 px by resize_pe) bf16 bs8 forward: "
+        f"launches {counts}; logits kernel vs plain path rel L2 {err:.3e} (bound {bound:.3e}: "
+        f"the plain bf16 path is {own:.3e} from the f32 reference; the kernel path "
+        f"{rel_l2(logits, f32_logits):.3e})")
+    if counts != per_forward:
+        raise AssertionError(f"expected {per_forward}, got {counts}")
+    if logits.shape != (8, width) or not torch.isfinite(logits.float()).all() \
+            or not err <= bound:
+        raise AssertionError(f"siglip logits: shape {tuple(logits.shape)}, rel L2 {err}")
+    del ref
+
+    t0 = time.perf_counter()
+    blob = export_model(model, (8, 512, 512, 3))
+    program = torch.export.load(io.BytesIO(blob))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    n_flash = targets.count("vtt.flash_attention.default")
+    backward_ops = [t for t in targets if "bwd" in t or "backward" in t]
+    served = program.module()
+    log(f"[siglip-serve] export+load {time.perf_counter() - t0:.1f} s, artifact "
+        f"{len(blob) / 2**20:.1f} MiB; the program calls vtt::flash_attention {n_flash} times, "
+        f"backward ops {backward_ops}")
+    if n_flash != depth or backward_ops:
+        raise AssertionError(f"exported program: {n_flash} flash calls, backward {backward_ops}")
+    with torch.inference_mode():
+        eager = {b: model(images[:b]) for b in SERVE_BATCHES}
+        _cuda.reset_launch_counts()
+        answers = {b: [served(images[:b]) for _ in range(3)] for b in SERVE_BATCHES}
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    n_forwards = 3 * len(SERVE_BATCHES)
+    log(f"[siglip-serve] {n_forwards} requests at batch {SERVE_BATCHES}: launches {launches}")
+    if launches != {k: n_forwards * v for k, v in per_forward.items()}:
+        raise AssertionError(f"served path launched {launches}, expected {n_forwards}× "
+                             f"{per_forward}")
+    rows = []
+    for b in SERVE_BATCHES:
+        for out in answers[b]:
+            e = rel_l2(out, eager[b])
+            if out.shape != (b, width) or not torch.isfinite(out.float()).all() or e > 1e-3:
+                raise AssertionError(f"served batch {b} disagrees with eager: rel L2 {e}")
+        with torch.inference_mode():
+            ms = time_ms(lambda: served(images[:b]), iters=10)
+        rows.append(dict(batch=b, ms_per_batch=ms, rel_l2_vs_eager=e))
+        log(f"[siglip-serve] batch {b:2d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
+            f"rel L2 vs eager {e:.2e}  [{name_power}]")
+    report["siglip_serve"] = dict(launches_per_forward=counts, rel_l2_vs_plain=err,
+                                  plain_vs_f32=own, bound=bound, requests=rows)
+    return launches["flash_attention"]
+
+
+def train_siglip(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 19: the vit_b_16 SigLIP step at bs64@512 with ViT's recipe, 3
+    warm-up + 10 timed steps, each of the 12 blocks through K6 and K3
+    forward and backward; then phase 20, one step at bs8 through the kernels
+    against one through the plain versions and an f32 reference."""
+    watched = ("head.weight", "backbone.pe", "backbone.blocks.0.mha.q_proj.weight",
+               "backbone.blocks.11.mlp.linear2.bias", "backbone.pooler.probe",
+               "backbone.pooler.mha.k_proj.weight")
+    per_step = NO_LAUNCHES | dict.fromkeys(
+        ("flash_attention", "flash_attention_bwd", "block_mlp", "block_mlp_bwd"), 12)
+    return train_transformer(report, "siglip_train", "vit_b_16", SIGLIP_TRAIN, per_step, watched,
+                             name_power, **SIGLIP)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1108,6 +1417,14 @@ def main() -> int:
     launches["talking_head"] = serve_cait(report, name_power)
     launches["talking_head_bwd"] = train_cait(report, name_power)["talking_head_bwd"]
 
+    # phases 17-20: SigLIP at 512 px, serving and training
+    with torch.no_grad():
+        errors |= compare_flash(report)
+    flash_times = time_flash(report, name_power)
+    times |= {k: t[:2] for k, t in flash_times.items()}
+    launches["flash_attention"] = serve_siglip(report, name_power)
+    launches["flash_attention_bwd"] = train_siglip(report, name_power)["flash_attention_bwd"]
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
@@ -1118,13 +1435,16 @@ def main() -> int:
         "warp_shear3": (0.0, 2 * TRAIN["batch"] * TRAIN["img"] ** 2 * 3 * 4),
         "talking_head": talking_head_work("talking_head", B128, **cait),
         "talking_head_bwd": talking_head_work("talking_head_bwd", B128, **cait),
+        **{k: flash_work(k, FLASH_TIME_BATCH * SIGLIP_HEADS, SIGLIP_T, SIGLIP_T, 64, 2)
+           for k in ("flash_attention", "flash_attention_bwd")},
     }
     kernels = []
     for k in KERNELS:
         bound_ms, bound_by = bound(*work[k])
         kernels.append(dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errors[k],
                             ms=times[k][0], plain_ms=times[k][1], bound_ms=bound_ms,
-                            bound_by=bound_by, library_ms=None))
+                            bound_by=bound_by,
+                            library_ms=flash_times[k][2] if k in flash_times else None))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,14 +1,17 @@
 """Where the time of the port's transformer train step goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24]
+    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512]
 
 Builds the step of one of ``chip_smoke.py``'s transformer-training phases
-(vit_b_16 by default, or cait_s_24; bs128@224, bf16 compute, f32 parameters,
+(vit_b_16 by default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px
+with its MAP head and no cls token, bs64@512; bf16 compute, f32 parameters,
 CutMix⊕MixUp, label smoothing 0.1, SGD momentum 0.9 with weight decay 2e-5
 in three groups) and its warm-up and timed step counts, times it unprofiled
 with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
 steps with ``torch.profiler`` and sums the device kernels by class:
 
+- flash-attention kernels (SigLIP at 512 px): the K6 forward, and the K6
+  backward's delta, dK/dV and dQ kernels;
 - talking-head kernels (CaiT): the K5 forward, and the K5 backward's row
   pass, key pass and mix-gradient sum;
 - forward kernels: the K3/K4 forward (the GEMM template with the weight
@@ -55,6 +58,9 @@ def _gemm_layout(name: str) -> str | None:
 
 
 CLASSES = (
+    ("flash-attention forward (K6 fwd)", lambda n: "flash_fwd_kernel" in n),
+    ("flash-attention backward (K6 bwd)", lambda n: any(
+        k in n for k in ("flash_delta_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))),
     ("talking-head forward (K5 fwd)", lambda n: "th_fwd_kernel" in n),
     ("talking-head backward (K5 bwd)", lambda n: any(
         k in n for k in ("th_bwd_rows_kernel", "th_bwd_keys_kernel", "th_param_reduce_kernel"))),
@@ -111,13 +117,16 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    model = sys.argv[1] if len(sys.argv) > 1 else "vit_b_16"
-    configs = {"vit_b_16": chip_smoke.VIT_TRAIN, "cait_s_24": chip_smoke.CAIT_TRAIN}
-    if model not in configs:
+    tag = sys.argv[1] if len(sys.argv) > 1 else "vit_b_16"
+    # name → (backbone, phase config, backbone options)
+    configs = {"vit_b_16": ("vit_b_16", chip_smoke.VIT_TRAIN, {}),
+               "cait_s_24": ("cait_s_24", chip_smoke.CAIT_TRAIN, {}),
+               "vit_b_16_siglip512": ("vit_b_16", chip_smoke.SIGLIP_TRAIN, chip_smoke.SIGLIP)}
+    if tag not in configs:
         print(f"profile_torch_vit_train: model must be one of {sorted(configs)}", file=sys.stderr)
         return 2
-    cfg = configs[model]
-    state, step, images, labels, g = chip_smoke.vit_step_parts(model, cfg)
+    model, cfg, model_kw = configs[tag]
+    state, step, images, labels, g = chip_smoke.vit_step_parts(model, cfg, **model_kw)
     for _ in range(cfg["warmup"]):
         step(state, images, labels, g)
     torch.cuda.synchronize()
@@ -146,7 +155,7 @@ def main() -> int:
 
     window /= PROFILED_STEPS
     result = dict(
-        card=card, model=model, batch=cfg["batch"], img=cfg["img"],
+        card=card, model=tag, batch=cfg["batch"], img=cfg["img"],
         ms_per_step_events=ms_events, ms_per_step_host=ms_host,
         img_per_s=cfg["batch"] / ms_events * 1e3,
         profiled_window_ms=window, kernel_ms=total, idle_share=1 - total / window,
@@ -154,7 +163,7 @@ def main() -> int:
         input_pipeline_ms=pipeline,
         top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:25]),
     )
-    print(f"{model} bs{cfg['batch']}@{cfg['img']} train step [{card}]: {ms_events:.2f} ms/step "
+    print(f"{tag} bs{cfg['batch']}@{cfg['img']} train step [{card}]: {ms_events:.2f} ms/step "
           f"(events, {n} steps; host {ms_host:.2f}), {result['img_per_s']:.1f} img/s")
     print(f"profiled: window {window:.2f} ms/step, kernels {total:.2f} ms/step, idle share "
           f"{result['idle_share']:.3f}")
@@ -165,7 +174,7 @@ def main() -> int:
         print(f"    {ms:8.3f} ms  {name[:110]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / f"profile_{model.split('_')[0]}_train.json").write_text(json.dumps(result, indent=1))
+    (out / f"profile_{tag}_train.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({k: v for k, v in result.items() if k != "top_kernels_ms"}))
     return 0
 

@@ -18,7 +18,12 @@ every value with the same f32 operations as its plain version: max abs error
 ≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) compute
 in f32 like their plain versions and are held to the same bounds; their
 pre-softmax bias gradient, zero in exact arithmetic, against the
-pre-softmax mix's.
+pre-softmax mix's. The flash-attention kernels (K6) compute in f32 from the
+inputs like their plain versions (their products on the tensor cores with
+exact operands) and are held to the bf16 bound and, in f32, to
+1e-4·max|plain|, which a kernel that rounds p or ds to bf16 once fails; the
+bias is given and not differentiated (its backward is the plain recompute
+on every device).
 """
 
 import pytest
@@ -27,13 +32,18 @@ import torch
 from vision_toolbox_tpu_torch.ops import _cuda
 from vision_toolbox_tpu_torch.ops import block_attention as ba
 from vision_toolbox_tpu_torch.ops import block_mlp as bm
+from vision_toolbox_tpu_torch.ops import attention as attn
 from vision_toolbox_tpu_torch.ops import cait_attention as ca
+from vision_toolbox_tpu_torch.ops import flash_attention as fa
 from vision_toolbox_tpu_torch.ops import trivial_augment as ta
 from vision_toolbox_tpu_torch.ops import warp
 
 pytestmark = pytest.mark.gpu
 
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}
+# K6 in f32: three bf16 planes of every operand keep f32 accuracy (measured
+# 1.07e-5·max|plain| on an H100); p or ds rounded to bf16 once gives 1e-3
+FLASH_BOUND = BOUND | {torch.float32: 1e-4}
 REL_L2 = 1e-2
 
 
@@ -50,10 +60,10 @@ def _rand(g, *shape, scale=1.0, shift=0.0):
     return torch.randn(shape, generator=g) * scale + shift
 
 
-def _check(got, want, dtype=None):
+def _check(got, want, dtype=None, bounds=BOUND):
     assert got.shape == want.shape and got.dtype == want.dtype
     err = (got.float() - want.float()).abs().max().item()
-    assert err <= BOUND[dtype or want.dtype] * want.float().abs().max().item(), err
+    assert err <= bounds[dtype or want.dtype] * want.float().abs().max().item(), err
 
 
 def _check_rel_l2(got, want, what, ref=None):
@@ -339,3 +349,84 @@ def test_cait_builds_on_the_card_and_runs_its_kernels(cuda, name):
     assert out.shape == (2, m.last_out_channels) and torch.isfinite(out.float()).all()
     assert _cuda.LAUNCHES["talking_head"] == depth
     assert _cuda.LAUNCHES["block_mlp"] == (0 if m.d_model % 64 else depth)
+
+
+# K6 (flash attention) on (B·N, T, H): siglip vit_b_16's T = S = 1024 with
+# head 64, a ragged T ≠ S, head widths 128 and 80 (vit_h_14's), a short one
+FLASH_SHAPES = [(4, 1024, 1024, 64), (3, 1000, 1100, 64), (2, 300, 200, 128),
+                (2, 257, 257, 80), (3, 17, 33, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("BN,T,S,H", FLASH_SHAPES)
+@pytest.mark.parametrize("biased", [False, True])
+def test_flash_attention_kernels_match_plain(cuda, dtype, BN, T, S, H, biased):
+    """K6 forward (out and lse) and backward (dq, dk, dv, unbiased) against
+    their plain versions; each wrapper launches its kernels once."""
+    g = torch.Generator().manual_seed(T + S + H)
+    q, k, v = (_rand(g, BN, n, H).to(cuda, dtype) for n in (T, S, S))
+    bias = _rand(g, BN, T, S).to(cuda) if biased else None
+    dout = _rand(g, BN, T, H).to(cuda, dtype)
+    before = dict(_cuda.LAUNCHES)
+    out, lse = fa.flash_attention_cuda(q, k, v, bias)
+    want_out, want_lse = fa.flash_attention_plain(q, k, v, bias)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    _check(out, want_out, bounds=FLASH_BOUND)
+    _check(lse, want_lse, torch.float32, FLASH_BOUND)
+    if biased:
+        return
+    got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention_bwd"] == before["flash_attention_bwd"] + 1
+    for a, b in zip(got, want):
+        _check(a, b, bounds=FLASH_BOUND)
+
+
+def test_flash_attention_on_the_card_never_falls_back(cuda):
+    """At T = 1024 ``dot_product_attention`` launches K6 (forward, and
+    backward under autograd); a K2 shape still raises naming K2; a type the
+    kernels do not take raises."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (_rand(g, 2, 1024, 4, 64).to(cuda, torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    _cuda.reset_launch_counts()
+    attn.dot_product_attention(q, k, v).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["flash_attention_bwd"] == 1
+    short = _rand(g, 8, 197, 12, 64).to(cuda, torch.bfloat16)
+    with pytest.raises(NotImplementedError, match="K2"):
+        attn.dot_product_attention(short, short, short)
+    with pytest.raises(TypeError):
+        fa.flash_attention(*(t.detach().half() for t in (q, k, v)))
+
+
+@pytest.mark.parametrize("head", [72, 256])
+def test_flash_attention_refuses_head_widths_it_lacks(cuda, head):
+    """The gate admits T = 1024 for any head width, as the JAX package's
+    does; on a CUDA tensor a width the kernels lack (72: SigLIP So400m/14 at
+    448 px; 256) raises and never runs the plain version."""
+    x = _rand(torch.Generator().manual_seed(head), 1, 1024, 2, head).to(cuda, torch.bfloat16)
+    _cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match=f"head_dim={head}"):
+        attn.dot_product_attention(x, x, x)
+    assert _cuda.LAUNCHES["flash_attention"] == 0
+
+
+def test_siglip_builds_on_the_card_and_runs_its_kernels(cuda):
+    """vit_b_16 SigLIP at 512 px, bf16: each of its 12 blocks runs K6 for
+    its attention core and K3 for its MLP half; K4 refuses T = 1024."""
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone("vit_b_16", img_size=512, weights="siglip", dtype=torch.bfloat16)
+    assert next(m.parameters()).is_cuda
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        out = m(torch.rand(2, 512, 512, 3, device=cuda))
+        plain = m(torch.rand(2, 512, 512, 3, device=cuda), plain=True)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 768) and torch.isfinite(out.float()).all()
+    assert torch.isfinite(plain.float()).all()
+    assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["block_mlp"] == 12
+    assert _cuda.LAUNCHES["block_attention"] == 0

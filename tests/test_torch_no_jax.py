@@ -1,5 +1,6 @@
 """The port imports torch and never JAX: a fresh interpreter imports every
-module of it, runs a tiny ViT, a tiny CaiT forward and train step, and one
+module of it, runs a tiny ViT, a narrow SigLIP ViT at T = 1024 (its
+attention through the flash op), a tiny CaiT forward and train step, and one
 full-recipe train step of a narrow CSP Darknet, and must not have loaded
 ``jax`` or ``flax``."""
 
@@ -16,7 +17,7 @@ import torch
 import vision_toolbox_tpu_torch as vtt
 from vision_toolbox_tpu_torch.utils import export, jax_bridge
 from vision_toolbox_tpu_torch.nn import norm
-from vision_toolbox_tpu_torch.ops import augment, cait_attention, trivial_augment, warp
+from vision_toolbox_tpu_torch.ops import augment, cait_attention, flash_attention, trivial_augment, warp
 from vision_toolbox_tpu_torch.models import cait, darknet
 from vision_toolbox_tpu_torch import train
 from vision_toolbox_tpu_torch.train import classifier, optim, step
@@ -24,6 +25,10 @@ m = vtt.models.ViT(128, 2, 4, 8, 32, device="cpu")
 with torch.no_grad():
     out = m(torch.rand(2, 32, 32, 3))
 assert out.shape == (2, 128), out.shape
+s = vtt.models.ViT(64, 1, 2, 4, 128, cls_token=False, pool_type="mha", device="cpu")
+with torch.no_grad():
+    out = s(torch.rand(1, 128, 128, 3))
+assert out.shape == (1, 64) and torch.isfinite(out).all(), out.shape
 c = cait.CaiT(192, 1, 1, 4, 16, 32, dtype=torch.bfloat16, device="cpu")
 with torch.no_grad():
     out = c(torch.rand(2, 32, 32, 3))

@@ -5,7 +5,9 @@ blocks run hand-written CUDA kernels for the fused attention and MLP
 half-blocks, forward and backward, ``ops/block_attention.py``,
 ``ops/block_mlp.py``), serves and trains CaiT (its talking-head attention
 runs hand-written forward and backward kernels, ``ops/cait_attention.py``;
-its MLP halves the fused MLP kernels) and trains the Darknet family with the full recipe
+its MLP halves the fused MLP kernels), serves and trains SigLIP ViTs at 512 px
+(attention over T = 1024 tokens runs hand-written flash-attention kernels,
+``ops/flash_attention.py``) and trains the Darknet family with the full recipe
 (``train/``; TrivialAugment's geometric ops run the hand-written three-shear
 warp kernel, ``ops/warp.py``). Kernel sources are in ``csrc/``, built with
 ``nvcc`` at first use. Models are built on the card unless ``device="cpu"``

@@ -7,8 +7,10 @@ then moved to ``device`` — the card unless the caller asks for another —
 and stay float32, as flax keeps them. ``dtype`` is the compute type of the
 whole model (bf16 for training and serving): weights, biases, the patch
 embedding, PE and tokens are rounded to it at use, where flax's
-``promote_dtype`` rounds them, and LayerNorms apply theirs in f32. Not ported
-yet: ``token_sharding`` (sequence parallelism) and ``resize_pe``.
+``promote_dtype`` rounds them, and LayerNorms apply theirs in f32.
+``resize_pe`` carries a position table to another image size (a 224 px
+table to a 512 px SigLIP model, T = 1024, whose attention runs the flash
+kernel). Not ported yet: ``token_sharding`` (sequence parallelism).
 """
 
 from __future__ import annotations
@@ -120,6 +122,48 @@ VIT_VARIANTS = {
     "L": (1024, 24, 16),
     "H": (1280, 32, 16),
 }
+
+
+def _keys_cubic(x: Tensor) -> Tensor:
+    """Keys' cubic convolution kernel, a = −0.5 (jax.image's "cubic")."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return torch.where(x >= 2.0, 0.0, out)
+
+
+def _resize_weights(n_in: int, n_out: int) -> Tensor:
+    """(n_in, n_out) f32 weights of ``jax.image.resize`` along one axis
+    (``compute_weight_mat``): half-pixel centres, the kernel widened by
+    n_in/n_out when shrinking (antialiasing), each output's weights divided
+    by their sum (so they renormalise at the edges)."""
+    inv_scale = 1.0 / (n_out / n_in)
+    sample = (torch.arange(n_out, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]).abs()
+    w = _keys_cubic(x / max(inv_scale, 1.0))
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize_pe(pe: Tensor, new_img_size: int, patch_size: int, method: str = "bicubic") -> Tensor:
+    """Functional position-embedding resize, what the JAX package's
+    ``resize_pe`` computes with ``jax.image.resize``: ``pe`` (1, N, C), a
+    square grid of tokens, interpolated to the (new_img_size / patch_size)²
+    grid, one 1-D weight matrix per axis applied in f32 (``method``:
+    "bicubic", Keys with a = −0.5, the only one ported). Returns (1, N', C)
+    in pe's type. ``torch.nn.functional.interpolate`` differs: its bicubic
+    uses a = −0.75 and never antialiases."""
+    if method not in ("bicubic", "cubic"):
+        raise ValueError(f"resize_pe: method {method!r} is not ported; use 'bicubic'")
+    old = int(round(pe.shape[1] ** 0.5))
+    new = new_img_size // patch_size
+    grid = pe.reshape(old, old, -1).float()
+    if new != old:
+        w = _resize_weights(old, new).to(pe.device)
+        grid = torch.einsum("ia,jb,ijc->abc", w, w, grid)
+    return grid.reshape(1, new * new, -1).to(pe.dtype)
 
 
 def vit_from_config(variant: str, img_size: int = 224, *, weights: str | None = None,

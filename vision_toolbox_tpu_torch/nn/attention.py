@@ -43,13 +43,16 @@ class MHA(nn.Module):
         return x.reshape(*x.shape[:-1], self.n_heads, -1)
 
     def forward(self, q: Tensor, k: Tensor | None = None, v: Tensor | None = None, *,
-                attn_bias: Tensor | None = None, train: bool = False,
+                attn_bias: Tensor | None = None, train: bool = False, plain: bool = False,
                 generator: torch.Generator | None = None) -> Tensor:
+        """``plain`` runs the attention kernels' plain PyTorch versions on any
+        device (for checking the kernels)."""
         k = q if k is None else k
         v = k if v is None else v
         out = dot_product_attention(
             self._split(self.q_proj(q)), self._split(self.k_proj(k)), self._split(self.v_proj(v)),
             bias=attn_bias, dropout_rate=self.dropout if train else 0.0, generator=generator,
+            plain=plain,
         )
         return self.out_proj(out.reshape(*out.shape[:-2], self.d_model))
 
@@ -121,8 +124,9 @@ class ViTBlock(nn.Module):
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
-        """``plain`` routes the fused halves through their plain PyTorch
-        versions (forward and backward) instead of the kernels."""
+        """``plain`` routes the fused halves and the attention kernels
+        through their plain PyTorch versions (forward and backward) instead of
+        the kernels."""
         g = generator
         fused = x.ndim == 3 and not force_unfused
         if self.custom_attention:
@@ -142,7 +146,7 @@ class ViTBlock(nn.Module):
                 eps=self.mha_norm.eps, plain=plain,
             )
         else:
-            y = self.mha(self.mha_norm(x), train=train, generator=g)
+            y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g)
             if self.mha_scale is not None:
                 y = self.mha_scale(y)
             x = x + self.mha_droppath(y, train=train, generator=g)

@@ -33,7 +33,8 @@ LIB_NAME = "libvtt_kernels.so"
 
 LAUNCHES: dict[str, int] = {
     "block_mlp": 0, "block_attention": 0, "block_mlp_bwd": 0, "block_attention_bwd": 0,
-    "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0,
+    "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0, "flash_attention": 0,
+    "flash_attention_bwd": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -92,6 +93,18 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _I, _P,  # q, k, v, dout, is_bf16, mix
          _P, _P, _P, _P, _P, _P, _P,  # dq, dk, dv, pw, draw, partials (scratch), dmix
          _I, _I, _I, _I, _I, _F, _P),  # B, T, S, H, hd, scale, stream
+        _I,
+    ),
+    "vtt_flash_fwd": (
+        (_P, _P, _P, _P, _I, _I,  # q, k, v, bias (or null), bias_bf16, is_bf16
+         _P, _P,  # out, lse (or null)
+         _I, _I, _I, _I, _F, _P),  # BN, T, S, H, scale, stream
+        _I,
+    ),
+    "vtt_flash_bwd": (
+        (_P, _P, _P, _P, _P, _P, _P, _I,  # q, k, v, out, g, lse, delta (scratch), is_bf16
+         _P, _P, _P,  # dq, dk, dv
+         _I, _I, _I, _I, _F, _P),  # BN, T, S, H, scale, stream
         _I,
     ),
 }

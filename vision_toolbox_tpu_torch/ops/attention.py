@@ -3,12 +3,15 @@
 Layout (batch, seq, heads, head_dim), scale head_dim**-0.5, optional
 additive bias broadcasting against (B, N, T, S).
 
-The JAX package sends short unbiased attention to its short-attention
-kernel (K2, ``ops/short_attention.py``) and long 128-aligned sequences to its
-flash kernel (K6, ``ops/flash_attention.py``). Neither is ported yet, so on a
-CUDA tensor those shapes raise ``NotImplementedError`` instead of running the
-plain math in their place; every other shape, and every CPU tensor, runs the
-plain math below.
+Like the JAX package, long 128-aligned sequences go to the flash kernel
+(K6, ``ops/flash_attention.py``) on every device: its hand-written CUDA
+kernels on CUDA tensors (which raise for a head width they lack), its plain
+versions on CPU tensors. The JAX package
+sends short unbiased attention to its short-attention kernel (K2,
+``ops/short_attention.py``), which is not ported yet, so on a CUDA tensor
+those shapes raise ``NotImplementedError`` instead of running the plain math
+in its place; every other shape, and every CPU tensor, runs the plain math
+below.
 """
 
 from __future__ import annotations
@@ -17,30 +20,32 @@ import torch
 from torch import Tensor
 
 from ..nn.layers import dropout
+from .flash_attention import flash_attention, use_flash_attention
 
 MAX_SHORT_SEQ = 512  # ops/short_attention.py use_short
-FLASH_MIN_SEQ = 1024  # ops/flash_attention.py PALLAS_MIN_SEQ
 
 
 def _unported_kernel(t: int, s: int, h: int, n_pairs: int, has_bias: bool) -> str | None:
-    """Name of the TPU kernel the JAX package would dispatch this shape to."""
+    """Name of the unported TPU kernel the JAX package would dispatch this
+    shape to, else None."""
     if not has_bias and 2 <= t <= MAX_SHORT_SEQ and 2 <= s <= MAX_SHORT_SEQ and h <= 128 \
             and n_pairs >= 64:
         return "K2 (short attention, vision_toolbox_tpu/ops/short_attention.py)"
-    if t >= FLASH_MIN_SEQ and t % 128 == 0:
-        return "K6 (flash attention, vision_toolbox_tpu/ops/flash_attention.py)"
     return None
 
 
 def dot_product_attention(
     q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, dropout_rate: float = 0.0,
-    generator: torch.Generator | None = None,
+    generator: torch.Generator | None = None, *, plain: bool = False,
 ) -> Tensor:
     """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands, in f32. Attention
-    dropout draws its mask from ``generator``."""
+    dropout draws its mask from ``generator``; ``plain`` runs the flash
+    kernel's plain versions on any device (for checking the kernels)."""
     B, T, N, H = q.shape
     scale = H**-0.5
     if dropout_rate == 0.0:
+        if use_flash_attention(T):
+            return flash_attention(q, k, v, bias, plain=plain)
         if q.is_cuda:
             kernel = _unported_kernel(T, k.shape[1], H, B * N, bias is not None)
             if kernel is not None:

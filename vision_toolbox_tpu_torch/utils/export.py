@@ -5,8 +5,9 @@
 (weights included) and serialises it to bytes; ``load_exported`` turns the
 bytes back into a callable without the model's Python code. The fused
 half-blocks appear in the program as the custom ops ``vtt::fused_mlp_block``
-and ``vtt::fused_attention_block``, and CaiT's talking-head attention as
-``vtt::talking_head_attention``, so the loaded program runs the CUDA kernels
+and ``vtt::fused_attention_block``, CaiT's talking-head attention as
+``vtt::talking_head_attention`` and long-sequence attention (SigLIP at 512
+px) as ``vtt::flash_attention``, so the loaded program runs the CUDA kernels
 on CUDA inputs and their plain versions on CPU inputs; importing this module
 registers them. Every backbone is exported from a copy whose parameters are
 stored in its compute type (``Backbone.cast_for_serving``; CaiT's head
@@ -23,7 +24,9 @@ import torch
 from torch import Tensor
 
 from ..models.base import Backbone
-from ..ops import block_attention, block_mlp, cait_attention  # noqa: F401  (registers the custom ops)
+from ..ops import (  # noqa: F401  (registers the custom ops)
+    block_attention, block_mlp, cait_attention, flash_attention,
+)
 
 
 def export_model(model: Backbone, input_shape: tuple[int, ...],
