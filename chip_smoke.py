@@ -42,7 +42,19 @@ sm_90a, one process per source) and drives the port's paths:
   path, then export → load → requests at batch 1, 8 and 32), runs its
   train step at bs64@512 with ViT's recipe for 3 warm-up and 10 timed
   steps, and one step at bs8 through the kernels against one through the
-  plain versions and an f32 reference.
+  plain versions and an f32 reference;
+- ConvNeXt (slice 6): holds the depthwise-conv kernels (K9 forward and
+  backward) against their plain versions at convnext_t's four stage shapes
+  and others, f32 and bf16, times both, their plain versions and cuDNN's
+  grouped conv (the library yardstick, used nowhere in the port) at bs128,
+  holds the fused MLP kernels at the widths their 32-column tiles serve (96,
+  288) and times them at convnext_t stage 1, serves a seeded bf16
+  convnext_t (LayerScale γs spread around 0.1; eager vs plain path, then
+  export → load → requests at batch 1, 8 and 32), runs its train step at
+  bs128@224 with ViT's recipe and stochastic depth 0.1 for 3 warm-up and
+  10 timed steps and one step at bs8 through the kernels against the plain
+  versions and an f32 reference; then the repaired faults: cait_s_24 at
+  384 px served (its attention beyond K5's rule) and K6 at head 72.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -117,6 +129,16 @@ KERNELS = {
         "source": "vision_toolbox_tpu_torch/csrc/flash_attention_bwd.cu",
         "replaces": "vision_toolbox_tpu/ops/flash_attention.py:226",
     },
+    "depthwise_conv": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/depthwise_conv.cu",
+        "replaces": "vision_toolbox_tpu/ops/depthwise_conv.py:101",
+    },
+    "depthwise_conv_bwd": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/depthwise_conv_bwd.cu",
+        "replaces": "vision_toolbox_tpu/ops/depthwise_conv.py:124",
+    },
 }
 SERVE_KERNELS = ("block_mlp", "block_attention")
 BLOCK_KERNELS = ("block_mlp", "block_attention", "block_mlp_bwd", "block_attention_bwd")
@@ -147,6 +169,25 @@ FLASH_CASES = ((8, 12, 1024, 1024, 64, torch.bfloat16, True),
 FLASH_TIME_BATCH = 32
 SIGLIP_TRAIN = dict(batch=64, img=512, classes=1000, warmup=3, steps=10, lr=0.1,
                     compare_batch=8)
+# convnext_t: its four stages' depthwise-conv shapes (H = W, C) at 224 px,
+# 3/3/9/3 blocks; K9 cases (B, H, W, C, k): each stage at batch 8, k = 3 and
+# 5, a C that is no multiple of 8 (convnext_a's 40 is; 20 is not)
+CONVNEXT_STAGES = ((56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3))
+DEPTHWISE_CASES = tuple((8, h, h, c, 7) for h, c, _ in CONVNEXT_STAGES) + (
+    (4, 28, 28, 64, 3), (4, 19, 23, 48, 5), (3, 13, 17, 20, 7))
+DEPTHWISE_TIME_BATCH = 128
+# convnext_t's LayerScale init (1e-6) rounds every residual branch away in
+# bf16, as CaiT's does; its paths run with γ drawn around CAIT_LAYER_SCALE
+CONVNEXT_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                      layer_scale=0.1, compare_batch=8)
+CONVNEXT_KW = dict(stochastic_depth=0.1)  # the published ConvNeXt-T recipe's drop path
+# K3 at the widths 32-column tiles serve: convnext_t stage 1 (T = 56², D = 96)
+# and cait_xs (T = 197, D = 288), (B, T, D, Dh). In f32 K3's error is the
+# tail of bf16 rounding flips of h and g (a flip times a large W2 entry
+# can reach ~1e-3·max|out|), which grows with the element count: stage 1 at
+# batch 8 (9.6 M hidden elements) read 1.02e-3; batch 2 (2.4 M) stays below
+# vit_b_16 at batch 8 (4.8 M), the case the f32 bound was set on
+NARROW_MLP_CASES = ((2, 3136, 96, 384), (8, 197, 288, 1152))
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -287,39 +328,54 @@ def attn_args(g, B, T, D, H, dtype, extras):
     return a
 
 
+def mlp_cases(variants: tuple[str, ...]) -> list[tuple]:
+    """(B, T, D, Dh, dtype, variant) of the K3 comparisons: vit_b_16's
+    widths at batch 8 and 3 in ``variants``, then NARROW_MLP_CASES (the
+    32-column tiles), plain and in ConvNeXt's form (γ_ls, dp, residual);
+    f32 and bf16 each."""
+    dtypes = (torch.float32, torch.bfloat16)
+    return ([(B, T, VIT_B["D"], VIT_B["Dh"], dt, v) for B, T in ((8, 197), (3, 50))
+             for dt in dtypes for v in variants]
+            + [(B, T, D, Dh, dt, v) for B, T, D, Dh in NARROW_MLP_CASES
+               for dt in dtypes for v in ("plain", "ls+dp+residual")])
+
+
+def is_main_case(B: int, T: int, D: int, dtype: torch.dtype, variant: str) -> bool:
+    """The main path's comparison case: vit_b_16, batch 8, bf16, no γ/dp."""
+    return (B, T, D, dtype, variant) == (8, 197, VIT_B["D"], torch.bfloat16, "plain")
+
+
 def compare_kernels(report: dict) -> dict[str, float]:
-    """Phase 3: each kernel vs its plain version; returns the max abs error
-    at the main path's case (vit_b_16, batch 8, bf16, no γ/dp)."""
+    """Phase 3: each forward kernel vs its plain version, K3 at every width
+    of ``mlp_cases`` and K4 at vit_b_16's; returns the max abs error at the
+    main path's case."""
     from vision_toolbox_tpu_torch.ops import block_attention as ba
     from vision_toolbox_tpu_torch.ops import block_mlp as bm
 
     g = torch.Generator().manual_seed(0)
     main_err = {}
     rows = []
-    for B, T in ((8, 197), (3, 50)):
-        for dtype in (torch.float32, torch.bfloat16):
-            for variant in ("plain", "ls+dp", "ls+dp+residual"):
-                a = mlp_args(g, B, T, VIT_B["D"], VIT_B["Dh"], dtype, variant != "plain",
-                             variant.endswith("residual"))
-                cases = [("block_mlp", bm.fused_mlp_block_plain(**a), bm.fused_mlp_block(**a))]
-                if variant != "ls+dp+residual":
-                    a = attn_args(g, B, T, VIT_B["D"], VIT_B["H"], dtype, variant != "plain")
-                    cases.append(("block_attention", ba.fused_attention_block_plain(**a),
-                                  ba.fused_attention_block(**a)))
-                torch.cuda.synchronize()
-                for name, want, got in cases:
-                    err = (got.float() - want.float()).abs().max().item()
-                    scale = want.float().abs().max().item()
-                    ok = bool(torch.isfinite(got.float()).all()) and err <= BOUND[dtype] * scale
-                    row = dict(kernel=name, B=B, T=T, dtype=str(dtype).split(".")[-1],
-                               variant=variant, max_abs_err=err, max_abs_plain=scale,
-                               bound=BOUND[dtype] * scale, ok=ok)
-                    rows.append(row)
-                    log(f"[compare] {name:15s} B={B} T={T} {row['dtype']:8s} {variant:15s} "
-                        f"max|err|={err:.3e} bound={row['bound']:.3e} "
-                        f"({err / scale:.2e}·max|plain|) {'ok' if ok else 'FAIL'}")
-                    if (B, dtype, variant) == (8, torch.bfloat16, "plain"):
-                        main_err[name] = err
+    for B, T, D, Dh, dtype, variant in mlp_cases(("plain", "ls+dp", "ls+dp+residual")):
+        a = mlp_args(g, B, T, D, Dh, dtype, variant != "plain", variant.endswith("residual"))
+        cases = [("block_mlp", bm.fused_mlp_block_plain(**a), bm.fused_mlp_block(**a))]
+        if variant != "ls+dp+residual" and D == VIT_B["D"]:
+            a = attn_args(g, B, T, D, VIT_B["H"], dtype, variant != "plain")
+            cases.append(("block_attention", ba.fused_attention_block_plain(**a),
+                          ba.fused_attention_block(**a)))
+        torch.cuda.synchronize()
+        for name, want, got in cases:
+            err = (got.float() - want.float()).abs().max().item()
+            scale = want.float().abs().max().item()
+            ok = bool(torch.isfinite(got.float()).all()) and err <= BOUND[dtype] * scale
+            row = dict(kernel=name, B=B, T=T, D=D, dtype=str(dtype).split(".")[-1],
+                       variant=variant, max_abs_err=err, max_abs_plain=scale,
+                       bound=BOUND[dtype] * scale, ok=ok)
+            rows.append(row)
+            log(f"[compare] {name:15s} B={B} T={T} D={D} {row['dtype']:8s} {variant:15s} "
+                f"max|err|={err:.3e} bound={row['bound']:.3e} "
+                f"({err / scale:.2e}·max|plain|) {'ok' if ok else 'FAIL'}")
+            if is_main_case(B, T, D, dtype, variant):
+                main_err[name] = err
     report["compare"] = rows
     bad = [r for r in rows if not r["ok"]]
     if bad:
@@ -536,10 +592,11 @@ class Checks:
         return err
 
     def reduced(self, case: dict, name: str, got: torch.Tensor, want: torch.Tensor,
-                ref: torch.Tensor | None = None) -> None:
+                ref: torch.Tensor | None = None) -> float:
         err = rel_l2(got, want, ref)
         ok = bool(torch.isfinite(got.float()).all()) and err <= BWD_REL_L2
         self.rows.append(dict(**case, tensor=name, rel_l2=err, bound=BWD_REL_L2, ok=ok))
+        return err
 
     def summary(self, case: dict) -> str:
         rows = [r for r in self.rows if all(r.get(k) == v for k, v in case.items())]
@@ -554,26 +611,27 @@ class Checks:
 def compare_backward(report: dict) -> dict[str, float]:
     """Phase 9: the backward-save forwards and the backward kernels vs their
     plain versions at the vit_b_16 shapes (B=8, T=197 and B=3, T=50; f32
-    and bf16 x; plain, γ_ls + dp and, for the MLP, a separate residual) and
-    at T=512 for attention. One set of saves (the kernel forward's) and one
-    dout feed both backward versions. Returns max|dx − plain| of the main
-    path's case (B=8, bf16, no γ/dp) per kernel."""
+    and bf16 x; plain, γ_ls + dp and, for the MLP, a separate residual), at
+    T=512 for attention, and the MLP's at the 32-column widths of
+    ``mlp_cases``. One set of saves (the kernel forward's) and one dout feed
+    both backward versions. Returns max|dx − plain| of the main path's case
+    per kernel."""
     from vision_toolbox_tpu_torch.ops import block_attention as ba
     from vision_toolbox_tpu_torch.ops import block_mlp as bm
 
     g = torch.Generator().manual_seed(9)
     checks, main_err = Checks(), {}
-    cases = [(B, T, dt, v) for B, T in ((8, 197), (3, 50)) for dt in (torch.float32, torch.bfloat16)
-             for v in ("plain", "ls+dp", "ls+dp+residual")]
-    cases.append((2, 512, torch.bfloat16, "ls+dp"))
-    for B, T, dtype, variant in cases:
+    cases = mlp_cases(("plain", "ls+dp", "ls+dp+residual"))
+    cases.append((2, 512, VIT_B["D"], VIT_B["Dh"], torch.bfloat16, "ls+dp"))
+    for B, T, D, Dh, dtype, variant in cases:
         extras, res = variant != "plain", variant.endswith("residual")
         kernels = ["block_attention_bwd"] if T == 512 else (
-            ["block_mlp_bwd"] + ([] if res else ["block_attention_bwd"]))
+            ["block_mlp_bwd"] + ([] if res or D != VIT_B["D"] else ["block_attention_bwd"]))
         for kernel in kernels:
-            case = dict(kernel=kernel, B=B, T=T, dtype=str(dtype).split(".")[-1], variant=variant)
+            case = dict(kernel=kernel, B=B, T=T, D=D, dtype=str(dtype).split(".")[-1],
+                        variant=variant)
             if kernel == "block_mlp_bwd":
-                a = mlp_args(g, B, T, VIT_B["D"], VIT_B["Dh"], dtype, extras, res)
+                a = mlp_args(g, B, T, D, Dh, dtype, extras, res)
                 ops = [a[k] for k in ("ln_scale", "ln_bias", "w1", "b1", "w2", "b2")]
                 fwd = (a["x"], *ops, a["ls_gamma"], a["dp_scale"], a["residual"])
                 want_out, want_saves = bm.fused_mlp_save_plain(*fwd)
@@ -588,7 +646,7 @@ def compare_backward(report: dict) -> dict[str, float]:
                 weights = [("dW1", got.dh, want.dh, y2, a["w1"])]
                 fields = bm.MLPSaves._fields
             else:
-                a = attn_args(g, B, T, VIT_B["D"], VIT_B["H"], dtype, extras)
+                a = attn_args(g, B, T, D, VIT_B["H"], dtype, extras)
                 wb = [a[k] for n in "qkvo" for k in (f"w{n}", f"b{n}")]
                 fwd = (a["x"], a["ln_scale"], a["ln_bias"], *wb, a["n_heads"], a["ls_gamma"],
                        a["dp_scale"])
@@ -613,7 +671,7 @@ def compare_backward(report: dict) -> dict[str, float]:
             for name in elementwise:
                 err = checks.elementwise(case, name, getattr(got, name).contiguous(),
                                          getattr(want, name))
-                if name == "dx" and (B, T, dtype, variant) == (8, 197, torch.bfloat16, "plain"):
+                if name == "dx" and is_main_case(B, T, D, dtype, variant):
                     main_err[kernel] = err
             for name in reduced:
                 checks.reduced(case, name, getattr(got, name), getattr(want, name))
@@ -622,7 +680,7 @@ def compare_backward(report: dict) -> dict[str, float]:
             for name, d_got, d_want, act, w in weights:
                 checks.reduced(case, name, bm.weight_grad(d_got, act, w),
                                bm.weight_grad(d_want, act, w))
-            log(f"[backward] {kernel:19s} B={B} T={T} {case['dtype']:8s} {variant:15s} "
+            log(f"[backward] {kernel:19s} B={B} T={T} D={D} {case['dtype']:8s} {variant:15s} "
                 f"{checks.summary(case)}")
     report["compare_backward"] = checks.rows
     bad = [r for r in checks.rows if not r["ok"]]
@@ -850,9 +908,10 @@ def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draw
     ref_backbone.forward = functools.partial(type(ref_backbone).forward, ref_backbone,
                                              force_unfused=True, plain=True)
     states.append(TrainState(ref_model, sgd_with_param_groups(ref_model, 0.0)))
-    losses = [float(step(st, images, labels, draws=draws)["loss"]) for st in states[:2]]
+    drop = lambda: torch.Generator(device="cuda").manual_seed(5)  # the model's own draws
+    losses = [float(step(st, images, labels, drop(), draws=draws)["loss"]) for st in states[:2]]
     with plain_attention():
-        losses.append(float(step(states[2], images, labels, draws=draws)["loss"]))
+        losses.append(float(step(states[2], images, labels, drop(), draws=draws)["loss"]))
     kernel, plain, f32 = ({n: p.grad for n, p in st.model.named_parameters()} for st in states)
     grads = {}
     for n in kernel:
@@ -1301,6 +1360,301 @@ def train_siglip(report: dict, name_power: str) -> dict[str, int]:
                              name_power, **SIGLIP)
 
 
+def depthwise_work(name: str, B: int, H: int, W: int, C: int, k: int,
+                   x_bytes: int) -> tuple[float, float, float]:
+    """(product operations, bytes, f32 operations) of one K9 call: 2·k²
+    operations per output element for the forward, twice that for the
+    backward (dx and dw). Bytes: x (and g) in, y (dx) out, the weights (and
+    dw), in the run's type."""
+    n = B * H * W * C
+    if name == "depthwise_conv":
+        return 0.0, 2 * n * x_bytes + k * k * C * x_bytes, 2 * k * k * n
+    return 0.0, 3 * n * x_bytes + 2 * k * k * C * x_bytes, 4 * k * k * n
+
+
+def depthwise_args(g, B, H, W, C, k, dtype):
+    """x (B, H, W, C), w (k, k, 1, C) and a cotangent like x, on the card."""
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g) * scale
+    return (r(B, H, W, C).to("cuda", dtype), r(k, k, 1, C, scale=0.2).to("cuda", dtype),
+            r(B, H, W, C).to("cuda", dtype))
+
+
+def compare_depthwise(report: dict) -> tuple[dict[str, float], float]:
+    """Phase 21: K9 forward and backward vs their plain versions at
+    DEPTHWISE_CASES (convnext_t's four stage shapes at batch 8, k = 3 and 5,
+    C = 20), f32 and bf16. out and dx by max abs error against
+    BOUND·max|plain| (the forward sums the same f32 taps in the same order);
+    dw by rel L2 ≤ BWD_REL_L2: its f32 sum over up to 4·10⁵ pixels runs in
+    another order (block partials, then a fixed-order pass). Returns the max
+    abs error of out and of dx, and dw's rel L2, at convnext_t stage 1,
+    batch 8, bf16."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(21)
+    checks, main_err = Checks(), {}
+    for B, H, W, C, k in DEPTHWISE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, dout = depthwise_args(g, B, H, W, C, k, dtype)
+            case = dict(kernel="depthwise_conv", B=B, H=H, W=W, C=C, k=k,
+                        dtype=str(dtype).split(".")[-1])
+            err = checks.elementwise(case, "out", dc.depthwise_conv2d_cuda(x, w),
+                                     dc.depthwise_conv2d_plain(x, w))
+            dx, dw = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+            want_dx, want_dw = dc.depthwise_conv2d_bwd_plain(x, w, dout)
+            torch.cuda.synchronize()
+            err_dx = checks.elementwise(case, "dx", dx, want_dx)
+            err_dw = checks.reduced(case, "dw", dw, want_dw)
+            log(f"[depthwise] B={B} {H}x{W}x{C} k={k} {case['dtype']:8s} {checks.summary(case)}")
+            if (B, H, C, dtype) == (8, 56, 96, torch.bfloat16):
+                main_err["depthwise_conv"], main_err["depthwise_conv_bwd"] = err, err_dx
+                main_dw = err_dw
+    report["compare_depthwise"] = checks.rows
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K9 comparisons out of bounds: {bad[:8]}")
+    return main_err, main_dw
+
+
+def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, float, float]]:
+    """Phase 22: K9 forward and backward at convnext_t's four stage shapes,
+    batch DEPTHWISE_TIME_BATCH, bf16: the kernels, their plain versions (in
+    turns) and cuDNN's grouped conv (``F.conv2d(groups=C)`` on the same
+    memory as a channels_last tensor; its backward is forward + backward
+    less the forward), the library yardstick that no path of the port
+    calls. Returns (kernel, plain, library) ms of stage 1, the shape of the
+    JSON line's bound; the stages and the 18-call sum go to the report."""
+    import torch.nn.functional as F
+
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(22)
+    B, rows, per_step = DEPTHWISE_TIME_BATCH, [], {}
+    for H, C, blocks in CONVNEXT_STAGES:
+        x, w, dout = depthwise_args(g, B, H, H, C, 7, torch.bfloat16)
+        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)  # (C, 1, k, k)
+        conv = lambda t, wt: F.conv2d(t.permute(0, 3, 1, 2), wt, padding=3, groups=C)
+        xl, wl = x.detach().clone().requires_grad_(), wc.detach().clone().requires_grad_()
+
+        def library_fb():
+            with torch.enable_grad():
+                out = conv(xl, wl)
+                torch.autograd.grad(out, (xl, wl), dout.permute(0, 3, 1, 2))
+
+        row = dict(B=B, H=H, C=C, k=7, blocks=blocks)
+        for what, plain, kernel, library in (
+            ("forward", lambda: dc.depthwise_conv2d_plain(x, w),
+             lambda: dc.depthwise_conv2d_cuda(x, w), lambda: conv(x, wc)),
+            ("backward", lambda: dc.depthwise_conv2d_bwd_plain(x, w, dout),
+             lambda: dc.depthwise_conv2d_bwd_cuda(x, w, dout), library_fb),
+        ):
+            plain_ms, ms = alternate(plain, kernel, iters=5)
+            library_ms = time_ms(library, iters=10)
+            row[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+        row["backward"]["library_ms"] -= row["forward"]["library_ms"]
+        for what in ("forward", "backward"):
+            r = row[what]
+            name = "depthwise_conv" + ("_bwd" if what == "backward" else "")
+            r["bound_ms"], r["bound_by"] = bound(*depthwise_work(name, B, H, H, C, 7, 2))
+            log(f"[depthwise-time] {what:8s} B={B} {H}x{H}x{C} k=7 bf16: kernel {r['ms']:.4f} ms"
+                f"  plain {r['plain_ms']:.4f} ms  cuDNN grouped conv {r['library_ms']:.4f} ms  "
+                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{name_power}]")
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                per_step[(what, key)] = per_step.get((what, key), 0.0) + blocks * r[key]
+        rows.append(row)
+        del x, w, dout, wc, xl, wl
+    for what in ("forward", "backward"):
+        log(f"[depthwise-time] {what} summed over convnext_t's 18 calls at bs{B}: kernel "
+            f"{per_step[(what, 'ms')]:.3f} ms, plain {per_step[(what, 'plain_ms')]:.3f}, cuDNN "
+            f"{per_step[(what, 'library_ms')]:.3f}, bound {per_step[(what, 'bound_ms')]:.3f}")
+    report["depthwise_times"] = dict(stages=rows, per_step={f"{a}/{b}": v
+                                                            for (a, b), v in per_step.items()})
+    f, b = rows[0]["forward"], rows[0]["backward"]
+    return {"depthwise_conv": (f["ms"], f["plain_ms"], f["library_ms"]),
+            "depthwise_conv_bwd": (b["ms"], b["plain_ms"], b["library_ms"])}
+
+
+def time_narrow_mlp(report: dict, name_power: str) -> None:
+    """Phase 23: K3's inference forward and backward through its 32-column
+    tiles, timed in turns with their plain versions at convnext_t stage 1
+    (T = 56², D = 96), bs128, bf16, in ConvNeXt's form (γ_ls, drop path,
+    residual). Phases 3 and 9 check them at these widths."""
+    from vision_toolbox_tpu_torch.ops import block_mlp as bm
+
+    g = torch.Generator().manual_seed(23)
+    B, T, D, Dh = DEPTHWISE_TIME_BATCH, 56 * 56, 96, 384
+    m = mlp_args(g, B, T, D, Dh, torch.bfloat16, True, True)
+    ops = [m[k] for k in ("ln_scale", "ln_bias", "w1", "b1", "w2", "b2")]
+    fwd = (m["x"], *ops, m["ls_gamma"], m["dp_scale"], m["residual"])
+    _, saves = bm.fused_mlp_save_cuda(*fwd)
+    dout = torch.randn(m["x"].shape, generator=g).to("cuda", torch.bfloat16)
+    bwd = (dout, saves, m["w1"], m["w2"], m["ln_scale"], m["ls_gamma"], m["dp_scale"], True)
+    rows = {}
+    for name, plain, kernel in (
+        ("block_mlp", lambda: bm.fused_mlp_block_plain(**m), lambda: bm.fused_mlp_block(**m)),
+        ("block_mlp_bwd", lambda: bm.fused_mlp_bwd_plain(*bwd), lambda: bm.fused_mlp_bwd_cuda(*bwd)),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=5)
+        flops = 4 * B * T * D * Dh
+        nbytes = (2 * B * T * D * 2 + 4 * D * Dh) if name == "block_mlp" else \
+            (2 * B * T * D * 2 + 2 * B * T * D + 4 * B * T + 4 * B * T * Dh + 4 * D * Dh)
+        bound_ms, bound_by = bound(flops, nbytes)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[mlp-32-time] {name:13s} convnext_t stage 1 bs{B} (M={B * T}, D={D}) bf16 γ+dp+res: "
+            f"kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by})  "
+            f"[{name_power}]")
+    report["narrow_mlp_times"] = rows
+
+
+def serve_convnext(report: dict, name_power: str) -> int:
+    """Phase 24: a seeded bf16 convnext_t (224 px, LayerScale γs around
+    CONVNEXT_TRAIN's 0.1), eager through the kernels (18 K9 and 18 K3
+    forward launches per forward) against its plain versions (logits rel L2
+    ≤ REL_L2_BOUND or twice the plain bf16 path's own distance from an f32
+    forward of the same weights), then served: export (18
+    ``vtt::depthwise_conv2d`` and 18 ``vtt::fused_mlp_block`` calls, no
+    backward op) → load → three requests at each of SERVE_BATCHES, each
+    against eager and launching no backward kernel. Returns K9's launches in
+    the served requests."""
+    import io
+
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.utils.export import export_model
+
+    model = vtt.create_backbone("convnext_t", dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0))
+    spread_layer_scale(model, CONVNEXT_TRAIN["layer_scale"])
+    model.eval()
+    depth, width = sum(model.depths), model.last_out_channels
+    per_forward = NO_LAUNCHES | {"depthwise_conv": depth, "block_mlp": depth}
+    images = torch.rand(32, 224, 224, 3, generator=torch.Generator().manual_seed(1)).cuda()
+    ref = vtt.create_backbone("convnext_t")  # f32 compute, the same weights
+    ref.load_state_dict(model.state_dict())
+    with torch.inference_mode():
+        _cuda.reset_launch_counts()
+        logits = model(images[:8])
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        plain_logits = model(images[:8], plain=True)
+        f32_logits = ref(images[:8], force_unfused=True, plain=True)
+    err, own = rel_l2(logits, plain_logits), rel_l2(plain_logits, f32_logits)
+    bound_l2 = max(REL_L2_BOUND, 2 * own)
+    log(f"[convnext-serve] convnext_t bf16 bs8 forward: launches {counts}; logits kernel vs "
+        f"plain path rel L2 {err:.3e} (bound {bound_l2:.3e}: the plain bf16 path is {own:.3e} "
+        f"from the f32 reference; the kernel path {rel_l2(logits, f32_logits):.3e})")
+    if counts != per_forward:
+        raise AssertionError(f"expected {per_forward}, got {counts}")
+    if logits.shape != (8, width) or not torch.isfinite(logits.float()).all() \
+            or not err <= bound_l2:
+        raise AssertionError(f"convnext_t logits: shape {tuple(logits.shape)}, rel L2 {err}")
+    del ref
+
+    t0 = time.perf_counter()
+    blob = export_model(model, (8, 224, 224, 3))
+    program = torch.export.load(io.BytesIO(blob))
+    targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
+    n_dw, n_mlp = (targets.count(f"vtt.{op}.default")
+                   for op in ("depthwise_conv2d", "fused_mlp_block"))
+    backward_ops = [t for t in targets if "bwd" in t or "backward" in t]
+    served = program.module()
+    log(f"[convnext-serve] export+load {time.perf_counter() - t0:.1f} s, artifact "
+        f"{len(blob) / 2**20:.1f} MiB; the program calls vtt::depthwise_conv2d {n_dw} and "
+        f"vtt::fused_mlp_block {n_mlp} times, backward ops {backward_ops}")
+    if n_dw != depth or n_mlp != depth or backward_ops:
+        raise AssertionError(f"exported program: {n_dw} / {n_mlp} calls, backward {backward_ops}")
+    with torch.inference_mode():
+        eager = {b: model(images[:b]) for b in SERVE_BATCHES}
+        _cuda.reset_launch_counts()
+        answers = {b: [served(images[:b]) for _ in range(3)] for b in SERVE_BATCHES}
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    n_forwards = 3 * len(SERVE_BATCHES)
+    log(f"[convnext-serve] {n_forwards} requests at batch {SERVE_BATCHES}: launches {launches}")
+    if launches != {k: n_forwards * v for k, v in per_forward.items()}:
+        raise AssertionError(f"served path launched {launches}, expected {n_forwards}× "
+                             f"{per_forward}")
+    rows = []
+    for b in SERVE_BATCHES:
+        for out in answers[b]:
+            e = rel_l2(out, eager[b])
+            if out.shape != (b, width) or not torch.isfinite(out.float()).all() or e > 1e-3:
+                raise AssertionError(f"served batch {b} disagrees with eager: rel L2 {e}")
+        with torch.inference_mode():
+            ms = time_ms(lambda: served(images[:b]), iters=10)
+        rows.append(dict(batch=b, ms_per_batch=ms, rel_l2_vs_eager=e))
+        log(f"[convnext-serve] batch {b:2d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
+            f"rel L2 vs eager {e:.2e}  [{name_power}]")
+    report["convnext_serve"] = dict(launches_per_forward=counts, rel_l2_vs_plain=err,
+                                    plain_vs_f32=own, bound=bound_l2, requests=rows)
+    return launches["depthwise_conv"]
+
+
+def train_convnext(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 25: the convnext_t step at bs128@224 with ViT's recipe and
+    stochastic depth 0.1, 3 warm-up + 10 timed steps, each of the 18 blocks
+    through K9 and K3 forward and backward; then phase 26, one step at bs8
+    through the kernels against one through the plain versions and an f32
+    reference, one drop-path draw for all three."""
+    watched = ("head.weight", "backbone.stem_conv.weight", "backbone.stages.0.0.dwconv.weight",
+               "backbone.stages.2.8.layer_scale.gamma", "backbone.stages.3.2.pwconv2.bias",
+               "backbone.downsample_conv_1.bias", "backbone.norm.weight")
+    per_step = NO_LAUNCHES | dict.fromkeys(
+        ("depthwise_conv", "depthwise_conv_bwd", "block_mlp", "block_mlp_bwd"), 18)
+    return train_transformer(report, "convnext_train", "convnext_t", CONVNEXT_TRAIN, per_step,
+                             watched, name_power, **CONVNEXT_KW)
+
+
+def repairs_on_card(report: dict, name_power: str) -> None:
+    """Phase 27: the repaired port faults on the card. cait_s_24 at 384 px
+    (T = 576, beyond K5's rule: the XLA branch) builds, runs K3 and no K5,
+    and is served (export → load → a request equal to eager); K6 at head 72,
+    T = 1024 (zero-padded to 80), forward and backward against the plain
+    versions on the unpadded head, FLASH_BOUND."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.ops import attention
+    from vision_toolbox_tpu_torch.utils.export import export_model, load_exported
+
+    model = vtt.create_backbone("cait_s_24", img_size=384, dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0))
+    spread_layer_scale(model, CAIT_LAYER_SCALE)
+    model.eval()
+    images = torch.rand(2, 384, 384, 3, generator=torch.Generator().manual_seed(1)).cuda()
+    served = load_exported(export_model(model, (2, 384, 384, 3)))
+    with torch.inference_mode():
+        eager = model(images)
+        _cuda.reset_launch_counts()
+        out = served(images)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+    e = rel_l2(out, eager)
+    log(f"[repairs] cait_s_24 at 384 px (T = 576) served: launches {counts}, rel L2 vs eager "
+        f"{e:.2e}")
+    if counts != NO_LAUNCHES | {"block_mlp": 24} or not torch.isfinite(out.float()).all() \
+            or e > 1e-3:
+        raise AssertionError(f"cait_s_24 at 384 px: launches {counts}, rel L2 {e}")
+
+    g = torch.Generator().manual_seed(27)
+    q, k, v = (torch.randn(2, 1024, 4, 72, generator=g).to("cuda", torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    dout = torch.randn(2, 1024, 4, 72, generator=g).to("cuda", torch.bfloat16)
+    _cuda.reset_launch_counts()
+    got = attention.dot_product_attention(q, k, v)
+    got_grads = torch.autograd.grad(got, (q, k, v), dout)
+    torch.cuda.synchronize()
+    k6 = (_cuda.LAUNCHES["flash_attention"], _cuda.LAUNCHES["flash_attention_bwd"])
+    want = attention.dot_product_attention(q, k, v, plain=True)
+    want_grads = torch.autograd.grad(want, (q, k, v), dout)
+    checks, case = Checks(), dict(kernel="flash_attention", head=72, T=1024)
+    for name, a, b in zip(("out", "dq", "dk", "dv"), (got, *got_grads), (want, *want_grads)):
+        checks.elementwise(case, name, a, b, FLASH_BOUND)
+    log(f"[repairs] K6 at head 72 (padded to 80), T = 1024, bf16: launches {k6}, "
+        f"{checks.summary(case)}")
+    report["repairs"] = dict(cait_384_launches=counts, cait_384_rel_l2=e, k6_head72=checks.rows)
+    if k6 != (1, 1) or not all(r["ok"] for r in checks.rows):
+        raise AssertionError(f"K6 at head 72: launches {k6}, {checks.rows}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1425,6 +1779,17 @@ def main() -> int:
     launches["flash_attention"] = serve_siglip(report, name_power)
     launches["flash_attention_bwd"] = train_siglip(report, name_power)["flash_attention_bwd"]
 
+    # phases 21-27: ConvNeXt with K9, K3's 32-column tiles, the repaired faults
+    with torch.no_grad():
+        depthwise_errors, main_dw_rel_l2 = compare_depthwise(report)
+        errors |= depthwise_errors
+        depthwise_times = time_depthwise(report, name_power)
+        time_narrow_mlp(report, name_power)
+    times |= {k: t[:2] for k, t in depthwise_times.items()}
+    launches["depthwise_conv"] = serve_convnext(report, name_power)
+    launches["depthwise_conv_bwd"] = train_convnext(report, name_power)["depthwise_conv_bwd"]
+    repairs_on_card(report, name_power)
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
@@ -1437,14 +1802,18 @@ def main() -> int:
         "talking_head_bwd": talking_head_work("talking_head_bwd", B128, **cait),
         **{k: flash_work(k, FLASH_TIME_BATCH * SIGLIP_HEADS, SIGLIP_T, SIGLIP_T, 64, 2)
            for k in ("flash_attention", "flash_attention_bwd")},
+        **{k: depthwise_work(k, DEPTHWISE_TIME_BATCH, 56, 56, 96, 7, 2)
+           for k in ("depthwise_conv", "depthwise_conv_bwd")},
     }
+    library = {k: t[2] for k, t in (flash_times | depthwise_times).items()}
+    # K9's dw sums in its own order: its rel L2 beside dx's max abs error
+    extra = {"depthwise_conv_bwd": dict(dw_rel_l2=main_dw_rel_l2)}
     kernels = []
     for k in KERNELS:
         bound_ms, bound_by = bound(*work[k])
         kernels.append(dict(name=k, **KERNELS[k], launches=launches[k], max_abs_err=errors[k],
                             ms=times[k][0], plain_ms=times[k][1], bound_ms=bound_ms,
-                            bound_by=bound_by,
-                            library_ms=flash_times[k][2] if k in flash_times else None))
+                            bound_by=bound_by, library_ms=library.get(k), **extra.get(k, {})))
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,10 +1,11 @@
 """Where the time of the port's transformer train step goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512]
+    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512 | convnext_t]
 
 Builds the step of one of ``chip_smoke.py``'s transformer-training phases
 (vit_b_16 by default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px
-with its MAP head and no cls token, bs64@512; bf16 compute, f32 parameters,
+with its MAP head and no cls token, bs64@512; or convnext_t with stochastic
+depth 0.1, bs128@224; bf16 compute, f32 parameters,
 CutMix⊕MixUp, label smoothing 0.1, SGD momentum 0.9 with weight decay 2e-5
 in three groups) and its warm-up and timed step counts, times it unprofiled
 with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
@@ -14,6 +15,9 @@ steps with ``torch.profiler`` and sums the device kernels by class:
   backward's delta, dK/dV and dQ kernels;
 - talking-head kernels (CaiT): the K5 forward, and the K5 backward's row
   pass, key pass and mix-gradient sum;
+- depthwise-conv kernels (ConvNeXt): the K9 forward with the backward's dx
+  pass (one kernel, the flipped weights for dx), and the backward's dw block
+  partials and their fixed-order sum;
 - forward kernels: the K3/K4 forward (the GEMM template with the weight
   read (N, K), the attention kernel);
 - backward kernels: the K3/K4 backward (the GEMM template with the weight
@@ -22,9 +26,10 @@ steps with ``torch.profiler`` and sums the device kernels by class:
 - library products: cuBLAS/CUTLASS GEMMs, i.e. the weight gradients of the
   blocks (``torch.matmul``), CaiT's q/k/v/out projections (``F.linear``
   around K5) and class attention, and the head's three small products;
-- patch-embedding convolution (cuDNN), optimizer (SGD's foreach kernels),
-  and the rest (casts of the f32 parameters to bf16, the loss, the final
-  LayerNorm, CutMix⊕MixUp, copies).
+- convolutions (cuDNN: the patch embedding; ConvNeXt's stem and
+  downsampling), optimizer (SGD's foreach kernels), and the rest (casts of
+  the f32 parameters to bf16, the loss, the unfused LayerNorms (ConvNeXt's
+  stem, downsampling and final ones) and GRN, CutMix⊕MixUp, copies).
 
 The input pipeline alone is traced the same way over the same number of
 steps. The idle share is 1 − kernel time / profiled window (kernels run one
@@ -64,14 +69,18 @@ CLASSES = (
     ("talking-head forward (K5 fwd)", lambda n: "th_fwd_kernel" in n),
     ("talking-head backward (K5 bwd)", lambda n: any(
         k in n for k in ("th_bwd_rows_kernel", "th_bwd_keys_kernel", "th_param_reduce_kernel"))),
+    ("depthwise conv, forward and backward dx (K9 dw_conv_kernel)",
+     lambda n: "dw_conv_kernel" in n),
+    ("depthwise conv backward dw (K9 wgrad + reduce)",
+     lambda n: "dw_wgrad_kernel" in n or "dw_reduce_kernel" in n),
     ("forward kernels (K3/K4 fwd)",
      lambda n: _gemm_layout(n) == "0" or "attn_kernel" in n),
     ("backward kernels (K3/K4 bwd)", lambda n: _gemm_layout(n) == "1"
      or any(k in n for k in ("attn_bwd", "douts_kernel", "ln_bwd_kernel"))),
+    ("convolutions (cuDNN)", lambda n: any(
+        k in n.lower() for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad"))),
     ("library products (weight gradients, head)", lambda n: any(
-        k in n.lower() for k in ("cutlass", "xmma", "nvjet", "gemm", "cublas"))
-     and "conv" not in n.lower()),
-    ("patch-embedding convolution (cuDNN)", lambda n: "conv" in n.lower() or "cudnn" in n.lower()),
+        k in n.lower() for k in ("cutlass", "xmma", "nvjet", "gemm", "cublas"))),
     ("optimizer (SGD foreach)", lambda n: "multi_tensor" in n or "foreach" in n.lower()),
 )
 
@@ -80,7 +89,7 @@ def classify(name: str) -> str:
     for label, match in CLASSES:
         if match(name):
             return label
-    return "rest (casts, loss, final norm, CutMix⊕MixUp, copies)"
+    return "rest (casts, loss, unfused norms, GRN, CutMix⊕MixUp, copies)"
 
 
 def device_kernels(prof) -> list[tuple[str, float]]:
@@ -121,7 +130,8 @@ def main() -> int:
     # name → (backbone, phase config, backbone options)
     configs = {"vit_b_16": ("vit_b_16", chip_smoke.VIT_TRAIN, {}),
                "cait_s_24": ("cait_s_24", chip_smoke.CAIT_TRAIN, {}),
-               "vit_b_16_siglip512": ("vit_b_16", chip_smoke.SIGLIP_TRAIN, chip_smoke.SIGLIP)}
+               "vit_b_16_siglip512": ("vit_b_16", chip_smoke.SIGLIP_TRAIN, chip_smoke.SIGLIP),
+               "convnext_t": ("convnext_t", chip_smoke.CONVNEXT_TRAIN, chip_smoke.CONVNEXT_KW)}
     if tag not in configs:
         print(f"profile_torch_vit_train: model must be one of {sorted(configs)}", file=sys.stderr)
         return 2

@@ -93,5 +93,7 @@ def test_dispatch_rules():
     assert port.use_fused_mlp(192, 768, 0.0)  # vit_ti_16
     assert port.use_fused_mlp(1280, 5120, 0.0)  # vit_h_14: weights stream, no split
     assert not port.use_fused_mlp(768, 3072, 0.1)  # dropout
-    assert not port.use_fused_mlp(96, 384, 0.0)  # Swin-T stage 1: 96 is no 64-column tile
+    assert port.use_fused_mlp(96, 384, 0.0)  # ConvNeXt-T / Swin-T stage 1: 32-column tiles
+    assert port.use_fused_mlp(288, 1152, 0.0)  # cait_xs
+    assert not port.use_fused_mlp(40, 160, 0.0)  # convnext_a stage 1: JAX's d % 32 refuses it
     assert not port.use_fused_mlp(100, 400, 0.0)

@@ -86,7 +86,20 @@ CASES = [  # (T, ls, dp, residual, dtype)
 
 @pytest.mark.parametrize("T,ls,dp,res,dtype", CASES)
 def test_plain_save_forward_and_backward_match_jax_kernels(T, ls, dp, res, dtype):
-    a = _args(B=2, T=T, seed=T, ls=ls, dp=dp, res=res)
+    _check_against_jax(_args(B=2, T=T, seed=T, ls=ls, dp=dp, res=res), dtype)
+
+
+@pytest.mark.parametrize("D,Dh,dtype", [(96, 384, "float32"), (96, 384, "bfloat16"),
+                                        (288, 1152, "bfloat16")])
+def test_32_column_widths_match_jax_kernels(D, Dh, dtype):
+    """The widths K3's 32-column tiles serve, ConvNeXt stage 1 (96, on a 7 × 7
+    map) and cait_xs (288), in ConvNeXt's form: γ_ls, drop path and the block
+    input as a separate residual."""
+    _check_against_jax(_args(B=2, T=49, D=D, Dh=Dh, seed=D, ls=True, dp=True, res=True), dtype)
+
+
+def _check_against_jax(a, dtype):
+    ls, res = a["ls"] is not None, a["res"] is not None
     jdt, tdt = DTYPES[dtype]
     j_out, j_saves, j_grads = _jax_fwd_bwd(a, jdt)
     p_out, p_saves, p_grads = _port_fwd_bwd(a, tdt)

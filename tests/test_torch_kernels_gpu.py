@@ -23,7 +23,10 @@ inputs like their plain versions (their products on the tensor cores with
 exact operands) and are held to the bf16 bound and, in f32, to
 1e-4·max|plain|, which a kernel that rounds p or ds to bf16 once fails; the
 bias is given and not differentiated (its backward is the plain recompute
-on every device).
+on every device). The depthwise-conv kernels (K9) sum the same f32 taps in
+the same order as their plain versions (out and dx within the dtype's
+bound, measured bit-equal in bf16); dw, summed over the batch and space in
+another order, by rel L2.
 """
 
 import pytest
@@ -78,7 +81,8 @@ def _check_rel_l2(got, want, what, ref=None):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,D,Dh,extras", [(2, 50, 128, 512, True), (3, 17, 256, 1024, False)])
+@pytest.mark.parametrize("B,T,D,Dh,extras", [(2, 50, 128, 512, True), (3, 17, 256, 1024, False),
+                                             (2, 50, 96, 384, True), (3, 17, 288, 1152, False)])
 def test_mlp_kernel_matches_plain(cuda, dtype, B, T, D, Dh, extras):
     g = torch.Generator().manual_seed(T)
     a = [_rand(g, B, T, D), _rand(g, D, scale=0.1, shift=1.0), _rand(g, D, scale=0.1),
@@ -136,7 +140,9 @@ def _drop_path(g, B, device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,Dh,extras,res", [(2, 50, 128, 512, True, True),
                                                  (3, 17, 256, 1024, False, False),
-                                                 (2, 197, 768, 3072, True, False)])
+                                                 (2, 197, 768, 3072, True, False),
+                                                 (2, 196, 96, 384, True, True),
+                                                 (3, 17, 288, 1152, False, False)])
 def test_mlp_backward_kernels_match_plain(cuda, dtype, B, T, D, Dh, extras, res):
     g = torch.Generator().manual_seed(B * T)
     x, ops, ls, dp = _mlp_operands(g, B, T, D, Dh, dtype, extras, cuda)
@@ -334,9 +340,8 @@ def test_talking_head_refuses_what_its_gate_refuses(cuda):
                                   "cait_s_36", "cait_m_36", "cait_m_48"])
 def test_cait_builds_on_the_card_and_runs_its_kernels(cuda, name):
     """Every registered CaiT is built on the card by default; a bf16
-    forward at 224 px runs K5 and, where its width fills the 64-column
-    tiles, K3 in each self-attention block (cait_xs, D = 288, runs its MLP
-    halves as plain modules)."""
+    forward at 224 px runs K5 and K3 in each self-attention block (cait_xs,
+    D = 288, through K3's 32-column tiles)."""
     import vision_toolbox_tpu_torch as vtt
 
     m = vtt.create_backbone(name, dtype=torch.bfloat16)
@@ -348,7 +353,7 @@ def test_cait_builds_on_the_card_and_runs_its_kernels(cuda, name):
     depth = len(m.sa_blocks)
     assert out.shape == (2, m.last_out_channels) and torch.isfinite(out.float()).all()
     assert _cuda.LAUNCHES["talking_head"] == depth
-    assert _cuda.LAUNCHES["block_mlp"] == (0 if m.d_model % 64 else depth)
+    assert _cuda.LAUNCHES["block_mlp"] == depth
 
 
 # K6 (flash attention) on (B·N, T, H): siglip vit_b_16's T = S = 1024 with
@@ -402,11 +407,11 @@ def test_flash_attention_on_the_card_never_falls_back(cuda):
         fa.flash_attention(*(t.detach().half() for t in (q, k, v)))
 
 
-@pytest.mark.parametrize("head", [72, 256])
+@pytest.mark.parametrize("head", [256])
 def test_flash_attention_refuses_head_widths_it_lacks(cuda, head):
     """The gate admits T = 1024 for any head width, as the JAX package's
-    does; on a CUDA tensor a width the kernels lack (72: SigLIP So400m/14 at
-    448 px; 256) raises and never runs the plain version."""
+    does; on a CUDA tensor a width above the kernels' 128 raises and never
+    runs the plain version (72 is zero-padded to 80 and runs K6)."""
     x = _rand(torch.Generator().manual_seed(head), 1, 1024, 2, head).to(cuda, torch.bfloat16)
     _cuda.reset_launch_counts()
     with pytest.raises(ValueError, match=f"head_dim={head}"):
@@ -430,3 +435,137 @@ def test_siglip_builds_on_the_card_and_runs_its_kernels(cuda):
     assert torch.isfinite(plain.float()).all()
     assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["block_mlp"] == 12
     assert _cuda.LAUNCHES["block_attention"] == 0
+
+
+def test_flash_attention_pads_head_72(cuda):
+    """Head 72 (SigLIP So400m/14 at 448 px) at T = 1024: the operands are
+    zero-padded to 80 in the relayout, K6 runs forward and backward, and
+    output and gradients match the plain versions on the unpadded head."""
+    g = torch.Generator().manual_seed(72)
+    q, k, v = (_rand(g, 2, 1024, 4, 72).to(cuda, torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    dout = _rand(g, 2, 1024, 4, 72).to(cuda, torch.bfloat16)
+    _cuda.reset_launch_counts()
+    out = attn.dot_product_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["flash_attention_bwd"] == 1
+    want_out = attn.dot_product_attention(q, k, v, plain=True)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    _check(out, want_out, bounds=FLASH_BOUND)
+    for a, b in zip(got, want):
+        _check(a, b, bounds=FLASH_BOUND)
+
+
+def test_cait_s_24_at_384_px_builds_and_runs(cuda):
+    """cait_s_24 at 384 px (T = 576 > 512): its self-attention takes the JAX
+    module's XLA branch (no K5 launch), its MLP halves K3, forward and
+    backward."""
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone("cait_s_24", img_size=384, dtype=torch.bfloat16)
+    _cuda.reset_launch_counts()
+    out = m(torch.rand(2, 384, 384, 3, device=cuda), train=True, generator=torch.Generator())
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert out.shape == (2, 384) and torch.isfinite(out.float()).all()
+    assert _cuda.LAUNCHES["talking_head"] == 0
+    assert _cuda.LAUNCHES["block_mlp"] == _cuda.LAUNCHES["block_mlp_bwd"] == 24
+    assert torch.isfinite(m.sa_blocks[0].mha.proj_l_kernel.grad).all()
+
+
+def test_cait_with_heads_the_kernels_lack_raises(cuda):
+    """A CaiT with 32-wide heads at T = 196 is inside the JAX module's K5
+    rule, so it reaches the op, which has no kernel for that width: it
+    raises and launches nothing, never running the XLA branch instead."""
+    from vision_toolbox_tpu_torch.models.cait import CaiT
+
+    m = CaiT(d_model=128, sa_depth=1, ca_depth=1, n_heads=4, patch_size=16, img_size=224,
+             dtype=torch.bfloat16)
+    _cuda.reset_launch_counts()
+    with torch.inference_mode(), pytest.raises(ValueError, match="head_dim=32"):
+        m(torch.rand(2, 224, 224, 3, device=cuda))
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0)
+
+
+# K9 (depthwise conv) on NHWC (B, H, W, C) with k: convnext_t stage 1, a C
+# that is no multiple of 8 over ragged tiles, k = 3 and 5, a run-time k (9)
+DEPTHWISE_SHAPES = [(2, 56, 56, 96, 7), (3, 13, 17, 20, 7), (2, 9, 9, 32, 3), (2, 10, 7, 24, 5),
+                    (1, 12, 20, 16, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,k", DEPTHWISE_SHAPES)
+def test_depthwise_conv_kernels_match_plain(cuda, dtype, B, H, W, C, k):
+    """K9 forward and backward against their plain versions: out and dx
+    within the dtype's bound, dw by rel L2 (another f32 summation order);
+    each wrapper launches its kernels once."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(B * H * W + C + k)
+    x = _rand(g, B, H, W, C).to(cuda, dtype)
+    w = _rand(g, k, k, 1, C, scale=0.2).to(cuda, dtype)
+    dout = _rand(g, B, H, W, C).to(cuda, dtype)
+    before = dict(_cuda.LAUNCHES)
+    out = dc.depthwise_conv2d(x, w)
+    dx, dw = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["depthwise_conv"] == before["depthwise_conv"] + 1
+    assert _cuda.LAUNCHES["depthwise_conv_bwd"] == before["depthwise_conv_bwd"] + 1
+    _check(out, dc.depthwise_conv2d_plain(x, w))
+    want_dx, want_dw = dc.depthwise_conv2d_bwd_plain(x, w, dout)
+    _check(dx, want_dx)
+    assert dw.dtype == want_dw.dtype
+    _check_rel_l2(dw, want_dw, "dw")
+
+
+def test_depthwise_conv_on_the_card_never_falls_back(cuda):
+    """``DepthwiseConv``, ``ConvNormAct``'s depthwise branch and
+    ``SeparableConv2d`` launch K9 on CUDA tensors (its backward under
+    autograd); a kernel size or type the kernels lack raises."""
+    from vision_toolbox_tpu_torch.nn import layers
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    gen = torch.Generator().manual_seed(0)
+    mods = [layers.DepthwiseConv(24, 7, generator=gen),
+            layers.ConvNormAct(24, 24, 3, groups=24, generator=gen),
+            layers.SeparableConv2d(24, 32, 5, generator=gen)]
+    x = torch.rand(2, 14, 14, 24, device=cuda, requires_grad=True)
+    for m in mods:
+        m.to(cuda)
+        _cuda.reset_launch_counts()
+        m(x).float().sum().backward()
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["depthwise_conv"] == _cuda.LAUNCHES["depthwise_conv_bwd"] == 1, m
+    with pytest.raises(ValueError, match="use_depthwise_kernel"):
+        dc.depthwise_conv2d(x.detach(), torch.rand(23, 23, 1, 24, device=cuda))
+    with pytest.raises(TypeError):
+        dc.depthwise_conv2d(x.detach().half(), torch.rand(7, 7, 1, 24, device=cuda).half())
+
+
+def test_convnext_builds_on_the_card_and_runs_its_kernels(cuda):
+    """convnext_t, bf16: each of its 18 blocks runs K9 and K3 forward (a
+    served forward), then forward and backward in training; convnextv2_t
+    runs K9 and no K3 (GRN sits inside its MLP)."""
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone("convnext_t", dtype=torch.bfloat16, stochastic_depth=0.1)
+    assert next(m.parameters()).is_cuda
+    x = torch.rand(2, 224, 224, 3, device=cuda)
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        out = m(x)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 768) and torch.isfinite(out.float()).all()
+    assert _cuda.LAUNCHES["depthwise_conv"] == _cuda.LAUNCHES["block_mlp"] == 18
+    _cuda.reset_launch_counts()
+    m(x, train=True, generator=torch.Generator(device=cuda)).float().sum().backward()
+    torch.cuda.synchronize()
+    for name in ("depthwise_conv", "depthwise_conv_bwd", "block_mlp", "block_mlp_bwd"):
+        assert _cuda.LAUNCHES[name] == 18, (name, dict(_cuda.LAUNCHES))
+    v2 = vtt.create_backbone("convnextv2_t", dtype=torch.bfloat16)
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        assert torch.isfinite(v2(x).float()).all()
+    assert _cuda.LAUNCHES["depthwise_conv"] == 18 and _cuda.LAUNCHES["block_mlp"] == 0

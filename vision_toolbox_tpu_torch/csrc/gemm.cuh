@@ -110,10 +110,16 @@ enum Epilogue {
   EPI_GELU_GRAD = 4,  // out (bf16) = bf16(acc·gelu'(aux_in)); colsum += acc·gelu'(aux_in) in f32
 };
 
-constexpr int BM = 64, BN = 64, BK = 32, NTHREADS = 128;
+// The column tile BN is a template parameter: 64 for widths that are
+// multiples of 64 (every ViT, CaiT-S and SigLIP product), 32 for the other
+// multiples of 32 (ConvNeXt and Swin stage 1, D = 96 / 192; cait_xs, 288).
+// Four warps tile a BM × BN block as 2 × 2 sub-tiles of 32 × BN/2.
+constexpr int BM = 64, BK = 32, NTHREADS = 128;
 constexpr int SA = BK + 8;  // smem pitch of A and B_NK tiles in bf16 (80 B: 16-B rows, 32-B fragments)
-constexpr int SB = BN + 8;  // smem pitch of B_KN tiles in bf16 (144 B)
-constexpr int SC = BN + 4;  // smem pitch of the f32 output tile
+template <int BN>
+__host__ __device__ constexpr int sb_pitch() { return BN + 8; }  // B_KN tiles' smem pitch, bf16
+template <int BN>
+__host__ __device__ constexpr int sc_pitch() { return BN + 4; }  // the f32 output tile's pitch
 
 // Up to three products that share A and the shape run in one launch,
 // selected by blockIdx.z (the q/k/v projections).
@@ -249,50 +255,55 @@ __device__ __forceinline__ void store_a(const GemmArgs& g, int m0, int k0, const
   }
 }
 
-template <int BL>
+// A BN × BK (B_NK) or BK × BN (B_KN) tile of W is BN·BK/8 groups of eight
+// bf16: BN/32 per thread.
+template <int BL, int BN>
 __device__ __forceinline__ void load_b(const GemmArgs& g, const bf16* w, int n0, int k0,
-                                       uint4 (&rb)[2]) {
+                                       uint4 (&rb)[BN / 32]) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < BN / 32; ++i) {
     const int idx = threadIdx.x + i * NTHREADS;
     if constexpr (BL == B_NK) {  // BN rows of W, BK columns each
       const int r = idx >> 2, c = (idx & 3) * 8;
       rb[i] = __ldg(reinterpret_cast<const uint4*>(w + static_cast<size_t>(n0 + r) * g.K + k0 + c));
     } else {  // BK rows of W, BN columns each
-      const int r = idx >> 3, c = (idx & 7) * 8;
+      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
       rb[i] = __ldg(reinterpret_cast<const uint4*>(w + static_cast<size_t>(k0 + r) * g.N + n0 + c));
     }
   }
 }
 
-template <int BL>
-__device__ __forceinline__ void store_b(const uint4 (&rb)[2], bf16* bs) {
+template <int BL, int BN>
+__device__ __forceinline__ void store_b(const uint4 (&rb)[BN / 32], bf16* bs) {
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
+  for (int i = 0; i < BN / 32; ++i) {
     const int idx = threadIdx.x + i * NTHREADS;
     if constexpr (BL == B_NK) {
       *reinterpret_cast<uint4*>(bs + (idx >> 2) * SA + (idx & 3) * 8) = rb[i];
     } else {
-      *reinterpret_cast<uint4*>(bs + (idx >> 3) * SB + (idx & 7) * 8) = rb[i];
+      *reinterpret_cast<uint4*>(bs + (idx / (BN / 8)) * sb_pitch<BN>() + (idx % (BN / 8)) * 8) =
+          rb[i];
     }
   }
 }
 
-// One BK-deep step of this warp's 32×32 sub-tile.
-template <int BL>
+// One BK-deep step of this warp's 32 × BN/2 sub-tile (FN = BN/32 fragments
+// of 16 columns).
+template <int BL, int BN>
 __device__ __forceinline__ void mma_step(
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (&acc)[2][2],
+    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (&acc)[2][BN / 32],
     const bf16* as, const bf16* bs, int wm, int wn) {
   using namespace nvcuda;
   using BLay = typename std::conditional<BL == B_NK, wmma::col_major, wmma::row_major>::type;
+  constexpr int FN = BN / 32, SB = sb_pitch<BN>();
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
     wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> fb[2];
+    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> fb[FN];
 #pragma unroll
     for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], as + (wm + i * 16) * SA + kk, SA);
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
+    for (int j = 0; j < FN; ++j) {
       if constexpr (BL == B_NK) {
         wmma::load_matrix_sync(fb[j], bs + (wn + j * 16) * SA + kk, SA);
       } else {
@@ -302,17 +313,19 @@ __device__ __forceinline__ void mma_step(
 #pragma unroll
     for (int i = 0; i < 2; ++i)
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
+      for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
   }
 }
 
 // Grid (N / BN, ceil(M / BM), number of products). Requires N % BN == 0 and
 // K % BK == 0 (the wrappers check); rows past M are masked. SAVE compiles in
 // the backward saves (xhat, rstd, aux): the inference kernels write none.
-template <int AM, int EPI, typename TX, int BL = B_NK, bool SAVE = false>
+template <int AM, int EPI, typename TX, int BL, bool SAVE, int BN>
 __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
   using namespace nvcuda;
-  static_assert(BK * SB <= BN * SA, "a B_KN tile fits the B_NK tile's buffer");
+  constexpr int FN = BN / 32, SC = sc_pitch<BN>();
+  static_assert(BN == 32 || BN == 64, "column tiles of 32 or 64");
+  static_assert(BK * sb_pitch<BN>() <= BN * SA, "a B_KN tile fits the B_NK tile's buffer");
   __shared__ __align__(128) bf16 as[2][BM * SA];
   __shared__ __align__(128) bf16 bs[2][BN * SA];
   __shared__ __align__(128) float cs[BM * SC];
@@ -327,33 +340,33 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
     __syncthreads();
   }
 
-  uint4 ra[2][2], rb[2];
+  uint4 ra[2][2], rb[FN];
   load_a<AM, TX>(g, m0, 0, ra);
-  load_b<BL>(g, w, n0, 0, rb);
+  load_b<BL, BN>(g, w, n0, 0, rb);
   store_a<AM, TX, SAVE>(g, m0, 0, ra, as[0], s_mu, s_rs);
-  store_b<BL>(rb, bs[0]);
+  store_b<BL, BN>(rb, bs[0]);
   __syncthreads();
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
 
   const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+  const int wm = (warp >> 1) * 32, wn = (warp & 1) * (BN / 2);
   const int kt_end = g.K / BK;
   for (int kt = 0; kt < kt_end; ++kt) {
     const int s = kt & 1;
     const bool more = kt + 1 < kt_end;
     if (more) {  // next tile's loads are in flight while this one computes
       load_a<AM, TX>(g, m0, (kt + 1) * BK, ra);
-      load_b<BL>(g, w, n0, (kt + 1) * BK, rb);
+      load_b<BL, BN>(g, w, n0, (kt + 1) * BK, rb);
     }
-    mma_step<BL>(acc, as[s], bs[s], wm, wn);
+    mma_step<BL, BN>(acc, as[s], bs[s], wm, wn);
     if (more) {
       store_a<AM, TX, SAVE>(g, m0, (kt + 1) * BK, ra, as[s ^ 1], s_mu, s_rs);
-      store_b<BL>(rb, bs[s ^ 1]);
+      store_b<BL, BN>(rb, bs[s ^ 1]);
     }
     __syncthreads();
   }
@@ -361,7 +374,7 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < FN; ++j)
       wmma::store_matrix_sync(cs + (wm + i * 16) * SC + wn + j * 16, acc[i][j], SC,
                               wmma::mem_row_major);
   __syncthreads();
@@ -407,11 +420,17 @@ __global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
   }
 }
 
-// Launches and returns the launch's error (cudaGetLastError).
+// Launches and returns the launch's error (cudaGetLastError): 64-column
+// tiles where N allows them, else 32-column ones.
 template <int AM, int EPI, typename TX, int BL = B_NK, bool SAVE = false>
 inline cudaError_t launch_gemm(const GemmArgs& g, int n_products, cudaStream_t stream) {
-  const dim3 grid(g.N / BN, (g.M + BM - 1) / BM, n_products);
-  gemm_kernel<AM, EPI, TX, BL, SAVE><<<grid, NTHREADS, 0, stream>>>(g);
+  if (g.N % 64 == 0) {
+    const dim3 grid(g.N / 64, (g.M + BM - 1) / BM, n_products);
+    gemm_kernel<AM, EPI, TX, BL, SAVE, 64><<<grid, NTHREADS, 0, stream>>>(g);
+  } else {
+    const dim3 grid(g.N / 32, (g.M + BM - 1) / BM, n_products);
+    gemm_kernel<AM, EPI, TX, BL, SAVE, 32><<<grid, NTHREADS, 0, stream>>>(g);
+  }
   return cudaGetLastError();
 }
 
@@ -424,7 +443,7 @@ inline cudaError_t launch_forward_gemm(const GemmArgs& g, int n_products, bool s
 }
 
 inline bool gemm_shape_ok(int M, int N, int K) {
-  return M > 0 && N > 0 && K > 0 && N % BN == 0 && K % BK == 0 && (M + BM - 1) / BM <= 65535;
+  return M > 0 && N > 0 && K > 0 && N % 32 == 0 && K % BK == 0 && (M + BM - 1) / BM <= 65535;
 }
 
 inline Vec vec(const void* p, int is_bf16) { return Vec{p, is_bf16}; }

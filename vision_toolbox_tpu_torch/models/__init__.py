@@ -1,14 +1,15 @@
 """Model registry and backbones."""
 
-from . import cait, darknet, deit, vit  # noqa: F401  (register the cait_*, darknet*, deit*, vit_* names)
+from . import cait, convnext, darknet, deit, vit  # noqa: F401  (register the cait_*, convnext*, darknet*, deit*, vit_* names)
 from .base import Backbone, create_backbone, list_backbones, register_model
 from .cait import CaiT, cait_from_config
+from .convnext import ConvNeXt, convnext_from_config
 from .darknet import Darknet, DarknetYOLOv5
 from .deit import DeiT
 from .vit import VIT_VARIANTS, ViT, vit_from_config
 
 __all__ = [
-    "Backbone", "CaiT", "Darknet", "DarknetYOLOv5", "DeiT", "VIT_VARIANTS", "ViT", "cait",
-    "cait_from_config", "create_backbone", "darknet", "deit", "list_backbones", "register_model",
-    "vit", "vit_from_config",
+    "Backbone", "CaiT", "ConvNeXt", "Darknet", "DarknetYOLOv5", "DeiT", "VIT_VARIANTS", "ViT",
+    "cait", "cait_from_config", "convnext", "convnext_from_config", "create_backbone", "darknet",
+    "deit", "list_backbones", "register_model", "vit", "vit_from_config",
 ]

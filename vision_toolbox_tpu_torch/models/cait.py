@@ -3,7 +3,13 @@
 
 - ``TalkingHeadAttention``: learnable (H, H) head mixes before and after the
   softmax; it runs ``ops/cait_attention.py`` (the K5 kernels on the card,
-  their plain versions on CPU tensors). The mix parameters keep flax's
+  their plain versions on CPU tensors) wherever the JAX module runs K5 on a
+  TPU, so on the card a head width the CUDA kernels lack raises, and also
+  where only the CUDA kernels' rule admits the shape (cait_m_* at 224 px:
+  16 heads at T = 196 exceed the TPU's VMEM budget). Everywhere else it
+  runs the JAX module's XLA branch, as that module does (T > 512, e.g.
+  cait_s_24 at 384 px; cait_m_* at 288 px; dropout in training). The mix
+  parameters keep flax's
   names (``proj_l_kernel``, ``proj_l_bias``, ``proj_w_kernel``,
   ``proj_w_bias``) as direct float32 parameters of the module: unsplit,
   ``proj_l_bias`` falls in the weight-decay group 'other', as in the JAX
@@ -29,9 +35,13 @@ from torch import Tensor, nn
 
 from ..nn.attention import MLP, ViTBlock
 from ..nn.initializers import normal, torch_default_bias, torch_default_kernel
-from ..nn.layers import LayerNorm, LayerScale, Linear, StochasticDepth, as_dtype
+from ..nn.layers import LayerNorm, LayerScale, Linear, StochasticDepth, as_dtype, dropout
 from ..ops.attention import dot_product_attention
-from ..ops.cait_attention import talking_head_attention
+from ..ops.cait_attention import (
+    talking_head_attention,
+    tpu_rule_admits,
+    use_talking_head_kernel,
+)
 from .base import Backbone, register_model, to_device
 from .vit import PatchEmbed
 
@@ -57,14 +67,39 @@ class TalkingHeadAttention(nn.Module):
 
     def forward(self, x: Tensor, train: bool = False, *, plain: bool = False,
                 generator: torch.Generator | None = None) -> Tensor:
-        """``plain`` runs the plain versions of the kernels on any device.
-        Attention dropout in training (the JAX package's XLA branch) is not
-        ported: the kernels have none, so it raises."""
-        if self.dropout > 0 and train:
-            raise NotImplementedError("CaiT attention dropout in training is not ported")
+        """The talking-head op where the JAX module's K5 rule or the CUDA
+        kernels' rule admits the shape and no attention dropout is drawn (on
+        a CUDA tensor it launches its kernels or raises); otherwise the JAX
+        package's XLA branch (``_xla_attention``). ``plain`` runs the op's
+        plain versions on any device."""
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         mixes = [as_dtype(getattr(self, n), torch.float32) for n in MIX_PARAMS]
-        return self.out_proj(talking_head_attention(q, k, v, *mixes, plain=plain))
+        T, H = x.shape[-2], self.n_heads
+        kernel = tpu_rule_admits(T, T, H) or use_talking_head_kernel(T, T, H, self.d_model // H)
+        if (self.dropout > 0 and train) or not kernel:
+            out = self._xla_attention(q, k, v, *mixes, train=train, generator=generator)
+        else:
+            out = talking_head_attention(q, k, v, *mixes, plain=plain)
+        return self.out_proj(out)
+
+    def _xla_attention(self, q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor,
+                       mw: Tensor, mwb: Tensor, *, train: bool,
+                       generator: torch.Generator | None) -> Tensor:
+        """The JAX module's XLA branch at its rounding points: the logits
+        ``q·(k·scale)`` in the input type, lifted to f32 by the f32
+        pre-softmax mix, then the softmax, the post-softmax mix and the
+        attention dropout in f32, and ·v (the output projection rounds it)."""
+        B, T, _ = q.shape
+        heads = lambda t: t.reshape(B, T, self.n_heads, -1)
+        q, k, v = heads(q), heads(k), heads(v)
+        scale = torch.tensor(q.shape[-1] ** -0.5, dtype=k.dtype)  # JAX rounds it to k's type
+        logits = torch.einsum("bqhd,bkhd->bhqk", q, k * scale)
+        logits = torch.einsum("bhqk,gh->bgqk", logits.float(), ml) + mlb[:, None, None]
+        probs = torch.softmax(logits, dim=-1)
+        probs = torch.einsum("bhqk,gh->bgqk", probs, mw) + mwb[:, None, None]
+        if train:
+            probs = dropout(probs, self.dropout, generator)
+        return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).reshape(B, T, self.d_model)
 
 
 class ClassAttention(nn.Module):

@@ -74,23 +74,26 @@ class MLP(nn.Module):
 
 
 def fused_mlp_halfblock(
-    x: Tensor, norm: LayerNorm, mlp: MLP, scale: LayerScale | None,
-    droppath: StochasticDepth, *, train: bool, plain: bool = False,
-    generator: torch.Generator | None = None,
+    x: Tensor, norm: LayerNorm, linear1: Linear, linear2: Linear, scale: LayerScale | None,
+    droppath: StochasticDepth, *, residual: Tensor | None = None, train: bool,
+    plain: bool = False, generator: torch.Generator | None = None,
 ) -> Tensor:
     """LN → W1 → GELU → W2 → LayerScale → drop-path → residual through the
     fused MLP op (``ops/block_mlp.py``), reading the parameters of the same
-    modules the unfused path uses: LN parameters, biases and γ rounded to
+    modules the unfused path uses (an ``MLP``'s two linears, or ConvNeXt's
+    ``pwconv1``/``pwconv2``): LN parameters, biases and γ rounded to
     ``x.dtype`` as the JAX package promotes them, weights as they are (the op
-    rounds them to bf16). ``plain`` runs the op's plain PyTorch versions on
-    any device (for checking the kernels)."""
+    rounds them to bf16). The residual is ``x`` unless ``residual`` is given
+    (ConvNeXt adds the block input to the MLP of its depthwise conv's
+    output). ``plain`` runs the op's plain PyTorch versions on any device
+    (for checking the kernels)."""
     dt = x.dtype
     return block_mlp.fused_mlp_block(
         x, norm.weight.to(dt), norm.bias.to(dt),
-        mlp.linear1.weight, as_dtype(mlp.linear1.bias, dt),
-        mlp.linear2.weight, as_dtype(mlp.linear2.bias, dt),
+        linear1.weight, as_dtype(linear1.bias, dt), linear2.weight, as_dtype(linear2.bias, dt),
         None if scale is None else as_dtype(scale.gamma, dt),
-        droppath.sample_scale(x.shape[0], train, generator, device=x.device), eps=norm.eps,
+        droppath.sample_scale(x.shape[0], train, generator, device=x.device),
+        residual=None if residual is None else as_dtype(residual, dt), eps=norm.eps,
         plain=plain,
     )
 
@@ -152,8 +155,9 @@ class ViTBlock(nn.Module):
             x = x + self.mha_droppath(y, train=train, generator=g)
 
         if fused and block_mlp.use_fused_mlp(self.d_model, self.hidden, self.dropout):
-            return fused_mlp_halfblock(x, self.mlp_norm, self.mlp, self.mlp_scale,
-                                       self.mlp_droppath, train=train, plain=plain, generator=g)
+            return fused_mlp_halfblock(x, self.mlp_norm, self.mlp.linear1, self.mlp.linear2,
+                                       self.mlp_scale, self.mlp_droppath, train=train,
+                                       plain=plain, generator=g)
         y = self.mlp(self.mlp_norm(x), train=train, generator=g)
         if self.mlp_scale is not None:
             y = self.mlp_scale(y)

@@ -1,7 +1,8 @@
 """Core NN primitives — port of ``vision_toolbox_tpu/nn/layers.py``: the
-activation table, ``torch_pad``, ``Conv2d`` and ``ConvNormAct`` for the
-convnets, and ``Linear``, ``LayerNorm`` (flax semantics), ``LayerScale``,
-``StochasticDepth`` and the exact-erf GELU for the transformers.
+activation table, ``torch_pad``, ``Conv2d``, ``DepthwiseConv``,
+``ConvNormAct`` and ``SeparableConv2d`` for the convnets, and ``Linear``,
+``LayerNorm`` (flax semantics), ``LayerScale``, ``StochasticDepth`` and the
+exact-erf GELU for the transformers.
 
 Conv layers take and return NHWC tensors, as in the JAX package; inside, the
 NHWC tensor is viewed as a ``channels_last`` NCHW tensor, so no copy is made
@@ -19,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from ..ops.depthwise_conv import depthwise_conv2d
 from .initializers import kaiming_normal, torch_default_bias, torch_default_kernel
 
 
@@ -52,13 +54,14 @@ def torch_pad(kernel_size: int, stride: int = 1) -> int:
 
 
 def dropout(x: Tensor, p: float, generator: torch.Generator | None) -> Tensor:
-    """Inverted dropout with keep probability 1 − p, mask from ``generator``."""
+    """Inverted dropout with keep probability 1 − p, mask from ``generator``;
+    the division by 1 − p in x's type, as JAX rounds the Python scalar."""
     if p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
     keep = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) >= p
-    return x * keep / (1.0 - p)
+    return x * keep / torch.tensor(1.0 - p, dtype=x.dtype)
 
 
 class Conv2d(nn.Module):
@@ -87,14 +90,42 @@ class Conv2d(nn.Module):
         return y.permute(0, 2, 3, 1)
 
 
+class DepthwiseConv(nn.Module):
+    """Depthwise k×k conv, stride 1, SAME, on NHWC tensors — the JAX
+    package's ``DepthwiseConv``, param-compatible with it: ``weight``
+    (C, 1, k, k) (the bridge's layout of its (k, k, 1, C) kernel) and an
+    optional ``bias`` (C,), float32. x, weight and bias are cast to
+    ``dtype`` (else their promoted type) as flax's ``promote_dtype`` does;
+    the conv runs ``ops/depthwise_conv.py`` (the K9 kernels on CUDA tensors,
+    their plain versions on CPU tensors) and the bias is added after its
+    output is rounded, in the compute type."""
+
+    def __init__(self, channels: int, kernel_size: int, use_bias: bool = True, *,
+                 kernel_init: Callable = torch_default_kernel, bias_init: Callable | None = None,
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
+        super().__init__()
+        k = kernel_size
+        self.dtype = dtype
+        self.weight = nn.Parameter(kernel_init((channels, 1, k, k), generator))
+        init = bias_init or torch_default_bias(k * k)
+        self.bias = nn.Parameter(init((channels,), generator)) if use_bias else None
+
+    def forward(self, x: Tensor, *, plain: bool = False) -> Tensor:
+        """``plain`` runs the kernels' plain versions on any device."""
+        dt = self.dtype or torch.promote_types(x.dtype, self.weight.dtype)
+        w = as_dtype(self.weight, dt).permute(2, 3, 1, 0)  # (k, k, 1, C), the JAX layout
+        y = depthwise_conv2d(as_dtype(x, dt), w, plain=plain)
+        return y if self.bias is None else y + as_dtype(self.bias, dt)
+
+
 class ConvNormAct(nn.Module):
     """Conv → Norm → Act on NHWC tensors, the primitive of every convnet.
 
     Bias only when ``norm == "none"``; norm ∈ {none, bn}; Kaiming-normal
     (fan_out) init for relu/leaky_relu convs, PyTorch's default otherwise.
-    The depthwise stride-1 case is the JAX package's ``DepthwiseConv``, whose
-    TPU kernel K9 is not ported yet: on a CUDA tensor it raises
-    ``NotImplementedError``; on a CPU tensor it runs the grouped convolution.
+    The depthwise stride-1 case (odd k, groups = in = out channels) is a
+    ``DepthwiseConv`` under the same ``conv`` name, as in the JAX package:
+    the K9 kernels on CUDA tensors.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
@@ -111,9 +142,14 @@ class ConvNormAct(nn.Module):
             kernel_init = torch_default_kernel
         self.depthwise = (groups == in_channels == out_channels and s == 1 and dilation == 1
                           and k % 2 == 1)
-        self.conv = Conv2d(in_channels, out_channels, k, s, torch_pad(k, s), dilation, groups,
-                           use_bias=norm == "none", kernel_init=kernel_init, dtype=dtype,
-                           generator=generator)
+        if self.depthwise:
+            self.conv = DepthwiseConv(out_channels, k, norm == "none", kernel_init=kernel_init,
+                                      bias_init=torch_default_bias(k * k), dtype=dtype,
+                                      generator=generator)
+        else:
+            self.conv = Conv2d(in_channels, out_channels, k, s, torch_pad(k, s), dilation,
+                               groups, use_bias=norm == "none", kernel_init=kernel_init,
+                               dtype=dtype, generator=generator)
         if norm == "bn":
             self.norm = BatchNorm(out_channels, momentum=norm_momentum, eps=norm_eps)
         elif norm == "none":
@@ -123,16 +159,28 @@ class ConvNormAct(nn.Module):
         self.act = ACTIVATIONS[act]
 
     def forward(self, x: Tensor, train: bool = False) -> Tensor:
-        if self.depthwise and x.is_cuda:
-            raise NotImplementedError(
-                "depthwise stride-1 ConvNormAct runs kernel K9 (depthwise conv, "
-                "vision_toolbox_tpu/ops/depthwise_conv.py) in the JAX package; that kernel "
-                "has no CUDA port yet"
-            )
         x = self.conv(x)
         if self.norm is not None:
             x = self.norm(x, train=train)
         return x if self.act is None else self.act(x)
+
+
+class SeparableConv2d(nn.Module):
+    """Depthwise + pointwise ``ConvNormAct`` (``dw``, ``pw``), as in the JAX
+    package; at stride 1 the depthwise half is a K9 conv."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 3,
+                 stride: int = 1, dilation: int = 1, norm: str = "bn", act: str = "relu6", *,
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
+        super().__init__()
+        self.dw = ConvNormAct(in_channels, in_channels, kernel_size, stride, dilation,
+                              groups=in_channels, norm=norm, act=act, dtype=dtype,
+                              generator=generator)
+        self.pw = ConvNormAct(in_channels, out_channels, 1, norm=norm, act=act, dtype=dtype,
+                              generator=generator)
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        return self.pw(self.dw(x, train=train), train=train)
 
 
 class Linear(nn.Module):

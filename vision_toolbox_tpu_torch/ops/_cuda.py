@@ -34,7 +34,7 @@ LIB_NAME = "libvtt_kernels.so"
 LAUNCHES: dict[str, int] = {
     "block_mlp": 0, "block_attention": 0, "block_mlp_bwd": 0, "block_attention_bwd": 0,
     "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0, "flash_attention": 0,
-    "flash_attention_bwd": 0,
+    "flash_attention_bwd": 0, "depthwise_conv": 0, "depthwise_conv_bwd": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -99,6 +99,17 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _I, _I,  # q, k, v, bias (or null), bias_bf16, is_bf16
          _P, _P,  # out, lse (or null)
          _I, _I, _I, _I, _F, _P),  # BN, T, S, H, scale, stream
+        _I,
+    ),
+    "vtt_dw_fwd": (
+        (_P, _P, _P, _I, _I,  # x, w, y, x_bf16, w_bf16
+         _I, _I, _I, _I, _I, _P),  # B, H, W, C, k, stream
+        _I,
+    ),
+    "vtt_dw_partial_floats": ((_I, _I, _I, _I, _I), ctypes.c_longlong),  # B, H, W, C, k
+    "vtt_dw_bwd": (
+        (_P, _P, _P, _P, _P, _P, _I, _I,  # x, g, w, dx, dw, partials (scratch), x_bf16, w_bf16
+         _I, _I, _I, _I, _I, _P),  # B, H, W, C, k, stream
         _I,
     ),
     "vtt_flash_bwd": (

@@ -5,8 +5,8 @@ additive bias broadcasting against (B, N, T, S).
 
 Like the JAX package, long 128-aligned sequences go to the flash kernel
 (K6, ``ops/flash_attention.py``) on every device: its hand-written CUDA
-kernels on CUDA tensors (which raise for a head width they lack), its plain
-versions on CPU tensors. The JAX package
+kernels on CUDA tensors (heads zero-padded to a multiple of 16; heads
+wider than 128 raise), its plain versions on CPU tensors. The JAX package
 sends short unbiased attention to its short-attention kernel (K2,
 ``ops/short_attention.py``), which is not ported yet, so on a CUDA tensor
 those shapes raise ``NotImplementedError`` instead of running the plain math
@@ -38,9 +38,17 @@ def dot_product_attention(
     q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, dropout_rate: float = 0.0,
     generator: torch.Generator | None = None, *, plain: bool = False,
 ) -> Tensor:
-    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands, in f32. Attention
+    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands. Attention
     dropout draws its mask from ``generator``; ``plain`` runs the flash
-    kernel's plain versions on any device (for checking the kernels)."""
+    kernel's plain versions on any device (for checking the kernels).
+
+    Rounding points are the JAX package's. Without dropout,
+    ``jax.nn.dot_product_attention`` (jax 0.9.0
+    ``_dot_product_attention_core``): the logits from the input-type
+    operands accumulated in f32, scaled and biased in f32, the softmax in
+    f32, then p rounded to v's type before p·v (accumulated in f32, rounded
+    once to q's type). With dropout, the JAX package's manual path: q·scale,
+    the logits and the softmax in the input type."""
     B, T, N, H = q.shape
     scale = H**-0.5
     if dropout_rate == 0.0:
@@ -54,10 +62,15 @@ def dot_product_attention(
                     "in the JAX package; that kernel has no CUDA port yet"
                 )
         logits = torch.einsum("btnh,bsnh->bnts", q.float(), k.float()) * scale
-    else:  # manual path with attention dropout
-        logits = torch.einsum("btnh,bsnh->bnts", q.float() * scale, k.float())
+        if bias is not None:
+            logits = logits + bias.float()
+        probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        return torch.einsum("bnts,bsnh->btnh", probs.float(), v.float()).to(q.dtype)
+    # manual path with attention dropout, in the input type (the scale too,
+    # as JAX rounds a Python scalar to the array's type)
+    logits = torch.einsum("btnh,bsnh->bnts", q * torch.tensor(scale, dtype=q.dtype), k)
     if bias is not None:
-        logits = logits + bias.float()
-    probs = torch.softmax(logits, dim=-1)
-    probs = dropout(probs, dropout_rate, generator)
-    return torch.einsum("bnts,bsnh->btnh", probs, v.float()).to(q.dtype)
+        logits = logits + bias
+    e = torch.exp(logits - logits.amax(-1, keepdim=True))  # jax.nn.softmax
+    probs = dropout(e / e.sum(-1, keepdim=True), dropout_rate, generator)
+    return torch.einsum("bnts,bsnh->btnh", probs, v.to(probs.dtype)).to(q.dtype)

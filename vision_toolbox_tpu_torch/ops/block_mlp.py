@@ -44,7 +44,7 @@ from . import _cuda
 _SQRT_2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _AS = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429, 0.3275911)
-_GEMM_TILE = 64  # csrc/gemm.cuh BN (a multiple of its depth tile BK = 32)
+_GEMM_WIDTH_STEP = 32  # csrc/gemm.cuh: the narrower column tile, and the depth tile BK
 
 
 def _erf_as(x: Tensor) -> tuple[Tensor, Tensor]:
@@ -220,9 +220,12 @@ def fused_mlp_bwd_plain(
 
 
 def use_fused_mlp(d_model: int, hidden: int, dropout: float) -> bool:
-    """Shape rule of the CUDA kernels: both widths fill whole 64-column GEMM
-    tiles (every ViT and DeiT width does). No dropout: the kernel has none."""
-    return dropout == 0.0 and d_model % _GEMM_TILE == 0 and hidden % _GEMM_TILE == 0
+    """Shape rule of the CUDA kernels, the JAX package's lane rule: both
+    widths are multiples of 32 (the GEMM runs 64-column tiles where a width
+    allows them, 32-column ones elsewhere: ConvNeXt stage 1's 96, cait_xs's
+    288). No dropout: the kernel has none."""
+    return (dropout == 0.0 and d_model % _GEMM_WIDTH_STEP == 0
+            and hidden % _GEMM_WIDTH_STEP == 0)
 
 
 def _check_cuda_args(x: Tensor, w1: Tensor, w2: Tensor, residual: Tensor | None) -> None:

@@ -49,6 +49,15 @@ def _bwd_smem_bytes(s: int, n_heads: int, head_dim: int) -> int:
             + 2 * n_heads * n_heads + 2 * n_heads) * 4
 
 
+def tpu_rule_admits(t: int, s: int, n_heads: int) -> bool:
+    """The JAX package's K5 rule without its TPU check
+    (``vision_toolbox_tpu/ops/cait_attention.py`` ``use_talking_head_kernel``):
+    T, S ≤ 512, at most 16 heads, and six (H, T, S) f32 planes within 12 MiB
+    of VMEM. Any head width."""
+    return (t <= MAX_SEQ and s <= MAX_SEQ and n_heads <= MAX_HEADS
+            and 6 * n_heads * t * s * 4 <= 12 * 2**20)
+
+
 def use_talking_head_kernel(t: int, s: int, n_heads: int, head_dim: int) -> bool:
     """Shape rule of the CUDA kernels: T, S ≤ 512, at most 16 heads of
     width 48 or 64, and a backward row block of four query rows for all

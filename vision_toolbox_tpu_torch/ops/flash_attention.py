@@ -9,7 +9,9 @@ tile (FlashAttention-2: dK/dV per key tile, dQ per query tile), so no
 
 ``flash_attention`` is the entry point, on the (B, T, N, H) layout; like the
 JAX package it relays the operands out to (B·N, T, H) (and the bias, which
-broadcasts against (B, N, T, S), to (B·N, T, S)). Without gradients
+broadcasts against (B, N, T, S), to (B·N, T, S)); on CUDA tensors that copy
+zero-pads the head to the kernels' 16-column step, with the true width's
+scale passed along and the output sliced back. Without gradients
 (serving, ``torch.export``) it runs the custom op ``vtt::flash_attention``:
 on CPU tensors ``flash_attention_plain``, on CUDA tensors the hand-written
 kernel in ``csrc/flash_attention.cu``. Under autograd it runs
@@ -43,18 +45,19 @@ def use_flash_attention(t: int) -> bool:
     """The JAX package's dispatch rule (``use_pallas``; its caller sends
     attention dropout elsewhere): T ≥ 1024 and a multiple of 128, for any
     head width. siglip vit_b_16 at 512 px (T = 1024) passes; T = 1025 (a cls
-    token), 577 (384 px) and the MAP probe (T = 1) do not. A CUDA tensor
-    whose head width the kernels lack raises in ``flash_attention_cuda``."""
+    token), 577 (384 px) and the MAP probe (T = 1) do not. On a CUDA tensor
+    ``flash_attention`` zero-pads the head to a multiple of 16 (72 runs as
+    80); a head above 128 raises in ``flash_attention_cuda``."""
     return t >= FLASH_MIN_SEQ and t % 128 == 0
 
 
-def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
-                          bias: Tensor | None = None) -> tuple[Tensor, Tensor]:
+def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None,
+                          scale: float | None = None) -> tuple[Tensor, Tensor]:
     """Plain PyTorch version of the forward kernel on (B·N, T, H) operands
     and a (B·N, T, S) bias: (out in q's type, lse (B·N, T, 1) f32). The
     softmax is exact over each whole row; the kernel's running max and sum
-    give the same value up to f32 rounding."""
-    scale = q.shape[-1] ** -0.5
+    give the same value up to f32 rounding. ``scale`` defaults to H**-0.5."""
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = (q.float() * scale) @ k.float().transpose(-1, -2)
     if bias is not None:
         logits = logits + bias.float()
@@ -66,11 +69,12 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor,
 
 
 def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
-                              g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+                              g: Tensor, scale: float | None = None
+                              ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the unbiased backward kernels
     (``_flash_bwd_pallas``): p recomputed from lse, every intermediate f32,
     dq, dk, dv rounded once to their operands' types."""
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     g32 = g.float()
     delta = (g32 * out.float()).sum(-1, keepdim=True)
     qs = q.float() * scale
@@ -82,13 +86,14 @@ def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse:
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bias_bwd_plain(q: Tensor, k: Tensor, v: Tensor, bias: Tensor,
-                                   g: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+def flash_attention_bias_bwd_plain(q: Tensor, k: Tensor, v: Tensor, bias: Tensor, g: Tensor,
+                                   scale: float | None = None
+                                   ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """The biased backward, the JAX package's XLA recompute
     (``_flash_attention_bwd``): logits from q·scale and k in their type,
     softmax in f32, dq, dk, dv and the (B·N, T, S) bias gradient in their
     operands' types."""
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     logits = ((q * scale) @ k.transpose(-1, -2)).float() + bias.float()
     p = torch.softmax(logits, dim=-1)
     g32 = g.float()
@@ -120,11 +125,14 @@ def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None) -> No
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, *,
-                         with_lse: bool = True) -> tuple[Tensor, Tensor | None]:
+                         with_lse: bool = True, scale: float | None = None
+                         ) -> tuple[Tensor, Tensor | None]:
     """Launch ``csrc/flash_attention.cu`` on the current stream: (out, lse or
-    None). Inference asks for no lse."""
+    None). Inference asks for no lse. ``scale`` defaults to H**-0.5 (a
+    zero-padded head passes its true width's)."""
     _check_cuda_args(q, k, v, bias)
     BN, T, H = q.shape
+    scale = H**-0.5 if scale is None else scale
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bias = None if bias is None else bias.contiguous()
     out = torch.empty_like(q)
@@ -133,7 +141,7 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = 
         err = _cuda.lib().vtt_flash_fwd(
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(bias),
             int(bias is not None and bias.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16),
-            _cuda.ptr(out), _cuda.ptr(lse), BN, T, k.shape[1], H, float(H**-0.5), _cuda.stream(),
+            _cuda.ptr(out), _cuda.ptr(lse), BN, T, k.shape[1], H, float(scale), _cuda.stream(),
         )
         _cuda.check(err, "flash_attention")
     _cuda.LAUNCHES["flash_attention"] += 1
@@ -141,11 +149,13 @@ def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = 
 
 
 def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: Tensor,
-                             g: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+                             g: Tensor, scale: float | None = None
+                             ) -> tuple[Tensor, Tensor, Tensor]:
     """Launch ``csrc/flash_attention_bwd.cu`` (delta, dK/dV, dQ) on the
     current stream."""
     _check_cuda_args(q, k, v, None)
     BN, T, H = q.shape
+    scale = H**-0.5 if scale is None else scale
     if out.shape != q.shape or g.shape != q.shape or lse.shape != (BN, T, 1):
         raise ValueError("flash_attention backward: out and g must match q, lse be (B·N, T, 1)")
     if out.dtype != q.dtype or g.dtype != q.dtype or lse.dtype != torch.float32:
@@ -159,7 +169,7 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: 
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out), _cuda.ptr(g),
             _cuda.ptr(lse), _cuda.ptr(delta), int(q.dtype == torch.bfloat16),
             _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), BN, T, k.shape[1], H,
-            float(H**-0.5), _cuda.stream(),
+            float(scale), _cuda.stream(),
         )
         _cuda.check(err, "flash_attention backward")
     _cuda.LAUNCHES["flash_attention_bwd"] += 1
@@ -173,13 +183,13 @@ class FlashAttentionFunction(torch.autograd.Function):
     (T, S) but a bias given as such."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, plain):
+    def forward(ctx, q, k, v, bias, scale, plain):
         if plain or not q.is_cuda:
-            out, lse = flash_attention_plain(q, k, v, bias)
+            out, lse = flash_attention_plain(q, k, v, bias, scale)
         else:
-            out, lse = flash_attention_cuda(q, k, v, bias)
+            out, lse = flash_attention_cuda(q, k, v, bias, scale=scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.plain = plain
+        ctx.scale, ctx.plain = scale, plain
         return out
 
     @staticmethod
@@ -187,25 +197,33 @@ class FlashAttentionFunction(torch.autograd.Function):
         q, k, v, bias, out, lse = ctx.saved_tensors
         g = g.to(q.dtype)
         if bias is not None:
-            dq, dk, dv, dbias = flash_attention_bias_bwd_plain(q, k, v, bias, g)
-            return dq, dk, dv, dbias, None
+            dq, dk, dv, dbias = flash_attention_bias_bwd_plain(q, k, v, bias, g, ctx.scale)
+            return dq, dk, dv, dbias, None, None
         bwd = flash_attention_bwd_plain if ctx.plain or not g.is_cuda else flash_attention_bwd_cuda
-        return (*bwd(q, k, v, out, lse, g), None, None)
+        return (*bwd(q, k, v, out, lse, g, ctx.scale), None, None, None)
 
 
 @torch.library.custom_op("vtt::flash_attention", mutates_args=(), device_types="cpu")
-def _flash_attention_op(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None) -> Tensor:
-    return flash_attention_plain(q, k, v, bias)[0]
+def _flash_attention_op(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None,
+                        scale: float | None = None) -> Tensor:
+    return flash_attention_plain(q, k, v, bias, scale)[0]
 
 
 @_flash_attention_op.register_kernel("cuda")
-def _(q, k, v, bias):
-    return flash_attention_cuda(q, k, v, bias, with_lse=False)[0]
+def _(q, k, v, bias, scale=None):
+    return flash_attention_cuda(q, k, v, bias, with_lse=False, scale=scale)[0]
 
 
 @_flash_attention_op.register_fake
-def _(q, k, v, bias):
+def _(q, k, v, bias, scale=None):
     return torch.empty_like(q)
+
+
+def padded_head(h: int, is_cuda: bool) -> int:
+    """The head width the operands are relaid out to: on a CUDA tensor the
+    next multiple of 16 (the kernels' width step; zero columns add nothing
+    to q·kᵀ, and v's give output columns that are sliced away), else ``h``."""
+    return -(-h // 16) * 16 if is_cuda else h
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, *,
@@ -216,13 +234,18 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None,
     the kernels)."""
     B, T, N, H = q.shape
     S = k.shape[1]
-    heads = lambda t, n: t.transpose(1, 2).reshape(B * N, n, H)
+    Hp = padded_head(H, q.is_cuda and not plain)
+
+    def heads(t: Tensor, n: int) -> Tensor:  # the relayout copy, zero-padded to Hp
+        t = t.transpose(1, 2)
+        return (t if Hp == H else torch.nn.functional.pad(t, (0, Hp - H))).reshape(B * N, n, Hp)
+
     args = (heads(q, T), heads(k, S), heads(v, S),
-            None if bias is None else bias.expand(B, N, T, S).reshape(B * N, T, S))
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args):
+            None if bias is None else bias.expand(B, N, T, S).reshape(B * N, T, S), H**-0.5)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args[:4]):
         out = FlashAttentionFunction.apply(*args, plain)
     elif plain:
         out = flash_attention_plain(*args)[0]
     else:
         out = _flash_attention_op(*args)
-    return out.reshape(B, N, T, H).transpose(1, 2)
+    return out.reshape(B, N, T, Hp)[..., :H].transpose(1, 2)

@@ -6,8 +6,9 @@
 bytes back into a callable without the model's Python code. The fused
 half-blocks appear in the program as the custom ops ``vtt::fused_mlp_block``
 and ``vtt::fused_attention_block``, CaiT's talking-head attention as
-``vtt::talking_head_attention`` and long-sequence attention (SigLIP at 512
-px) as ``vtt::flash_attention``, so the loaded program runs the CUDA kernels
+``vtt::talking_head_attention``, long-sequence attention (SigLIP at 512
+px) as ``vtt::flash_attention`` and the depthwise convs (ConvNeXt) as
+``vtt::depthwise_conv2d``, so the loaded program runs the CUDA kernels
 on CUDA inputs and their plain versions on CPU inputs; importing this module
 registers them. Every backbone is exported from a copy whose parameters are
 stored in its compute type (``Backbone.cast_for_serving``; CaiT's head
@@ -25,7 +26,7 @@ from torch import Tensor
 
 from ..models.base import Backbone
 from ..ops import (  # noqa: F401  (registers the custom ops)
-    block_attention, block_mlp, cait_attention, flash_attention,
+    block_attention, block_mlp, cait_attention, depthwise_conv, flash_attention,
 )
 
 

@@ -10,10 +10,14 @@ for the port's module of the same name, with each layout fixed once here:
 - LayerNorm and BatchNorm ``scale`` → ``weight``;
 - BatchNorm statistics ``mean`` → ``running_mean``, ``var`` → ``running_var``;
 - ``block_<i>`` → ``blocks.<i>``, CaiT's ``sa_block_<i>`` → ``sa_blocks.<i>``
-  and ``ca_block_<i>`` → ``ca_blocks.<i>``;
+  and ``ca_block_<i>`` → ``ca_blocks.<i>``, ConvNeXt's ``stage_<i>_block_<j>``
+  → ``stages.<i>.<j>``;
 - everything else (``bias``, ``pe``, ``cls_token``, DeiT's ``dist_token``,
   ``gamma``, ``probe``, ``stem``, ``stage_<i>``, ``conv1``/``conv2``/
-  ``out_conv``, ``norm``, ``head``, ``backbone``, and CaiT's (H, H) head
+  ``out_conv``, ``norm``, ``head``, ``backbone``, ConvNeXt's ``stem_conv``,
+  ``stem_norm``, ``downsample_{norm,conv}_<i>``, ``dwconv`` (its (k, k, 1, C)
+  kernel by the HWIO rule), ``pwconv1/2``, ``layer_scale`` and ``grn``'s
+  ``gamma``/``beta``, and CaiT's (H, H) head
   mixes ``proj_l_kernel``/``proj_w_kernel`` with their biases, which are no
   Dense kernels: ``mix[g, h]`` on both sides) keeps its name and layout.
 """
@@ -27,6 +31,7 @@ import numpy as np
 import torch
 
 _BLOCK = re.compile(r"^((?:sa_|ca_)?block)_(\d+)$")
+_STAGE_BLOCK = re.compile(r"^stage_(\d+)_block_(\d+)$")
 _RENAMED = {"scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 
@@ -39,7 +44,9 @@ def _flatten(tree: Mapping[str, Any], prefix: tuple[str, ...] = ()):
 
 
 def _convert(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]:
-    parts = [f"{m.group(1)}s.{m.group(2)}" if (m := _BLOCK.match(p)) else p for p in path]
+    parts = [f"{m.group(1)}s.{m.group(2)}" if (m := _BLOCK.match(p))
+             else f"stages.{m.group(1)}.{m.group(2)}" if (m := _STAGE_BLOCK.match(p)) else p
+             for p in path]
     leaf = parts[-1]
     if leaf == "kernel":
         parts[-1] = "weight"
