@@ -54,7 +54,19 @@ sm_90a, one process per source) and drives the port's paths:
   bs128@224 with ViT's recipe and stochastic depth 0.1 for 3 warm-up and
   10 timed steps and one step at bs8 through the kernels against the plain
   versions and an f32 reference; then the repaired faults: cait_s_24 at
-  384 px served (its attention beyond K5's rule) and K6 at head 72.
+  384 px served (its attention beyond K5's rule) and K6 at head 72;
+- Swin (slice 7): holds the window-attention kernels (K7 forward and
+  backward, with the dPE sum) against their plain versions at swin_t's four
+  stage shapes, window 8 at head 128, window 14 and T = 256, f32 and bf16,
+  and the shifted-window relayout kernels (K8) bit for bit, times them at
+  swin_t stage 1, bs128 (K7 beside torch's scaled_dot_product_attention),
+  serves a seeded bf16 swin_t (eager vs plain path, then export → load →
+  requests at batch 1, 8, 32 and 128), runs its train step at bs128@224
+  with stochastic depth 0.2 for 3 warm-up and 10 timed steps and one step
+  at bs8 through the kernels against the plain versions and an f32
+  reference; then the repaired head widths: K5 at heads of 32, 96 and 160
+  and at (T, S, heads) = (64, 512, 16), and K6 at head 256, timed beside
+  scaled_dot_product_attention.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -139,6 +151,26 @@ KERNELS = {
         "source": "vision_toolbox_tpu_torch/csrc/depthwise_conv_bwd.cu",
         "replaces": "vision_toolbox_tpu/ops/depthwise_conv.py:124",
     },
+    "swin_attention": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/swin_attention.cu",
+        "replaces": "vision_toolbox_tpu/ops/swin_attention.py:161",
+    },
+    "swin_attention_bwd": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/swin_attention_bwd.cu",
+        "replaces": "vision_toolbox_tpu/ops/swin_attention.py:189",
+    },
+    "swin_partition": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/swin_relayout.cu",
+        "replaces": "vision_toolbox_tpu/ops/swin_relayout.py:82",
+    },
+    "swin_unpartition": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/swin_relayout.cu",
+        "replaces": "vision_toolbox_tpu/ops/swin_relayout.py:95",
+    },
 }
 SERVE_KERNELS = ("block_mlp", "block_attention")
 BLOCK_KERNELS = ("block_mlp", "block_attention", "block_mlp_bwd", "block_attention_bwd")
@@ -188,6 +220,31 @@ CONVNEXT_KW = dict(stochastic_depth=0.1)  # the published ConvNeXt-T recipe's dr
 # batch 8 (9.6 M hidden elements) read 1.02e-3; batch 2 (2.4 M) stays below
 # vit_b_16 at batch 8 (4.8 M), the case the f32 bound was set on
 NARROW_MLP_CASES = ((2, 3136, 96, 384), (8, 197, 288, 1152))
+# swin_t at 224 px (window 7, T = 49, 32-wide heads): per stage the map side,
+# windows, heads, blocks and shifted blocks (stage 4's 7×7 map never shifts)
+SWIN_STAGES = ((56, 64, 3, 2, 1), (28, 16, 6, 2, 1), (14, 4, 12, 6, 3), (7, 1, 24, 2, 0))
+# K7 cases (B, nW, T, heads, head width, masked): each swin_t stage at batch
+# 8 (shifted stages with their mask), window 8 at head 128 (the tensor-core
+# kernels' widest), window 14 (T = 196, the S3 variants) with and without a
+# mask, and T = 256 at head 128, whose operands stay in device memory
+SWIN_ATTENTION_CASES = tuple((8, nw, 49, n, 32, k > 0) for _, nw, n, _, k in SWIN_STAGES) + (
+    (4, 4, 64, 2, 128, True), (8, 1, 196, 12, 32, False), (2, 16, 196, 3, 32, True),
+    (2, 2, 256, 2, 128, True))
+# K8 cases (B, H, W, C, window, shift): swin_t's three shifted stages at
+# batch 8, window 14, and channels whose bytes take narrower copies
+SWIN_RELAYOUT_CASES = tuple((8, h, h, 96 * 2**i, 7, 3) for i, (h, *_) in
+                            enumerate(SWIN_STAGES[:3])) + ((2, 28, 28, 96, 14, 7),
+                                                           (3, 8, 12, 5, 4, 2))
+SWIN_TIME_BATCH = 128
+SWIN_SERVE_BATCHES = (1, 8, 32, 128)  # 128: the JAX package's v5e serving "cliff"
+SWIN_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                  compare_batch=8)
+SWIN_KW = dict(stochastic_depth=0.2)  # Swin-T's published drop-path rate
+# the repaired head widths: K5 at 32, 96 and 160 wide heads and at the JAX
+# rule's (T, S, N) = (64, 512, 16) corner; K6 at head 256, (B, N, T, H)
+REPAIRED_TALKING_HEAD_CASES = ((2, 40, 40, 4, 32), (2, 40, 56, 4, 96), (2, 24, 40, 4, 160),
+                               (2, 64, 512, 16, 48), (8, 64, 512, 16, 48))
+WIDE_FLASH = (8, 4, 1024, 256)
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -598,14 +655,27 @@ class Checks:
         self.rows.append(dict(**case, tensor=name, rel_l2=err, bound=BWD_REL_L2, ok=ok))
         return err
 
+    def exact(self, case: dict, name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+        """Bit-equality (a permutation, or a kernel run twice): the number of
+        differing elements, which must be 0."""
+        differ = int((got != want).sum().item()) if got.shape == want.shape else got.numel()
+        self.rows.append(dict(**case, tensor=name, differing=differ, ok=differ == 0))
+        return differ
+
     def summary(self, case: dict) -> str:
         rows = [r for r in self.rows if all(r.get(k) == v for k, v in case.items())]
-        worst = max(rows, key=lambda r: r.get("rel", 0.0) / r["bound"] if "rel" in r
-                    else r["rel_l2"] / r["bound"])
         bad = [r["tensor"] for r in rows if not r["ok"]]
-        key = "rel" if "rel" in worst else "rel_l2"
-        return (f"{len(rows)} tensors, worst {worst['tensor']} {worst[key]:.2e} "
-                f"(bound {worst['bound']:.0e}) {'ok' if not bad else 'FAIL ' + str(bad)}")
+        graded = [r for r in rows if "bound" in r]
+        exact = [r["tensor"] for r in rows if "differing" in r]
+        text = f"{len(rows)} tensors"
+        if graded:
+            worst = max(graded, key=lambda r: r.get("rel", 0.0) / r["bound"] if "rel" in r
+                        else r["rel_l2"] / r["bound"])
+            key = "rel" if "rel" in worst else "rel_l2"
+            text += f", worst {worst['tensor']} {worst[key]:.2e} (bound {worst['bound']:.0e})"
+        if exact:
+            text += f", bit-equal: {[t for t in exact if t not in bad]}"
+        return f"{text} {'ok' if not bad else 'FAIL ' + str(bad)}"
 
 
 def compare_backward(report: dict) -> dict[str, float]:
@@ -1505,30 +1575,33 @@ def time_narrow_mlp(report: dict, name_power: str) -> None:
     report["narrow_mlp_times"] = rows
 
 
-def serve_convnext(report: dict, name_power: str) -> int:
-    """Phase 24: a seeded bf16 convnext_t (224 px, LayerScale γs around
-    CONVNEXT_TRAIN's 0.1), eager through the kernels (18 K9 and 18 K3
-    forward launches per forward) against its plain versions (logits rel L2
-    ≤ REL_L2_BOUND or twice the plain bf16 path's own distance from an f32
-    forward of the same weights), then served: export (18
-    ``vtt::depthwise_conv2d`` and 18 ``vtt::fused_mlp_block`` calls, no
-    backward op) → load → three requests at each of SERVE_BATCHES, each
-    against eager and launching no backward kernel. Returns K9's launches in
-    the served requests."""
+def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int],
+                   program_ops: dict[str, int], batches: tuple[int, ...], name_power: str,
+                   layer_scale: float | None = None) -> dict[str, int]:
+    """A seeded bf16 ``name`` (224 px; LayerScale γs spread around
+    ``layer_scale`` where given), eager through the kernels (``per_forward``
+    launches a forward, nothing else) against its plain versions (logits rel
+    L2 ≤ REL_L2_BOUND or twice the plain bf16 path's own distance from an
+    f32 forward of the same weights), then served: export (the program calls
+    each custom op of ``program_ops`` that many times, no backward op) →
+    load → three requests at each of ``batches``, each against eager.
+    Returns the served requests' launches."""
     import io
 
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.ops import _cuda
     from vision_toolbox_tpu_torch.utils.export import export_model
 
-    model = vtt.create_backbone("convnext_t", dtype=torch.bfloat16,
+    tag = key.replace("_", "-")
+    model = vtt.create_backbone(name, dtype=torch.bfloat16,
                                 generator=torch.Generator().manual_seed(0))
-    spread_layer_scale(model, CONVNEXT_TRAIN["layer_scale"])
+    if layer_scale is not None:
+        spread_layer_scale(model, layer_scale)
     model.eval()
-    depth, width = sum(model.depths), model.last_out_channels
-    per_forward = NO_LAUNCHES | {"depthwise_conv": depth, "block_mlp": depth}
-    images = torch.rand(32, 224, 224, 3, generator=torch.Generator().manual_seed(1)).cuda()
-    ref = vtt.create_backbone("convnext_t")  # f32 compute, the same weights
+    width, per_forward = model.last_out_channels, NO_LAUNCHES | per_forward
+    images = torch.rand(max(batches), 224, 224, 3,
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    ref = vtt.create_backbone(name)  # f32 compute, the same weights
     ref.load_state_dict(model.state_dict())
     with torch.inference_mode():
         _cuda.reset_launch_counts()
@@ -1539,42 +1612,41 @@ def serve_convnext(report: dict, name_power: str) -> int:
         f32_logits = ref(images[:8], force_unfused=True, plain=True)
     err, own = rel_l2(logits, plain_logits), rel_l2(plain_logits, f32_logits)
     bound_l2 = max(REL_L2_BOUND, 2 * own)
-    log(f"[convnext-serve] convnext_t bf16 bs8 forward: launches {counts}; logits kernel vs "
-        f"plain path rel L2 {err:.3e} (bound {bound_l2:.3e}: the plain bf16 path is {own:.3e} "
-        f"from the f32 reference; the kernel path {rel_l2(logits, f32_logits):.3e})")
+    log(f"[{tag}] {name} bf16 bs8 forward: launches {counts}; logits kernel vs plain path "
+        f"rel L2 {err:.3e} (bound {bound_l2:.3e}: the plain bf16 path is {own:.3e} from the f32 "
+        f"reference; the kernel path {rel_l2(logits, f32_logits):.3e})")
     if counts != per_forward:
         raise AssertionError(f"expected {per_forward}, got {counts}")
     if logits.shape != (8, width) or not torch.isfinite(logits.float()).all() \
             or not err <= bound_l2:
-        raise AssertionError(f"convnext_t logits: shape {tuple(logits.shape)}, rel L2 {err}")
+        raise AssertionError(f"{name} logits: shape {tuple(logits.shape)}, rel L2 {err}")
     del ref
 
     t0 = time.perf_counter()
     blob = export_model(model, (8, 224, 224, 3))
     program = torch.export.load(io.BytesIO(blob))
     targets = [str(n.target) for n in program.graph.nodes if n.op == "call_function"]
-    n_dw, n_mlp = (targets.count(f"vtt.{op}.default")
-                   for op in ("depthwise_conv2d", "fused_mlp_block"))
+    calls = {op: targets.count(f"vtt.{op}.default") for op in program_ops}
     backward_ops = [t for t in targets if "bwd" in t or "backward" in t]
     served = program.module()
-    log(f"[convnext-serve] export+load {time.perf_counter() - t0:.1f} s, artifact "
-        f"{len(blob) / 2**20:.1f} MiB; the program calls vtt::depthwise_conv2d {n_dw} and "
-        f"vtt::fused_mlp_block {n_mlp} times, backward ops {backward_ops}")
-    if n_dw != depth or n_mlp != depth or backward_ops:
-        raise AssertionError(f"exported program: {n_dw} / {n_mlp} calls, backward {backward_ops}")
+    log(f"[{tag}] export+load {time.perf_counter() - t0:.1f} s, artifact "
+        f"{len(blob) / 2**20:.1f} MiB; the program's custom-op calls {calls}, backward ops "
+        f"{backward_ops}")
+    if calls != program_ops or backward_ops:
+        raise AssertionError(f"exported program: {calls}, backward {backward_ops}")
     with torch.inference_mode():
-        eager = {b: model(images[:b]) for b in SERVE_BATCHES}
+        eager = {b: model(images[:b]) for b in batches}
         _cuda.reset_launch_counts()
-        answers = {b: [served(images[:b]) for _ in range(3)] for b in SERVE_BATCHES}
+        answers = {b: [served(images[:b]) for _ in range(3)] for b in batches}
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
-    n_forwards = 3 * len(SERVE_BATCHES)
-    log(f"[convnext-serve] {n_forwards} requests at batch {SERVE_BATCHES}: launches {launches}")
+    n_forwards = 3 * len(batches)
+    log(f"[{tag}] {n_forwards} requests at batch {batches}: launches {launches}")
     if launches != {k: n_forwards * v for k, v in per_forward.items()}:
         raise AssertionError(f"served path launched {launches}, expected {n_forwards}× "
                              f"{per_forward}")
     rows = []
-    for b in SERVE_BATCHES:
+    for b in batches:
         for out in answers[b]:
             e = rel_l2(out, eager[b])
             if out.shape != (b, width) or not torch.isfinite(out.float()).all() or e > 1e-3:
@@ -1582,11 +1654,23 @@ def serve_convnext(report: dict, name_power: str) -> int:
         with torch.inference_mode():
             ms = time_ms(lambda: served(images[:b]), iters=10)
         rows.append(dict(batch=b, ms_per_batch=ms, rel_l2_vs_eager=e))
-        log(f"[convnext-serve] batch {b:2d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
+        log(f"[{tag}] batch {b:3d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
             f"rel L2 vs eager {e:.2e}  [{name_power}]")
-    report["convnext_serve"] = dict(launches_per_forward=counts, rel_l2_vs_plain=err,
-                                    plain_vs_f32=own, bound=bound_l2, requests=rows)
-    return launches["depthwise_conv"]
+    report[key] = dict(launches_per_forward=counts, rel_l2_vs_plain=err, plain_vs_f32=own,
+                       bound=bound_l2, requests=rows)
+    return launches
+
+
+def serve_convnext(report: dict, name_power: str) -> int:
+    """Phase 24: convnext_t served (``serve_backbone``; LayerScale γs around
+    CONVNEXT_TRAIN's 0.1): 18 K9 and 18 K3 forward launches per forward, 18
+    ``vtt::depthwise_conv2d`` and 18 ``vtt::fused_mlp_block`` calls in the
+    program, batches SERVE_BATCHES. Returns K9's launches in the served
+    requests."""
+    blocks = {"depthwise_conv": 18, "block_mlp": 18}
+    return serve_backbone(report, "convnext_serve", "convnext_t", blocks,
+                          {"depthwise_conv2d": 18, "fused_mlp_block": 18}, SERVE_BATCHES,
+                          name_power, CONVNEXT_TRAIN["layer_scale"])["depthwise_conv"]
 
 
 def train_convnext(report: dict, name_power: str) -> dict[str, int]:
@@ -1655,6 +1739,266 @@ def repairs_on_card(report: dict, name_power: str) -> None:
         raise AssertionError(f"K6 at head 72: launches {k6}, {checks.rows}")
 
 
+def swin_attention_work(name: str, B: int, nW: int, T: int, N: int, hd: int,
+                        x_bytes: int) -> tuple[float, float]:
+    """(product operations, bytes) of one K7 call: the forward's q·kᵀ and
+    p·v per window and head; the backward's five products (the recomputed
+    logits, g·vᵀ, dv, dq, dk). Bytes: q, k, v (and g) in, out (dq, dk, dv)
+    out, pe and the mask in (and dPE out, f32)."""
+    x, tables = B * nW * T * N * hd * x_bytes, (N + nW) * T * T * x_bytes
+    if name == "swin_attention":
+        return 4 * B * nW * N * T * T * hd, 4 * x + tables
+    return 10 * B * nW * N * T * T * hd, 7 * x + tables + N * T * T * 4
+
+
+def swin_attention_args(g, B, nW, T, N, hd, masked, dtype):
+    """q, k, v (B, nW, T, N·hd), pe (1, N, T, T), a −100 mask (nW, T, T) on
+    about 30% of the token pairs or None, and a cotangent like q, on the card."""
+    r = lambda *s, scale=1.0: torch.randn(s, generator=g) * scale
+    q, k, v, dout = (r(B, nW, T, N * hd).to("cuda", dtype) for _ in range(4))
+    pe = r(1, N, T, T, scale=0.5).to("cuda", dtype)
+    mask = None
+    if masked:
+        mask = ((torch.rand(nW, T, T, generator=g) < 0.3).float() * -100.0).to("cuda", dtype)
+    return q, k, v, pe, mask, dout
+
+
+def compare_swin(report: dict) -> tuple[dict[str, float], float]:
+    """Phase 28: K7 forward and backward vs their plain versions at
+    SWIN_ATTENTION_CASES, f32 and bf16: out, dq, dk, dv by max abs error
+    against BOUND·max|plain|, dPE (an f32 sum over batch and windows in
+    another order) by rel L2 ≤ BWD_REL_L2, and a second backward bit-equal
+    to the first; K8 partition and unpartition at SWIN_RELAYOUT_CASES,
+    bit-exact against their plain versions. Returns the max abs errors at
+    swin_t stage 1, batch 8, bf16 (K7: out and the worst of dq, dk, dv) and
+    dPE's rel L2 there."""
+    from vision_toolbox_tpu_torch.ops import swin_attention as sa
+    from vision_toolbox_tpu_torch.ops import swin_relayout as sr
+
+    g = torch.Generator().manual_seed(28)
+    checks, main_err, main_dpe = Checks(), {}, None
+    for B, nW, T, N, hd, masked in SWIN_ATTENTION_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, pe, mask, dout = swin_attention_args(g, B, nW, T, N, hd, masked, dtype)
+            case = dict(kernel="swin_attention", B=B, nW=nW, T=T, N=N, hd=hd, masked=masked,
+                        dtype=str(dtype).split(".")[-1])
+            err = checks.elementwise(case, "out", sa.swin_attention_cuda(q, k, v, pe, mask, N),
+                                     sa.swin_attention_plain(q, k, v, pe, mask, N))
+            got = sa.swin_attention_bwd_cuda(q, k, v, pe, mask, N, dout)
+            again = sa.swin_attention_bwd_cuda(q, k, v, pe, mask, N, dout)
+            want = sa.swin_attention_bwd_plain(q, k, v, pe, mask, N, dout)
+            torch.cuda.synchronize()
+            errs = [checks.elementwise(case, n, a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                                                         want)]
+            dpe = checks.reduced(case, "dpe", got[3], want[3])
+            for n, a, b in zip(("dq", "dk", "dv", "dpe"), got, again):
+                checks.exact(case, f"{n} twice", a, b)
+            log(f"[swin-attention] B={B} nW={nW:2d} T={T} N={N:2d} hd={hd} "
+                f"{'mask ' if masked else ''}{case['dtype']:8s} {checks.summary(case)}")
+            if (B, nW, dtype) == (8, 64, torch.bfloat16):
+                main_err["swin_attention"], main_err["swin_attention_bwd"] = err, max(errs)
+                main_dpe = dpe
+            del q, k, v, pe, mask, dout, got, again, want
+    for B, H, W, C, w, s in SWIN_RELAYOUT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(B, H, W, C, generator=g).to("cuda", dtype)
+            y = sr.shifted_window_partition_cuda(x, w, s)
+            back = sr.shifted_window_unpartition_cuda(y, w, s, H, W)
+            y2 = y.flip(0)
+            pairs = ((y, sr.shifted_window_partition_plain(x, w, s)), (back, x),
+                     (sr.shifted_window_unpartition_cuda(y2, w, s, H, W),
+                      sr.shifted_window_unpartition_plain(y2, w, s, H, W)))
+            torch.cuda.synchronize()
+            case = dict(kernel="swin_relayout", B=B, H=H, W=W, C=C, w=w, shift=s,
+                        dtype=str(dtype).split(".")[-1])
+            for name, (a, b) in zip(("partition", "round trip", "unpartition"), pairs):
+                checks.exact(case, name, a, b)
+                if (B, H, dtype) == (8, 56, torch.bfloat16) and name != "round trip":
+                    main_err["swin_" + name] = (a.float() - b.float()).abs().max().item()
+            log(f"[swin-relayout] B={B} {H}x{W}x{C} w={w} s={s} {case['dtype']:8s} "
+                f"{checks.summary(case)}")
+    report["compare_swin"] = checks.rows
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K7/K8 comparisons out of bounds: {bad[:8]}")
+    return main_err, main_dpe
+
+
+def time_swin(report: dict, name_power: str) -> dict[str, tuple[float, float, float | None]]:
+    """Phase 29: at swin_t stage 1, batch SWIN_TIME_BATCH, bf16 (64 windows
+    of 49 tokens, 3 heads of 32, the shift mask), in turns with their plain
+    versions: K7 forward and backward, and beside them torch's
+    scaled_dot_product_attention (the library yardstick; the port never
+    calls it) on (B, nW·N, T, hd) with pe + mask summed once, outside the
+    timing, into one bf16 attn_mask broadcast over the batch (its backward:
+    forward + backward less the forward); K8 partition and unpartition of
+    the 56×56×96 map (no PyTorch call computes them). Returns (kernel,
+    plain, library) ms."""
+    import torch.nn.functional as F
+
+    from vision_toolbox_tpu_torch.ops import swin_attention as sa
+    from vision_toolbox_tpu_torch.ops import swin_relayout as sr
+
+    g = torch.Generator().manual_seed(29)
+    B, (H, nW, N, _, _), T, hd = SWIN_TIME_BATCH, SWIN_STAGES[0], 49, 32
+    q, k, v, pe, mask, dout = swin_attention_args(g, B, nW, T, N, hd, True, torch.bfloat16)
+    heads = lambda t: t.view(B, nW, T, N, hd).transpose(2, 3).reshape(B, nW * N, T, hd)
+    sq, sk, sv, sg = map(heads, (q, k, v, dout))
+    bias = (pe.float()[None] + mask.float()[None, :, None]).to(torch.bfloat16)
+    bias = bias.reshape(1, nW * N, T, T)
+    leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
+
+    def sdpa_fb():
+        out = F.scaled_dot_product_attention(*leaves, attn_mask=bias)
+        torch.autograd.grad(out, leaves, sg)
+
+    def kernel_fb():
+        sa.swin_attention_cuda(q, k, v, pe, mask, N)
+        sa.swin_attention_bwd_cuda(q, k, v, pe, mask, N, dout)
+
+    def plain_fb():
+        sa.swin_attention_plain(q, k, v, pe, mask, N)
+        sa.swin_attention_bwd_plain(q, k, v, pe, mask, N, dout)
+
+    rows = {}
+    for what, plain, kernel, library in (
+        ("forward", lambda: sa.swin_attention_plain(q, k, v, pe, mask, N),
+         lambda: sa.swin_attention_cuda(q, k, v, pe, mask, N),
+         lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=bias)),
+        ("forward+backward", plain_fb, kernel_fb, sdpa_fb),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=10)
+        rows[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library, iters=10))
+        log(f"[swin-time] {what:16s} B={B} nW={nW} T={T} N={N} hd={hd} bf16 masked: kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  scaled_dot_product_attention "
+            f"{rows[what]['library_ms']:.4f} ms  [{name_power}]")
+    f, fb = rows["forward"], rows["forward+backward"]
+    out = {"swin_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
+           "swin_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
+                                                                    "library_ms"))}
+    del q, k, v, dout, sq, sk, sv, sg, leaves
+    x = torch.randn(B, H, H, 96, generator=g).to("cuda", torch.bfloat16)
+    y = sr.shifted_window_partition_cuda(x, 7, 3)
+    for name, plain, kernel in (
+        ("swin_partition", lambda: sr.shifted_window_partition_plain(x, 7, 3),
+         lambda: sr.shifted_window_partition_cuda(x, 7, 3)),
+        ("swin_unpartition", lambda: sr.shifted_window_unpartition_plain(y, 7, 3, H, H),
+         lambda: sr.shifted_window_unpartition_cuda(y, 7, 3, H, H)),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=10)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms)
+        out[name] = (ms, plain_ms, None)
+        log(f"[swin-time] {name:16s} B={B} {H}x{H}x96 w=7 s=3 bf16: kernel {ms:.4f} ms  plain "
+            f"{plain_ms:.4f} ms  [{name_power}]")
+    report["swin_times"] = rows
+    return out
+
+
+def serve_swin(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 30: swin_t served (``serve_backbone``): 12 K7, 5 + 5 K8 (its five
+    shifted blocks) and 12 K3 forward launches per forward; 12
+    ``vtt::swin_window_attention``, 5 + 5 ``vtt::swin_window_{partition,
+    unpartition}`` and 12 ``vtt::fused_mlp_block`` calls in the program;
+    batches SWIN_SERVE_BATCHES. Returns the served requests' launches."""
+    per_forward = {"swin_attention": 12, "swin_partition": 5, "swin_unpartition": 5,
+                   "block_mlp": 12}
+    program_ops = {"swin_window_attention": 12, "swin_window_partition": 5,
+                   "swin_window_unpartition": 5, "fused_mlp_block": 12}
+    return serve_backbone(report, "swin_serve", "swin_t", per_forward, program_ops,
+                          SWIN_SERVE_BATCHES, name_power)
+
+
+def train_swin(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 31: the swin_t step at bs128@224 with ViT's recipe and
+    stochastic depth 0.2, 3 warm-up + 10 timed steps: per step 12 K7 and 12
+    K3 forward and backward, 10 K8 partitions (5 forward, 5 as the
+    unpartitions' backward) and 10 unpartitions; then phase 32, one step at
+    bs8 through the kernels against one through the plain versions and an
+    f32 reference, one drop-path draw for all three."""
+    watched = ("head.weight", "backbone.patch_embed.weight",
+               "backbone.stages.0.1.mha.relative_pe_table", "backbone.stages.2.5.mha.q_proj.weight",
+               "backbone.downsample_1.reduction.weight", "backbone.stages.3.1.mlp.linear2.bias",
+               "backbone.norm.weight")
+    per_step = NO_LAUNCHES | dict.fromkeys(
+        ("swin_attention", "swin_attention_bwd", "block_mlp", "block_mlp_bwd"), 12) | dict.fromkeys(
+        ("swin_partition", "swin_unpartition"), 10)
+    return train_transformer(report, "swin_train", "swin_t", SWIN_TRAIN, per_step, watched,
+                             name_power, **SWIN_KW)
+
+
+def repaired_head_widths(report: dict, name_power: str) -> None:
+    """Phase 33: the repaired faults F3, F5 and F6 on the card. K5 forward and
+    backward at REPAIRED_TALKING_HEAD_CASES (head widths 32, 96 and 160, and
+    (T, S, N) = (64, 512, 16), inside the JAX rule, whose backward blocks
+    hold two query rows), f32 and bf16, against their plain versions as in
+    phase 13; K6 at head 256 (two 128-wide column chunks), forward and
+    backward against the plain versions at FLASH_BOUND, f32 and bf16, then
+    timed at WIDE_FLASH beside scaled_dot_product_attention."""
+    import torch.nn.functional as F
+
+    from vision_toolbox_tpu_torch.ops import cait_attention as ca
+    from vision_toolbox_tpu_torch.ops import flash_attention as fa
+
+    g = torch.Generator().manual_seed(33)
+    checks = Checks()
+    for B, T, S, H, hd in REPAIRED_TALKING_HEAD_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            a, dout = talking_head_args(g, B, T, S, H, hd, dtype)
+            args = tuple(a.values())
+            case = dict(kernel="talking_head", B=B, T=T, S=S, H=H, hd=hd,
+                        dtype=str(dtype).split(".")[-1])
+            checks.elementwise(case, "out", ca.talking_head_cuda(*args),
+                               ca.talking_head_plain(*args))
+            got, want = ca.talking_head_bwd_cuda(*args, dout), ca.talking_head_bwd_plain(*args, dout)
+            torch.cuda.synchronize()
+            for i, n in enumerate("qkv"):
+                checks.elementwise(case, "d" + n, got[i], want[i])
+            for n in ("ml", "mw", "mwb"):
+                checks.reduced(case, f"d{n}", getattr(got[3], n), getattr(want[3], n))
+            checks.reduced(case, "dmlb (vs ‖dml‖)", got[3].mlb, want[3].mlb, ref=want[3].ml)
+            log(f"[repairs-f5-f6] K5 B={B} T={T} S={S} H={H:2d} hd={hd:3d} {case['dtype']:8s} "
+                f"{checks.summary(case)}")
+    for BN, T, H, dtype in ((4, 1024, 256, torch.bfloat16), (2, 1024, 256, torch.float32)):
+        q, k, v, _, dout = flash_args(g, BN, T, T, H, dtype, False)
+        case = dict(kernel="flash_attention", BN=BN, T=T, H=H, dtype=str(dtype).split(".")[-1])
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        want_out, want_lse = fa.flash_attention_plain(q, k, v)
+        got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        torch.cuda.synchronize()
+        for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), (out, lse, *got),
+                           (want_out, want_lse, *want)):
+            checks.elementwise(case, n, a, b, FLASH_BOUND)
+        log(f"[repairs-f3] K6 BN={BN} T={T} H={H} {case['dtype']:8s} {checks.summary(case)}")
+        del q, k, v, dout, out, lse, got, want, want_out, want_lse
+    B, N, T, H = WIDE_FLASH
+    q, k, v, _, dout = flash_args(g, B * N, T, T, H, torch.bfloat16, False)
+    as_bnth = lambda t: t.view(B, N, T, H)
+    leaves = [as_bnth(t).detach().requires_grad_() for t in (q, k, v)]
+
+    def kernel_fb():
+        out, lse = fa.flash_attention_cuda(q, k, v)
+        fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+
+    def sdpa_fb():
+        torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, as_bnth(dout))
+
+    times = {}
+    for what, kernel, library in (
+        ("forward", lambda: fa.flash_attention_cuda(q, k, v),
+         lambda: F.scaled_dot_product_attention(*map(as_bnth, (q, k, v)))),
+        ("forward+backward", kernel_fb, sdpa_fb),
+    ):
+        times[what] = dict(ms=time_ms(kernel, iters=5), library_ms=time_ms(library, iters=5))
+        log(f"[repairs-f3] K6 {what:16s} B={B} N={N} T=S={T} head {H} bf16: kernel "
+            f"{times[what]['ms']:.4f} ms  scaled_dot_product_attention "
+            f"{times[what]['library_ms']:.4f} ms  [{name_power}]")
+    report["repaired_head_widths"] = dict(checks=checks.rows, k6_head256_times=times)
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} repaired-width comparisons out of bounds: {bad[:8]}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1682,7 +2026,7 @@ def main() -> int:
     build_log = (lib_path.parent / "build.log").read_text()
     report["build_log"] = build_log
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "registers" in line or "spill" in line or line.startswith("[") and ".cu: " in line:
             log(f"[build] {line.strip()}")
     for t, hd in ((197, 64), (50, 64), (512, 64), (257, 80)):  # the gate's mirror of the C formula
         c_bytes = _cuda.lib().vtt_attn_smem_bytes(t, hd)
@@ -1790,6 +2134,18 @@ def main() -> int:
     launches["depthwise_conv_bwd"] = train_convnext(report, name_power)["depthwise_conv_bwd"]
     repairs_on_card(report, name_power)
 
+    # phases 28-33: Swin with K7 and K8, the repaired head widths of K5 and K6
+    with torch.no_grad():
+        swin_errors, main_dpe_rel_l2 = compare_swin(report)
+        errors |= swin_errors
+    swin_times = time_swin(report, name_power)
+    times |= {k: t[:2] for k, t in swin_times.items()}
+    served = serve_swin(report, name_power)
+    for k in ("swin_attention", "swin_partition", "swin_unpartition"):
+        launches[k] = served[k]
+    launches["swin_attention_bwd"] = train_swin(report, name_power)["swin_attention_bwd"]
+    repaired_head_widths(report, name_power)
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
@@ -1804,10 +2160,16 @@ def main() -> int:
            for k in ("flash_attention", "flash_attention_bwd")},
         **{k: depthwise_work(k, DEPTHWISE_TIME_BATCH, 56, 56, 96, 7, 2)
            for k in ("depthwise_conv", "depthwise_conv_bwd")},
+        **{k: swin_attention_work(k, SWIN_TIME_BATCH, 64, 49, 3, 32, 2)
+           for k in ("swin_attention", "swin_attention_bwd")},
+        **dict.fromkeys(("swin_partition", "swin_unpartition"),
+                        (0.0, 2 * SWIN_TIME_BATCH * 56 * 56 * 96 * 2)),
     }
-    library = {k: t[2] for k, t in (flash_times | depthwise_times).items()}
-    # K9's dw sums in its own order: its rel L2 beside dx's max abs error
-    extra = {"depthwise_conv_bwd": dict(dw_rel_l2=main_dw_rel_l2)}
+    library = {k: t[2] for k, t in (flash_times | depthwise_times | swin_times).items()}
+    # K9's dw and K7's dPE sum in their own order: their rel L2 beside the
+    # elementwise tensors' max abs error
+    extra = {"depthwise_conv_bwd": dict(dw_rel_l2=main_dw_rel_l2),
+             "swin_attention_bwd": dict(dpe_rel_l2=main_dpe_rel_l2)}
     kernels = []
     for k in KERNELS:
         bound_ms, bound_by = bound(*work[k])

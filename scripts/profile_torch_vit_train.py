@@ -1,11 +1,13 @@
 """Where the time of the port's transformer train step goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512 | convnext_t]
+    python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512 | convnext_t
+                                                | swin_t]
 
 Builds the step of one of ``chip_smoke.py``'s transformer-training phases
 (vit_b_16 by default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px
 with its MAP head and no cls token, bs64@512; or convnext_t with stochastic
-depth 0.1, bs128@224; bf16 compute, f32 parameters,
+depth 0.1, or swin_t with stochastic depth 0.2, bs128@224; bf16 compute, f32
+parameters,
 CutMix⊕MixUp, label smoothing 0.1, SGD momentum 0.9 with weight decay 2e-5
 in three groups) and its warm-up and timed step counts, times it unprofiled
 with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
@@ -18,6 +20,9 @@ steps with ``torch.profiler`` and sums the device kernels by class:
 - depthwise-conv kernels (ConvNeXt): the K9 forward with the backward's dx
   pass (one kernel, the flipped weights for dx), and the backward's dw block
   partials and their fixed-order sum;
+- window-attention kernels (Swin): the K7 forward, and the K7 backward with
+  its fixed-order dPE sum; the shifted-window relayout kernels (K8, both
+  directions);
 - forward kernels: the K3/K4 forward (the GEMM template with the weight
   read (N, K), the attention kernel);
 - backward kernels: the K3/K4 backward (the GEMM template with the weight
@@ -29,11 +34,15 @@ steps with ``torch.profiler`` and sums the device kernels by class:
 - convolutions (cuDNN: the patch embedding; ConvNeXt's stem and
   downsampling), optimizer (SGD's foreach kernels), and the rest (casts of
   the f32 parameters to bf16, the loss, the unfused LayerNorms (ConvNeXt's
-  stem, downsampling and final ones) and GRN, CutMix⊕MixUp, copies).
+  stem, downsampling and final ones, Swin's attention-half and patch-merging
+  ones) and GRN, the relative-position gathers, the unshifted blocks'
+  window reshapes, CutMix⊕MixUp, copies).
 
 The input pipeline alone is traced the same way over the same number of
-steps. The idle share is 1 − kernel time / profiled window (kernels run one
-at a time on one stream). Prints the table and one JSON line, and writes
+steps. The idle share is 1 − kernel time / step time, against the unprofiled
+step (CUDA events) and against the profiled window (kernels run one at a
+time on one stream); the profiler's own host time stretches the window of a
+step of many short kernels (swin_t), so the first is the card's. Prints the table and one JSON line, and writes
 ``chiprun_out/profile_<model>_train.json``. Needs a CUDA card.
 """
 
@@ -73,6 +82,10 @@ CLASSES = (
      lambda n: "dw_conv_kernel" in n),
     ("depthwise conv backward dw (K9 wgrad + reduce)",
      lambda n: "dw_wgrad_kernel" in n or "dw_reduce_kernel" in n),
+    ("window attention forward (K7 fwd)", lambda n: "swin_fwd" in n),
+    ("window attention backward (K7 bwd + dPE sum)",
+     lambda n: "swin_bwd" in n or "dpe_reduce_kernel" in n),
+    ("shifted-window relayout (K8, both directions)", lambda n: "partition_kernel" in n),
     ("forward kernels (K3/K4 fwd)",
      lambda n: _gemm_layout(n) == "0" or "attn_kernel" in n),
     ("backward kernels (K3/K4 bwd)", lambda n: _gemm_layout(n) == "1"
@@ -131,7 +144,8 @@ def main() -> int:
     configs = {"vit_b_16": ("vit_b_16", chip_smoke.VIT_TRAIN, {}),
                "cait_s_24": ("cait_s_24", chip_smoke.CAIT_TRAIN, {}),
                "vit_b_16_siglip512": ("vit_b_16", chip_smoke.SIGLIP_TRAIN, chip_smoke.SIGLIP),
-               "convnext_t": ("convnext_t", chip_smoke.CONVNEXT_TRAIN, chip_smoke.CONVNEXT_KW)}
+               "convnext_t": ("convnext_t", chip_smoke.CONVNEXT_TRAIN, chip_smoke.CONVNEXT_KW),
+               "swin_t": ("swin_t", chip_smoke.SWIN_TRAIN, chip_smoke.SWIN_KW)}
     if tag not in configs:
         print(f"profile_torch_vit_train: model must be one of {sorted(configs)}", file=sys.stderr)
         return 2
@@ -168,7 +182,8 @@ def main() -> int:
         card=card, model=tag, batch=cfg["batch"], img=cfg["img"],
         ms_per_step_events=ms_events, ms_per_step_host=ms_host,
         img_per_s=cfg["batch"] / ms_events * 1e3,
-        profiled_window_ms=window, kernel_ms=total, idle_share=1 - total / window,
+        profiled_window_ms=window, kernel_ms=total, idle_share=1 - total / ms_events,
+        idle_share_of_window=1 - total / window,
         classes_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
         input_pipeline_ms=pipeline,
         top_kernels_ms=dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:25]),
@@ -176,7 +191,8 @@ def main() -> int:
     print(f"{tag} bs{cfg['batch']}@{cfg['img']} train step [{card}]: {ms_events:.2f} ms/step "
           f"(events, {n} steps; host {ms_host:.2f}), {result['img_per_s']:.1f} img/s")
     print(f"profiled: window {window:.2f} ms/step, kernels {total:.2f} ms/step, idle share "
-          f"{result['idle_share']:.3f}")
+          f"{result['idle_share']:.3f} of the step ({result['idle_share_of_window']:.3f} of the "
+          "window)")
     for label, ms in result["classes_ms"].items():
         print(f"  {label:55s} {ms:9.3f} ms  {ms / total:6.1%}")
     print(f"  {'input pipeline alone (CutMix⊕MixUp, one-hot, casts)':55s} {pipeline:9.3f} ms")

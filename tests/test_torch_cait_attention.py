@@ -119,9 +119,12 @@ def test_custom_op_runs_the_plain_version_on_cpu():
     (196, 196, 6, 48, True),    # cait_xs_24
     (196, 196, 16, 48, True),   # cait_m_*: the JAX gate's 14.7 MB refuses it
     (576, 576, 8, 48, False),   # 384 px: T > 512
-    (512, 512, 16, 48, False),  # a backward row block of 4 rows no longer fits
-    (196, 196, 8, 32, False),   # head width outside the kernels' registers
+    (512, 512, 16, 48, False),  # beyond the JAX rule's VMEM budget, and no 4-row block fits
+    (196, 196, 8, 32, True),    # any head width: zero-padded to a multiple of 16
     (24, 72, 4, 64, True),
+    (64, 512, 16, 48, True),    # the JAX rule's corner: backward blocks of two query rows
+    (40, 40, 4, 160, True),     # wider than 128: the logits in two 80-column chunks
+    (196, 196, 17, 48, False),  # more than 16 heads
 ])
 def test_gate_is_the_kernels_shape_rule(t, s, heads, hd, admitted):
     assert ca.use_talking_head_kernel(t, s, heads, hd) is admitted

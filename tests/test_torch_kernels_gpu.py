@@ -26,7 +26,11 @@ bias is given and not differentiated (its backward is the plain recompute
 on every device). The depthwise-conv kernels (K9) sum the same f32 taps in
 the same order as their plain versions (out and dx within the dtype's
 bound, measured bit-equal in bf16); dw, summed over the batch and space in
-another order, by rel L2.
+another order, by rel L2. The window-attention kernels (K7) compute in f32
+from the inputs (bf16 windows of up to 64 tokens on the tensor cores with p
+and ds as two bf16 planes): out, dq, dk, dv within the dtype's bound, dPE by
+rel L2, and a second backward bit-equal to the first (no atomics). The
+shifted-window relayout kernels (K8) are permutations: bit for bit.
 """
 
 import pytest
@@ -290,9 +294,14 @@ def test_warp_kernel_checks_its_operands(cuda):
 
 
 # K5 (talking-head attention) at chip_smoke.py's shapes: cait_s_24 at batch
-# 8, cait_xxs and cait_m widths, a ragged T, T ≠ S and head width 64
+# 8, cait_xxs and cait_m widths, a ragged T, T ≠ S and head width 64; head
+# widths 32, 96 and 160 (zero-padded, and above 128 in chunks), and the JAX
+# rule's corner (T, S, N) = (64, 512, 16), where a backward block holds two
+# query rows
 TALKING_HEAD_SHAPES = [(8, 196, 196, 8, 48), (4, 196, 196, 4, 48), (2, 196, 196, 16, 48),
-                       (3, 50, 50, 8, 48), (2, 24, 72, 4, 48), (2, 40, 40, 4, 64)]
+                       (3, 50, 50, 8, 48), (2, 24, 72, 4, 48), (2, 40, 40, 4, 64),
+                       (2, 40, 40, 4, 32), (2, 40, 56, 4, 96), (2, 24, 40, 4, 160),
+                       (2, 64, 512, 16, 48), (2, 33, 33, 3, 40)]
 
 
 def _talking_head_args(g, B, T, S, H, hd, dtype, device):
@@ -329,8 +338,8 @@ def test_talking_head_kernels_match_plain(cuda, dtype, B, T, S, H, hd):
 
 
 def test_talking_head_refuses_what_its_gate_refuses(cuda):
-    """No fallback: a CUDA shape outside the kernels' rule raises."""
-    args, _ = _talking_head_args(torch.Generator().manual_seed(0), 2, 16, 16, 4, 32,
+    """No fallback: a CUDA shape outside the kernels' rule (T > 512) raises."""
+    args, _ = _talking_head_args(torch.Generator().manual_seed(0), 2, 513, 16, 4, 48,
                                  torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="use_talking_head_kernel"):
         ca.talking_head_attention(*args)
@@ -357,9 +366,10 @@ def test_cait_builds_on_the_card_and_runs_its_kernels(cuda, name):
 
 
 # K6 (flash attention) on (B·N, T, H): siglip vit_b_16's T = S = 1024 with
-# head 64, a ragged T ≠ S, head widths 128 and 80 (vit_h_14's), a short one
+# head 64, a ragged T ≠ S, head widths 128 and 80 (vit_h_14's), a short one,
+# and heads above 128 (in two column chunks): 256 at T = 1024, 160 ragged
 FLASH_SHAPES = [(4, 1024, 1024, 64), (3, 1000, 1100, 64), (2, 300, 200, 128),
-                (2, 257, 257, 80), (3, 17, 33, 16)]
+                (2, 257, 257, 80), (3, 17, 33, 16), (2, 1024, 1024, 256), (2, 100, 70, 160)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -408,14 +418,29 @@ def test_flash_attention_on_the_card_never_falls_back(cuda):
 
 
 @pytest.mark.parametrize("head", [256])
-def test_flash_attention_refuses_head_widths_it_lacks(cuda, head):
+def test_flash_attention_runs_head_widths_above_128(cuda, head):
     """The gate admits T = 1024 for any head width, as the JAX package's
-    does; on a CUDA tensor a width above the kernels' 128 raises and never
-    runs the plain version (72 is zero-padded to 80 and runs K6)."""
-    x = _rand(torch.Generator().manual_seed(head), 1, 1024, 2, head).to(cuda, torch.bfloat16)
+    does; on a CUDA tensor a head of 256 runs K6 forward and backward (the
+    output and the gradients in two 128-wide column chunks) and matches the
+    plain versions; a head above 256 raises and launches nothing."""
+    g = torch.Generator().manual_seed(head)
+    q, k, v = (_rand(g, 1, 1024, 2, head).to(cuda, torch.bfloat16).requires_grad_()
+               for _ in range(3))
+    dout = _rand(g, 1, 1024, 2, head).to(cuda, torch.bfloat16)
     _cuda.reset_launch_counts()
-    with pytest.raises(ValueError, match=f"head_dim={head}"):
-        attn.dot_product_attention(x, x, x)
+    out = attn.dot_product_attention(q, k, v)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["flash_attention_bwd"] == 1
+    want_out = attn.dot_product_attention(q, k, v, plain=True)
+    want = torch.autograd.grad(want_out, (q, k, v), dout)
+    _check(out, want_out, bounds=FLASH_BOUND)
+    for a, b in zip(got, want):
+        _check(a, b, bounds=FLASH_BOUND)
+    wide = _rand(g, 1, 1024, 1, 272).to(cuda, torch.bfloat16)
+    _cuda.reset_launch_counts()
+    with pytest.raises(ValueError, match="head_dim=272"):
+        attn.dot_product_attention(wide, wide, wide)
     assert _cuda.LAUNCHES["flash_attention"] == 0
 
 
@@ -474,19 +499,27 @@ def test_cait_s_24_at_384_px_builds_and_runs(cuda):
     assert torch.isfinite(m.sa_blocks[0].mha.proj_l_kernel.grad).all()
 
 
-def test_cait_with_heads_the_kernels_lack_raises(cuda):
+def test_cait_with_32_wide_heads_runs_the_kernels(cuda):
     """A CaiT with 32-wide heads at T = 196 is inside the JAX module's K5
-    rule, so it reaches the op, which has no kernel for that width: it
-    raises and launches nothing, never running the XLA branch instead."""
+    rule, so it reaches the op, which runs K5 on the zero-padded heads,
+    forward and backward: the output matches the plain versions' and the
+    mix gradients are finite (the kernels' own gradients are held
+    elementwise in ``test_talking_head_kernels_match_plain``)."""
     from vision_toolbox_tpu_torch.models.cait import CaiT
 
     m = CaiT(d_model=128, sa_depth=1, ca_depth=1, n_heads=4, patch_size=16, img_size=224,
              dtype=torch.bfloat16)
+    x = torch.rand(2, 224, 224, 3, device=cuda)
     _cuda.reset_launch_counts()
-    with torch.inference_mode(), pytest.raises(ValueError, match="head_dim=32"):
-        m(torch.rand(2, 224, 224, 3, device=cuda))
+    out = m(x)
+    out.float().sum().backward()
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0)
+    assert _cuda.LAUNCHES["talking_head"] == _cuda.LAUNCHES["talking_head_bwd"] == 1
+    assert torch.isfinite(m.sa_blocks[0].mha.proj_w_kernel.grad).all()
+    with torch.no_grad():
+        want = m(x, plain=True)
+    err = ((out.float() - want.float()).norm() / want.float().norm()).item()
+    assert err <= REL_L2, err
 
 
 # K9 (depthwise conv) on NHWC (B, H, W, C) with k: convnext_t stage 1, a C
@@ -569,3 +602,123 @@ def test_convnext_builds_on_the_card_and_runs_its_kernels(cuda):
     with torch.inference_mode():
         assert torch.isfinite(v2(x).float()).all()
     assert _cuda.LAUNCHES["depthwise_conv"] == 18 and _cuda.LAUNCHES["block_mlp"] == 0
+
+
+# K7 (Swin window attention) on (B, nW, T, N·hd): swin_t's four stages at 224
+# px (window 7, 32-wide heads; stage 4 unshifted; bf16 on the tensor cores),
+# windows 8 and 4 with heads of 128 and 16 (the tensor-core kernels' widest and
+# narrowest), window 14 (the S3 variants: T = 196, a dPE plane of 150 KB in
+# shared memory beside bf16 operands, in device memory beside f32 ones) with
+# and without its mask, T = 256 at head 128, whose operands are read from
+# device memory, and a head of 20 (no multiple of 16)
+SWIN_ATTENTION_SHAPES = [(2, 64, 49, 3, 32, True), (2, 16, 49, 6, 32, True),
+                         (3, 4, 49, 12, 32, True), (2, 1, 49, 24, 32, False),
+                         (2, 3, 64, 2, 128, True), (2, 5, 16, 4, 16, False),
+                         (2, 1, 196, 12, 32, False), (1, 16, 196, 3, 32, True),
+                         (1, 2, 256, 2, 128, True), (2, 3, 9, 2, 20, True)]
+
+
+def _swin_args(g, B, nW, T, N, hd, masked, dtype, device):
+    D = N * hd
+    q, k, v, dout = (_rand(g, B, nW, T, D).to(device, dtype) for _ in range(4))
+    pe = _rand(g, 1, N, T, T, scale=0.5).to(device, dtype)
+    mask = None
+    if masked:  # the −100 shift mask's pattern: some token pairs cut apart
+        mask = (torch.rand(nW, T, T, generator=g) < 0.3).float().mul(-100.0).to(device, dtype)
+    return q, k, v, pe, mask, dout
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,nW,T,N,hd,masked", SWIN_ATTENTION_SHAPES)
+def test_swin_attention_kernels_match_plain(cuda, dtype, B, nW, T, N, hd, masked):
+    """K7 forward and backward against their plain versions: out, dq, dk,
+    dv within the dtype's bound, dPE (an f32 sum over batch and windows in
+    another order) by rel L2; each wrapper launches its kernels once, and
+    the backward gives the same bits twice."""
+    from vision_toolbox_tpu_torch.ops import swin_attention as sa
+
+    g = torch.Generator().manual_seed(B * nW * T + N + hd)
+    q, k, v, pe, mask, dout = _swin_args(g, B, nW, T, N, hd, masked, dtype, cuda)
+    before = dict(_cuda.LAUNCHES)
+    out = sa.swin_window_attention(q, k, v, pe, mask, N)
+    got = sa.swin_attention_bwd_cuda(q, k, v, pe, mask, N, dout)
+    again = sa.swin_attention_bwd_cuda(q, k, v, pe, mask, N, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["swin_attention"] == before["swin_attention"] + 1
+    assert _cuda.LAUNCHES["swin_attention_bwd"] == before["swin_attention_bwd"] + 2
+    _check(out, sa.swin_attention_plain(q, k, v, pe, mask, N))
+    want = sa.swin_attention_bwd_plain(q, k, v, pe, mask, N, dout)
+    for a, b in zip(got[:3], want[:3]):
+        _check(a, b)
+    assert got[3].dtype == want[3].dtype == torch.float32
+    _check_rel_l2(got[3], want[3], "dpe")
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_swin_attention_refuses_what_its_gate_refuses(cuda):
+    """No fallback: a window above 256 tokens or a head above 128 raises on
+    a CUDA tensor and launches nothing."""
+    from vision_toolbox_tpu_torch.ops import swin_attention as sa
+
+    g = torch.Generator().manual_seed(0)
+    _cuda.reset_launch_counts()
+    for T, N, hd in ((289, 2, 32), (49, 1, 160)):
+        q, k, v, pe, mask, _ = _swin_args(g, 1, 2, T, N, hd, True, torch.bfloat16, cuda)
+        with pytest.raises(ValueError, match="use_swin_kernel"):
+            sa.swin_window_attention(q, k, v, pe, mask, N)
+    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0)
+
+
+# K8 (shifted-window relayout) (B, H, W, C, w, shift): swin_t's three shifted
+# stages at 224 px, a map that is not square, channels whose bytes take 4-,
+# 2- and 1-byte copies, and an unshifted one
+SWIN_RELAYOUT_SHAPES = [(2, 56, 56, 96, 7, 3), (2, 28, 28, 192, 7, 3), (2, 14, 14, 384, 7, 3),
+                        (3, 8, 12, 5, 4, 2), (2, 28, 28, 96, 14, 7), (2, 14, 21, 3, 7, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.uint8])
+@pytest.mark.parametrize("B,H,W,C,w,s", SWIN_RELAYOUT_SHAPES)
+def test_swin_relayout_kernels_are_bit_exact(cuda, dtype, B, H, W, C, w, s):
+    """K8 partition and unpartition equal their plain versions bit for bit,
+    and undo each other; each launches once."""
+    from vision_toolbox_tpu_torch.ops import swin_relayout as sr
+
+    g = torch.Generator().manual_seed(B * H * W + C)
+    x = (torch.randint(0, 256, (B, H, W, C), generator=g) if dtype == torch.uint8
+         else _rand(g, B, H, W, C)).to(cuda, dtype)
+    before = dict(_cuda.LAUNCHES)
+    y = sr.shifted_window_partition_cuda(x, w, s)
+    back = sr.shifted_window_unpartition_cuda(y, w, s, H, W)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["swin_partition"] == before["swin_partition"] + 1
+    assert _cuda.LAUNCHES["swin_unpartition"] == before["swin_unpartition"] + 1
+    assert torch.equal(y, sr.shifted_window_partition_plain(x, w, s))
+    assert torch.equal(back, x)
+    assert torch.equal(sr.shifted_window_unpartition_cuda(y.flip(0), w, s, H, W),
+                       sr.shifted_window_unpartition_plain(y.flip(0), w, s, H, W))
+
+
+def test_swin_t_builds_on_the_card_and_runs_its_kernels(cuda):
+    """swin_t, bf16: a served forward launches 12 K7, 5 + 5 K8 (its five
+    shifted blocks) and 12 K3 forward kernels and nothing else; a train
+    step with stochastic depth launches 12/12 K7, 10 + 10 K8 (each
+    direction's backward is the other) and 12/12 K3."""
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone("swin_t", dtype=torch.bfloat16, stochastic_depth=0.2)
+    assert next(m.parameters()).is_cuda
+    x = torch.rand(2, 224, 224, 3, device=cuda)
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        out = m(x)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 768) and torch.isfinite(out.float()).all()
+    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0) | {
+        "swin_attention": 12, "swin_partition": 5, "swin_unpartition": 5, "block_mlp": 12}
+    _cuda.reset_launch_counts()
+    m(x, train=True, generator=torch.Generator(device=cuda)).float().sum().backward()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0) | {
+        "swin_attention": 12, "swin_attention_bwd": 12, "swin_partition": 10,
+        "swin_unpartition": 10, "block_mlp": 12, "block_mlp_bwd": 12}
+    assert torch.isfinite(m.stages[0][1].mha.relative_pe_table.grad).all()

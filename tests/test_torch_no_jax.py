@@ -2,8 +2,10 @@
 module of it, runs a tiny ViT, a narrow SigLIP ViT at T = 1024 (its
 attention through the flash op), a tiny CaiT forward and train step, a
 narrow ConvNeXt forward and train step (its depthwise convs through the K9
-op), and one full-recipe train step of a narrow CSP Darknet, and must not
-have loaded ``jax`` or ``flax``."""
+op), a narrow Swin forward and train step (its window attention and
+shifted-window relayouts through the K7 and K8 ops), and one full-recipe
+train step of a narrow CSP Darknet, and must not have loaded ``jax`` or
+``flax``."""
 
 import ast
 import pathlib
@@ -19,7 +21,8 @@ import vision_toolbox_tpu_torch as vtt
 from vision_toolbox_tpu_torch.utils import export, jax_bridge
 from vision_toolbox_tpu_torch.nn import norm
 from vision_toolbox_tpu_torch.ops import augment, cait_attention, depthwise_conv, flash_attention, trivial_augment, warp
-from vision_toolbox_tpu_torch.models import cait, convnext, darknet
+from vision_toolbox_tpu_torch.ops import swin_attention, swin_relayout
+from vision_toolbox_tpu_torch.models import cait, convnext, darknet, swin
 from vision_toolbox_tpu_torch import train
 from vision_toolbox_tpu_torch.train import classifier, optim, step
 m = vtt.models.ViT(128, 2, 4, 8, 32, device="cpu")
@@ -44,6 +47,16 @@ with torch.no_grad():
     out = n(torch.rand(2, 32, 32, 3))
 assert out.shape == (2, 256) and torch.isfinite(out.float()).all(), out.shape
 clf = train.ImageClassifier(n, 10, dtype=torch.bfloat16)
+state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
+loss = train.make_train_step(10, compute_dtype=torch.bfloat16)(
+    state, torch.rand(2, 32, 32, 3), torch.tensor([1, 2]), torch.Generator().manual_seed(0))
+assert torch.isfinite(loss["loss"]), loss
+w = swin.SwinTransformer(32, 32, 2, (2, 2), (4, 4), stochastic_depth=0.1, dtype=torch.bfloat16,
+                         device="cpu")
+with torch.no_grad():
+    out = w(torch.rand(2, 32, 32, 3))
+assert out.shape == (2, 64) and torch.isfinite(out.float()).all(), out.shape
+clf = train.ImageClassifier(w, 10, dtype=torch.bfloat16)
 state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
 loss = train.make_train_step(10, compute_dtype=torch.bfloat16)(
     state, torch.rand(2, 32, 32, 3), torch.tensor([1, 2]), torch.Generator().manual_seed(0))

@@ -14,8 +14,8 @@
   Tolerances as tests/test_torch_cait.py's: f32 outputs by the parity rule
   with the tight share at 1e-3, bf16 outputs rel L2 ≤ 1e-2, f32 gradients
   rel L2 ≤ 1e-3. The module takes that branch only where neither the JAX
-  module's K5 rule nor the CUDA kernels' admits the shape: a head width the
-  kernels lack reaches the op, which raises on the card.
+  module's K5 rule nor the CUDA kernels' admits the shape: any head width
+  inside the JAX rule reaches the op.
 - Flash attention zero-pads a head width the CUDA kernels lack (72) to the
   next multiple of 16 in its relayout copy and passes the true width's
   scale: the padded plain versions equal the unpadded ones (1e-6, f32 sums
@@ -194,7 +194,7 @@ def test_cait_training_branch_gradients_match_jax(jax_k3_on, monkeypatch, dropou
 
 
 @pytest.mark.parametrize("d_model,n_heads,T,dropout,train,xla", [
-    (128, 4, 196, 0.0, False, False),  # JAX runs K5: the op, which raises on the card
+    (128, 4, 196, 0.0, False, False),  # JAX runs K5: the op (K5 on the card, heads padded)
     (768, 16, 196, 0.0, False, False),  # cait_m at 224 px: only the CUDA rule admits it
     (128, 4, 16, DROP, False, False),  # dropout outside training draws nothing
     (768, 16, 324, 0.0, False, True),  # cait_m at 288 px: neither rule admits it

@@ -7,7 +7,10 @@ half-blocks, forward and backward, ``ops/block_attention.py``,
 runs hand-written forward and backward kernels, ``ops/cait_attention.py``;
 its MLP halves the fused MLP kernels), serves and trains SigLIP ViTs at 512 px
 (attention over T = 1024 tokens runs hand-written flash-attention kernels,
-``ops/flash_attention.py``) and trains the Darknet family with the full recipe
+``ops/flash_attention.py``), serves and trains ConvNeXt (hand-written
+depthwise-conv kernels, ``ops/depthwise_conv.py``) and Swin (hand-written
+window-attention and shifted-window relayout kernels,
+``ops/swin_attention.py``, ``ops/swin_relayout.py``) and trains the Darknet family with the full recipe
 (``train/``; TrivialAugment's geometric ops run the hand-written three-shear
 warp kernel, ``ops/warp.py``). Kernel sources are in ``csrc/``, built with
 ``nvcc`` at first use. Models are built on the card unless ``device="cpu"``

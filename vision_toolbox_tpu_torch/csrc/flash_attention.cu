@@ -22,6 +22,9 @@
 // out = o / l rounded once to the input type; lse = m + log l in f32.
 // The scale multiplies the f32 logits (the TPU kernel scales q first: the
 // same value for a power-of-two scale, head 64; an f32 rounding otherwise).
+// A head wider than 128 is split into ≤ 128-wide chunks of v's (and the
+// output's) columns on grid z; each chunk's block computes the scores and
+// the running softmax over the whole head again (flash_attention.cuh).
 //
 // What bounds it: at siglip vit_b_16 batch 32 (T = S = 1024, 12 heads of 64,
 // bf16) the products are 103 GFLOP against 201 MB of operands, so the
@@ -36,22 +39,24 @@ using namespace vtt_flash;
 namespace {
 
 // Element pitches and byte offsets of the forward's shared memory: the q
-// tile, one K and one V tile (input planes), the f32 scores, p (f32
-// planes), the f32 output accumulator, and each row's running max and sum.
+// tile, one K tile (the whole head) and one V tile (the block's chunk of
+// columns, `hc` wide), as input planes, the f32 scores, p (f32 planes), the
+// f32 output accumulator of the chunk, and each row's running max and sum.
 template <typename T>
 struct FwdSmem {
-  int ldh, ldk, lds, ldo;
+  int ldh, ldv, ldk, lds, ldo;
   size_t q, k, v, s, p, o, stats, total;
-  __host__ __device__ explicit FwdSmem(int H) {
+  __host__ __device__ FwdSmem(int H, int hc) {
     constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, IN = Cfg<T>::IN, MID = Cfg<T>::MID;
     ldh = H + 8;
+    ldv = hc + 8;
     ldk = BK + 8;
     lds = BK + 4;
-    ldo = H + 4;
+    ldo = hc + 4;
     q = 0;
     k = q + align128(static_cast<size_t>(IN) * BQ * ldh * 2);
     v = k + align128(static_cast<size_t>(IN) * BK * ldh * 2);
-    s = v + align128(static_cast<size_t>(IN) * BK * ldh * 2);
+    s = v + align128(static_cast<size_t>(IN) * BK * ldv * 2);
     p = s + align128(static_cast<size_t>(BQ) * lds * 4);
     o = p + align128(static_cast<size_t>(MID) * BQ * ldk * 2);
     stats = o + align128(static_cast<size_t>(BQ) * ldo * 4);
@@ -66,7 +71,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
                  float* __restrict__ lse, int Tq, int S, int H, float scale) {
   constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, IN = Cfg<T>::IN, MID = Cfg<T>::MID;
   extern __shared__ __align__(128) unsigned char smem[];
-  const FwdSmem<T> L(H);
+  const int c0 = blockIdx.z * MAX_HEAD, hc = chunk_width(H, c0);  // this block's output columns
+  const FwdSmem<T> L(H, hc);
   bf16* qs = reinterpret_cast<bf16*>(smem + L.q);
   bf16* ks = reinterpret_cast<bf16*>(smem + L.k);
   bf16* vs = reinterpret_cast<bf16*>(smem + L.v);
@@ -79,9 +85,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int q0 = blockIdx.x * BQ;
   const size_t bn = blockIdx.y;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int qplane = BQ * L.ldh, kplane = BK * L.ldh, pplane = BQ * L.ldk;
+  const int qplane = BQ * L.ldh, kplane = BK * L.ldh, vplane = BK * L.ldv, pplane = BQ * L.ldk;
 
-  load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, qs, L.ldh, qplane);
+  load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, H, qs, L.ldh, qplane);
   for (int e = threadIdx.x; e < BQ * L.ldo; e += NT) of[e] = 0.0f;
   for (int r = threadIdx.x; r < BQ; r += NT) {
     row_max[r] = kNegInf;
@@ -90,11 +96,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the last tile's products are done with K, V and p
-    load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, ks, L.ldh, kplane);
-    load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, vs, L.ldh, kplane);
+    load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, H, ks, L.ldh, kplane);
+    load_rows<T, IN>(v + bn * S * H + c0, k0, BK, S, H, hc, vs, L.ldv, vplane);
     __syncthreads();
 
-    // s = q·kᵀ, 16×16 tiles over the warps
+    // s = q·kᵀ over the whole head, 16×16 tiles over the warps
     for (int t = warp; t < (BQ / 16) * (BK / 16); t += NW) {
       const int i = t % (BQ / 16), j = t / (BQ / 16);
       Acc acc;
@@ -135,7 +141,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       }
       sum = warp_sum(sum);
       const float alpha = expf(m_prev - m_new);
-      for (int c = lane; c < H; c += 32) of[r * L.ldo + c] *= alpha;
+      for (int c = lane; c < hc; c += 32) of[r * L.ldo + c] *= alpha;
       if (lane == 0) {
         row_max[r] = m_new;
         row_sum[r] = row_sum[r] * alpha + sum;
@@ -143,26 +149,27 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     }
     __syncthreads();
 
-    // o += p·v
-    for (int t = warp; t < (BQ / 16) * (H / 16); t += NW) {
+    // o += p·v over the chunk's columns
+    for (int t = warp; t < (BQ / 16) * (hc / 16); t += NW) {
       const int i = t % (BQ / 16), j = t / (BQ / 16);
       Acc acc;
       float* tile = of + i * 16 * L.ldo + j * 16;
       wmma::load_matrix_sync(acc, tile, L.ldo, wmma::mem_row_major);
       mma_planes<wmma::row_major, wmma::row_major, MID, IN>(
-          acc, ps + i * 16 * L.ldk, L.ldk, 16, pplane, vs + j * 16, L.ldh, 16 * L.ldh, kplane, BK);
+          acc, ps + i * 16 * L.ldk, L.ldk, 16, pplane, vs + j * 16, L.ldv, 16 * L.ldv, vplane, BK);
       wmma::store_matrix_sync(tile, acc, L.ldo, wmma::mem_row_major);
     }
   }
   __syncthreads();
 
-  for (int e = threadIdx.x; e < BQ * H; e += NT) {
-    const int r = e / H, c = e % H;
+  for (int e = threadIdx.x; e < BQ * hc; e += NT) {
+    const int r = e / hc, c = e % hc;
     if (q0 + r < Tq) {
-      out[(bn * Tq + q0 + r) * H + c] = from_f32<T>(of[r * L.ldo + c] / row_sum[r]);
+      out[(bn * Tq + q0 + r) * H + c0 + c] = from_f32<T>(of[r * L.ldo + c] / row_sum[r]);
     }
   }
   if constexpr (LSE) {
+    if (blockIdx.z > 0) return;  // every chunk computes the same row statistics
     for (int r = threadIdx.x; r < BQ; r += NT) {
       if (q0 + r < Tq) lse[bn * Tq + q0 + r] = row_max[r] + logf(row_sum[r]);
     }
@@ -173,9 +180,9 @@ template <typename T>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias,
                        int bias_bf16, void* out, float* lse, int BN, int Tq, int S, int H,
                        float scale, cudaStream_t st) {
-  const FwdSmem<T> L(H);
+  const FwdSmem<T> L(H, chunk_width(H, 0));  // the first chunk is the widest
   if (L.total > kMaxSmem) return cudaErrorInvalidValue;
-  const dim3 grid((Tq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, BN);
+  const dim3 grid((Tq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, BN, (H + MAX_HEAD - 1) / MAX_HEAD);
   auto run = [&](auto kernel) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(L.total));
@@ -196,7 +203,7 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
 extern "C" int vtt_flash_fwd(const void* q, const void* k, const void* v, const void* bias,
                              int bias_bf16, int is_bf16, void* out, float* lse, int BN, int T,
                              int S, int H, float scale, void* stream) {
-  if (BN <= 0 || BN > 65535 || T <= 0 || S <= 0 || H < 16 || H > MAX_HEAD || H % 16 != 0) {
+  if (BN <= 0 || BN > 65535 || T <= 0 || S <= 0 || H < 16 || H > MAX_HEAD_DIM || H % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -14,7 +14,11 @@
 //    neither is ever rounded to bf16 once.
 //  - f32 inputs: every operand three planes, which keeps f32 accuracy.
 // Tiles: 64 query rows × 64 keys for bf16, 32 × 32 for f32 (three planes
-// of each operand), so every head width up to 128 fits a block's 227 KB.
+// of each operand). Heads up to 256 wide: q·kᵀ (and g·vᵀ) run over the whole
+// head, and a block computes the output (dq, dk, dv) for one ≤ 128-wide
+// chunk of its columns (grid z), recomputing the scores for each chunk, so
+// the accumulators stay those of a 128-wide head and the tiles fit a
+// block's 227 KB.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -33,7 +37,8 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
 constexpr int NT = 256;  // eight warps
 constexpr int NW = NT / 32;
-constexpr int MAX_HEAD = 128;
+constexpr int MAX_HEAD = 128;      // output columns of a block: a chunk of the head
+constexpr int MAX_HEAD_DIM = 256;  // the widest head
 constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 constexpr size_t kMaxSmem = 227 * 1024;
 
@@ -73,26 +78,34 @@ __device__ __forceinline__ void split_store(float x, bf16* dst, int plane) {
   }
 }
 
-// Rows [r0, r0 + rows) of a row-major (n × H) matrix into NP planes of
-// pitch ld; rows at or past n read as zero.
+// Rows [r0, r0 + rows) of a row-major (n × src_ld) matrix, its first `cols`
+// columns (src may point at a later column), into NP planes of pitch ld;
+// rows at or past n read as zero.
 template <typename T, int NP>
 __device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0, int rows, int n,
-                                          int H, bf16* dst, int ld, int plane) {
+                                          int src_ld, int cols, bf16* dst, int ld, int plane) {
   if constexpr (NP == 1 && std::is_same<T, bf16>::value) {
-    const int per = H / 8;  // 16-byte pieces
+    const int per = cols / 8;  // 16-byte pieces
     for (int e = threadIdx.x; e < rows * per; e += NT) {
       const int r = e / per, c = (e % per) * 8;
       uint4 val = make_uint4(0, 0, 0, 0);
-      if (r0 + r < n) val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * H + c);
+      if (r0 + r < n) {
+        val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * src_ld + c);
+      }
       *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
     }
   } else {
-    for (int e = threadIdx.x; e < rows * H; e += NT) {
-      const int r = e / H, c = e % H;
-      const float x = r0 + r < n ? to_f32(src[static_cast<size_t>(r0 + r) * H + c]) : 0.0f;
+    for (int e = threadIdx.x; e < rows * cols; e += NT) {
+      const int r = e / cols, c = e % cols;
+      const float x = r0 + r < n ? to_f32(src[static_cast<size_t>(r0 + r) * src_ld + c]) : 0.0f;
       split_store<NP>(x, dst + r * ld + c, plane);
     }
   }
+}
+
+// Output columns [c0, c0 + width) of the chunk blockIdx.z of a head H wide.
+__host__ __device__ inline int chunk_width(int H, int c0) {
+  return H - c0 < MAX_HEAD ? H - c0 : MAX_HEAD;
 }
 
 // acc += A·B over depth K (a multiple of 16): A a 16 × K and B a K × 16

@@ -18,7 +18,9 @@
 //   (c) dQ per (query tile, pair): q and g stay, K/V tiles stream past;
 //       dQ += ds·k in registers.
 // p and ds never leave shared memory; nothing of size (T, S) goes to device
-// memory. Every product runs on the tensor cores with exact operands (q, k,
+// memory. A head wider than 128: (b) and (c) run per ≤ 128-wide chunk of
+// the gradients' columns (grid z), each recomputing s and dp over the whole
+// head (flash_attention.cuh). Every product runs on the tensor cores with exact operands (q, k,
 // v, g as given; p and ds as two bf16 planes for bf16 inputs, everything as
 // three for f32 ones: flash_attention.cuh). dk is the f32 dsᵀ·q scaled
 // afterwards (the TPU kernel scales q first: the same value at head 64).
@@ -62,8 +64,9 @@ struct BwdSmem {
     lse = ds + pt;
     delta = lse + align128(BQ * 4);
     const size_t stream = delta + align128(BQ * 4);
-    // after the loop the f32 results are staged over the same bytes: [dv | dk] or dq
-    const size_t staged = static_cast<size_t>(2) * (BK > BQ ? BK : BQ) * (H + 4) * 4;
+    // after the loop the f32 results of the block's column chunk are staged
+    // over the same bytes: [dv | dk] or dq
+    const size_t staged = static_cast<size_t>(2) * (BK > BQ ? BK : BQ) * (chunk_width(H, 0) + 4) * 4;
     total = stream > staged ? stream : staged;
   }
 };
@@ -138,8 +141,10 @@ __device__ __forceinline__ void probs_and_ds(const Tiles<T>& sm, const BwdSmem<T
   __syncthreads();
 }
 
+// Two blocks an SM (at most 128 registers a thread): its dV and dK fragments
+// otherwise take it to 136 and one block an SM, 1.3× slower at head 64.
 template <typename T>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(NT, 2)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ g, const float* __restrict__ lse,
                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
@@ -151,20 +156,21 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const Tiles<T> sm(smem, L);
   const int k0 = blockIdx.x * BK;
   const size_t bn = blockIdx.y;
+  const int c0 = blockIdx.z * MAX_HEAD, hc = chunk_width(H, c0);  // this block's columns
   const int warp = threadIdx.x >> 5;
   const int qplane = BQ * L.ldh, kplane = BK * L.ldh, pplane = BQ * L.ldk;
 
-  load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, sm.k, L.ldh, kplane);
-  load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, sm.v, L.ldh, kplane);
-  const int per = (BK / 16) * (H / 16), n_tiles = 2 * per;  // t → (dv | dk, key tile, column tile)
+  load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, H, sm.k, L.ldh, kplane);
+  load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, H, sm.v, L.ldh, kplane);
+  const int per = (BK / 16) * (hc / 16), n_tiles = 2 * per;  // t → (dv | dk, key tile, column tile)
   Acc acc[MAXF];
 #pragma unroll
   for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(acc[f], 0.0f);
 
   for (int q0 = 0; q0 < Tq; q0 += BQ) {
     __syncthreads();  // the last tile's products are done with q, g, p and ds
-    load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, sm.q, L.ldh, qplane);
-    load_rows<T, IN>(g + bn * Tq * H, q0, BQ, Tq, H, sm.g, L.ldh, qplane);
+    load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, H, sm.q, L.ldh, qplane);
+    load_rows<T, IN>(g + bn * Tq * H, q0, BQ, Tq, H, H, sm.g, L.ldh, qplane);
     load_row_stats(lse, delta, bn, q0, Tq, sm);
     __syncthreads();
     probs_and_ds<T, true>(sm, L, q0, Tq, k0, S, H, scale);
@@ -176,13 +182,13 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
       // dv += pᵀ·g, dk += dsᵀ·q: (p or ds)ᵀ read column-major from the [query][key] tile
       mma_planes<wmma::col_major, wmma::row_major, MID, IN>(
           acc[f], (which ? sm.ds : sm.p) + i * 16, L.ldk, 16 * L.ldk, pplane,
-          (which ? sm.q : sm.g) + j * 16, L.ldh, 16 * L.ldh, qplane, BQ);
+          (which ? sm.q : sm.g) + c0 + j * 16, L.ldh, 16 * L.ldh, qplane, BQ);
     }
   }
   __syncthreads();
 
-  float* staged = reinterpret_cast<float*>(smem);  // [dv | dk][key][H + 4]
-  const int ldo = H + 4;
+  float* staged = reinterpret_cast<float*>(smem);  // [dv | dk][key][hc + 4]
+  const int ldo = hc + 4;
 #pragma unroll
   for (int f = 0; f < MAXF; ++f) {
     const int t = warp + f * NW;
@@ -192,11 +198,11 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
                             wmma::mem_row_major);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < 2 * BK * H; e += NT) {
-    const int which = e / (BK * H), r = (e / H) % BK, c = e % H;
+  for (int e = threadIdx.x; e < 2 * BK * hc; e += NT) {
+    const int which = e / (BK * hc), r = (e / hc) % BK, c = e % hc;
     if (k0 + r >= S) continue;
     const float val = staged[(which * BK + r) * ldo + c];
-    const size_t o = (bn * S + k0 + r) * H + c;
+    const size_t o = (bn * S + k0 + r) * H + c0 + c;
     if (which) {
       dk[o] = from_f32<T>(val * scale);
     } else {
@@ -218,21 +224,22 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const Tiles<T> sm(smem, L);
   const int q0 = blockIdx.x * BQ;
   const size_t bn = blockIdx.y;
+  const int c0 = blockIdx.z * MAX_HEAD, hc = chunk_width(H, c0);  // this block's columns
   const int warp = threadIdx.x >> 5;
   const int qplane = BQ * L.ldh, kplane = BK * L.ldh, pplane = BQ * L.ldk;
 
-  load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, sm.q, L.ldh, qplane);
-  load_rows<T, IN>(g + bn * Tq * H, q0, BQ, Tq, H, sm.g, L.ldh, qplane);
+  load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, H, sm.q, L.ldh, qplane);
+  load_rows<T, IN>(g + bn * Tq * H, q0, BQ, Tq, H, H, sm.g, L.ldh, qplane);
   load_row_stats(lse, delta, bn, q0, Tq, sm);
-  const int per = (BQ / 16) * (H / 16);  // t → (query tile, column tile)
+  const int per = (BQ / 16) * (hc / 16);  // t → (query tile, column tile)
   Acc acc[MAXF];
 #pragma unroll
   for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(acc[f], 0.0f);
 
   for (int k0 = 0; k0 < S; k0 += BK) {
     __syncthreads();  // the last tile's products are done with k and ds
-    load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, sm.k, L.ldh, kplane);
-    load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, sm.v, L.ldh, kplane);
+    load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, H, sm.k, L.ldh, kplane);
+    load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, H, sm.v, L.ldh, kplane);
     __syncthreads();
     probs_and_ds<T, false>(sm, L, q0, Tq, k0, S, H, scale);
 #pragma unroll
@@ -241,14 +248,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       if (t >= per) continue;
       const int i = t % (BQ / 16), j = t / (BQ / 16);
       mma_planes<wmma::row_major, wmma::row_major, MID, IN>(
-          acc[f], sm.ds + i * 16 * L.ldk, L.ldk, 16, pplane, sm.k + j * 16, L.ldh, 16 * L.ldh,
-          kplane, BK);
+          acc[f], sm.ds + i * 16 * L.ldk, L.ldk, 16, pplane, sm.k + c0 + j * 16, L.ldh,
+          16 * L.ldh, kplane, BK);
     }
   }
   __syncthreads();
 
-  float* staged = reinterpret_cast<float*>(smem);  // [query][H + 4]
-  const int ldo = H + 4;
+  float* staged = reinterpret_cast<float*>(smem);  // [query][hc + 4]
+  const int ldo = hc + 4;
 #pragma unroll
   for (int f = 0; f < MAXF; ++f) {
     const int t = warp + f * NW;
@@ -257,9 +264,9 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     wmma::store_matrix_sync(staged + i * 16 * ldo + j * 16, acc[f], ldo, wmma::mem_row_major);
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < BQ * H; e += NT) {
-    const int r = e / H, c = e % H;
-    if (q0 + r < Tq) dq[(bn * Tq + q0 + r) * H + c] = from_f32<T>(staged[r * ldo + c] * scale);
+  for (int e = threadIdx.x; e < BQ * hc; e += NT) {
+    const int r = e / hc, c = e % hc;
+    if (q0 + r < Tq) dq[(bn * Tq + q0 + r) * H + c0 + c] = from_f32<T>(staged[r * ldo + c] * scale);
   }
 }
 
@@ -280,7 +287,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(L.total));
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<T><<<dim3((S + Cfg<T>::BK - 1) / Cfg<T>::BK, BN), NT, L.total, st>>>(
+  const int chunks = (H + MAX_HEAD - 1) / MAX_HEAD;
+  flash_bwd_dkv_kernel<T><<<dim3((S + Cfg<T>::BK - 1) / Cfg<T>::BK, BN, chunks), NT, L.total, st>>>(
       qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Tq, S, H, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -288,7 +296,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(L.total));
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T><<<dim3((Tq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, BN), NT, L.total, st>>>(
+  flash_bwd_dq_kernel<T><<<dim3((Tq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, BN, chunks), NT, L.total, st>>>(
       qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), Tq, S, H, scale);
   return cudaGetLastError();
 }
@@ -299,7 +307,7 @@ extern "C" int vtt_flash_bwd(const void* q, const void* k, const void* v, const 
                              const void* g, const float* lse, float* delta, int is_bf16, void* dq,
                              void* dk, void* dv, int BN, int T, int S, int H, float scale,
                              void* stream) {
-  if (BN <= 0 || BN > 65535 || T <= 0 || S <= 0 || H < 16 || H > MAX_HEAD || H % 16 != 0 ||
+  if (BN <= 0 || BN > 65535 || T <= 0 || S <= 0 || H < 16 || H > MAX_HEAD_DIM || H % 16 != 0 ||
       static_cast<long long>(BN) * T > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -13,8 +13,11 @@
 // above a Hopper block's 227 KB. Here a block owns BQ query rows of one
 // image for all heads (the mixes join the heads at each (t, s), and the
 // softmax is over whole rows), so its scores are H·BQ·S f32 (50 KB at
-// cait_s_24 with BQ = 8; talking_head.cuh picks BQ). Keys and values are
-// read from device memory (L2) by every row tile of their image.
+// cait_s_24 with BQ = 8; talking_head.cuh picks BQ: down to one row at
+// S = 512, 16 heads). Keys and values are read from device memory (L2) by
+// every row tile of their image. Any head width: the wrapper pads it to a
+// multiple of 16 and the logits run in 64-, 48- or 16-column chunks
+// (talking_head.cuh).
 //
 // Every value the TPU kernel holds in f32 is f32 here, and every product
 // runs on the CUDA cores in f32: the probabilities and the mixed
@@ -30,65 +33,68 @@ using namespace vtt_th;
 
 namespace {
 
-template <int HD, int MH>
-__global__ void __launch_bounds__(NT)
+// Three blocks an SM for chunks up to 48 columns (at most 85 registers a
+// thread: cait_s_24's 8 heads of 48 otherwise take 99 and two blocks, 1.25×
+// slower), two for 64-column chunks, whose key rows alone take 64 registers.
+template <int CH, int MH>
+__global__ void __launch_bounds__(NT, CH <= 48 ? 3 : 2)
 th_fwd_kernel(const void* __restrict__ q, const void* __restrict__ k, const void* __restrict__ v,
               int in_bf16, const float* __restrict__ mix, void* __restrict__ out, int T, int S,
-              int H, int BQ, float scale) {
+              int H, int HD, int BQ, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int D = H * HD, SP = pad4(S), plane = BQ * SP;
   float* sc = smem;                      // H·BQ·SP scores
-  float* qs = sc + H * plane;            // BQ·D, q·scale
-  float* mx = qs + BQ * D;               // ml (H²), mlb (H), mw (H²), mwb (H)
+  float* qs = sc + H * plane;            // BQ·H·CH, a chunk of q·scale
+  float* mx = qs + BQ * H * CH;          // ml (H²), mlb (H), mw (H²), mwb (H)
   const float *ml = mx, *mlb = mx + H * H, *mw = mlb + H, *mwb = mw + H * H;
   const int t0 = blockIdx.x * BQ, b = blockIdx.y;
 
   for (int i = threadIdx.x; i < 2 * H * H + 2 * H; i += NT) mx[i] = mix[i];
-  load_rows(q, in_bf16, static_cast<size_t>(b) * T * D, t0, T, D, BQ, scale, qs);
-  __syncthreads();
-  row_dots<HD>(qs, k, in_bf16, static_cast<size_t>(b) * S * D, S, SP, D, H, BQ, sc);
-  __syncthreads();
+  chunked_dots<CH>(q, scale, k, in_bf16, static_cast<size_t>(b) * T * D,
+                   static_cast<size_t>(b) * S * D, t0, T, S, SP, D, HD, H, BQ, qs, sc);
   mix_heads<MH, false>(sc, sc, ml, mlb, H, BQ, S, SP, nullptr, 0, T);
   __syncthreads();
   softmax_rows(sc, H * BQ, S, SP);
   __syncthreads();
   mix_heads<MH, false>(sc, sc, mw, mwb, H, BQ, S, SP, nullptr, 0, T);
   __syncthreads();
-  scores_times_rows<HD>(sc, v, in_bf16, static_cast<size_t>(b) * S * D, out,
-                        static_cast<size_t>(b) * T * D, t0, T, S, SP, D, BQ, 1.0f);
+  scores_times_rows(sc, v, in_bf16, static_cast<size_t>(b) * S * D, out,
+                    static_cast<size_t>(b) * T * D, t0, T, S, SP, D, HD, BQ, 1.0f);
 }
 
-template <int HD, int MH>
+template <int CH, int MH>
 cudaError_t launch(const void* q, const void* k, const void* v, int in_bf16, const float* mix,
-                   void* out, int B, int T, int S, int H, float scale, cudaStream_t st) {
-  const int bq = rows_per_block(false, S, H, HD);
+                   void* out, int B, int T, int S, int H, int HD, float scale, cudaStream_t st) {
+  const int bq = rows_per_block(false, S, H, CH);
   if (bq == 0) return cudaErrorInvalidValue;
-  const size_t smem = row_tile_smem(false, bq, S, H, HD);
-  cudaError_t err = cudaFuncSetAttribute(th_fwd_kernel<HD, MH>,
+  const size_t smem = row_tile_smem(false, bq, S, H, CH);
+  cudaError_t err = cudaFuncSetAttribute(th_fwd_kernel<CH, MH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((T + bq - 1) / bq, B);
-  th_fwd_kernel<HD, MH><<<grid, NT, smem, st>>>(q, k, v, in_bf16, mix, out, T, S, H, bq, scale);
+  th_fwd_kernel<CH, MH><<<grid, NT, smem, st>>>(q, k, v, in_bf16, mix, out, T, S, H, HD, bq,
+                                                scale);
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int CH>
 cudaError_t launch_heads(const void* q, const void* k, const void* v, int in_bf16,
-                         const float* mix, void* out, int B, int T, int S, int H, float scale,
-                         cudaStream_t st) {
-  if (H <= 4) return launch<HD, 4>(q, k, v, in_bf16, mix, out, B, T, S, H, scale, st);
-  if (H <= 8) return launch<HD, 8>(q, k, v, in_bf16, mix, out, B, T, S, H, scale, st);
-  return launch<HD, 16>(q, k, v, in_bf16, mix, out, B, T, S, H, scale, st);
+                         const float* mix, void* out, int B, int T, int S, int H, int HD,
+                         float scale, cudaStream_t st) {
+  if (H <= 4) return launch<CH, 4>(q, k, v, in_bf16, mix, out, B, T, S, H, HD, scale, st);
+  if (H <= 8) return launch<CH, 8>(q, k, v, in_bf16, mix, out, B, T, S, H, HD, scale, st);
+  return launch<CH, 16>(q, k, v, in_bf16, mix, out, B, T, S, H, HD, scale, st);
 }
 
 }  // namespace
 
 // Query rows per block of the forward (bwd = 0) or backward (bwd = 1) row
-// pass; 0 when the shape has no kernel.
+// pass; 0 when the shape has no kernel. hd is the padded head width, a
+// multiple of 16.
 extern "C" int vtt_talking_head_rows(int S, int H, int hd, int bwd) {
-  if (S < 1 || S > MAX_SEQ || H < 1 || H > MAX_HEADS || (hd != 48 && hd != 64)) return 0;
-  return rows_per_block(bwd != 0, S, H, hd);
+  if (S < 1 || S > MAX_SEQ || H < 1 || H > MAX_HEADS || hd < 16 || hd % 16) return 0;
+  return rows_per_block(bwd != 0, S, H, head_chunk(hd));
 }
 
 // mix: ml (H²), mlb (H), mw (H²), mwb (H), f32, contiguous.
@@ -99,8 +105,14 @@ extern "C" int vtt_talking_head_fwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      hd == 48 ? launch_heads<48>(q, k, v, in_bf16, mix, out, B, T, S, H, scale, st)
-               : launch_heads<64>(q, k, v, in_bf16, mix, out, B, T, S, H, scale, st);
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (head_chunk(hd)) {
+#define VTT_TH_CHUNK(C) \
+  case C:               \
+    err = launch_heads<C>(q, k, v, in_bf16, mix, out, B, T, S, H, hd, scale, st); \
+    break;
+    VTT_TH_CHUNK(64) VTT_TH_CHUNK(48) VTT_TH_CHUNK(16)
+#undef VTT_TH_CHUNK
+  }
   return static_cast<int>(err);
 }

@@ -9,6 +9,16 @@
 // phase is plain f32 arithmetic on the CUDA cores, the values the TPU kernel
 // holds in f32 (vision_toolbox_tpu/ops/cait_attention.py `_fwd_core`,
 // `_mix`, `_bwd_kernel`), with f32 sums taken in another order.
+//
+// Head widths: the wrapper zero-pads a head to a multiple of 16 (zero columns
+// add nothing to q·kᵀ and give zero output columns, which it drops). The
+// logits q·kᵀ are summed over chunks of CH columns of the head (`head_chunk`:
+// 64 or 48 where they divide it, else 16; CaiT's 48-wide heads are one
+// chunk), the block's q (or dout) rows staged one chunk at a time, so no
+// thread keeps more than 64 key values in registers; the chunks of one logit
+// are summed in order into the score buffer. Three chunk widths are compiled,
+// not one a width: each is a set of row-pass kernels, and the build time
+// grows with them.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,29 +34,38 @@ constexpr int NT = 256;          // threads of a row-tile block (eight warps)
 constexpr int MAX_SEQ = 512;     // T and S, as the JAX gate
 constexpr int MAX_HEADS = 16;
 constexpr int ROWS_PER_PASS = 4;  // independent accumulators per thread in the products
+constexpr int CHUNKS[3] = {64, 48, 16};  // the compiled logit-chunk widths
 constexpr size_t kMaxSmem = 227 * 1024;
 constexpr size_t kHalfSmem = 113 * 1024;  // two blocks on one SM
 
 __host__ __device__ inline int pad4(int s) { return (s + 3) / 4 * 4; }
 
-// Shared memory of a row-tile block: `planes` score buffers of H·BQ·SP f32,
-// `tiles` row tiles of BQ·D f32 and the mix parameters (2H² + 2H f32). The
-// forward keeps one plane and the q tile; the backward three planes (raw
-// logits, probabilities, the gradient being worked on) and the q and dout
-// tiles. ops/cait_attention.py `use_talking_head_kernel` mirrors this.
-inline size_t row_tile_smem(bool bwd, int bq, int S, int H, int hd) {
-  const size_t planes = bwd ? 3 : 1, tiles = bwd ? 2 : 1;
-  return (planes * H * bq * pad4(S) + tiles * static_cast<size_t>(bq) * H * hd + 2 * H * H + 2 * H) * 4;
+// Columns of a logit chunk for a (padded) head width hd, a multiple of 16: the
+// widest of CHUNKS that divides it.
+inline int head_chunk(int hd) {
+  for (int ch : CHUNKS)
+    if (hd % ch == 0) return ch;
+  return 0;
 }
 
-// Query rows per block: the largest of 16, 8, 4 that lets two blocks share
-// an SM, else the largest that fits one; 0 when none does.
-inline int rows_per_block(bool bwd, int S, int H, int hd) {
+// Shared memory of a row-tile block: `planes` score buffers of H·BQ·SP f32,
+// one row tile of BQ·H·CH f32 (a chunk of q, or of dout in the backward) and
+// the mix parameters (2H² + 2H f32). The forward keeps one plane; the backward
+// three (raw logits, probabilities, the gradient being worked on).
+// ops/cait_attention.py `_smem_bytes` mirrors this.
+inline size_t row_tile_smem(bool bwd, int bq, int S, int H, int ch) {
+  const size_t planes = bwd ? 3 : 1;
+  return (planes * H * bq * pad4(S) + static_cast<size_t>(bq) * H * ch + 2 * H * H + 2 * H) * 4;
+}
+
+// Query rows per block: the largest of 16, 8, 4, 2, 1 that lets two blocks
+// share an SM, else the largest that fits one; 0 when none does.
+inline int rows_per_block(bool bwd, int S, int H, int ch) {
   const size_t budgets[2] = {kHalfSmem, kMaxSmem};
-  const int rows[3] = {16, 8, 4};
+  const int rows[5] = {16, 8, 4, 2, 1};
   for (size_t budget : budgets)
     for (int bq : rows)
-      if (row_tile_smem(bwd, bq, S, H, hd) <= budget) return bq;
+      if (row_tile_smem(bwd, bq, S, H, ch) <= budget) return bq;
   return 0;
 }
 
@@ -91,23 +110,31 @@ __device__ __forceinline__ void ld_row(const void* p, size_t i, int is_bf16, flo
   }
 }
 
-// dst[t][c] = alpha · x[t0 + t][c] in f32 for the block's BQ rows of one
-// image (x at element offset `base`), 0 past row T.
-__device__ __forceinline__ void load_rows(const void* x, int is_bf16, size_t base, int t0, int T,
-                                          int D, int BQ, float alpha, float* dst) {
-  for (int i = threadIdx.x; i < BQ * D; i += blockDim.x) {
-    const int t = i / D, c = i % D;
-    dst[i] = t0 + t < T ? ld(x, base + static_cast<size_t>(t0 + t) * D + c, is_bf16) * alpha : 0.0f;
+// dst[t][h·CH + c] = alpha · x[t0 + t][h·HD + c0 + c] in f32 for the block's
+// BQ rows of one image (x at element offset `base`, row length D = H·HD) and
+// columns c0 ≤ c0 + c < c0 + CH of every head, 0 past row T.
+__device__ __forceinline__ void load_chunk(const void* x, int is_bf16, size_t base, int t0,
+                                           int T, int D, int HD, int c0, int CH, int H, int BQ,
+                                           float alpha, float* dst) {
+  const int W = H * CH;
+  for (int i = threadIdx.x; i < BQ * W; i += blockDim.x) {
+    const int t = i / W, c = i % W, col = (c / CH) * HD + c0 + c % CH;
+    dst[i] = t0 + t < T ? ld(x, base + static_cast<size_t>(t0 + t) * D + col, is_bf16) * alpha
+                        : 0.0f;
   }
 }
 
-// buf[h][t][s] = Σ_d a[t][h·HD + d] · x[s][h·HD + d] for s < S (0 for
-// S ≤ s < SP): the per-head logits q·kᵀ (a = q·scale) and, in the
-// backward, dmixw = dout·vᵀ. One thread per (head, key) keeps its key row
-// in registers and runs four query rows at a time.
-template <int HD>
-__device__ __forceinline__ void row_dots(const float* a, const void* x, int is_bf16, size_t base,
-                                         int S, int SP, int D, int H, int BQ, float* buf) {
+// buf[h][t][s] (+)= Σ_{c < CH} a[t][h·CH + c] · x[s][h·HD + c0 + c] for s < S
+// (0 for S ≤ s < SP), adding to the earlier chunks' sum when c0 > 0: the
+// per-head logits q·kᵀ (a = a chunk of q·scale) and, in the backward, dmixw
+// = dout·vᵀ. One thread per (head, key) keeps the chunk of its key row in
+// registers and runs RPP query rows at a time (`row_dots` picks four, or one
+// for row tiles of one or two rows).
+template <int CH, int RPP>
+__device__ __forceinline__ void row_dots_by(const float* a, const void* x, int is_bf16,
+                                            size_t base, int S, int SP, int D, int HD, int c0,
+                                            int H, int BQ, float* buf) {
+  const int W = H * CH;
   for (int pair = threadIdx.x; pair < H * SP; pair += NT) {
     const int h = pair / SP, s = pair % SP;
     float* out = buf + static_cast<size_t>(h) * BQ * SP + s;
@@ -115,15 +142,17 @@ __device__ __forceinline__ void row_dots(const float* a, const void* x, int is_b
       for (int t = 0; t < BQ; ++t) out[t * SP] = 0.0f;
       continue;
     }
-    float kr[HD];
-    ld_row<HD>(x, base + static_cast<size_t>(s) * D + h * HD, is_bf16, kr);
-    for (int t = 0; t < BQ; t += ROWS_PER_PASS) {
-      float acc[ROWS_PER_PASS] = {};
+    float kr[CH];
+    ld_row<CH>(x, base + static_cast<size_t>(s) * D + h * HD + c0, is_bf16, kr);
+    for (int t = 0; t < BQ; t += RPP) {
+      float acc[RPP];
 #pragma unroll
-      for (int j = 0; j < HD / 4; ++j) {
+      for (int r = 0; r < RPP; ++r) acc[r] = c0 > 0 ? out[(t + r) * SP] : 0.0f;
 #pragma unroll
-        for (int r = 0; r < ROWS_PER_PASS; ++r) {
-          const float4 f = reinterpret_cast<const float4*>(a + (t + r) * D + h * HD)[j];
+      for (int j = 0; j < CH / 4; ++j) {
+#pragma unroll
+        for (int r = 0; r < RPP; ++r) {
+          const float4 f = reinterpret_cast<const float4*>(a + (t + r) * W + h * CH)[j];
           acc[r] = fmaf(f.x, kr[4 * j], acc[r]);
           acc[r] = fmaf(f.y, kr[4 * j + 1], acc[r]);
           acc[r] = fmaf(f.z, kr[4 * j + 2], acc[r]);
@@ -131,8 +160,35 @@ __device__ __forceinline__ void row_dots(const float* a, const void* x, int is_b
         }
       }
 #pragma unroll
-      for (int r = 0; r < ROWS_PER_PASS; ++r) out[(t + r) * SP] = acc[r];
+      for (int r = 0; r < RPP; ++r) out[(t + r) * SP] = acc[r];
     }
+  }
+}
+
+template <int CH>
+__device__ __forceinline__ void row_dots(const float* a, const void* x, int is_bf16, size_t base,
+                                         int S, int SP, int D, int HD, int c0, int H, int BQ,
+                                         float* buf) {
+  if (BQ >= ROWS_PER_PASS) {
+    row_dots_by<CH, ROWS_PER_PASS>(a, x, is_bf16, base, S, SP, D, HD, c0, H, BQ, buf);
+  } else {
+    row_dots_by<CH, 1>(a, x, is_bf16, base, S, SP, D, HD, c0, H, BQ, buf);
+  }
+}
+
+// The block's logits of one kind over all chunks of the head: buf = a·xᵀ per
+// head, with the a rows (x's partner: q·scale or dout) staged a chunk at a
+// time in `tile`. Starts and ends synchronised.
+template <int CH>
+__device__ __forceinline__ void chunked_dots(const void* a, float alpha, const void* x,
+                                             int is_bf16, size_t rows_base, size_t keys_base,
+                                             int t0, int T, int S, int SP, int D, int HD, int H,
+                                             int BQ, float* tile, float* buf) {
+  for (int c0 = 0; c0 < HD; c0 += CH) {
+    load_chunk(a, is_bf16, rows_base, t0, T, D, HD, c0, CH, H, BQ, alpha, tile);
+    __syncthreads();
+    row_dots<CH>(tile, x, is_bf16, keys_base, S, SP, D, HD, c0, H, BQ, buf);
+    __syncthreads();
   }
 }
 
@@ -205,19 +261,20 @@ __device__ __forceinline__ void softmax_rows(float* buf, int rows, int S, int SP
 
 // out[t0 + t][c] = alpha · Σ_s buf[c / HD][t][s] · x[s][c] for the block's
 // rows below T, in x's type: o = pw·v (alpha 1) and dq = draw·k·scale.
-// Work items are (column, four query rows); x is read along a column, so a
-// warp reads consecutive addresses.
-template <int HD>
-__device__ __forceinline__ void scores_times_rows(const float* buf, const void* x, int is_bf16,
-                                                  size_t xbase, void* out, size_t obase, int t0,
-                                                  int T, int S, int SP, int D, int BQ,
-                                                  float alpha) {
+// Work items are (column, RPP query rows: `scores_times_rows` picks four, or
+// one for row tiles of one or two rows); x is read along a column, so a warp
+// reads consecutive addresses.
+template <int RPP>
+__device__ __forceinline__ void scores_times_rows_by(const float* buf, const void* x,
+                                                     int is_bf16, size_t xbase, void* out,
+                                                     size_t obase, int t0, int T, int S, int SP,
+                                                     int D, int HD, int BQ, float alpha) {
   const int plane = BQ * SP;
-  const int items = D * (BQ / ROWS_PER_PASS);
+  const int items = D * (BQ / RPP);
   for (int item = threadIdx.x; item < items; item += NT) {
-    const int c = item % D, tr = item / D * ROWS_PER_PASS;
+    const int c = item % D, tr = item / D * RPP;
     const float* p = buf + (c / HD) * plane + tr * SP;
-    float acc[ROWS_PER_PASS] = {};
+    float acc[RPP] = {};
     for (int s = 0; s < S; s += 4) {
       float xv[4];
 #pragma unroll
@@ -225,7 +282,7 @@ __device__ __forceinline__ void scores_times_rows(const float* buf, const void* 
         xv[j] = s + j < S ? ld(x, xbase + static_cast<size_t>(s + j) * D + c, is_bf16) : 0.0f;
       }
 #pragma unroll
-      for (int r = 0; r < ROWS_PER_PASS; ++r) {
+      for (int r = 0; r < RPP; ++r) {
         const float4 pv = *reinterpret_cast<const float4*>(p + r * SP + s);
         acc[r] = fmaf(pv.x, xv[0], acc[r]);
         acc[r] = fmaf(pv.y, xv[1], acc[r]);
@@ -234,10 +291,22 @@ __device__ __forceinline__ void scores_times_rows(const float* buf, const void* 
       }
     }
 #pragma unroll
-    for (int r = 0; r < ROWS_PER_PASS; ++r) {
+    for (int r = 0; r < RPP; ++r) {
       const int t = t0 + tr + r;
       if (t < T) st(out, obase + static_cast<size_t>(t) * D + c, acc[r] * alpha, is_bf16);
     }
+  }
+}
+
+__device__ __forceinline__ void scores_times_rows(const float* buf, const void* x, int is_bf16,
+                                                  size_t xbase, void* out, size_t obase, int t0,
+                                                  int T, int S, int SP, int D, int HD, int BQ,
+                                                  float alpha) {
+  if (BQ >= ROWS_PER_PASS) {
+    scores_times_rows_by<ROWS_PER_PASS>(buf, x, is_bf16, xbase, out, obase, t0, T, S, SP, D, HD,
+                                        BQ, alpha);
+  } else {
+    scores_times_rows_by<1>(buf, x, is_bf16, xbase, out, obase, t0, T, S, SP, D, HD, BQ, alpha);
   }
 }
 

@@ -25,7 +25,10 @@
 //   (iii) the partial sums added over the row blocks, one block per value,
 //         in a fixed order: the mix gradients are deterministic.
 // Every value the TPU kernel holds in f32 is f32 here; dq, dk and dv are
-// rounded once to the input type.
+// rounded once to the input type. Any head width (padded to a multiple of
+// 16, logits in 64-, 48- or 16-column chunks) and any shape of the JAX rule: where a
+// row block of four query rows does not fit shared memory (S = 512 at 16
+// heads), a block takes two or one (talking_head.cuh `rows_per_block`).
 //
 // What bounds it on an H100: q/k/v/dout in and dq/dk/dv out (7·B·T·D
 // elements) set the least time together with the H²-sized mixes and sums
@@ -42,6 +45,7 @@ namespace {
 constexpr int KEYS = 8;         // keys per block of the key pass
 constexpr int ROW_CHUNK = 32;   // query rows of pw/draw staged at a time there
 constexpr int REDUCE_THREADS = 256;
+constexpr int KEY_COLUMNS = 1024;  // columns (threads) of a key-pass block
 
 // Σ_p grad[g][p]·act[h][p] into out[g·H + h] and Σ_p grad[g][p] into
 // out[H² + g], over the block's positions (both are 0 at s ≥ S and
@@ -74,21 +78,20 @@ __device__ __forceinline__ void softmax_bwd_rows(float* dp, const float* p, int 
   }
 }
 
-template <int HD, int MH>
+template <int CH, int MH>
 __global__ void __launch_bounds__(NT)
 th_bwd_rows_kernel(const void* __restrict__ q, const void* __restrict__ k,
                    const void* __restrict__ v, const void* __restrict__ dout, int in_bf16,
                    const float* __restrict__ mix, void* __restrict__ dq, float* __restrict__ pw,
                    float* __restrict__ draw, float* __restrict__ partials, int T, int S, int H,
-                   int BQ, float scale) {
+                   int HD, int BQ, float scale) {
   extern __shared__ __align__(16) float smem[];
   const int D = H * HD, SP = pad4(S), plane = BQ * SP, nv = 2 * H * H + 2 * H;
   float* raw = smem;                 // H·BQ·SP raw logits
   float* prob = raw + H * plane;     // softmax probabilities
   float* grad = prob + H * plane;    // dmixw → dp → dmixl → draw
-  float* qs = grad + H * plane;      // BQ·D, q·scale
-  float* go = qs + BQ * D;           // BQ·D, dout
-  float* mx = go + BQ * D;           // ml (H²), mlb (H), mw (H²), mwb (H)
+  float* tile = grad + H * plane;    // BQ·H·CH, a chunk of q·scale, then of dout
+  float* mx = tile + BQ * H * CH;    // ml (H²), mlb (H), mw (H²), mwb (H)
   const float *ml = mx, *mlb = mx + H * H, *mw = mlb + H, *mwb = mw + H * H;
   const int t0 = blockIdx.x * BQ, b = blockIdx.y;
   const size_t rows_base = static_cast<size_t>(b) * T * D, keys_base = static_cast<size_t>(b) * S * D;
@@ -97,19 +100,16 @@ th_bwd_rows_kernel(const void* __restrict__ q, const void* __restrict__ k,
   float* part = partials + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * nv;
 
   for (int i = threadIdx.x; i < nv; i += NT) mx[i] = mix[i];
-  load_rows(q, in_bf16, rows_base, t0, T, D, BQ, scale, qs);
-  load_rows(dout, in_bf16, rows_base, t0, T, D, BQ, 1.0f, go);
-  __syncthreads();
-  row_dots<HD>(qs, k, in_bf16, keys_base, S, SP, D, H, BQ, raw);
-  __syncthreads();
+  chunked_dots<CH>(q, scale, k, in_bf16, rows_base, keys_base, t0, T, S, SP, D, HD, H, BQ, tile,
+                   raw);
   mix_heads<MH, false>(raw, prob, ml, mlb, H, BQ, S, SP, nullptr, 0, T);
   __syncthreads();
   softmax_rows(prob, H * BQ, S, SP);
   __syncthreads();
-  // pw to device memory only; dmixw = dout·vᵀ beside it
+  // pw to device memory only; dmixw = dout·vᵀ after it
   mix_heads<MH, false>(prob, nullptr, mw, mwb, H, BQ, S, SP, pw + scratch, T - t0, T);
-  row_dots<HD>(go, v, in_bf16, keys_base, S, SP, D, H, BQ, grad);
-  __syncthreads();
+  chunked_dots<CH>(dout, 1.0f, v, in_bf16, rows_base, keys_base, t0, T, S, SP, D, HD, H, BQ,
+                   tile, grad);
   param_sums(grad, prob, H, plane, part + H * H + H);  // dmw, dmwb
   __syncthreads();
   mix_heads<MH, true>(grad, grad, mw, nullptr, H, BQ, S, SP, nullptr, 0, T);  // dp
@@ -120,11 +120,12 @@ th_bwd_rows_kernel(const void* __restrict__ q, const void* __restrict__ k,
   __syncthreads();
   mix_heads<MH, true>(grad, grad, ml, nullptr, H, BQ, S, SP, draw + scratch, T - t0, T);
   __syncthreads();
-  scores_times_rows<HD>(grad, k, in_bf16, keys_base, dq, rows_base, t0, T, S, SP, D, BQ, scale);
+  scores_times_rows(grad, k, in_bf16, keys_base, dq, rows_base, t0, T, S, SP, D, HD, BQ, scale);
 }
 
 // dv[s][c] = Σ_t pw[g][t][s]·dout[t][c], dk[s][c] = Σ_t draw[g][t][s]·q[t][c]·scale
-// for KEYS keys of one image, g = c / hd; one thread per column (blockDim = D).
+// for KEYS keys of one image, g = c / hd; one thread per column, the columns
+// split over blockIdx.z when D exceeds a block.
 __global__ void th_bwd_keys_kernel(const void* __restrict__ q, const void* __restrict__ dout,
                                    int in_bf16, const float* __restrict__ pw,
                                    const float* __restrict__ draw, void* __restrict__ dk,
@@ -133,7 +134,7 @@ __global__ void th_bwd_keys_kernel(const void* __restrict__ q, const void* __res
   __shared__ __align__(16) float pws[MAX_HEADS * ROW_CHUNK * KEYS];
   __shared__ __align__(16) float drs[MAX_HEADS * ROW_CHUNK * KEYS];
   const int D = H * hd, s0 = blockIdx.x * KEYS, b = blockIdx.y;
-  const int c = threadIdx.x, g = c / hd;
+  const int c = blockIdx.z * blockDim.x + threadIdx.x, g = c / hd;
   const size_t rows_base = static_cast<size_t>(b) * T * D;
   float acc_v[KEYS] = {}, acc_k[KEYS] = {};
   for (int r0 = 0; r0 < T; r0 += ROW_CHUNK) {
@@ -201,28 +202,29 @@ struct BwdArgs {
   const float* mix;
   void *dq, *dk, *dv;
   float *pw, *draw, *partials, *dmix;
-  int B, T, S, H;
+  int B, T, S, H, HD;
   float scale;
   cudaStream_t st;
 };
 
-template <int HD, int MH>
+template <int CH, int MH>
 cudaError_t launch(const BwdArgs& a) {
-  const int bq = rows_per_block(true, a.S, a.H, HD);
+  const int bq = rows_per_block(true, a.S, a.H, CH);
   if (bq == 0) return cudaErrorInvalidValue;
-  const size_t smem = row_tile_smem(true, bq, a.S, a.H, HD);
-  cudaError_t err = cudaFuncSetAttribute(th_bwd_rows_kernel<HD, MH>,
+  const size_t smem = row_tile_smem(true, bq, a.S, a.H, CH);
+  cudaError_t err = cudaFuncSetAttribute(th_bwd_rows_kernel<CH, MH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 rows_grid((a.T + bq - 1) / bq, a.B);
-  th_bwd_rows_kernel<HD, MH><<<rows_grid, NT, smem, a.st>>>(
+  th_bwd_rows_kernel<CH, MH><<<rows_grid, NT, smem, a.st>>>(
       a.q, a.k, a.v, a.dout, a.in_bf16, a.mix, a.dq, a.pw, a.draw, a.partials, a.T, a.S, a.H,
-      bq, a.scale);
+      a.HD, bq, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
-  const dim3 keys_grid((a.S + KEYS - 1) / KEYS, a.B);
-  th_bwd_keys_kernel<<<keys_grid, a.H * HD, 0, a.st>>>(a.q, a.dout, a.in_bf16, a.pw, a.draw,
-                                                       a.dk, a.dv, a.T, a.S, a.H, HD, a.scale);
+  const int D = a.H * a.HD, cols = D < KEY_COLUMNS ? D : KEY_COLUMNS;
+  const dim3 keys_grid((a.S + KEYS - 1) / KEYS, a.B, (D + cols - 1) / cols);
+  th_bwd_keys_kernel<<<keys_grid, cols, 0, a.st>>>(a.q, a.dout, a.in_bf16, a.pw, a.draw, a.dk,
+                                                   a.dv, a.T, a.S, a.H, a.HD, a.scale);
   if ((err = cudaGetLastError()) != cudaSuccess) return err;
   const int nv = 2 * a.H * a.H + 2 * a.H;
   th_param_reduce_kernel<<<nv, REDUCE_THREADS, 0, a.st>>>(a.partials, rows_grid.x * a.B, nv,
@@ -230,11 +232,11 @@ cudaError_t launch(const BwdArgs& a) {
   return cudaGetLastError();
 }
 
-template <int HD>
+template <int CH>
 cudaError_t launch_heads(const BwdArgs& a) {
-  if (a.H <= 4) return launch<HD, 4>(a);
-  if (a.H <= 8) return launch<HD, 8>(a);
-  return launch<HD, 16>(a);
+  if (a.H <= 4) return launch<CH, 4>(a);
+  if (a.H <= 8) return launch<CH, 8>(a);
+  return launch<CH, 16>(a);
 }
 
 }  // namespace
@@ -253,6 +255,15 @@ extern "C" int vtt_talking_head_bwd(const void* q, const void* k, const void* v,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const BwdArgs a{q, k, v, dout, in_bf16, mix, dq, dk, dv, pw, draw, partials, dmix,
-                  B, T, S, H, scale, static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(hd == 48 ? launch_heads<48>(a) : launch_heads<64>(a));
+                  B, T, S, H, hd, scale, static_cast<cudaStream_t>(stream)};
+  cudaError_t err = cudaErrorInvalidValue;
+  switch (head_chunk(hd)) {
+#define VTT_TH_CHUNK(C) \
+  case C:               \
+    err = launch_heads<C>(a); \
+    break;
+    VTT_TH_CHUNK(64) VTT_TH_CHUNK(48) VTT_TH_CHUNK(16)
+#undef VTT_TH_CHUNK
+  }
+  return static_cast<int>(err);
 }

@@ -3,15 +3,15 @@
 
 - ``TalkingHeadAttention``: learnable (H, H) head mixes before and after the
   softmax; it runs ``ops/cait_attention.py`` (the K5 kernels on the card,
-  their plain versions on CPU tensors) wherever the JAX module runs K5 on a
-  TPU, so on the card a head width the CUDA kernels lack raises, and also
-  where only the CUDA kernels' rule admits the shape (cait_m_* at 224 px:
-  16 heads at T = 196 exceed the TPU's VMEM budget). Everywhere else it
-  runs the JAX module's XLA branch, as that module does (T > 512, e.g.
-  cait_s_24 at 384 px; cait_m_* at 288 px; dropout in training). The mix
-  parameters keep flax's
-  names (``proj_l_kernel``, ``proj_l_bias``, ``proj_w_kernel``,
-  ``proj_w_bias``) as direct float32 parameters of the module: unsplit,
+  their plain versions on CPU tensors) wherever its shape rule
+  ``use_talking_head_kernel`` admits the shape: where the JAX module runs K5
+  on a TPU, at any head width, and where only the CUDA kernels admit it
+  (cait_m_* at 224 px: 16 heads at T = 196 exceed the TPU's VMEM budget).
+  Everywhere else it runs the JAX module's XLA branch, as that module does
+  (T > 512, e.g. cait_s_24 at 384 px; cait_m_* at 288 px; dropout in
+  training). The mix parameters keep flax's names (``proj_l_kernel``,
+  ``proj_l_bias``, ``proj_w_kernel``, ``proj_w_bias``) as direct float32
+  parameters of the module: unsplit,
   ``proj_l_bias`` falls in the weight-decay group 'other', as in the JAX
   package, and the kernels read them in f32, so serving keeps them f32.
 - ``ClassAttention``: the cls token is the only query; plain f32 attention
@@ -37,11 +37,7 @@ from ..nn.attention import MLP, ViTBlock
 from ..nn.initializers import normal, torch_default_bias, torch_default_kernel
 from ..nn.layers import LayerNorm, LayerScale, Linear, StochasticDepth, as_dtype, dropout
 from ..ops.attention import dot_product_attention
-from ..ops.cait_attention import (
-    talking_head_attention,
-    tpu_rule_admits,
-    use_talking_head_kernel,
-)
+from ..ops.cait_attention import talking_head_attention, use_talking_head_kernel
 from .base import Backbone, register_model, to_device
 from .vit import PatchEmbed
 
@@ -69,14 +65,13 @@ class TalkingHeadAttention(nn.Module):
                 generator: torch.Generator | None = None) -> Tensor:
         """The talking-head op where the JAX module's K5 rule or the CUDA
         kernels' rule admits the shape and no attention dropout is drawn (on
-        a CUDA tensor it launches its kernels or raises); otherwise the JAX
-        package's XLA branch (``_xla_attention``). ``plain`` runs the op's
+        a CUDA tensor it launches its kernels); otherwise the JAX package's
+        XLA branch (``_xla_attention``). ``plain`` runs the op's
         plain versions on any device."""
         q, k, v = self.q_proj(x), self.k_proj(x), self.v_proj(x)
         mixes = [as_dtype(getattr(self, n), torch.float32) for n in MIX_PARAMS]
         T, H = x.shape[-2], self.n_heads
-        kernel = tpu_rule_admits(T, T, H) or use_talking_head_kernel(T, T, H, self.d_model // H)
-        if (self.dropout > 0 and train) or not kernel:
+        if (self.dropout > 0 and train) or not use_talking_head_kernel(T, T, H, self.d_model // H):
             out = self._xla_attention(q, k, v, *mixes, train=train, generator=generator)
         else:
             out = talking_head_attention(q, k, v, *mixes, plain=plain)

@@ -66,3 +66,14 @@ def normal(std: float) -> Init:
         return torch.empty(shape).normal_(0.0, std, generator=generator)
 
     return init
+
+
+def trunc_normal(std: float = 0.02) -> Init:
+    """N(0, std²) truncated at ±2σ — the JAX package's ``trunc_normal``
+    (``torch.nn.init.trunc_normal_``; Swin's relative-position tables)."""
+
+    def init(shape, generator):
+        return torch.nn.init.trunc_normal_(torch.empty(shape), 0.0, std, -2.0 * std, 2.0 * std,
+                                           generator=generator)
+
+    return init

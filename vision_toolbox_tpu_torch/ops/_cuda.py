@@ -2,8 +2,9 @@
 
 The sources in ``vision_toolbox_tpu_torch/csrc/*.cu`` have a plain C
 interface. At first use they are compiled with ``nvcc`` for ``sm_90a``, one
-process per source, all at once, and linked into one shared library under ``csrc/_build/<hash of sources and flags>/`` (a
-directory git ignores) and loaded with ``ctypes``; later calls and later
+process per source, all at once (each one's seconds go to the build log),
+linked into one shared library under ``csrc/_build/<hash of sources and
+flags>/`` (a directory git ignores) and loaded with ``ctypes``; later calls and later
 processes reuse the library as long as the sources are unchanged. Nothing
 here runs at import: the CPU tests import every module on machines that
 have neither ``nvcc`` nor a card.
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 import torch
@@ -35,6 +37,7 @@ LAUNCHES: dict[str, int] = {
     "block_mlp": 0, "block_attention": 0, "block_mlp_bwd": 0, "block_attention_bwd": 0,
     "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0, "flash_attention": 0,
     "flash_attention_bwd": 0, "depthwise_conv": 0, "depthwise_conv_bwd": 0,
+    "swin_attention": 0, "swin_attention_bwd": 0, "swin_partition": 0, "swin_unpartition": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -112,6 +115,19 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I, _P),  # B, H, W, C, k, stream
         _I,
     ),
+    "vtt_swin_partition": ((_P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I),  # x, out, B, H, W,
+    "vtt_swin_unpartition": ((_P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I),  # C, bytes, w, s
+    "vtt_swin_attention_fwd": (
+        (_P, _P, _P, _P, _I, _P, _I, _I, _P,  # q, k, v, pe, pe_bf16, mask, mask_bf16, is_bf16, out
+         _I, _I, _I, _I, _I, _I, _F, _P),  # B, nW, T, N, hd, windows per block, scale, stream
+        _I,
+    ),
+    "vtt_swin_attention_bwd": (
+        (_P, _P, _P, _P, _P, _I, _P, _I, _I,  # q, k, v, g, pe, pe_bf16, mask, mask_bf16, is_bf16
+         _P, _P, _P, _P, _P,  # dq, dk, dv, partials (scratch), dpe
+         _I, _I, _I, _I, _I, _I, _F, _P),  # B, nW, T, N, hd, windows per block, scale, stream
+        _I,
+    ),
     "vtt_flash_bwd": (
         (_P, _P, _P, _P, _P, _P, _P, _I,  # q, k, v, out, g, lse, delta (scratch), is_bf16
          _P, _P, _P,  # dq, dk, dv
@@ -160,27 +176,36 @@ def library_path() -> Path:
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
     tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
-    # one nvcc per source, all started together; then one link
-    compiles = []
+    # one nvcc per source, all started together, each timed; then one link
+    compiles, t0 = [], time.perf_counter()
     for src in sorted(CSRC.glob("*.cu")):
         obj = out.parent / f"{src.stem}.{tag}.o"
         cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
-        compiles.append((cmd, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                                     stderr=subprocess.PIPE, text=True)))
+        output = obj.with_suffix(".log").open("w+")  # a file: a full pipe would stall nvcc
+        compiles.append([cmd, obj, output, subprocess.Popen(cmd, stdout=output,
+                                                             stderr=subprocess.STDOUT), None])
+    while any(c[4] is None for c in compiles):
+        for c in compiles:
+            if c[4] is None and c[3].poll() is not None:
+                c[4] = time.perf_counter() - t0
+        time.sleep(0.05)
     log, errors = [], []
-    for cmd, _, proc in compiles:
-        stdout, stderr = proc.communicate()
-        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+    for cmd, obj, output, proc, seconds in compiles:
+        output.seek(0)
+        text = output.read()
+        output.close()
+        obj.with_suffix(".log").unlink()
+        log.append(f"{' '.join(cmd)}\n[{Path(cmd[-1]).name}: {seconds:.1f} s]\n{text}")
         if proc.returncode != 0:
-            errors.append(f"{cmd[-1]}: exit code {proc.returncode}\n{stderr[-6000:]}")
+            errors.append(f"{cmd[-1]}: exit code {proc.returncode}\n{text[-6000:]}")
     if not errors:
-        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(obj) for _, obj, _ in compiles)]
+        cmd = [nvcc, "-shared", "-o", str(tmp), *(str(c[1]) for c in compiles)]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
         if proc.returncode != 0:
             errors.append(f"link: exit code {proc.returncode}\n{proc.stderr[-6000:]}")
-    for _, obj, _ in compiles:
-        obj.unlink(missing_ok=True)
+    for c in compiles:
+        c[1].unlink(missing_ok=True)
     (out.parent / "build.log").write_text("".join(log))
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))

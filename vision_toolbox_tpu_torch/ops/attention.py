@@ -6,7 +6,7 @@ additive bias broadcasting against (B, N, T, S).
 Like the JAX package, long 128-aligned sequences go to the flash kernel
 (K6, ``ops/flash_attention.py``) on every device: its hand-written CUDA
 kernels on CUDA tensors (heads zero-padded to a multiple of 16; heads
-wider than 128 raise), its plain versions on CPU tensors. The JAX package
+wider than 256 raise), its plain versions on CPU tensors. The JAX package
 sends short unbiased attention to its short-attention kernel (K2,
 ``ops/short_attention.py``), which is not ported yet, so on a CUDA tensor
 those shapes raise ``NotImplementedError`` instead of running the plain math

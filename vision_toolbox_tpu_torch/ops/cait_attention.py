@@ -22,6 +22,10 @@ f32; the output, dq, dk and dv are rounded once to the input type; the four
 mix-parameter gradients are f32 sums over the batch. That is the kernel's
 rounding on every device, not the JAX package's XLA branch, which rounds
 the logits of a bf16 model to bf16 (``models/cait.py:58-70``).
+
+The kernels take any head width: on CUDA tensors the wrappers zero-pad each
+head to a multiple of 16 (zero columns add nothing to q·kᵀ and give zero
+output columns, which are dropped) and pass the true width's scale.
 """
 
 from __future__ import annotations
@@ -35,17 +39,28 @@ from . import _cuda
 
 MAX_SEQ = 512
 MAX_HEADS = 16
-HEAD_DIMS = (48, 64)  # the kernels' register-resident key rows
+HEAD_STEP = 16  # csrc/talking_head.cuh: head widths run padded to a multiple of 16
+CHUNKS = (64, 48, 16)  # csrc/talking_head.cuh CHUNKS: the compiled logit-chunk widths
 SMEM_LIMIT = 227 * 1024
-_MIN_ROWS = 4  # csrc/talking_head.cuh: the smallest query-row tile
 
 
-def _bwd_smem_bytes(s: int, n_heads: int, head_dim: int) -> int:
-    """Shared memory of a backward row block of the fewest query rows
+def padded_head(hd: int) -> int:
+    """The head width the kernels run: ``hd`` rounded up to a multiple of 16."""
+    return -(-hd // HEAD_STEP) * HEAD_STEP
+
+
+def _head_chunk(hd: int) -> int:
+    """csrc/talking_head.cuh ``head_chunk``: the columns of a logit chunk."""
+    return next(c for c in CHUNKS if padded_head(hd) % c == 0)
+
+
+def _bwd_smem_bytes(s: int, n_heads: int, head_dim: int, rows: int) -> int:
+    """Shared memory of a backward row block of ``rows`` query rows
     (csrc/talking_head.cuh ``row_tile_smem``): three (H, rows, S padded to
-    4) f32 planes, the q and dout row tiles in f32 and the mix parameters."""
-    sp, rows = -(-s // 4) * 4, _MIN_ROWS
-    return (3 * n_heads * rows * sp + 2 * rows * n_heads * head_dim
+    4) f32 planes, one row tile of a head chunk in f32 and the mix
+    parameters."""
+    sp = -(-s // 4) * 4
+    return (3 * n_heads * rows * sp + rows * n_heads * _head_chunk(head_dim)
             + 2 * n_heads * n_heads + 2 * n_heads) * 4
 
 
@@ -59,14 +74,17 @@ def tpu_rule_admits(t: int, s: int, n_heads: int) -> bool:
 
 
 def use_talking_head_kernel(t: int, s: int, n_heads: int, head_dim: int) -> bool:
-    """Shape rule of the CUDA kernels: T, S ≤ 512, at most 16 heads of
-    width 48 or 64, and a backward row block of four query rows for all
-    heads fits one block's shared memory (the forward's is smaller).
-    cait_s_24 at 224 px (T = 196, 8 heads of 48) takes 88 KB; every
-    registered CaiT passes, cait_m_* (16 heads, 175 KB) included."""
+    """Shape rule of the CUDA kernels: every shape of the JAX package's K5
+    rule (``tpu_rule_admits``), any head width, and besides it the shapes
+    whose backward row block of four query rows fits one block's shared
+    memory: cait_m_* at 224 px (16 heads at T = 196, 161 KB), beyond the
+    TPU's VMEM budget. The kernels run them all, a shape of the JAX rule
+    whose four-row block does not fit (S = 512 at 16 heads) with two or one
+    query rows a block."""
     return (
         1 <= t <= MAX_SEQ and 1 <= s <= MAX_SEQ and 1 <= n_heads <= MAX_HEADS
-        and head_dim in HEAD_DIMS and _bwd_smem_bytes(s, n_heads, head_dim) <= SMEM_LIMIT
+        and head_dim >= 1 and (tpu_rule_admits(t, s, n_heads)
+                               or _bwd_smem_bytes(s, n_heads, head_dim, 4) <= SMEM_LIMIT)
     )
 
 
@@ -150,6 +168,24 @@ def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor, n_heads: int) -> None:
                          "use_talking_head_kernel()")
 
 
+def _pad_heads(t: Tensor, n_heads: int) -> Tensor:
+    """(B, T, N·H) → (B, T, N·Hp), each head zero-padded to ``padded_head``."""
+    B, T, D = t.shape
+    hd = D // n_heads
+    if padded_head(hd) == hd:
+        return t.contiguous()
+    t = t.reshape(B, T, n_heads, hd)
+    return torch.nn.functional.pad(t, (0, padded_head(hd) - hd)).reshape(B, T, -1)
+
+
+def _unpad_heads(t: Tensor, n_heads: int, hd: int) -> Tensor:
+    """The inverse of ``_pad_heads``: the first ``hd`` columns of each head."""
+    B, T, Dp = t.shape
+    if Dp == n_heads * hd:
+        return t
+    return t.reshape(B, T, n_heads, -1)[..., :hd].reshape(B, T, n_heads * hd)
+
+
 def _mix_buffer(ml: Tensor, mlb: Tensor, mw: Tensor, mwb: Tensor) -> Tensor:
     """ml, mlb, mw, mwb flattened into one contiguous f32 buffer, the
     kernels' layout."""
@@ -158,41 +194,44 @@ def _mix_buffer(ml: Tensor, mlb: Tensor, mw: Tensor, mwb: Tensor) -> Tensor:
 
 def talking_head_cuda(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
                       mwb: Tensor) -> Tensor:
-    """Launch ``csrc/talking_head.cu`` on the current stream."""
+    """Launch ``csrc/talking_head.cu`` on the current stream (heads padded
+    to a multiple of 16 around it)."""
     n = ml.shape[0]
     _check_cuda_args(q, k, v, n)
     B, T, D = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    hd = D // n
+    if q.numel() == 0:
+        return torch.empty_like(q)
+    q, k, v = (_pad_heads(t, n) for t in (q, k, v))
     mix = _mix_buffer(ml, mlb, mw, mwb)
     out = torch.empty_like(q)
-    if q.numel() == 0:
-        return out
     with torch.cuda.device(q.device):
         err = _cuda.lib().vtt_talking_head_fwd(
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), int(q.dtype == torch.bfloat16),
-            _cuda.ptr(mix), _cuda.ptr(out), B, T, k.shape[1], n, D // n,
-            float((D // n) ** -0.5), _cuda.stream(),
+            _cuda.ptr(mix), _cuda.ptr(out), B, T, k.shape[1], n, padded_head(hd),
+            float(hd**-0.5), _cuda.stream(),
         )
         _cuda.check(err, "talking_head_attention")
     _cuda.LAUNCHES["talking_head"] += 1
-    return out
+    return _unpad_heads(out, n, hd)
 
 
 def talking_head_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tensor, mw: Tensor,
                           mwb: Tensor, dout: Tensor) -> tuple[Tensor, Tensor, Tensor, MixGrads]:
-    """Launch ``csrc/talking_head_bwd.cu`` on the current stream."""
+    """Launch ``csrc/talking_head_bwd.cu`` on the current stream (heads
+    padded to a multiple of 16 around it)."""
     n = ml.shape[0]
     _check_cuda_args(q, k, v, n)
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("talking_head_attention backward: dout must match q in shape and type")
     B, T, D = q.shape
-    S, dev = k.shape[1], q.device
-    q, k, v, dout = q.contiguous(), k.contiguous(), v.contiguous(), dout.contiguous()
+    S, dev, hd = k.shape[1], q.device, D // n
+    q, k, v, dout = (_pad_heads(t, n) for t in (q, k, v, dout))
     mix = _mix_buffer(ml, mlb, mw, mwb)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dmix = torch.zeros(2 * n * n + 2 * n, device=dev)
     if q.numel() > 0:
-        rows = _cuda.lib().vtt_talking_head_rows(S, n, D // n, 1)
+        rows = _cuda.lib().vtt_talking_head_rows(S, n, padded_head(hd), 1)
         pw = torch.empty(B, n, T, S, device=dev)  # mixed probabilities and logit gradients,
         draw = torch.empty(B, n, T, S, device=dev)  # summed over query rows by the key pass
         partials = torch.empty(B * -(-T // rows), dmix.numel(), device=dev)
@@ -201,12 +240,13 @@ def talking_head_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tens
                 _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(dout),
                 int(q.dtype == torch.bfloat16), _cuda.ptr(mix), _cuda.ptr(dq), _cuda.ptr(dk),
                 _cuda.ptr(dv), _cuda.ptr(pw), _cuda.ptr(draw), _cuda.ptr(partials),
-                _cuda.ptr(dmix), B, T, S, n, D // n, float((D // n) ** -0.5), _cuda.stream(),
+                _cuda.ptr(dmix), B, T, S, n, padded_head(hd), float(hd**-0.5), _cuda.stream(),
             )
             _cuda.check(err, "talking_head_attention backward")
         _cuda.LAUNCHES["talking_head_bwd"] += 1
     sizes = (n * n, n, n * n, n)
     dml, dmlb, dmw, dmwb = dmix.split(sizes)
+    dq, dk, dv = (_unpad_heads(t, n, hd) for t in (dq, dk, dv))
     return dq, dk, dv, MixGrads(dml.reshape(n, n), dmlb, dmw.reshape(n, n), dmwb)
 
 

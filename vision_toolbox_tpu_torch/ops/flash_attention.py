@@ -11,7 +11,9 @@ tile (FlashAttention-2: dK/dV per key tile, dQ per query tile), so no
 JAX package it relays the operands out to (B·N, T, H) (and the bias, which
 broadcasts against (B, N, T, S), to (B·N, T, S)); on CUDA tensors that copy
 zero-pads the head to the kernels' 16-column step, with the true width's
-scale passed along and the output sliced back. Without gradients
+scale passed along and the output sliced back. Heads up to 256 run: above
+128 the kernels compute the output (and dq, dk, dv) one ≤ 128-wide chunk
+of columns at a time. Without gradients
 (serving, ``torch.export``) it runs the custom op ``vtt::flash_attention``:
 on CPU tensors ``flash_attention_plain``, on CUDA tensors the hand-written
 kernel in ``csrc/flash_attention.cu``. Under autograd it runs
@@ -37,7 +39,7 @@ from torch import Tensor
 from . import _cuda
 
 FLASH_MIN_SEQ = 1024  # ops/flash_attention.py PALLAS_MIN_SEQ
-MAX_HEAD_DIM = 128  # csrc/flash_attention.cuh: the widest head whose tiles fit shared memory
+MAX_HEAD_DIM = 256  # csrc/flash_attention.cuh MAX_HEAD_DIM: the widest head whose tiles fit
 MAX_PAIRS = 65535  # (batch·head) pairs: the kernels' grid y extent
 
 
@@ -47,7 +49,8 @@ def use_flash_attention(t: int) -> bool:
     head width. siglip vit_b_16 at 512 px (T = 1024) passes; T = 1025 (a cls
     token), 577 (384 px) and the MAP probe (T = 1) do not. On a CUDA tensor
     ``flash_attention`` zero-pads the head to a multiple of 16 (72 runs as
-    80); a head above 128 raises in ``flash_attention_cuda``."""
+    80), and the kernels take heads up to 256 (above 128 in column chunks);
+    a wider head raises in ``flash_attention_cuda``."""
     return t >= FLASH_MIN_SEQ and t % 128 == 0
 
 

@@ -7,8 +7,10 @@ bytes back into a callable without the model's Python code. The fused
 half-blocks appear in the program as the custom ops ``vtt::fused_mlp_block``
 and ``vtt::fused_attention_block``, CaiT's talking-head attention as
 ``vtt::talking_head_attention``, long-sequence attention (SigLIP at 512
-px) as ``vtt::flash_attention`` and the depthwise convs (ConvNeXt) as
-``vtt::depthwise_conv2d``, so the loaded program runs the CUDA kernels
+px) as ``vtt::flash_attention``, the depthwise convs (ConvNeXt) as
+``vtt::depthwise_conv2d``, and Swin's window attention and shifted-window
+relayouts as ``vtt::swin_window_attention``, ``vtt::swin_window_partition``
+and ``vtt::swin_window_unpartition``, so the loaded program runs the CUDA kernels
 on CUDA inputs and their plain versions on CPU inputs; importing this module
 registers them. Every backbone is exported from a copy whose parameters are
 stored in its compute type (``Backbone.cast_for_serving``; CaiT's head
@@ -26,7 +28,8 @@ from torch import Tensor
 
 from ..models.base import Backbone
 from ..ops import (  # noqa: F401  (registers the custom ops)
-    block_attention, block_mlp, cait_attention, depthwise_conv, flash_attention,
+    block_attention, block_mlp, cait_attention, depthwise_conv, flash_attention, swin_attention,
+    swin_relayout,
 )
 
 

@@ -10,14 +10,16 @@ for the port's module of the same name, with each layout fixed once here:
 - LayerNorm and BatchNorm ``scale`` → ``weight``;
 - BatchNorm statistics ``mean`` → ``running_mean``, ``var`` → ``running_var``;
 - ``block_<i>`` → ``blocks.<i>``, CaiT's ``sa_block_<i>`` → ``sa_blocks.<i>``
-  and ``ca_block_<i>`` → ``ca_blocks.<i>``, ConvNeXt's ``stage_<i>_block_<j>``
-  → ``stages.<i>.<j>``;
+  and ``ca_block_<i>`` → ``ca_blocks.<i>``, ConvNeXt's and Swin's
+  ``stage_<i>_block_<j>`` → ``stages.<i>.<j>``;
 - everything else (``bias``, ``pe``, ``cls_token``, DeiT's ``dist_token``,
   ``gamma``, ``probe``, ``stem``, ``stage_<i>``, ``conv1``/``conv2``/
   ``out_conv``, ``norm``, ``head``, ``backbone``, ConvNeXt's ``stem_conv``,
   ``stem_norm``, ``downsample_{norm,conv}_<i>``, ``dwconv`` (its (k, k, 1, C)
   kernel by the HWIO rule), ``pwconv1/2``, ``layer_scale`` and ``grn``'s
-  ``gamma``/``beta``, and CaiT's (H, H) head
+  ``gamma``/``beta``, Swin's ``patch_embed``, ``patch_norm``,
+  ``downsample_<i>/{norm,reduction}``, ``mha/{q,k,v,out}_proj`` and
+  ``relative_pe_table`` (its (1, heads, (2w − 1)²) layout), and CaiT's (H, H) head
   mixes ``proj_l_kernel``/``proj_w_kernel`` with their biases, which are no
   Dense kernels: ``mix[g, h]`` on both sides) keeps its name and layout.
 """
