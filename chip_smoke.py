@@ -66,7 +66,21 @@ sm_90a, one process per source) and drives the port's paths:
   at bs8 through the kernels against the plain versions and an f32
   reference; then the repaired head widths: K5 at heads of 32, 96 and 160
   and at (T, S, heads) = (64, 512, 16), and K6 at head 256, timed beside
-  scaled_dot_product_attention.
+  scaled_dot_product_attention;
+- short attention (slice 8): holds the short-attention kernels (K2 forward
+  and backward, a second backward bit-equal) against their plain versions at
+  vit_b_16's shapes (batch 8 and 128), vit_l_16's, vit_h_14's (head 80,
+  T = 257, through the ``short_attention`` entry), the rule's corner
+  (T = S = 512, head 128), T ≠ S, T = S = 2 and a head of 40, f32 and bf16,
+  times both, their plain versions and scaled_dot_product_attention at
+  vit_b_16 bs128, serves a seeded bf16 vit_b_16 built with dropout 0.1 (both
+  halves of every block on the module chain: 12 K2 launches a request at
+  batch 8 and 32, none at batch 1; eager vs plain path and an f32 reference,
+  then export → load → requests at batch 1, 8 and 32), and runs the vit_b_16
+  step on the unfused block chain (``force_unfused``, the JAX package's chain
+  under token sharding) at bs128@224 for 3 warm-up and 10 timed steps, and
+  one step at bs8 through the kernels against the plain versions and an f32
+  reference.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -171,6 +185,16 @@ KERNELS = {
         "source": "vision_toolbox_tpu_torch/csrc/swin_relayout.cu",
         "replaces": "vision_toolbox_tpu/ops/swin_relayout.py:95",
     },
+    "short_attention": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/short_attention.cu",
+        "replaces": "vision_toolbox_tpu/ops/short_attention.py:312 (flat: :147)",
+    },
+    "short_attention_bwd": {
+        "route": "cuda",
+        "source": "vision_toolbox_tpu_torch/csrc/short_attention_bwd.cu",
+        "replaces": "vision_toolbox_tpu/ops/short_attention.py:330 (flat: :168)",
+    },
 }
 SERVE_KERNELS = ("block_mlp", "block_attention")
 BLOCK_KERNELS = ("block_mlp", "block_attention", "block_mlp_bwd", "block_attention_bwd")
@@ -245,6 +269,18 @@ SWIN_KW = dict(stochastic_depth=0.2)  # Swin-T's published drop-path rate
 REPAIRED_TALKING_HEAD_CASES = ((2, 40, 40, 4, 32), (2, 40, 56, 4, 96), (2, 24, 40, 4, 160),
                                (2, 64, 512, 16, 48), (8, 64, 512, 16, 48))
 WIDE_FLASH = (8, 4, 1024, 256)
+# K2 cases (B, T, S, N, H, entry): vit_b_16 at batch 8 and 128, vit_l_16 (16
+# heads of 64), vit_h_14 (16 heads of 80, T = 257) through the flat entry,
+# the rule's corner, T ≠ S, T = S = 2 at 64 pairs, a head of 40
+SHORT_CASES = ((8, 197, 197, 12, 64, "packed"), (128, 197, 197, 12, 64, "packed"),
+               (8, 197, 197, 16, 64, "packed"), (4, 257, 257, 16, 80, "flat"),
+               (1, 512, 512, 64, 128, "packed"), (8, 50, 197, 12, 64, "packed"),
+               (64, 2, 2, 1, 64, "packed"), (4, 197, 197, 16, 40, "packed"))
+SHORT_TIME_BATCH = 128
+VIT_DROPOUT = dict(dropout=0.1)  # ViT-B/16's ImageNet rate (Dosovitskiy et al., Table 3)
+VIT_UNFUSED_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                         compare_batch=8)
+UNFUSED = dict(force_unfused=True)
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -525,21 +561,6 @@ def plain_warp():
         warp.shear3_warp_cuda = kernel
 
 
-@contextlib.contextmanager
-def plain_attention():
-    """Let the unfused attention run its plain f32 math on the card at the
-    shapes the JAX package gives its short-attention kernel (K2, not ported:
-    ``ops/attention.py`` raises there), for an f32 reference."""
-    from vision_toolbox_tpu_torch.ops import attention
-
-    unported = attention._unported_kernel
-    attention._unported_kernel = lambda *args: None
-    try:
-        yield
-    finally:
-        attention._unported_kernel = unported
-
-
 def train(report: dict, name_power: str) -> int:
     """Phase 7 (the training path): the full-recipe cspdarknet53 step at
     bs256@176, 3 warm-up + 10 timed steps; then phase 8, one step through K1
@@ -803,11 +824,12 @@ def spread_layer_scale(model: torch.nn.Module, center: float, seed: int = 3) -> 
                 m.gamma.copy_(center * (1 + torch.rand(m.gamma.shape, generator=g)))
 
 
-def vit_step_parts(name: str, cfg: dict, **model_kw):
+def vit_step_parts(name: str, cfg: dict, forward_kw: dict | None = None, **model_kw):
     """A seeded bf16 classifier on ``name`` (built on the card by default;
-    LayerScale γs spread around ``cfg["layer_scale"]`` where given), its SGD
-    state and train step (label smoothing 0.1, CutMix⊕MixUp 1.0/0.2), uint8
-    images and labels made on the card, and the step's generator."""
+    LayerScale γs spread around ``cfg["layer_scale"]`` where given; its
+    backbone's forward called with ``forward_kw``), its SGD state and train
+    step (label smoothing 0.1, CutMix⊕MixUp 1.0/0.2), uint8 images and
+    labels made on the card, and the step's generator."""
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.train import (
         ImageClassifier, TrainState, make_train_step, sgd_with_param_groups,
@@ -816,6 +838,8 @@ def vit_step_parts(name: str, cfg: dict, **model_kw):
     B, S, classes = cfg["batch"], cfg["img"], cfg["classes"]
     gen = torch.Generator().manual_seed(0)
     backbone = vtt.create_backbone(name, dtype=torch.bfloat16, generator=gen, **model_kw)
+    if forward_kw:
+        backbone.forward = functools.partial(type(backbone).forward, backbone, **forward_kw)
     if cfg.get("layer_scale"):
         spread_layer_scale(backbone, cfg["layer_scale"])
     model = ImageClassifier(backbone, classes, dtype=torch.bfloat16, generator=gen)
@@ -859,16 +883,16 @@ def train_cait(report: dict, name_power: str) -> dict[str, int]:
 
 def train_transformer(report: dict, key: str, name: str, cfg: dict, per_step: dict[str, int],
                       watched: tuple[str, ...], name_power: str,
-                      **model_kw) -> dict[str, int]:
-    """The transformer train step of ``name`` (built with ``model_kw``) at
-    ``cfg``'s batch and size: warm-up and timed steps with each kernel
-    launched ``per_step`` times a step, then one step through the kernels
-    against one through the plain versions (``kernel_vs_plain_step``), on
-    the first ``cfg["compare_batch"]`` images where given. Returns the
-    launches of the run."""
+                      forward_kw: dict | None = None, **model_kw) -> dict[str, int]:
+    """The transformer train step of ``name`` (built with ``model_kw``, its
+    forward called with ``forward_kw``) at ``cfg``'s batch and size: warm-up
+    and timed steps with each kernel launched ``per_step`` times a step,
+    then one step through the kernels against one through the plain
+    versions (``kernel_vs_plain_step``), on the first ``cfg["compare_batch"]``
+    images where given. Returns the launches of the run."""
     from vision_toolbox_tpu_torch.ops import _cuda
 
-    state, step, images, labels, g = vit_step_parts(name, cfg, **model_kw)
+    state, step, images, labels, g = vit_step_parts(name, cfg, forward_kw, **model_kw)
     model, B, tag = state.model, cfg["batch"], key.replace("_", "-")
     assert next(model.parameters()).is_cuda, "the default device is the card"
     n_params = sum(p.numel() for p in model.parameters())
@@ -915,7 +939,8 @@ def train_transformer(report: dict, key: str, name: str, cfg: dict, per_step: di
     n = cfg.get("compare_batch", B)
     images, labels = images[:n], labels[:n]
     draws = step.sample_draws(g, tuple(images.shape))
-    res = kernel_vs_plain_step(name, cfg, initial, step, images, labels, draws, **model_kw)
+    res = kernel_vs_plain_step(name, cfg, initial, step, images, labels, draws, forward_kw,
+                               **model_kw)
     report[f"{key}_vs_plain"] = res
     loss_rel = abs(res["loss_kernel"] - res["loss_plain"]) / abs(res["loss_plain"])
     worst = sorted(res["grads"].items(), key=lambda kv: -kv[1]["kernel_vs_plain"])[:4]
@@ -952,12 +977,13 @@ def zero_gradient_ref(name: str) -> str | None:
 
 
 def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draws,
-                         **model_kw) -> dict:
-    """One step through the kernels and one through the plain versions, each
-    from a copy of ``state``, and the f32 reference gradient: the same model
-    in f32 on the unfused module chain, CaiT's talking-head attention through
-    its plain f32 version and flash attention through its plain version (no
-    bf16 rounding, TF32 off). Every
+                         forward_kw: dict | None = None, **model_kw) -> dict:
+    """One step through the kernels and one through the plain versions (the
+    backbone's forward called with ``forward_kw`` on both), each from a copy
+    of ``state``, and the f32 reference gradient: the same model in f32 on
+    the unfused module chain, CaiT's talking-head attention through its
+    plain f32 version and short and flash attention through their plain
+    versions (no bf16 rounding, TF32 off). Every
     parameter's gradient is held to rel L2 ≤ GRAD_REL_L2 against the plain
     path's, or to twice the plain path's own bf16 error where that is larger:
     the softmax backward rounds ds to bf16, and where the keys (queries) of a
@@ -971,7 +997,8 @@ def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draw
 
     states = [copy.deepcopy(state) for _ in range(2)]
     backbone = states[1].model.backbone
-    backbone.forward = functools.partial(type(backbone).forward, backbone, plain=True)
+    backbone.forward = functools.partial(type(backbone).forward, backbone, **(forward_kw or {}),
+                                         plain=True)
     ref_backbone = vtt.create_backbone(name, **model_kw)  # f32 compute
     ref_model = ImageClassifier(ref_backbone, cfg["classes"])
     ref_model.load_state_dict(state.model.state_dict())
@@ -979,9 +1006,7 @@ def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draw
                                              force_unfused=True, plain=True)
     states.append(TrainState(ref_model, sgd_with_param_groups(ref_model, 0.0)))
     drop = lambda: torch.Generator(device="cuda").manual_seed(5)  # the model's own draws
-    losses = [float(step(st, images, labels, drop(), draws=draws)["loss"]) for st in states[:2]]
-    with plain_attention():
-        losses.append(float(step(states[2], images, labels, drop(), draws=draws)["loss"]))
+    losses = [float(step(st, images, labels, drop(), draws=draws)["loss"]) for st in states]
     kernel, plain, f32 = ({n: p.grad for n, p in st.model.named_parameters()} for st in states)
     grads = {}
     for n in kernel:
@@ -1577,14 +1602,17 @@ def time_narrow_mlp(report: dict, name_power: str) -> None:
 
 def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int],
                    program_ops: dict[str, int], batches: tuple[int, ...], name_power: str,
-                   layer_scale: float | None = None) -> dict[str, int]:
-    """A seeded bf16 ``name`` (224 px; LayerScale γs spread around
-    ``layer_scale`` where given), eager through the kernels (``per_forward``
-    launches a forward, nothing else) against its plain versions (logits rel
-    L2 ≤ REL_L2_BOUND or twice the plain bf16 path's own distance from an
-    f32 forward of the same weights), then served: export (the program calls
-    each custom op of ``program_ops`` that many times, no backward op) →
-    load → three requests at each of ``batches``, each against eager.
+                   layer_scale: float | None = None, model_kw: dict | None = None,
+                   per_batch: dict[int, dict[str, int]] | None = None) -> dict[str, int]:
+    """A seeded bf16 ``name`` (224 px, built with ``model_kw``; LayerScale
+    γs spread around ``layer_scale`` where given), eager at batch 8 through
+    the kernels (``per_forward`` launches a forward, nothing else) against
+    its plain versions (logits rel L2 ≤ REL_L2_BOUND or twice the plain bf16
+    path's own distance from an f32 forward of the same weights), then
+    served: export (the program calls each custom op of ``program_ops`` that
+    many times, no backward op) → load → three requests at each of
+    ``batches``, each against eager, a request at batch b launching
+    ``per_batch[b]`` where given (K2's pair test), else ``per_forward``.
     Returns the served requests' launches."""
     import io
 
@@ -1592,16 +1620,17 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
     from vision_toolbox_tpu_torch.ops import _cuda
     from vision_toolbox_tpu_torch.utils.export import export_model
 
-    tag = key.replace("_", "-")
+    tag, model_kw = key.replace("_", "-"), model_kw or {}
     model = vtt.create_backbone(name, dtype=torch.bfloat16,
-                                generator=torch.Generator().manual_seed(0))
+                                generator=torch.Generator().manual_seed(0), **model_kw)
     if layer_scale is not None:
         spread_layer_scale(model, layer_scale)
     model.eval()
     width, per_forward = model.last_out_channels, NO_LAUNCHES | per_forward
+    per_batch = {b: NO_LAUNCHES | (per_batch or {}).get(b, per_forward) for b in batches}
     images = torch.rand(max(batches), 224, 224, 3,
                         generator=torch.Generator().manual_seed(1)).cuda()
-    ref = vtt.create_backbone(name)  # f32 compute, the same weights
+    ref = vtt.create_backbone(name, **model_kw)  # f32 compute, the same weights
     ref.load_state_dict(model.state_dict())
     with torch.inference_mode():
         _cuda.reset_launch_counts()
@@ -1642,9 +1671,9 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
         launches = dict(_cuda.LAUNCHES)
     n_forwards = 3 * len(batches)
     log(f"[{tag}] {n_forwards} requests at batch {batches}: launches {launches}")
-    if launches != {k: n_forwards * v for k, v in per_forward.items()}:
-        raise AssertionError(f"served path launched {launches}, expected {n_forwards}× "
-                             f"{per_forward}")
+    expected = {k: sum(3 * per_batch[b][k] for b in batches) for k in per_forward}
+    if launches != expected:
+        raise AssertionError(f"served path launched {launches}, expected {expected}")
     rows = []
     for b in batches:
         for out in answers[b]:
@@ -1999,6 +2028,151 @@ def repaired_head_widths(report: dict, name_power: str) -> None:
         raise AssertionError(f"{len(bad)} repaired-width comparisons out of bounds: {bad[:8]}")
 
 
+def short_args(g, B: int, T: int, S: int, N: int, H: int, dtype):
+    """q (B, T, N, H), k and v (B, S, N, H) in ``dtype`` and a cotangent
+    like q, on the card."""
+    r = lambda *s: torch.randn(s, generator=g)
+    q, dout = (r(B, T, N, H).to("cuda", dtype) for _ in range(2))
+    k, v = (r(B, S, N, H).to("cuda", dtype) for _ in range(2))
+    return q, k, v, dout
+
+
+def short_work(name: str, B: int, T: int, S: int, N: int, H: int,
+               x_bytes: int) -> tuple[float, float]:
+    """(product operations, bytes) of one K2 call on (B, T, N, H) operands:
+    the forward's q·kᵀ and p·v per pair; the backward's five products (the
+    recomputed logits, g·vᵀ, dv, dq, dk). Bytes: q, k, v (and g) in, out
+    (dq, dk, dv) out."""
+    pairs = B * N
+    if name == "short_attention":
+        return 4 * pairs * T * S * H, (2 * T + 2 * S) * pairs * H * x_bytes
+    return 10 * pairs * T * S * H, (3 * T + 4 * S) * pairs * H * x_bytes
+
+
+def compare_short(report: dict) -> dict[str, float]:
+    """Phase 34: K2 forward and backward vs their plain versions at
+    SHORT_CASES, f32 and bf16: out, dq, dk, dv by max abs error against
+    BOUND·max|plain| and the gradients also by rel L2 ≤ BWD_REL_L2, and a
+    second backward bit-equal to the first (no atomics). The flat case runs
+    through the ``short_attention`` entry and autograd, which must launch
+    each kernel once a call. Returns the forward's and the backward's (worst
+    of dq, dk, dv) max abs error at vit_b_16 bs128, bf16."""
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.ops import short_attention as sa
+
+    g = torch.Generator().manual_seed(34)
+    checks, main_err = Checks(), {}
+    for B, T, S, N, H, entry in SHORT_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, dout = short_args(g, B, T, S, N, H, dtype)
+            case = dict(kernel="short_attention", B=B, T=T, S=S, N=N, H=H, entry=entry,
+                        dtype=str(dtype).split(".")[-1])
+            if entry == "flat":
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                before = dict(_cuda.LAUNCHES)
+                out = sa.short_attention(*leaves)
+                got = torch.autograd.grad(out, leaves, dout)
+                again = torch.autograd.grad(sa.short_attention(*leaves), leaves, dout)
+                torch.cuda.synchronize()
+                runs = tuple(_cuda.LAUNCHES[n] - before[n]
+                             for n in ("short_attention", "short_attention_bwd"))
+                if runs != (2, 2):
+                    raise AssertionError(f"the short_attention entry launched {runs} at {case}")
+            else:
+                out = sa.short_attention_cuda(q, k, v)
+                got = sa.short_attention_bwd_cuda(q, k, v, dout)
+                again = sa.short_attention_bwd_cuda(q, k, v, dout)
+            want_out = sa.short_attention_plain(q, k, v)
+            want = sa.short_attention_bwd_plain(q, k, v, dout)
+            torch.cuda.synchronize()
+            err = checks.elementwise(case, "out", out, want_out)
+            errs = [checks.elementwise(case, n, a, b) for n, a, b in zip(("dq", "dk", "dv"), got,
+                                                                         want)]
+            for n, a, b in zip(("dq", "dk", "dv"), got, want):
+                checks.reduced(case, f"{n} (rel L2)", a, b)
+            for n, a, b in zip(("dq", "dk", "dv"), got, again):
+                checks.exact(case, f"{n} twice", a, b)
+            log(f"[short] B={B:3d} T={T} S={S} N={N:2d} H={H:3d} {entry:6s} {case['dtype']:8s} "
+                f"{checks.summary(case)}")
+            if (B, T, N, dtype) == (SHORT_TIME_BATCH, 197, 12, torch.bfloat16):
+                main_err["short_attention"], main_err["short_attention_bwd"] = err, max(errs)
+            del q, k, v, dout, out, got, again, want, want_out
+        torch.cuda.empty_cache()
+    report["compare_short"] = checks.rows
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K2 comparisons out of bounds: {bad[:8]}")
+    return main_err
+
+
+def time_short(report: dict, name_power: str) -> dict[str, tuple[float, float, float]]:
+    """Phase 35: at vit_b_16's shapes, batch SHORT_TIME_BATCH, bf16 (1536
+    pairs, T = S = 197, head 64): K2 forward and backward against their plain
+    versions, in turns, and torch's scaled_dot_product_attention on the same
+    memory seen as (B, N, T, H) (the library yardstick; the port never calls
+    it; its backward is forward + backward less the forward). K2's backward
+    recomputes p from q, k, v, so it is timed alone. Returns (kernel, plain,
+    library) ms."""
+    import torch.nn.functional as F
+
+    from vision_toolbox_tpu_torch.ops import short_attention as sa
+
+    g = torch.Generator().manual_seed(35)
+    B, N, T, H = SHORT_TIME_BATCH, VIT_B["H"], 197, VIT_B["D"] // VIT_B["H"]
+    q, k, v, dout = short_args(g, B, T, T, N, H, torch.bfloat16)
+    heads = lambda t: t.transpose(1, 2)  # (B, N, T, H), a view of the same memory
+    leaves = [heads(t).detach().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fb():
+        torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, heads(dout))
+
+    rows = {}
+    for name, plain, kernel, library in (
+        ("short_attention", lambda: sa.short_attention_plain(q, k, v),
+         lambda: sa.short_attention_cuda(q, k, v),
+         lambda: F.scaled_dot_product_attention(*map(heads, (q, k, v)))),
+        ("short_attention_bwd", lambda: sa.short_attention_bwd_plain(q, k, v, dout),
+         lambda: sa.short_attention_bwd_cuda(q, k, v, dout), sdpa_fb),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=10)
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library, iters=10))
+    rows["short_attention_bwd"]["library_ms"] -= rows["short_attention"]["library_ms"]
+    for name, r in rows.items():
+        r["bound_ms"], r["bound_by"] = bound(*short_work(name, B, T, T, N, H, 2))
+        log(f"[short-time] {name:19s} B={B} N={N} T=S={T} H={H} bf16: kernel {r['ms']:.4f} ms  "
+            f"plain {r['plain_ms']:.4f} ms  scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
+            f"[{name_power}]")
+    report["short_times"] = rows
+    return {n: (r["ms"], r["plain_ms"], r["library_ms"]) for n, r in rows.items()}
+
+
+def serve_vit_dropout(report: dict, name_power: str) -> int:
+    """Phase 36: vit_b_16 built with dropout 0.1 served (``serve_backbone``):
+    the fused kernels refuse dropout, so both halves of every block take the
+    module chain and its attention K2: 12 K2 forward launches per forward at
+    batch 8 and 32 (96 and 384 pairs) and none at batch 1 (12 pairs: the
+    JAX package's XLA attention), 12 ``vtt::short_attention`` calls in the
+    program. Returns K2's launches in the served requests."""
+    return serve_backbone(report, "vit_dropout_serve", "vit_b_16", {"short_attention": 12},
+                          {"short_attention": 12}, SERVE_BATCHES, name_power,
+                          model_kw=VIT_DROPOUT, per_batch={1: {}})["short_attention"]
+
+
+def train_vit_unfused(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 37: the vit_b_16 step at bs128@224 on the unfused block chain
+    (``force_unfused``, the chain the JAX package runs under token sharding;
+    the projections and MLPs stay ``torch.matmul``), ViT's recipe, 3
+    warm-up + 10 timed steps, each of the 12 blocks through K2 forward and
+    backward; then one step at bs8 through the kernels against one through
+    the plain versions and an f32 reference, all on the unfused chain."""
+    watched = ("head.weight", "backbone.pe", "backbone.blocks.0.mha.q_proj.weight",
+               "backbone.blocks.5.mlp_norm.weight", "backbone.blocks.11.mlp.linear2.bias")
+    per_step = NO_LAUNCHES | dict.fromkeys(("short_attention", "short_attention_bwd"), 12)
+    return train_transformer(report, "vit_unfused_train", "vit_b_16", VIT_UNFUSED_TRAIN,
+                             per_step, watched, name_power, forward_kw=UNFUSED)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2146,6 +2320,13 @@ def main() -> int:
     launches["swin_attention_bwd"] = train_swin(report, name_power)["swin_attention_bwd"]
     repaired_head_widths(report, name_power)
 
+    # phases 34-37: short attention (K2), vit_b_16 with dropout served, the unfused step
+    errors |= compare_short(report)
+    short_times = time_short(report, name_power)
+    times |= {k: t[:2] for k, t in short_times.items()}
+    launches["short_attention"] = serve_vit_dropout(report, name_power)
+    launches["short_attention_bwd"] = train_vit_unfused(report, name_power)["short_attention_bwd"]
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
@@ -2164,8 +2345,11 @@ def main() -> int:
            for k in ("swin_attention", "swin_attention_bwd")},
         **dict.fromkeys(("swin_partition", "swin_unpartition"),
                         (0.0, 2 * SWIN_TIME_BATCH * 56 * 56 * 96 * 2)),
+        **{k: short_work(k, SHORT_TIME_BATCH, 197, 197, VIT_B["H"], 64, 2)
+           for k in ("short_attention", "short_attention_bwd")},
     }
-    library = {k: t[2] for k, t in (flash_times | depthwise_times | swin_times).items()}
+    library = {k: t[2] for k, t in
+               (flash_times | depthwise_times | swin_times | short_times).items()}
     # K9's dw and K7's dPE sum in their own order: their rel L2 beside the
     # elementwise tensors' max abs error
     extra = {"depthwise_conv_bwd": dict(dw_rel_l2=main_dw_rel_l2),

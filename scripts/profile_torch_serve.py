@@ -1,17 +1,18 @@
-"""Where the time of a served cait_s_24 request goes, on one NVIDIA card.
+"""Where the time of a served request goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_serve.py
+    python3 scripts/profile_torch_serve.py [cait_s_24 | vit_b_16_dropout]
 
-Builds the seeded bf16 cait_s_24 of ``chip_smoke.py``'s serving phase (its
-LayerScale γs spread as there), exports it with
+Builds the seeded bf16 model of one of ``chip_smoke.py``'s serving phases
+(cait_s_24 by default, its LayerScale γs spread as there; or vit_b_16 built
+with dropout 0.1, whose blocks run the module chain and K2), exports it with
 ``utils/export.py`` and loads it back, then for each of ``SERVE_BATCHES``
 times 10 requests to the loaded program and to the eager model with CUDA
 events, measures the host's enqueue time of a request (host clock around
 the call, no synchronisation), and traces 5 requests with
 ``torch.profiler``: device kernel time per request, by kernel, against the
 profiled window (idle share = 1 − kernel time / window). Prints a table and
-one JSON line and writes ``chiprun_out/profile_cait_serve.json``. Needs
-a CUDA card.
+one JSON line and writes ``chiprun_out/profile_<model>_serve.json``.
+Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -37,13 +38,21 @@ def main() -> int:
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.utils.export import export_model, load_exported
 
-    name = "cait_s_24"
+    tag = sys.argv[1] if len(sys.argv) > 1 else "cait_s_24"
+    # tag → (backbone, backbone options, LayerScale centre)
+    configs = {"cait_s_24": ("cait_s_24", {}, chip_smoke.CAIT_LAYER_SCALE),
+               "vit_b_16_dropout": ("vit_b_16", chip_smoke.VIT_DROPOUT, None)}
+    if tag not in configs:
+        print(f"profile_torch_serve: model must be one of {sorted(configs)}", file=sys.stderr)
+        return 2
+    name, model_kw, layer_scale = configs[tag]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = chip_smoke.card()
     model = vtt.create_backbone(name, dtype=torch.bfloat16,
-                                generator=torch.Generator().manual_seed(0))
-    chip_smoke.spread_layer_scale(model, chip_smoke.CAIT_LAYER_SCALE)
+                                generator=torch.Generator().manual_seed(0), **model_kw)
+    if layer_scale is not None:
+        chip_smoke.spread_layer_scale(model, layer_scale)
     model.eval()
     served = load_exported(export_model(model, (8, 224, 224, 3)))
     images = torch.rand(32, 224, 224, 3, generator=torch.Generator().manual_seed(1)).cuda()
@@ -77,15 +86,15 @@ def main() -> int:
                              host_enqueue_ms=enqueue_ms, profiled_window_ms=window,
                              kernel_ms=kernel_ms, idle_share=1 - kernel_ms / window,
                              top_kernels_ms=top))
-            print(f"{name} batch {b:2d} [{card}]: served {served_ms:.3f} ms, eager {eager_ms:.3f} "
+            print(f"{tag} batch {b:2d} [{card}]: served {served_ms:.3f} ms, eager {eager_ms:.3f} "
                   f"ms, host enqueue {enqueue_ms:.3f} ms; profiled window {window:.3f} ms, "
                   f"kernels {kernel_ms:.3f} ms, idle share {1 - kernel_ms / window:.3f}")
             for k, ms in top.items():
                 print(f"    {ms:8.3f} ms  {k[:100]}")
-    result = dict(card=card, model=name, requests=rows)
+    result = dict(card=card, model=tag, requests=rows)
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
-    (out / "profile_cait_serve.json").write_text(json.dumps(result, indent=1))
+    (out / f"profile_{tag}_serve.json").write_text(json.dumps(result, indent=1))
     print(json.dumps({**result, "requests": [{k: v for k, v in r.items() if k != "top_kernels_ms"}
                                              for r in rows]}))
     return 0

@@ -1,13 +1,13 @@
 """Where the time of the port's transformer train step goes, on one NVIDIA card.
 
     python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512 | convnext_t
-                                                | swin_t]
+                                                | swin_t | vit_b_16_unfused]
 
 Builds the step of one of ``chip_smoke.py``'s transformer-training phases
 (vit_b_16 by default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px
 with its MAP head and no cls token, bs64@512; or convnext_t with stochastic
-depth 0.1, or swin_t with stochastic depth 0.2, bs128@224; bf16 compute, f32
-parameters,
+depth 0.1, or swin_t with stochastic depth 0.2, bs128@224; or vit_b_16 on
+the unfused block chain, bs128@224; bf16 compute, f32 parameters,
 CutMix⊕MixUp, label smoothing 0.1, SGD momentum 0.9 with weight decay 2e-5
 in three groups) and its warm-up and timed step counts, times it unprofiled
 with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
@@ -15,6 +15,8 @@ steps with ``torch.profiler`` and sums the device kernels by class:
 
 - flash-attention kernels (SigLIP at 512 px): the K6 forward, and the K6
   backward's delta, dK/dV and dQ kernels;
+- short-attention kernels (vit_b_16 on the unfused chain): the K2 forward,
+  and the K2 backward's row (dq) and key (dK/dV) kernels;
 - talking-head kernels (CaiT): the K5 forward, and the K5 backward's row
   pass, key pass and mix-gradient sum;
 - depthwise-conv kernels (ConvNeXt): the K9 forward with the backward's dx
@@ -30,7 +32,8 @@ steps with ``torch.profiler`` and sums the device kernels by class:
   row kernels);
 - library products: cuBLAS/CUTLASS GEMMs, i.e. the weight gradients of the
   blocks (``torch.matmul``), CaiT's q/k/v/out projections (``F.linear``
-  around K5) and class attention, and the head's three small products;
+  around K5) and class attention, the unfused chain's projections and MLPs,
+  and the head's three small products;
 - convolutions (cuDNN: the patch embedding; ConvNeXt's stem and
   downsampling), optimizer (SGD's foreach kernels), and the rest (casts of
   the f32 parameters to bf16, the loss, the unfused LayerNorms (ConvNeXt's
@@ -75,6 +78,8 @@ CLASSES = (
     ("flash-attention forward (K6 fwd)", lambda n: "flash_fwd_kernel" in n),
     ("flash-attention backward (K6 bwd)", lambda n: any(
         k in n for k in ("flash_delta_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))),
+    ("short-attention forward (K2 fwd)", lambda n: "short_fwd_kernel" in n),
+    ("short-attention backward (K2 bwd)", lambda n: "short_bwd_" in n),
     ("talking-head forward (K5 fwd)", lambda n: "th_fwd_kernel" in n),
     ("talking-head backward (K5 bwd)", lambda n: any(
         k in n for k in ("th_bwd_rows_kernel", "th_bwd_keys_kernel", "th_param_reduce_kernel"))),
@@ -140,17 +145,19 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     tag = sys.argv[1] if len(sys.argv) > 1 else "vit_b_16"
-    # name → (backbone, phase config, backbone options)
-    configs = {"vit_b_16": ("vit_b_16", chip_smoke.VIT_TRAIN, {}),
-               "cait_s_24": ("cait_s_24", chip_smoke.CAIT_TRAIN, {}),
-               "vit_b_16_siglip512": ("vit_b_16", chip_smoke.SIGLIP_TRAIN, chip_smoke.SIGLIP),
-               "convnext_t": ("convnext_t", chip_smoke.CONVNEXT_TRAIN, chip_smoke.CONVNEXT_KW),
-               "swin_t": ("swin_t", chip_smoke.SWIN_TRAIN, chip_smoke.SWIN_KW)}
+    # name → (backbone, phase config, backbone options, forward options)
+    cs = chip_smoke
+    configs = {"vit_b_16": ("vit_b_16", cs.VIT_TRAIN, {}, None),
+               "cait_s_24": ("cait_s_24", cs.CAIT_TRAIN, {}, None),
+               "vit_b_16_siglip512": ("vit_b_16", cs.SIGLIP_TRAIN, cs.SIGLIP, None),
+               "convnext_t": ("convnext_t", cs.CONVNEXT_TRAIN, cs.CONVNEXT_KW, None),
+               "swin_t": ("swin_t", cs.SWIN_TRAIN, cs.SWIN_KW, None),
+               "vit_b_16_unfused": ("vit_b_16", cs.VIT_UNFUSED_TRAIN, {}, cs.UNFUSED)}
     if tag not in configs:
         print(f"profile_torch_vit_train: model must be one of {sorted(configs)}", file=sys.stderr)
         return 2
-    model, cfg, model_kw = configs[tag]
-    state, step, images, labels, g = chip_smoke.vit_step_parts(model, cfg, **model_kw)
+    model, cfg, model_kw, forward_kw = configs[tag]
+    state, step, images, labels, g = chip_smoke.vit_step_parts(model, cfg, forward_kw, **model_kw)
     for _ in range(cfg["warmup"]):
         step(state, images, labels, g)
     torch.cuda.synchronize()

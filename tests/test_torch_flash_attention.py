@@ -24,6 +24,7 @@ from vision_toolbox_tpu_torch.models.vit import ViT
 from vision_toolbox_tpu_torch.ops import _cuda
 from vision_toolbox_tpu_torch.ops import attention as port_attention
 from vision_toolbox_tpu_torch.ops import flash_attention as fa
+from vision_toolbox_tpu_torch.ops.short_attention import use_short
 
 B, T, S, N, H = 2, 40, 56, 2, 32
 BLOCKS = dict(block_q=32, block_k=16)
@@ -158,8 +159,8 @@ def test_attention_sends_every_head_width_to_k6(monkeypatch, head):
 
 def test_attention_dispatches_k6_shapes_to_the_op(monkeypatch):
     """``dot_product_attention`` sends T = 1024 to the flash op (and the
-    result is the op's) and not T = 1025, 577 or 1; a K2 shape still names
-    K2, and T = 1024 names no unported kernel."""
+    result is the op's) and not T = 1025, 577 or 1; K2's rule admits
+    vit_b_16's shape and not T = 1024."""
     calls = []
     spy = lambda *a, **kw: calls.append(a[0].shape) or fa.flash_attention(*a, **kw)
     monkeypatch.setattr(port_attention, "flash_attention", spy)
@@ -173,8 +174,7 @@ def test_attention_dispatches_k6_shapes_to_the_op(monkeypatch):
                                                        for x in (q, k, v)), None)
                 assert torch.equal(got, want.reshape(1, 2, t, 32).transpose(1, 2))
     assert calls == [(1, 1024, 2, 32)]
-    assert port_attention._unported_kernel(197, 197, 64, 96, has_bias=False).startswith("K2")
-    assert port_attention._unported_kernel(1024, 1024, 64, 96, has_bias=False) is None
+    assert use_short(197, 197, 64, 96) and not use_short(1024, 1024, 64, 96)
 
 
 def test_model_without_grad_runs_the_inference_op(monkeypatch):

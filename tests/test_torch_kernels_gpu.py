@@ -30,7 +30,10 @@ another order, by rel L2. The window-attention kernels (K7) compute in f32
 from the inputs (bf16 windows of up to 64 tokens on the tensor cores with p
 and ds as two bf16 planes): out, dq, dk, dv within the dtype's bound, dPE by
 rel L2, and a second backward bit-equal to the first (no atomics). The
-shifted-window relayout kernels (K8) are permutations: bit for bit.
+shifted-window relayout kernels (K8) are permutations: bit for bit. The
+short-attention kernels (K2) compute in f32 from the inputs like their plain
+versions (K6's exact-operand planes): out, dq, dk, dv within the dtype's
+bound and by rel L2, and a second backward bit-equal to the first.
 """
 
 import pytest
@@ -401,7 +404,7 @@ def test_flash_attention_kernels_match_plain(cuda, dtype, BN, T, S, H, biased):
 
 def test_flash_attention_on_the_card_never_falls_back(cuda):
     """At T = 1024 ``dot_product_attention`` launches K6 (forward, and
-    backward under autograd); a K2 shape still raises naming K2; a type the
+    backward under autograd); a K2 shape launches K2 and not K6; a type the
     kernels do not take raises."""
     g = torch.Generator().manual_seed(0)
     q, k, v = (_rand(g, 2, 1024, 4, 64).to(cuda, torch.bfloat16).requires_grad_()
@@ -411,8 +414,10 @@ def test_flash_attention_on_the_card_never_falls_back(cuda):
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["flash_attention_bwd"] == 1
     short = _rand(g, 8, 197, 12, 64).to(cuda, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="K2"):
-        attn.dot_product_attention(short, short, short)
+    _cuda.reset_launch_counts()
+    attn.dot_product_attention(short, short, short)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["short_attention"] == 1 and _cuda.LAUNCHES["flash_attention"] == 0
     with pytest.raises(TypeError):
         fa.flash_attention(*(t.detach().half() for t in (q, k, v)))
 
@@ -722,3 +727,136 @@ def test_swin_t_builds_on_the_card_and_runs_its_kernels(cuda):
         "swin_attention": 12, "swin_attention_bwd": 12, "swin_partition": 10,
         "swin_unpartition": 10, "block_mlp": 12, "block_mlp_bwd": 12}
     assert torch.isfinite(m.stages[0][1].mha.relative_pe_table.grad).all()
+
+
+# K2 (short attention) on (B, T, N, H): vit_b_16 at batch 8 and 128, vit_l_16
+# (16 heads of 64), vit_h_14 (16 heads of 80, T = 257), the rule's corner
+# (T = S = 512, head 128), cross attention (T ≠ S), T = S = 2 at 64 pairs, and
+# heads of 40 and 72 (no multiple of 16: zero-padded in shared memory)
+SHORT_SHAPES = [(8, 197, 197, 12, 64), (128, 197, 197, 12, 64), (4, 197, 197, 16, 64),
+                (4, 257, 257, 16, 80), (1, 512, 512, 64, 128), (8, 50, 197, 8, 64),
+                (64, 2, 2, 1, 64), (4, 197, 197, 16, 40), (2, 65, 33, 32, 72)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,N,H", SHORT_SHAPES)
+def test_short_attention_kernels_match_plain(cuda, dtype, B, T, S, N, H):
+    """K2 forward and backward against their plain versions: out, dq, dk, dv
+    within the dtype's bound and by rel L2; each wrapper launches once, and
+    the backward gives the same bits twice (no atomics)."""
+    from vision_toolbox_tpu_torch.ops import short_attention as sa
+
+    g = torch.Generator().manual_seed(B * T + S + N * H)
+    q = _rand(g, B, T, N, H).to(cuda, dtype)
+    k, v = (_rand(g, B, S, N, H).to(cuda, dtype) for _ in range(2))
+    dout = _rand(g, B, T, N, H).to(cuda, dtype)
+    before = dict(_cuda.LAUNCHES)
+    out = sa.short_attention_cuda(q, k, v)
+    got = sa.short_attention_bwd_cuda(q, k, v, dout)
+    again = sa.short_attention_bwd_cuda(q, k, v, dout)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["short_attention"] == before["short_attention"] + 1
+    assert _cuda.LAUNCHES["short_attention_bwd"] == before["short_attention_bwd"] + 2
+    _check(out, sa.short_attention_plain(q, k, v))
+    for name, a, b in zip(("dq", "dk", "dv"), got, sa.short_attention_bwd_plain(q, k, v, dout)):
+        _check(a, b)
+        _check_rel_l2(a, b, name)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_short_attention_refuses_what_its_gate_refuses(cuda):
+    """``dot_product_attention`` on CUDA tensors sends T = 513, a head of 136
+    and a bias past K2 (the plain math: no launch), and 60 pairs to the
+    JAX package's dense path (no launch); the wrapper itself raises at
+    T = 513 and head 136 rather than run the plain math in their place."""
+    from vision_toolbox_tpu_torch.ops import short_attention as sa
+
+    g = torch.Generator().manual_seed(0)
+    _cuda.reset_launch_counts()
+    for B, T, N, H, biased in ((1, 513, 64, 64, False), (1, 197, 64, 136, False),
+                               (8, 197, 12, 64, True), (5, 197, 12, 64, False)):
+        x = _rand(g, B, T, N, H).to(cuda, torch.bfloat16)
+        bias = _rand(g, 1, N, T, T).to(cuda, torch.bfloat16) if biased else None
+        out = attn.dot_product_attention(x, x, x, bias=bias)
+        assert out.shape == x.shape and torch.isfinite(out.float()).all()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0)
+    for T, H in ((513, 64), (197, 136)):
+        x = _rand(g, 1, T, 64, H).to(cuda, torch.bfloat16)
+        with pytest.raises(ValueError, match="no CUDA kernel"):
+            sa.short_attention_cuda(x, x, x)
+    assert _cuda.LAUNCHES == dict.fromkeys(_cuda.LAUNCHES, 0)
+
+
+def test_vit_b_16_with_dropout_and_the_unfused_step_run_k2(cuda):
+    """vit_b_16 built with dropout 0.1, bf16: in eval a forward at batch 8
+    launches 12 K2 forwards and nothing else (both halves of every block on
+    the module chain), at batch 1 (12 pairs) nothing; the unfused train
+    step (dropout 0, ``force_unfused``) launches 12 K2 forwards and 12
+    backwards, and its gradients match the plain path's by chip_smoke.py's
+    step rule: rel L2 ≤ max(2e-2, twice the plain bf16 path's own distance
+    from an f32 reference of the same weights). The q/k projection
+    gradients need the second term: dq = ds·k cancels down to the bf16
+    activations' noise (measured 1.26e-2 between the two paths at block 2)."""
+    import functools
+
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone("vit_b_16", dtype=torch.bfloat16, dropout=0.1).eval()
+    x = torch.rand(8, 224, 224, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    none = dict.fromkeys(_cuda.LAUNCHES, 0)
+    with torch.inference_mode():
+        _cuda.reset_launch_counts()
+        out = m(x)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES == none | {"short_attention": 12}
+        _cuda.reset_launch_counts()
+        m(x[:1])
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES == none
+        _check_rel_l2(out, m(x, plain=True), "logits")
+
+    u = vtt.create_backbone("vit_b_16", dtype=torch.bfloat16)
+    u.forward = functools.partial(type(u).forward, u, force_unfused=True)
+    # a fixed projection of the features (their mean square is the final
+    # LayerNorm's, constant, and would leave only rounding noise to compare)
+    proj = torch.randn(8, 768, generator=torch.Generator().manual_seed(3)).to(cuda)
+    grads = {}
+    for plain in (False, True):
+        u.zero_grad()
+        _cuda.reset_launch_counts()
+        (u(x, train=True, plain=plain).float() * proj).sum().backward()
+        torch.cuda.synchronize()
+        n = 0 if plain else 12
+        assert _cuda.LAUNCHES == none | {"short_attention": n, "short_attention_bwd": n}
+        grads[plain] = {k: p.grad.clone() for k, p in u.named_parameters()}
+    f32 = vtt.create_backbone("vit_b_16")
+    f32.load_state_dict(u.state_dict())
+    (f32(x, train=True, force_unfused=True, plain=True) * proj).sum().backward()
+    grads["f32"] = {k: p.grad for k, p in f32.named_parameters()}
+    # the key-bias gradient is zero in exact arithmetic: held against the value bias's
+    scale = lambda k, side: side[k.replace("k_proj", "v_proj") if k.endswith("k_proj.bias")
+                                 else k].norm()
+    for k in grads["f32"]:
+        own = ((grads[True][k] - grads["f32"][k]).norm() / scale(k, grads["f32"])).item()
+        err = ((grads[False][k] - grads[True][k]).norm() / scale(k, grads[True])).item()
+        assert err <= max(2e-2, 2 * own), (k, err, own)
+
+
+def test_exported_dropout_vit_runs_at_batch_1_and_8(cuda):
+    """The exported vit_b_16 with dropout 0.1 (batch free) answers at batch
+    1 (12 pairs: no K2) and 8 (12 K2 launches) as eager does."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.utils.export import export_model, load_exported
+
+    m = vtt.create_backbone("vit_b_16", dtype=torch.bfloat16, dropout=0.1).eval()
+    served = load_exported(export_model(m, (8, 224, 224, 3)))
+    x = torch.rand(8, 224, 224, 3, generator=torch.Generator().manual_seed(2)).to(cuda)
+    for b, n in ((1, 0), (8, 12)):
+        with torch.inference_mode():
+            want = m(x[:b])
+            _cuda.reset_launch_counts()
+            got = served(x[:b])
+            torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["short_attention"] == n, b
+        _check_rel_l2(got, want, f"batch {b}")

@@ -3,7 +3,9 @@ module of it, runs a tiny ViT, a narrow SigLIP ViT at T = 1024 (its
 attention through the flash op), a tiny CaiT forward and train step, a
 narrow ConvNeXt forward and train step (its depthwise convs through the K9
 op), a narrow Swin forward and train step (its window attention and
-shifted-window relayouts through the K7 and K8 ops), and one full-recipe
+shifted-window relayouts through the K7 and K8 ops), a tiny ViT on the
+unfused block chain at 64 (batch·head) pairs, forward and train step (its
+attention through the K2 op and autograd function), and one full-recipe
 train step of a narrow CSP Darknet, and must not have loaded ``jax`` or
 ``flax``."""
 
@@ -21,7 +23,7 @@ import vision_toolbox_tpu_torch as vtt
 from vision_toolbox_tpu_torch.utils import export, jax_bridge
 from vision_toolbox_tpu_torch.nn import norm
 from vision_toolbox_tpu_torch.ops import augment, cait_attention, depthwise_conv, flash_attention, trivial_augment, warp
-from vision_toolbox_tpu_torch.ops import swin_attention, swin_relayout
+from vision_toolbox_tpu_torch.ops import short_attention, swin_attention, swin_relayout
 from vision_toolbox_tpu_torch.models import cait, convnext, darknet, swin
 from vision_toolbox_tpu_torch import train
 from vision_toolbox_tpu_torch.train import classifier, optim, step
@@ -61,6 +63,20 @@ state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
 loss = train.make_train_step(10, compute_dtype=torch.bfloat16)(
     state, torch.rand(2, 32, 32, 3), torch.tensor([1, 2]), torch.Generator().manual_seed(0))
 assert torch.isfinite(loss["loss"]), loss
+import functools
+u = vtt.models.ViT(64, 1, 8, 8, 32, device="cpu")  # 8 heads of 8: 64 pairs at batch 8
+u.forward = functools.partial(type(u).forward, u, force_unfused=True)
+calls = []
+plain = short_attention.short_attention_plain
+short_attention.short_attention_plain = lambda *a: calls.append(1) or plain(*a)
+with torch.no_grad():
+    out = u(torch.rand(8, 32, 32, 3))
+assert out.shape == (8, 64) and torch.isfinite(out).all(), out.shape
+clf = train.ImageClassifier(u, 10)
+state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
+loss = train.make_train_step(10)(
+    state, torch.rand(8, 32, 32, 3), torch.arange(8), torch.Generator().manual_seed(0))
+assert torch.isfinite(loss["loss"]) and len(calls) == 2, (loss, calls)
 clf = train.ImageClassifier(darknet.Darknet(8, ((1, 16), (1, 32)), csp=True, device="cpu"), 10)
 state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
 fn = train.make_train_step(10, trivial_augment=True, random_erasing_p=0.5)

@@ -4,7 +4,9 @@ DeiT adds a distillation token: the PE is added to the patch tokens before
 the cls and dist tokens are put in front, and the pooled output is the mean
 of the (cls, dist) pair after the final norm. DeiT3 is a plain ViT with
 LayerScale init 1e-6, so its blocks run the γ_ls branch of the fused
-kernels.
+kernels. ``forward(force_unfused=True)``, and a model built with dropout,
+keep the blocks on the module chain, whose attention runs the
+short-attention kernel K2 (``ViT.forward``).
 """
 
 from __future__ import annotations

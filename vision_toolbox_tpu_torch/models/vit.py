@@ -96,10 +96,13 @@ class ViT(Backbone):
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
         """x: (B, H, W, 3) → (B, D) pooled features. ``force_unfused`` keeps
-        every block on the plain module chain; ``plain`` runs the fused
-        half-blocks through their plain PyTorch versions instead of the
-        kernels (for checking the kernels on the card); ``generator`` feeds
-        dropout and stochastic depth in training."""
+        every block on the plain module chain (the chain the JAX package
+        runs under token sharding, and a model with dropout takes anyway),
+        whose attention runs the short-attention kernel K2 from batch 6 of
+        vit_b_16; ``plain`` runs the fused half-blocks and the attention
+        kernels through their plain PyTorch versions instead of the kernels
+        (for checking the kernels on the card); ``generator`` feeds dropout
+        and stochastic depth in training."""
         out = self._tokens(x)
         for block in self.blocks:
             out = block(out, train, force_unfused=force_unfused, plain=plain, generator=generator)

@@ -8,10 +8,15 @@ each half to its fused kernel (``ops/block_attention.py``,
 device: on CPU tensors the fused ops run their plain versions, so a module
 computes the same function wherever it runs. The fused ops are
 differentiable: training runs their backward kernels. ``force_unfused``
-keeps the block on the plain module chain. Parameters are float32; ``dtype``
-is the compute type, to which they are rounded at use where the JAX package
-promotes them (LayerNorms apply theirs in f32 on the unfused path, as flax
-does). Dropout, attention dropout and stochastic depth draw from the
+keeps the block on the plain module chain, as a ViT with dropout does (the
+fused kernels refuse it); there ``MHA``'s attention core
+(``ops/attention.py``) runs the short-attention kernel K2 at vision shapes
+(T, S ≤ 512, heads ≤ 128, ≥ 64 batch·head pairs: vit_b_16 from batch 6),
+forward and backward, and the projections and the MLP stay ``torch.matmul``,
+as the JAX package leaves them to XLA on that chain. Parameters are
+float32; ``dtype`` is the compute type, to which they are rounded at use
+where the JAX package promotes them (LayerNorms apply theirs in f32 on the
+unfused path, as flax does). Dropout, attention dropout and stochastic depth draw from the
 ``generator`` threaded through ``forward``.
 """
 

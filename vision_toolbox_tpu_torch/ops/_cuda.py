@@ -38,6 +38,7 @@ LAUNCHES: dict[str, int] = {
     "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0, "flash_attention": 0,
     "flash_attention_bwd": 0, "depthwise_conv": 0, "depthwise_conv_bwd": 0,
     "swin_attention": 0, "swin_attention_bwd": 0, "swin_partition": 0, "swin_unpartition": 0,
+    "short_attention": 0, "short_attention_bwd": 0,
 }
 
 _lib: ctypes.CDLL | None = None
@@ -126,6 +127,17 @@ _SIGNATURES = {
         (_P, _P, _P, _P, _P, _I, _P, _I, _I,  # q, k, v, g, pe, pe_bf16, mask, mask_bf16, is_bf16
          _P, _P, _P, _P, _P,  # dq, dk, dv, partials (scratch), dpe
          _I, _I, _I, _I, _I, _I, _F, _P),  # B, nW, T, N, hd, windows per block, scale, stream
+        _I,
+    ),
+    "vtt_short_attention_fwd": (
+        (_P, _P, _P, _I, _P,  # q, k, v, is_bf16, out
+         _I, _I, _I, _I, _I, _F, _P),  # B, N, T, S, H, scale, stream
+        _I,
+    ),
+    "vtt_short_attention_bwd": (
+        (_P, _P, _P, _P, _I,  # q, k, v, g, is_bf16
+         _P, _P, _P, _P, _P,  # dq, dk, dv, lse and delta (scratch)
+         _I, _I, _I, _I, _I, _F, _P),  # B, N, T, S, H, scale, stream
         _I,
     ),
     "vtt_flash_bwd": (

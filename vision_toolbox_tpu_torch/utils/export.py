@@ -7,7 +7,10 @@ bytes back into a callable without the model's Python code. The fused
 half-blocks appear in the program as the custom ops ``vtt::fused_mlp_block``
 and ``vtt::fused_attention_block``, CaiT's talking-head attention as
 ``vtt::talking_head_attention``, long-sequence attention (SigLIP at 512
-px) as ``vtt::flash_attention``, the depthwise convs (ConvNeXt) as
+px) as ``vtt::flash_attention``, short unbiased attention on the module
+chain (a ViT with dropout) as ``vtt::short_attention``, which takes K2's
+batch-dependent pair test at run time so the batch stays free, the
+depthwise convs (ConvNeXt) as
 ``vtt::depthwise_conv2d``, and Swin's window attention and shifted-window
 relayouts as ``vtt::swin_window_attention``, ``vtt::swin_window_partition``
 and ``vtt::swin_window_unpartition``, so the loaded program runs the CUDA kernels
@@ -28,8 +31,8 @@ from torch import Tensor
 
 from ..models.base import Backbone
 from ..ops import (  # noqa: F401  (registers the custom ops)
-    block_attention, block_mlp, cait_attention, depthwise_conv, flash_attention, swin_attention,
-    swin_relayout,
+    block_attention, block_mlp, cait_attention, depthwise_conv, flash_attention, short_attention,
+    swin_attention, swin_relayout,
 )
 
 
