@@ -33,11 +33,13 @@ sm_90a, one process per source) and drives the port's paths:
   an f32 reference. CaiT's LayerScale γs are spread around 0.1 on both
   paths: at their init, 1e-6, every residual branch rounds away in bf16;
 - SigLIP at 512 px (slice 5): holds the flash-attention kernels (K6 forward,
-  with and without a bias, and backward) against their plain versions at
-  the siglip vit_b_16 shapes (T = S = 1024, 12 heads of 64) and others, f32
-  and bf16, times both and torch's scaled_dot_product_attention (the
-  library yardstick, used nowhere in the port) at batch 32 and reads K6's
-  peak extra memory there, serves a seeded bf16 vit_b_16 SigLIP at 512 px
+  with and without a bias, and backward, a second backward bit-equal)
+  against their plain versions at the siglip vit_b_16 shapes (T = S =
+  1024, 12 heads of 64) and others, f32 and bf16, and the packed
+  (B, T, N, H) layout, read in place, bit-equal to the flat one; times both
+  on the packed layout and torch's scaled_dot_product_attention on the same
+  memory (the library yardstick, used nowhere in the port) at batch 32 and
+  reads K6's peak extra memory there, serves a seeded bf16 vit_b_16 SigLIP at 512 px
   (its position table carried from 224 px by ``resize_pe``; eager vs plain
   path, then export → load → requests at batch 1, 8 and 32), runs its
   train step at bs64@512 with ViT's recipe for 3 warm-up and 10 timed
@@ -281,6 +283,11 @@ VIT_DROPOUT = dict(dropout=0.1)  # ViT-B/16's ImageNet rate (Dosovitskiy et al.,
 VIT_UNFUSED_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
                          compare_batch=8)
 UNFUSED = dict(force_unfused=True)
+# PERF.md §6's times of the K7 and K2 kernels (swin_t stage 1 and vit_b_16 at
+# batch 128, bf16; NVIDIA H100 80GB HBM3, 700 W), which phases 29 and 35
+# print beside this run's: kernels the K6 redesign leaves as they were
+SECTION6_MS = {"swin_attention": 1.3428, "swin_attention_bwd": 2.4855,
+               "short_attention": 0.8728, "short_attention_bwd": 2.6521}
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -334,6 +341,12 @@ def alternate(plain, kernel, **kw) -> tuple[float, float]:
     p1, k1, k2, p2 = time_ms(plain, **kw), time_ms(kernel, **kw), time_ms(kernel, **kw), \
         time_ms(plain, **kw)
     return (p1 + p2) / 2, (k1 + k2) / 2
+
+
+def against_section6(name: str, ms: float) -> str:
+    """This run's time of a kernel beside PERF.md §6's (SECTION6_MS)."""
+    ref = SECTION6_MS[name]
+    return f"PERF.md §6 {ref:.4f} ms, this run / §6 = {ms / ref:.3f}"
 
 
 def rel_l2(a: torch.Tensor, b: torch.Tensor, ref: torch.Tensor | None = None) -> float:
@@ -1235,13 +1248,16 @@ def flash_one_plane(q, k, v, g) -> tuple[torch.Tensor, ...]:
 def compare_flash(report: dict) -> dict[str, float]:
     """Phase 17, part 1: K6 forward (out and lse; with a bias where the case
     has one) and backward (dq, dk, dv) vs their plain versions at
-    FLASH_CASES. Tensors by max abs error against FLASH_BOUND·max|plain|,
-    the gradients also by rel L2 ≤ BWD_REL_L2. At the f32 case the one-plane
-    control (``flash_one_plane``) must fail FLASH_BOUND on out, dq, dk and
-    dv: the bound tells a kernel that keeps p and ds in f32 from one that
-    rounds them to bf16 once. Returns the forward's and the backward's
-    (worst of dq, dk, dv) max abs error at the timed case (siglip, batch
-    FLASH_TIME_BATCH, bf16)."""
+    FLASH_CASES, on the flat (B·N, T, H) layout. Tensors by max abs error
+    against FLASH_BOUND·max|plain|, the gradients also by rel L2 ≤
+    BWD_REL_L2, and a second backward bit-equal to the first (no atomics).
+    At the timed case (siglip, batch FLASH_TIME_BATCH, bf16) the kernels on
+    the packed (B, T, N, H) layout, read and written in place, give the same
+    bits as on the flat one. At the f32 case the one-plane control
+    (``flash_one_plane``) must fail FLASH_BOUND on out, dq, dk and dv: the
+    bound tells a kernel that keeps p and ds in f32 from one that rounds
+    them to bf16 once. Returns the forward's and the backward's (worst of
+    dq, dk, dv) max abs error at the timed case."""
     from vision_toolbox_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator().manual_seed(17)
@@ -1262,11 +1278,26 @@ def compare_flash(report: dict) -> dict[str, float]:
             check(case, "lse (biased)", got_b[1], want_b[1])
             del got_b, want_b, bias
         got = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+        again = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
         want = fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
         torch.cuda.synchronize()
         errs = [check(case, n, a, b) for n, a, b in zip(("dq", "dk", "dv"), got, want)]
-        for n, a, b in zip(("dq", "dk", "dv"), got, want):
+        for n, a, b, c in zip(("dq", "dk", "dv"), got, want, again):
             checks.reduced(case, f"{n} (rel L2)", a, b)
+            checks.exact(case, f"{n} (second backward)", c, a)
+        if (B, dtype) == (FLASH_TIME_BATCH, torch.bfloat16):
+            # the packed (B, T, N, H) layout, read in place: the same bits as the flat one
+            packed = lambda t: t.view(B, N, -1, H).transpose(1, 2).contiguous()
+            flat = lambda t: t.transpose(1, 2).reshape(B * N, -1, H)
+            p_out, p_lse = fa.flash_attention_cuda(packed(q), packed(k), packed(v))
+            p_got = fa.flash_attention_bwd_cuda(packed(q), packed(k), packed(v), p_out, p_lse,
+                                                packed(dout))
+            torch.cuda.synchronize()
+            for n, a, b in zip(("out", "lse", "dq", "dk", "dv"), (p_out, p_lse, *p_got),
+                               (out, lse, *got)):
+                checks.exact(case, f"{n} (packed layout)", a if n == "lse" else flat(a), b)
+            del p_out, p_lse, p_got
+        del again
         log(f"[flash] B={B:2d} N={N:2d} T={T} S={S} H={H:3d} {case['dtype']:8s} "
             f"{'biased ' if biased else ''}{checks.summary(case)}")
         if dtype == torch.float32:
@@ -1293,28 +1324,33 @@ def compare_flash(report: dict) -> dict[str, float]:
 
 def time_flash(report: dict, name_power: str) -> dict[str, tuple[float, float, float]]:
     """Phase 17, part 2: at siglip's shapes, batch FLASH_TIME_BATCH, bf16, on
-    one set of (B, N, T, H) tensors: K6, its plain version and torch's
-    scaled_dot_product_attention (the library yardstick; the port never
-    calls it), forward alone and forward + backward, in turns; and K6's
-    peak memory beyond its inputs for one forward + backward, held below one
-    bf16 (B, N, T, S) tensor. Returns (kernel, plain, library) ms of the
-    forward and of the backward (forward + backward less the forward)."""
+    one set of packed (B, T, N, H) tensors, the layout the model hands K6:
+    K6 reading them in place, its plain version (on flat (B·N, T, H) copies
+    made outside the timing) and torch's scaled_dot_product_attention on the
+    same memory seen as a strided (B, N, T, H) view (the library yardstick;
+    the port never calls it), forward alone and forward + backward, in
+    turns; and K6's peak memory beyond its inputs for one forward +
+    backward, held below one bf16 (B, N, T, S) tensor. Returns (kernel,
+    plain, library) ms of the forward and of the backward (forward +
+    backward less the forward)."""
     import torch.nn.functional as F
 
     from vision_toolbox_tpu_torch.ops import flash_attention as fa
 
     g = torch.Generator().manual_seed(18)
     B, N, T, H = FLASH_TIME_BATCH, SIGLIP_HEADS, SIGLIP_T, 64
-    q, k, v, _, dout = flash_args(g, B * N, T, T, H, torch.bfloat16, False)
-    as_bnth = lambda t: t.view(B, N, T, H)  # SDPA's layout, the same memory
+    q, k, v, dout = (torch.randn(B, T, N, H, generator=g).to("cuda", torch.bfloat16)
+                     for _ in range(4))
+    flat = [t.transpose(1, 2).reshape(B * N, T, H) for t in (q, k, v, dout)]
+    as_bnth = lambda t: t.transpose(1, 2)  # SDPA's layout, a view of the same memory
 
     def kernel_fb():
         out, lse = fa.flash_attention_cuda(q, k, v)
         fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
 
     def plain_fb():
-        out, lse = fa.flash_attention_plain(q, k, v)
-        fa.flash_attention_bwd_plain(q, k, v, out, lse, dout)
+        out, lse = fa.flash_attention_plain(*flat[:3])
+        fa.flash_attention_bwd_plain(*flat[:3], out, lse, flat[3])
 
     leaves = [as_bnth(t).detach().requires_grad_() for t in (q, k, v)]
 
@@ -1324,7 +1360,7 @@ def time_flash(report: dict, name_power: str) -> dict[str, tuple[float, float, f
 
     rows = {}
     for what, plain, kernel, library in (
-        ("forward", lambda: fa.flash_attention_plain(q, k, v),
+        ("forward", lambda: fa.flash_attention_plain(*flat[:3]),
          lambda: fa.flash_attention_cuda(q, k, v),
          lambda: F.scaled_dot_product_attention(*map(as_bnth, (q, k, v)))),
         ("forward+backward", plain_fb, kernel_fb, sdpa_fb),
@@ -1332,9 +1368,11 @@ def time_flash(report: dict, name_power: str) -> dict[str, tuple[float, float, f
         plain_ms, ms = alternate(plain, kernel, iters=10)
         library_ms = time_ms(library, iters=10)
         rows[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
-        log(f"[flash-time] {what:16s} B={B} N={N} T=S={T} H={H} bf16: kernel {ms:.4f} ms  plain "
-            f"{plain_ms:.4f} ms  scaled_dot_product_attention {library_ms:.4f} ms  [{name_power}]")
+        log(f"[flash-time] {what:16s} (B, T, N, H) = ({B}, {T}, {N}, {H}) bf16 in place: kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  scaled_dot_product_attention "
+            f"{library_ms:.4f} ms  [{name_power}]")
 
+    del flat
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -1905,6 +1943,8 @@ def time_swin(report: dict, name_power: str) -> dict[str, tuple[float, float, fl
     out = {"swin_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
            "swin_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
                                                                     "library_ms"))}
+    for name in ("swin_attention", "swin_attention_bwd"):
+        log(f"[swin-time] {name}: {against_section6(name, out[name][0])}")
     del q, k, v, dout, sq, sk, sv, sg, leaves
     x = torch.randn(B, H, H, 96, generator=g).to("cuda", torch.bfloat16)
     y = sr.shifted_window_partition_cuda(x, 7, 3)
@@ -2142,7 +2182,7 @@ def time_short(report: dict, name_power: str) -> dict[str, tuple[float, float, f
         log(f"[short-time] {name:19s} B={B} N={N} T=S={T} H={H} bf16: kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f} ms  scaled_dot_product_attention "
             f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-            f"[{name_power}]")
+            f"[{name_power}]; {against_section6(name, r['ms'])}")
     report["short_times"] = rows
     return {n: (r["ms"], r["plain_ms"], r["library_ms"]) for n, r in rows.items()}
 

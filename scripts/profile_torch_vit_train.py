@@ -14,7 +14,7 @@ with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
 steps with ``torch.profiler`` and sums the device kernels by class:
 
 - flash-attention kernels (SigLIP at 512 px): the K6 forward, and the K6
-  backward's delta, dK/dV and dQ kernels;
+  backward's dK/dV, dQ and delta kernels, each a class of its own;
 - short-attention kernels (vit_b_16 on the unfused chain): the K2 forward,
   and the K2 backward's row (dq) and key (dK/dV) kernels;
 - talking-head kernels (CaiT): the K5 forward, and the K5 backward's row
@@ -76,8 +76,9 @@ def _gemm_layout(name: str) -> str | None:
 
 CLASSES = (
     ("flash-attention forward (K6 fwd)", lambda n: "flash_fwd_kernel" in n),
-    ("flash-attention backward (K6 bwd)", lambda n: any(
-        k in n for k in ("flash_delta_kernel", "flash_bwd_dkv_kernel", "flash_bwd_dq_kernel"))),
+    ("flash-attention backward dK/dV (K6 bwd)", lambda n: "flash_bwd_dkv_kernel" in n),
+    ("flash-attention backward dQ (K6 bwd)", lambda n: "flash_bwd_dq_kernel" in n),
+    ("flash-attention backward delta (K6 bwd)", lambda n: "flash_delta_kernel" in n),
     ("short-attention forward (K2 fwd)", lambda n: "short_fwd_kernel" in n),
     ("short-attention backward (K2 bwd)", lambda n: "short_bwd_" in n),
     ("talking-head forward (K5 fwd)", lambda n: "th_fwd_kernel" in n),

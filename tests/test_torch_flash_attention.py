@@ -194,3 +194,94 @@ def test_model_without_grad_runs_the_inference_op(monkeypatch):
     m(x, train=True).sum().backward()
     assert len(calls) == 2 and _cuda.LAUNCHES == before
     assert m.blocks[0].mha.q_proj.weight.grad is not None
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_op_on_the_packed_layout_matches_the_jax_kernel(dtype):
+    """``vtt::flash_attention`` on (B, T, N, H) CPU tensors, the layout the
+    CUDA kernels read in place (on CPU the op relays out inside itself), vs
+    the JAX ``flash_attention`` on the same (B, T, N, H) arrays in interpret
+    mode, with a (B·N, T, S) bias broadcast from (1, N, T, S)."""
+    jdt, tdt = DTYPES[dtype]
+    q, k, v, b, _ = _inputs(3, True)
+    want = jax_flash(*(jnp.asarray(a).astype(jdt) for a in (q, k, v)), jnp.asarray(b),
+                     interpret=True, **BLOCKS)
+    t = lambda a: torch.from_numpy(a).to(tdt)
+    bias = torch.from_numpy(b).expand(B, N, T, S).reshape(B * N, T, S)
+    got = torch.ops.vtt.flash_attention(t(q), t(k), t(v), bias, H**-0.5)
+    assert got.shape == (B, T, N, H) and got.dtype == tdt and got.is_contiguous()
+    want = np.asarray(want.astype(jnp.float32))
+    if dtype == "float32":
+        assert _rel_l2(got.numpy(), want) <= F32_REL_L2
+    else:
+        assert_matches_kernel(got.float().numpy(), want)
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _refused(case: str):
+    """(q, k, v, bias) for one thing the CUDA kernels do not take, on meta
+    tensors (no data, no card): the checks run before any launch."""
+    q, k, v = (_meta(2, n, 3, 32) for n in (40, 56, 56))
+    bias = None
+    if case == "float16":
+        q, k, v = (t.half() for t in (q, k, v))
+    elif case == "mixed types":
+        k = k.float()
+    elif case == "head 272":
+        q, k, v = (_meta(2, n, 3, 272) for n in (40, 56, 56))
+    elif case == "non-contiguous head":
+        q = _meta(2, 40, 3, 64)[..., ::2]
+    elif case == "k and v differ":
+        v = _meta(2, 57, 3, 32)
+    elif case == "q and k heads differ":
+        k, v = _meta(2, 56, 4, 32), _meta(2, 56, 4, 32)
+    elif case == "batch differs":
+        k, v = _meta(1, 56, 3, 32), _meta(1, 56, 3, 32)
+    elif case == "rank 5":
+        q, k, v = (t.unsqueeze(0) for t in (q, k, v))
+    elif case == "too many pairs":
+        q, k, v = (_meta(65536, n, 1, 16) for n in (4, 4, 4))
+    elif case == "bias shape":
+        bias = _meta(2, 3, 40, 56, dtype=torch.float32)
+    return q, k, v, bias
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("mixed types", TypeError), ("head 272", ValueError),
+    ("non-contiguous head", ValueError), ("k and v differ", ValueError),
+    ("q and k heads differ", ValueError), ("batch differs", ValueError), ("rank 5", ValueError),
+    ("too many pairs", ValueError), ("bias shape", ValueError),
+])
+def test_cuda_entry_refuses_what_the_kernels_do_not_take(case, error):
+    """The packed entry's checks (``flash_attention_cuda`` and the backward)
+    raise on a type other than f32/bf16 or mixed types, a head above 256, a
+    head dimension without unit stride, mismatched shapes or ranks, more
+    than 65535 (batch·head) pairs and a bias that is not (B·N, T, S)."""
+    q, k, v, bias = _refused(case)
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(error):
+        fa.flash_attention_cuda(q, k, v, bias)
+    if bias is None:
+        lse = torch.empty(6, q.shape[1] if q.ndim > 1 else 1, 1, device="meta")
+        with pytest.raises(error):
+            fa.flash_attention_bwd_cuda(q, k, v, q, lse, q)
+    assert _cuda.LAUNCHES == before
+
+
+def test_cuda_entry_takes_strided_views_and_the_flat_layout():
+    """What the kernels do take: q, k and v as strided views of one
+    (B, T, 3, N, H) projection (a unit stride along the head is all they
+    need) and the flat (B·N, T, H) layout as N = 1; the backward refuses an
+    lse that is not (B·N, T, 1)."""
+    qkv = _meta(2, 40, 3, 4, 24)
+    q, k, v = qkv.unbind(2)
+    assert not q.is_contiguous() and q.stride(-1) == 1
+    assert fa._check_cuda_args(q, k, v, None) == (2, 4, 40, 40, 24)
+    flat = _meta(8, 40, 24)
+    assert fa._check_cuda_args(flat, _meta(8, 56, 24), _meta(8, 56, 24),
+                               _meta(8, 40, 56, dtype=torch.float32)) == (8, 1, 40, 56, 24)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd_cuda(q, k, v, q, torch.empty(8, 40, device="meta"), q)

@@ -468,8 +468,9 @@ def test_siglip_builds_on_the_card_and_runs_its_kernels(cuda):
 
 
 def test_flash_attention_pads_head_72(cuda):
-    """Head 72 (SigLIP So400m/14 at 448 px) at T = 1024: the operands are
-    zero-padded to 80 in the relayout, K6 runs forward and backward, and
+    """Head 72 (SigLIP So400m/14 at 448 px) at T = 1024: the kernels
+    zero-pad the head to 80 in shared memory (the operands reach them as
+    they are, with no relayout copy), K6 runs forward and backward, and
     output and gradients match the plain versions on the unpadded head."""
     g = torch.Generator().manual_seed(72)
     q, k, v = (_rand(g, 2, 1024, 4, 72).to(cuda, torch.bfloat16).requires_grad_()
@@ -485,6 +486,94 @@ def test_flash_attention_pads_head_72(cuda):
     _check(out, want_out, bounds=FLASH_BOUND)
     for a, b in zip(got, want):
         _check(a, b, bounds=FLASH_BOUND)
+
+
+@pytest.mark.parametrize("head", [64, 72])
+def test_flash_attention_packed_entry_equals_the_flat_entry(cuda, head):
+    """The kernels on the packed (B, T, N, H) layout, read and written in
+    place, give the same bits as on a flat (B·N, T, H) copy of the same
+    data (the case N = 1): out, lse, dq, dk and dv. Head 72 is zero-padded
+    to 80 in shared memory on both entries."""
+    g = torch.Generator().manual_seed(head)
+    B, T, N = 2, 1024, 4
+    q, k, v, dout = (_rand(g, B, T, N, head).to(cuda, torch.bfloat16) for _ in range(4))
+    flat = lambda t: t.transpose(1, 2).reshape(B * N, T, head).contiguous()
+    unflat = lambda t: t.reshape(B, N, T, head).transpose(1, 2)
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    grads = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    flat_out, flat_lse = fa.flash_attention_cuda(flat(q), flat(k), flat(v))
+    flat_grads = fa.flash_attention_bwd_cuda(flat(q), flat(k), flat(v), flat_out, flat_lse,
+                                             flat(dout))
+    torch.cuda.synchronize()
+    assert out.shape == q.shape and out.is_contiguous()
+    assert torch.equal(out, unflat(flat_out)) and torch.equal(lse, flat_lse)
+    for a, b in zip(grads, flat_grads):
+        assert a.shape == q.shape and torch.equal(a, unflat(b))
+
+
+def test_flash_attention_reads_strided_views_in_place(cuda):
+    """q, k and v as views of one (B, T, 3, N, H) tensor, the strides of a
+    fused q/k/v projection, give the same bits as contiguous copies, forward
+    and backward."""
+    g = torch.Generator().manual_seed(3)
+    qkv = _rand(g, 2, 1024, 3, 4, 64).to(cuda, torch.bfloat16)
+    dout = _rand(g, 2, 1024, 4, 64).to(cuda, torch.bfloat16)
+    views = qkv.unbind(2)
+    copies = [t.contiguous() for t in views]
+    assert not views[0].is_contiguous()
+    out, lse = fa.flash_attention_cuda(*views)
+    want_out, want_lse = fa.flash_attention_cuda(*copies)
+    got = fa.flash_attention_bwd_cuda(*views, out, lse, dout)
+    want = fa.flash_attention_bwd_cuda(*copies, want_out, want_lse, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want_out) and torch.equal(lse, want_lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,head", [(torch.bfloat16, 64), (torch.float32, 256)])
+def test_flash_attention_second_backward_is_bit_equal(cuda, dtype, head):
+    """The backward has no atomics (dK/dV per key tile, dQ per query tile,
+    each summed in a fixed order): a second run gives the same bits."""
+    g = torch.Generator().manual_seed(head)
+    q, k, v, dout = (_rand(g, 1, 1024, 2, head).to(cuda, dtype) for _ in range(4))
+    out, lse = fa.flash_attention_cuda(q, k, v)
+    first = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    second = fa.flash_attention_bwd_cuda(q, k, v, out, lse, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_flash_attention_makes_no_relayout_copy(cuda):
+    """At T = 1024 on CUDA tensors ``dot_product_attention`` allocates, beyond
+    its inputs, its output alone when served (no (B·N, T, H) relayout or pad
+    copy of q, k, v), and under autograd the output, lse, dq, dk, dv and
+    delta: less than half a (B, T, N, H) tensor over those."""
+    g = torch.Generator().manual_seed(5)
+    q, k, v, dout = (_rand(g, 4, 1024, 12, 64).to(cuda, torch.bfloat16) for _ in range(4))
+    one = q.numel() * q.element_size()  # 6 MiB: one (B, T, N, H) tensor
+    _cuda.lib()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out = attn.dot_product_attention(q, k, v)
+    torch.cuda.synchronize()
+    served = torch.cuda.max_memory_allocated() - base
+    assert out.shape == q.shape and out.is_contiguous()
+    assert served < one + one // 2, served / one
+    del out
+    leaves = [t.requires_grad_() for t in (q, k, v)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _cuda.reset_launch_counts()
+    out = attn.dot_product_attention(*leaves)
+    grads = torch.autograd.grad(out, leaves, dout)
+    torch.cuda.synchronize()
+    trained = torch.cuda.max_memory_allocated() - base
+    assert _cuda.LAUNCHES["flash_attention"] == _cuda.LAUNCHES["flash_attention_bwd"] == 1
+    assert all(d.shape == q.shape for d in grads)
+    assert trained < 4 * one + one // 2, trained / one
 
 
 def test_cait_s_24_at_384_px_builds_and_runs(cuda):

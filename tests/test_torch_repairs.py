@@ -244,25 +244,28 @@ def test_padded_head_plain_equals_unpadded():
 
 
 def test_flash_attention_pads_the_head_in_its_relayout(monkeypatch):
-    """With the CUDA tensors' padding rule, ``flash_attention`` at head 72
-    hands (B·N, T, 80) operands to the op and returns the unpadded forward
-    and gradients."""
+    """Head 72 now reaches the op as it is: ``flash_attention`` hands the
+    (B, T, N, 72) operands to ``vtt::flash_attention`` with the scale of 72,
+    and the CUDA kernels zero-pad the head to 80 in shared memory (no
+    relayout copy). The result and gradients equal the plain versions on the
+    head zero-padded to 80, which is what the kernels compute."""
     g = torch.Generator().manual_seed(1)
     q, k, v = (torch.randn(1, 1024, 2, 72, generator=g) for _ in range(3))
-    with torch.no_grad():
-        want = fa.flash_attention(q, k, v)
-    shapes = []
+    seen = []
     op = fa._flash_attention_op
-    monkeypatch.setattr(fa, "padded_head", lambda h, is_cuda: -(-h // 16) * 16)
-    monkeypatch.setattr(fa, "_flash_attention_op", lambda *a: shapes.append(a[0].shape) or op(*a))
+    monkeypatch.setattr(fa, "_flash_attention_op",
+                        lambda *a: seen.append((tuple(a[0].shape), a[-1])) or op(*a))
     with torch.no_grad():
         got = fa.flash_attention(q, k, v)
-    assert shapes == [(2, 1024, 80)]
-    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert seen == [((1, 1024, 2, 72), 72**-0.5)]
+    padded = lambda t: _padded(t.transpose(1, 2).reshape(2, 1024, 72), 80)
+    unflat = lambda t: t[..., :72].reshape(1, 2, 1024, 72).transpose(1, 2)
+    pout, plse = fa.flash_attention_plain(*(padded(t) for t in (q, k, v)), scale=72**-0.5)
+    torch.testing.assert_close(got, unflat(pout), rtol=1e-6, atol=1e-6)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    fa.flash_attention(*leaves).sum().backward()
-    monkeypatch.setattr(fa, "padded_head", lambda h, is_cuda: h)
-    ref = [t.clone().requires_grad_() for t in (q, k, v)]
-    fa.flash_attention(*ref).sum().backward()
-    for a, b in zip(leaves, ref):
-        torch.testing.assert_close(a.grad, b.grad, rtol=1e-5, atol=1e-6)
+    dout = torch.randn(1, 1024, 2, 72, generator=g)
+    grads = torch.autograd.grad(fa.flash_attention(*leaves), leaves, dout)
+    want = fa.flash_attention_bwd_plain(*(padded(t) for t in (q, k, v)), pout, plse, padded(dout),
+                                        scale=72**-0.5)
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, unflat(b), rtol=1e-5, atol=1e-6)

@@ -219,3 +219,26 @@ def test_exported_program_calls_the_flash_op():
     x = torch.rand(3, 128, 128, 3, generator=torch.Generator().manual_seed(2))
     with torch.no_grad():
         assert torch.equal(load_exported(blob)(x), model(x))
+
+
+def test_exported_program_feeds_the_flash_op_in_place():
+    """Each block's q, k and v go from their projections to
+    ``vtt::flash_attention`` through one reshape to (B, T, N, H) and nothing
+    else, and its output to the output projection the same way: no permute,
+    transpose or clone node around the op, which takes the layout the
+    projections give (on the card its kernels read and write it in place)."""
+    model = ViT(**NARROW, dtype=torch.bfloat16, device="cpu")
+    program = torch.export.load(io.BytesIO(export_model(model, (2, 128, 128, 3))))
+    target = lambda n: str(getattr(n, "target", ""))
+    calls = [n for n in program.graph.nodes if target(n) == "vtt.flash_attention.default"]
+    assert len(calls) == NARROW["depth"]
+    for call in calls:
+        for arg in call.args[:3]:
+            assert target(arg) == "aten.reshape.default", target(arg)
+            assert target(arg.args[0]) == "aten.linear.default", target(arg.args[0])
+        (user,) = call.users
+        assert target(user) == "aten.reshape.default", target(user)
+        assert [target(u) for u in user.users] == ["aten.linear.default"]
+        chain = [*call.args[:3], user]
+        assert not [n for n in chain if any(w in target(n) for w in ("permute", "transpose",
+                                                                       "clone"))]

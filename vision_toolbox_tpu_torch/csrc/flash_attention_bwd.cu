@@ -1,319 +1,455 @@
-// Flash attention, backward (K6) without a bias: from q, k, v (BN, ·, H),
-// the forward's output and lse, and the output cotangent g,
+// Flash attention, backward (K6) without a bias: from q (B, T, N, H), k, v
+// (B, S, N, H), the forward's output and lse (B·N, T) and the output
+// cotangent g, all read in place with their strides,
 //   delta = Σ_h g·out (f32, per query row),
 //   p     = exp(q·kᵀ·scale − lse),  dp = g·vᵀ,  ds = p·(dp − delta),
 //   dv    = pᵀ·g,  dk = dsᵀ·q·scale,  dq = ds·k·scale,
-// every intermediate f32, dq/dk/dv rounded once to the input type.
+// every intermediate f32, dq/dk/dv rounded once to the input type and
+// written in place in (B, T, N, H) / (B, S, N, H). The flat (B·N, T, H)
+// layout is the case N = 1.
 //
 // Replaces the TPU kernels vision_toolbox_tpu/ops/flash_attention.py
 // `_flash_bwd_pallas` (`_flash_bwd_dkv_kernel`, `_flash_bwd_dq_kernel`).
 //
-// FlashAttention-2's split, as in the TPU kernels, whose f32 accumulators
-// carry along a sequential grid axis; here a loop inside the block takes
-// that axis's place:
-//   (a) delta, one warp per query row;
-//   (b) dK/dV per (key tile, pair): the block's K and V tiles stay in shared
-//       memory, query tiles of q and g stream past; p and ds are recomputed
-//       per tile pair and dV += pᵀ·g, dK += dsᵀ·q accumulate in registers;
-//   (c) dQ per (query tile, pair): q and g stay, K/V tiles stream past;
-//       dQ += ds·k in registers.
-// p and ds never leave shared memory; nothing of size (T, S) goes to device
-// memory. A head wider than 128: (b) and (c) run per ≤ 128-wide chunk of
-// the gradients' columns (grid z), each recomputing s and dp over the whole
-// head (flash_attention.cuh). Every product runs on the tensor cores with exact operands (q, k,
-// v, g as given; p and ds as two bf16 planes for bf16 inputs, everything as
-// three for f32 ones: flash_attention.cuh). dk is the f32 dsᵀ·q scaled
-// afterwards (the TPU kernel scales q first: the same value at head 64).
+// What bounds it: at siglip vit_b_16 batch 32 (T = S = 1024, 12 heads of
+// 64, bf16) the five products the algorithm needs are 258 GFLOP (0.26 ms
+// at 989 TFLOP/s) against 0.25 GB of operands, so the tensor cores set
+// the bound.
 //
-// What bounds it: at siglip vit_b_16 batch 64 (T = S = 1024, 12 heads of
-// 64, bf16) the five products the algorithm needs are 515 GFLOP (0.52 ms at
-// 989 TFLOP/s) against 0.5 GB of operands, so the tensor cores set the
-// bound. This version recomputes s and dp in both (b) and (c) (FA-2's
-// price for no atomics), spends a second pass on each two-plane operand and
-// stages every product through shared memory.
-#include "flash_attention.cuh"
+// Design: FlashAttention-2's split, as in the TPU kernels, whose f32
+// accumulators carry along a sequential grid axis; here a loop inside the
+// block takes that axis's place. No atomics: a second backward gives the
+// same bits.
+//   (a) delta, one warp per query row;
+//   (b) dK/dV, one block per (128 keys, pair, ≤ 128 gradient columns),
+//       eight warps of 16 keys. K and V stay in shared memory; tiles of 32
+//       queries of q and g (with their lse and delta) stream through a
+//       two-stage cp.async ring. Each warp forms the transposed scores
+//       directly, sᵀ = k·qᵀ and dpᵀ = v·gᵀ, in registers, then pᵀ and
+//       dsᵀ = pᵀ·(dpᵀ − delta) in f32, and dv += pᵀ·g, dk += dsᵀ·q with
+//       pᵀ and dsᵀ fed from registers as A fragments (their accumulator
+//       layout is the A layout, attention_mma.cuh), so no operand is ever
+//       transposed through shared memory; dv and dk stay in registers.
+//   (c) dQ, one block per (128 queries, pair, ≤ 128 columns): q and g stay,
+//       K/V tiles stream through the ring; s, dp, p and ds in registers,
+//       dq += ds·k from registers.
+// Planes (exact operands, attention_mma.cuh): bf16 inputs — sᵀ, dpᵀ, s
+// and dp one plane each (one mma), pᵀ·g, dsᵀ·q and ds·k with p and ds as
+// two planes split in registers (two mmas), so neither is rounded to bf16
+// once; f32 inputs — q, k, v, g three planes, p and ds three (six mmas).
+// Heads above 128: (b) and (c) run per 128-wide chunk of the gradients'
+// columns (grid z), each recomputing the scores over the whole head. dk is
+// the f32 dsᵀ·q scaled afterwards (the TPU kernel scales q first: the same
+// value at head 64).
+#include <initializer_list>
 
-using namespace vtt_flash;
+#include "attention_mma.cuh"
+
+using namespace vtt_mma;
 
 namespace {
 
-// Element pitches and byte offsets of (b)'s and (c)'s shared memory: q and g
-// tiles, k and v tiles (input planes), the f32 scores and dp, p and ds
-// (f32 planes), and lse and delta of the query rows.
+constexpr int MAX_HEAD_DIM = 256;
+constexpr int CHUNK = 128;  // gradient columns of a block
+
+// Per input type: warps of 16 rows (keys in (b), queries in (c)), the
+// streamed tile (queries in (b), keys in (c)), ring stages, planes of an
+// input operand and of p and ds.
 template <typename T>
-struct BwdSmem {
-  int ldh, ldk, lds;
-  size_t q, g, k, v, s, dp, p, ds, lse, delta, total;
-  __host__ __device__ explicit BwdSmem(int H) {
-    constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, IN = Cfg<T>::IN, MID = Cfg<T>::MID;
-    ldh = H + 8;
-    ldk = BK + 8;
-    lds = BK + 4;
-    const size_t qt = align128(static_cast<size_t>(IN) * BQ * ldh * 2);
-    const size_t kt = align128(static_cast<size_t>(IN) * BK * ldh * 2);
-    const size_t st = align128(static_cast<size_t>(BQ) * lds * 4);
-    const size_t pt = align128(static_cast<size_t>(MID) * BQ * ldk * 2);
-    q = 0;
-    g = q + qt;
-    k = g + qt;
-    v = k + kt;
-    s = v + kt;
-    dp = s + st;
-    p = dp + st;
-    ds = p + pt;
-    lse = ds + pt;
-    delta = lse + align128(BQ * 4);
-    const size_t stream = delta + align128(BQ * 4);
-    // after the loop the f32 results of the block's column chunk are staged
-    // over the same bytes: [dv | dk] or dq
-    const size_t staged = static_cast<size_t>(2) * (BK > BQ ? BK : BQ) * (chunk_width(H, 0) + 4) * 4;
-    total = stream > staged ? stream : staged;
+struct Bwd;
+template <>
+struct Bwd<bf16> {
+  static constexpr int NW = 8, QSTEP = 32, KSTEP = 64, STAGES = 2, IN = 1, MID = 2;
+};
+template <>
+struct Bwd<float> {  // three planes of every operand: small tiles
+  static constexpr int NW = 2, QSTEP = 16, KSTEP = 16, STAGES = 1, IN = 3, MID = 3;
+};
+// (c)'s key tile: K and V of the whole head take two ring stages, so the
+// widest heads stream 32 keys at a time.
+template <typename T, int HD>
+__host__ __device__ constexpr int dq_kstep() {
+  return HD == 256 && Bwd<T>::KSTEP > 32 ? 32 : Bwd<T>::KSTEP;
+}
+// Two blocks an SM at head 64 (128 registers, no spills): at one block an
+// SM the backward ran 1.45× slower (scripts/tune_flash_attention.py,
+// SigLIP b32, H100).
+template <typename T, int HD>
+__host__ __device__ constexpr int bwd_min_blocks() {
+  return std::is_same<T, bf16>::value && HD == 64 ? 2 : 1;
+}
+
+enum { Q_, K_, V_, O_, G_, DQ_, DK_, DV_ };  // rows of BwdArgs::st
+
+struct BwdArgs {
+  const void *q, *k, *v, *out, *g;
+  const float* lse;
+  float* delta;
+  void *dq, *dk, *dv;
+  long long st[8][3];  // (batch, row, head) element strides, in the order above
+  int N, T, S, H, Hp, vec;
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* pair_ptr(const BwdArgs& a, int which, const void* p, int pair) {
+  return Mat<const T>{static_cast<const T*>(p), a.st[which][0], a.st[which][1], a.st[which][2]}
+      .pair(pair, a.N);
+}
+template <typename T>
+__device__ __forceinline__ T* pair_ptr_out(const BwdArgs& a, int which, void* p, int pair) {
+  return Mat<T>{static_cast<T*>(p), a.st[which][0], a.st[which][1], a.st[which][2]}.pair(pair, a.N);
+}
+
+// acc (16 rows × NC columns) = a·bᵀ over the whole head: the warp's 16
+// rows of the [row][h] tile `a` (plane stride a_plane) against the NC rows
+// of the [col][h] tile `b` (plane stride b_plane), both of pitch ld.
+template <int IN, int NC, int HD>
+__device__ __forceinline__ void scores_t(float (*acc)[4], const bf16* a, const bf16* b,
+                                         int a_plane, int b_plane, int ld, int warp, int nkh) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if (kk >= nkh) break;
+    uint32_t af[IN][4];
+#pragma unroll
+    for (int i = 0; i < IN; ++i) ldsm_x4<false>(af[i], a + i * a_plane, ld, warp * 16, kk * 16);
+#pragma unroll
+    for (int jj = 0; jj < NC / 16; ++jj) {
+      uint32_t bfr[IN][4];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) ldsm_b_nk(bfr[i], b + i * b_plane, ld, jj * 16, kk * 16);
+      mma_planes2<IN, IN>(acc[2 * jj], acc[2 * jj + 1], af, bfr);
+    }
   }
-};
+}
 
-template <typename T>
-struct Tiles {  // shared-memory pointers of one backward block
-  bf16 *q, *g, *k, *v, *p, *ds;
-  float *s, *dp, *lse, *delta;
-  __device__ Tiles(unsigned char* smem, const BwdSmem<T>& L)
-      : q(reinterpret_cast<bf16*>(smem + L.q)), g(reinterpret_cast<bf16*>(smem + L.g)),
-        k(reinterpret_cast<bf16*>(smem + L.k)), v(reinterpret_cast<bf16*>(smem + L.v)),
-        p(reinterpret_cast<bf16*>(smem + L.p)), ds(reinterpret_cast<bf16*>(smem + L.ds)),
-        s(reinterpret_cast<float*>(smem + L.s)), dp(reinterpret_cast<float*>(smem + L.dp)),
-        lse(reinterpret_cast<float*>(smem + L.lse)),
-        delta(reinterpret_cast<float*>(smem + L.delta)) {}
-};
+// acc (16 rows × the chunk's columns) += x·b: x (16 × NK) the warp's f32
+// accumulator tiles as MID-plane A fragments, b the [k][h] tile (NK rows,
+// plane stride b_plane, pitch ld) at columns c0.. c0 + hc.
+template <int MID, int IN, int NK, int HC>
+__device__ __forceinline__ void grad_step(float (*acc)[4], float (*x)[4], const bf16* b,
+                                          int b_plane, int ld, int c0, int hc) {
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    uint32_t xa[MID][4];
+    acc_to_a<MID>(x[2 * kk], x[2 * kk + 1], xa);
+#pragma unroll
+    for (int nn = 0; nn < HC / 16; ++nn) {
+      if (nn * 16 >= hc) break;
+      uint32_t bfr[IN][4];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) {
+        ldsm_x4<true>(bfr[i], b + i * b_plane, ld, kk * 16, c0 + nn * 16);
+      }
+      mma_planes2<MID, IN>(acc[2 * nn], acc[2 * nn + 1], xa, bfr);
+    }
+  }
+}
 
+// (a): delta[pair·T + t] = Σ_h g·out, one warp per row, rows pair-major.
 template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_delta_kernel(const T* __restrict__ out, const T* __restrict__ g, float* __restrict__ delta,
-                   int rows, int H) {
-  const int row = blockIdx.x * NW + (threadIdx.x >> 5), lane = threadIdx.x & 31;
+__global__ void __launch_bounds__(256) flash_delta_kernel(const BwdArgs a, int rows) {
+  const int row = blockIdx.x * 8 + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const size_t base = static_cast<size_t>(row) * H;
+  const int pair = row / a.T, r = row % a.T;
+  const T* o = pair_ptr<T>(a, O_, a.out, pair) + r * a.st[O_][1];
+  const T* g = pair_ptr<T>(a, G_, a.g, pair) + r * a.st[G_][1];
   float s = 0.0f;
-  for (int c = lane; c < H; c += 32) s += to_f32(out[base + c]) * to_f32(g[base + c]);
-  s = warp_sum(s);
-  if (lane == 0) delta[row] = s;
+  for (int c = lane; c < a.H; c += 32) s += to_f32(o[c]) * to_f32(g[c]);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) a.delta[row] = s;
 }
 
-// lse and delta of query rows [q0, q0 + BQ) into shared memory (0 past T).
+// Byte offsets of (b)'s shared memory: K and V (the whole head, resident),
+// then per ring stage a q and a g tile, lse and delta of its queries.
 template <typename T>
-__device__ __forceinline__ void load_row_stats(const float* lse, const float* delta, size_t bn,
-                                               int q0, int Tq, const Tiles<T>& sm) {
-  for (int r = threadIdx.x; r < Cfg<T>::BQ; r += NT) {
-    const bool ok = q0 + r < Tq;
-    sm.lse[r] = ok ? lse[bn * Tq + q0 + r] : 0.0f;
-    sm.delta[r] = ok ? delta[bn * Tq + q0 + r] : 0.0f;
+struct DkvSmem {
+  int ldh;
+  size_t kv_bytes, q_bytes, stage, ring, total;
+  __host__ __device__ explicit DkvSmem(int Hp) {
+    constexpr int BKV = 16 * Bwd<T>::NW, BQ = Bwd<T>::QSTEP, IN = Bwd<T>::IN;
+    ldh = Hp + 8;
+    kv_bytes = align128(static_cast<size_t>(IN) * BKV * ldh * 2);
+    q_bytes = align128(static_cast<size_t>(IN) * BQ * ldh * 2);
+    stage = 2 * q_bytes + align128(2 * BQ * 4);
+    ring = 2 * kv_bytes;
+    total = ring + Bwd<T>::STAGES * stage;
   }
-}
+};
 
-// For the tile pair (query rows q0.., keys k0..) whose q, g, k, v tiles are
-// in shared memory: s = q·kᵀ and dp = g·vᵀ (f32), then p = exp(s·scale −
-// lse) and ds = p·(dp − delta), zero outside T × S, as bf16 planes (p only
-// if WITH_P). Ends synchronised.
-template <typename T, bool WITH_P>
-__device__ __forceinline__ void probs_and_ds(const Tiles<T>& sm, const BwdSmem<T>& L, int q0,
-                                             int Tq, int k0, int S, int H, float scale) {
-  constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, IN = Cfg<T>::IN, MID = Cfg<T>::MID;
-  const int warp = threadIdx.x >> 5;
-  const int qplane = BQ * L.ldh, kplane = BK * L.ldh, pplane = BQ * L.ldk;
-  constexpr int per = (BQ / 16) * (BK / 16);
-  for (int t = warp; t < 2 * per; t += NW) {
-    const int which = t / per, rem = t % per, i = rem % (BQ / 16), j = rem / (BQ / 16);
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    mma_planes<wmma::row_major, wmma::col_major, IN, IN>(
-        acc, (which ? sm.g : sm.q) + i * 16 * L.ldh, L.ldh, 16, qplane,
-        (which ? sm.v : sm.k) + j * 16 * L.ldh, L.ldh, 16, kplane, H);
-    wmma::store_matrix_sync((which ? sm.dp : sm.s) + i * 16 * L.lds + j * 16, acc, L.lds,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < BQ * BK; e += NT) {
-    const int r = e / BK, c = e % BK;
-    const bool ok = q0 + r < Tq && k0 + c < S;
-    const float p = ok ? expf(sm.s[r * L.lds + c] * scale - sm.lse[r]) : 0.0f;
-    const float ds = p * (sm.dp[r * L.lds + c] - sm.delta[r]);
-    if constexpr (WITH_P) split_store<MID>(p, sm.p + r * L.ldk + c, pplane);
-    split_store<MID>(ds, sm.ds + r * L.ldk + c, pplane);
-  }
-  __syncthreads();
-}
-
-// Two blocks an SM (at most 128 registers a thread): its dV and dK fragments
-// otherwise take it to 136 and one block an SM, 1.3× slower at head 64.
-template <typename T>
-__global__ void __launch_bounds__(NT, 2)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ g, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Tq, int S, int H, float scale) {
-  constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, IN = Cfg<T>::IN, MID = Cfg<T>::MID;
-  constexpr int MAXF = 2 * (BK / 16) * (MAX_HEAD / 16) / NW;  // [dv | dk] tiles per warp
+template <typename T, int HD>
+__global__ void __launch_bounds__(Bwd<T>::NW * 32, (bwd_min_blocks<T, HD>()))
+flash_bwd_dkv_kernel(const BwdArgs a) {
+  using C = Bwd<T>;
+  constexpr int NW = C::NW, NT = NW * 32, BKV = 16 * NW, BQ = C::QSTEP, IN = C::IN, MID = C::MID;
+  constexpr int HC = HD < CHUNK ? HD : CHUNK;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem<T> L(H);
-  const Tiles<T> sm(smem, L);
-  const int k0 = blockIdx.x * BK;
-  const size_t bn = blockIdx.y;
-  const int c0 = blockIdx.z * MAX_HEAD, hc = chunk_width(H, c0);  // this block's columns
-  const int warp = threadIdx.x >> 5;
-  const int qplane = BQ * L.ldh, kplane = BK * L.ldh, pplane = BQ * L.ldk;
-
-  load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, H, sm.k, L.ldh, kplane);
-  load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, H, sm.v, L.ldh, kplane);
-  const int per = (BK / 16) * (hc / 16), n_tiles = 2 * per;  // t → (dv | dk, key tile, column tile)
-  Acc acc[MAXF];
-#pragma unroll
-  for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(acc[f], 0.0f);
-
-  for (int q0 = 0; q0 < Tq; q0 += BQ) {
-    __syncthreads();  // the last tile's products are done with q, g, p and ds
-    load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, H, sm.q, L.ldh, qplane);
-    load_rows<T, IN>(g + bn * Tq * H, q0, BQ, Tq, H, H, sm.g, L.ldh, qplane);
-    load_row_stats(lse, delta, bn, q0, Tq, sm);
-    __syncthreads();
-    probs_and_ds<T, true>(sm, L, q0, Tq, k0, S, H, scale);
-#pragma unroll
-    for (int f = 0; f < MAXF; ++f) {
-      const int t = warp + f * NW;
-      if (t >= n_tiles) continue;
-      const int which = t / per, rem = t % per, i = rem % (BK / 16), j = rem / (BK / 16);
-      // dv += pᵀ·g, dk += dsᵀ·q: (p or ds)ᵀ read column-major from the [query][key] tile
-      mma_planes<wmma::col_major, wmma::row_major, MID, IN>(
-          acc[f], (which ? sm.ds : sm.p) + i * 16, L.ldk, 16 * L.ldk, pplane,
-          (which ? sm.q : sm.g) + c0 + j * 16, L.ldh, 16 * L.ldh, qplane, BQ);
+  const DkvSmem<T> L(a.Hp);
+  const int tid = threadIdx.x, warp = tid >> 5, t = lane_t();
+  const int k0 = blockIdx.x * BKV, pair = blockIdx.y;
+  const int c0 = blockIdx.z * CHUNK, hc = min(CHUNK, a.Hp - c0);
+  const int nkh = a.Hp / 16;
+  const T* qp = pair_ptr<T>(a, Q_, a.q, pair);
+  const T* gp = pair_ptr<T>(a, G_, a.g, pair);
+  const float* lse = a.lse + static_cast<size_t>(pair) * a.T;
+  const float* delta = a.delta + static_cast<size_t>(pair) * a.T;
+  const int kvplane = BKV * L.ldh, qplane = BQ * L.ldh;
+  bf16* ks = reinterpret_cast<bf16*>(smem);
+  bf16* vs = reinterpret_cast<bf16*>(smem + L.kv_bytes);
+  auto stage = [&](int s) { return smem + L.ring + s * L.stage; };
+  auto qs = [&](int s) { return reinterpret_cast<bf16*>(stage(s)); };
+  auto gs = [&](int s) { return reinterpret_cast<bf16*>(stage(s) + L.q_bytes); };
+  auto stats = [&](int s) { return reinterpret_cast<float*>(stage(s) + 2 * L.q_bytes); };
+  const int ntiles = (a.T + BQ - 1) / BQ;
+  auto load_q = [&](int it) {  // query tile `it` into its ring stage
+    const int q0 = it * BQ, s = it % C::STAGES;
+    load_tile<T, IN>(qs(s), L.ldh, qplane, qp, a.st[Q_][1], q0, BQ, a.T, a.H, a.Hp, a.vec, tid, NT);
+    load_tile<T, IN>(gs(s), L.ldh, qplane, gp, a.st[G_][1], q0, BQ, a.T, a.H, a.Hp, a.vec, tid, NT);
+    float* st = stats(s);  // lse·log2 e (1e30 past T: p = 0 there) and delta
+    for (int r = tid; r < BQ; r += NT) {
+      const bool ok = q0 + r < a.T;
+      st[r] = ok ? lse[q0 + r] * kLog2e : 1e30f;
+      st[BQ + r] = ok ? delta[q0 + r] : 0.0f;
     }
-  }
-  __syncthreads();
+  };
 
-  float* staged = reinterpret_cast<float*>(smem);  // [dv | dk][key][hc + 4]
-  const int ldo = hc + 4;
+  load_tile<T, IN>(ks, L.ldh, kvplane, pair_ptr<T>(a, K_, a.k, pair), a.st[K_][1], k0, BKV, a.S,
+                   a.H, a.Hp, a.vec, tid, NT);
+  load_tile<T, IN>(vs, L.ldh, kvplane, pair_ptr<T>(a, V_, a.v, pair), a.st[V_][1], k0, BKV, a.S,
+                   a.H, a.Hp, a.vec, tid, NT);
 #pragma unroll
-  for (int f = 0; f < MAXF; ++f) {
-    const int t = warp + f * NW;
-    if (t >= n_tiles) continue;
-    const int which = t / per, rem = t % per, i = rem % (BK / 16), j = rem / (BK / 16);
-    wmma::store_matrix_sync(staged + (which * BK + i * 16) * ldo + j * 16, acc[f], ldo,
-                            wmma::mem_row_major);
+  for (int it = 0; it < C::STAGES - 1; ++it) {  // the ring's first tiles, each its own group
+    if (it < ntiles) load_q(it);
+    cp_async_commit();
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < 2 * BK * hc; e += NT) {
-    const int which = e / (BK * hc), r = (e / hc) % BK, c = e % hc;
-    if (k0 + r >= S) continue;
-    const float val = staged[(which * BK + r) * ldo + c];
-    const size_t o = (bn * S + k0 + r) * H + c0 + c;
-    if (which) {
-      dk[o] = from_f32<T>(val * scale);
-    } else {
-      dv[o] = from_f32<T>(val);
+
+  float dv[HC / 8][4], dk[HC / 8][4];
+#pragma unroll
+  for (int j = 0; j < HC / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[j][e] = dk[j][e] = 0.0f;
+  }
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int s_ = it % C::STAGES;
+    ring_step<C::STAGES>(it, ntiles, load_q);
+
+    // sᵀ = k·qᵀ, then dpᵀ = v·gᵀ, over the whole head: 16 keys × BQ queries
+    // (one product at a time keeps half the fragments live)
+    float s[BQ / 8][4], dp[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
     }
+    const bf16 *qt = qs(s_), *gt = gs(s_);
+    scores_t<IN, BQ, HD>(s, ks, qt, kvplane, qplane, L.ldh, warp, nkh);
+    scores_t<IN, BQ, HD>(dp, vs, gt, kvplane, qplane, L.ldh, warp, nkh);
+
+    // pᵀ = e^(sᵀ·scale − lse) and dsᵀ = pᵀ·(dpᵀ − delta)
+    const float* st = stats(s_);
+    const float fac = a.scale * kLog2e;
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + 2 * t + (e & 1);
+        const float p = exp2_approx(fmaf(s[j][e], fac, -st[c]));
+        s[j][e] = p;
+        dp[j][e] = p * (dp[j][e] - st[BQ + c]);
+      }
+    }
+
+    // dv += pᵀ·g, then dk += dsᵀ·q, over the chunk's columns, pᵀ and dsᵀ
+    // from registers (one product at a time keeps half the fragments live)
+    grad_step<MID, IN, BQ, HC>(dv, s, gt, qplane, L.ldh, c0, hc);
+    grad_step<MID, IN, BQ, HC>(dk, dp, qt, qplane, L.ldh, c0, hc);
+    if constexpr (C::STAGES == 1) __syncthreads();  // the one stage is refilled next
+  }
+
+  T* dkp = pair_ptr_out<T>(a, DK_, a.dk, pair) + c0;
+  T* dvp = pair_ptr_out<T>(a, DV_, a.dv, pair) + c0;
+  const int row0 = k0 + warp * 16 + lane_g();
+#pragma unroll
+  for (int j = 0; j < HC / 8; ++j) {
+    if (j * 8 >= hc) break;
+    const float sk[4] = {dk[j][0] * a.scale, dk[j][1] * a.scale, dk[j][2] * a.scale,
+                         dk[j][3] * a.scale};
+    store_acc<T>(dvp, a.st[DV_][1], row0, a.S, j * 8 + 2 * t, a.H - c0, dv[j]);
+    store_acc<T>(dkp, a.st[DK_][1], row0, a.S, j * 8 + 2 * t, a.H - c0, sk);
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ g, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Tq, int S, int H,
-                    float scale) {
-  constexpr int BQ = Cfg<T>::BQ, BK = Cfg<T>::BK, IN = Cfg<T>::IN, MID = Cfg<T>::MID;
-  constexpr int MAXF = (BQ / 16) * (MAX_HEAD / 16) / NW;  // dq tiles per warp
+// Byte offsets of (c)'s shared memory: q and g (resident), lse and delta of
+// their rows, then per ring stage a K and a V tile, both over the whole head.
+template <typename T, int HD>
+struct DqSmem {
+  int ldh;
+  size_t q_bytes, k_bytes, stats, ring, stage, total;
+  __host__ __device__ explicit DqSmem(int Hp) {
+    constexpr int BQ = 16 * Bwd<T>::NW, BK = dq_kstep<T, HD>(), IN = Bwd<T>::IN;
+    ldh = Hp + 8;
+    q_bytes = align128(static_cast<size_t>(IN) * BQ * ldh * 2);
+    k_bytes = align128(static_cast<size_t>(IN) * BK * ldh * 2);
+    stats = 2 * q_bytes;
+    ring = stats + align128(2 * BQ * 4);
+    stage = 2 * k_bytes;
+    total = ring + Bwd<T>::STAGES * stage;
+  }
+};
+
+template <typename T, int HD>
+__global__ void __launch_bounds__(Bwd<T>::NW * 32, (bwd_min_blocks<T, HD>()))
+flash_bwd_dq_kernel(const BwdArgs a) {
+  using C = Bwd<T>;
+  constexpr int NW = C::NW, NT = NW * 32, BQ = 16 * NW, BK = dq_kstep<T, HD>(), IN = C::IN,
+                MID = C::MID;
+  constexpr int HC = HD < CHUNK ? HD : CHUNK;
   extern __shared__ __align__(128) unsigned char smem[];
-  const BwdSmem<T> L(H);
-  const Tiles<T> sm(smem, L);
-  const int q0 = blockIdx.x * BQ;
-  const size_t bn = blockIdx.y;
-  const int c0 = blockIdx.z * MAX_HEAD, hc = chunk_width(H, c0);  // this block's columns
-  const int warp = threadIdx.x >> 5;
-  const int qplane = BQ * L.ldh, kplane = BK * L.ldh, pplane = BQ * L.ldk;
+  const DqSmem<T, HD> L(a.Hp);
+  const int tid = threadIdx.x, warp = tid >> 5, t = lane_t();
+  const int q0 = blockIdx.x * BQ, pair = blockIdx.y;
+  const int c0 = blockIdx.z * CHUNK, hc = min(CHUNK, a.Hp - c0);
+  const int nkh = a.Hp / 16;
+  const T* kp = pair_ptr<T>(a, K_, a.k, pair);
+  const T* vp = pair_ptr<T>(a, V_, a.v, pair);
+  const int qplane = BQ * L.ldh, kplane = BK * L.ldh;
+  bf16* qs = reinterpret_cast<bf16*>(smem);
+  bf16* gs = reinterpret_cast<bf16*>(smem + L.q_bytes);
+  float* stats = reinterpret_cast<float*>(smem + L.stats);  // lse·log2 e, delta of the rows
+  auto ks = [&](int s) { return reinterpret_cast<bf16*>(smem + L.ring + s * L.stage); };
+  auto vs = [&](int s) { return reinterpret_cast<bf16*>(smem + L.ring + s * L.stage + L.k_bytes); };
+  const int ntiles = (a.S + BK - 1) / BK;
+  auto load_kv = [&](int it) {  // key tile `it` into its ring stage
+    const int k0 = it * BK, s = it % C::STAGES;
+    load_tile<T, IN>(ks(s), L.ldh, kplane, kp, a.st[K_][1], k0, BK, a.S, a.H, a.Hp, a.vec, tid, NT);
+    load_tile<T, IN>(vs(s), L.ldh, kplane, vp, a.st[V_][1], k0, BK, a.S, a.H, a.Hp, a.vec, tid, NT);
+  };
 
-  load_rows<T, IN>(q + bn * Tq * H, q0, BQ, Tq, H, H, sm.q, L.ldh, qplane);
-  load_rows<T, IN>(g + bn * Tq * H, q0, BQ, Tq, H, H, sm.g, L.ldh, qplane);
-  load_row_stats(lse, delta, bn, q0, Tq, sm);
-  const int per = (BQ / 16) * (hc / 16);  // t → (query tile, column tile)
-  Acc acc[MAXF];
+  load_tile<T, IN>(qs, L.ldh, qplane, pair_ptr<T>(a, Q_, a.q, pair), a.st[Q_][1], q0, BQ, a.T, a.H,
+                   a.Hp, a.vec, tid, NT);
+  load_tile<T, IN>(gs, L.ldh, qplane, pair_ptr<T>(a, G_, a.g, pair), a.st[G_][1], q0, BQ, a.T, a.H,
+                   a.Hp, a.vec, tid, NT);
 #pragma unroll
-  for (int f = 0; f < MAXF; ++f) wmma::fill_fragment(acc[f], 0.0f);
+  for (int it = 0; it < C::STAGES - 1; ++it) {
+    if (it < ntiles) load_kv(it);
+    cp_async_commit();
+  }
 
-  for (int k0 = 0; k0 < S; k0 += BK) {
-    __syncthreads();  // the last tile's products are done with k and ds
-    load_rows<T, IN>(k + bn * S * H, k0, BK, S, H, H, sm.k, L.ldh, kplane);
-    load_rows<T, IN>(v + bn * S * H, k0, BK, S, H, H, sm.v, L.ldh, kplane);
-    __syncthreads();
-    probs_and_ds<T, false>(sm, L, q0, Tq, k0, S, H, scale);
+  for (int r = tid; r < BQ; r += NT) {  // p = 0 past T
+    const bool ok = q0 + r < a.T;
+    const size_t i = static_cast<size_t>(pair) * a.T + q0 + r;
+    stats[r] = ok ? a.lse[i] * kLog2e : 1e30f;
+    stats[BQ + r] = ok ? a.delta[i] : 0.0f;
+  }
+  const int row0 = q0 + warp * 16 + lane_g(), srow = warp * 16 + lane_g();
+  float dq[HC / 8][4];
 #pragma unroll
-    for (int f = 0; f < MAXF; ++f) {  // dq += ds·k
-      const int t = warp + f * NW;
-      if (t >= per) continue;
-      const int i = t % (BQ / 16), j = t / (BQ / 16);
-      mma_planes<wmma::row_major, wmma::row_major, MID, IN>(
-          acc[f], sm.ds + i * 16 * L.ldk, L.ldk, 16, pplane, sm.k + c0 + j * 16, L.ldh,
-          16 * L.ldh, kplane, BK);
+  for (int j = 0; j < HC / 8; ++j) dq[j][0] = dq[j][1] = dq[j][2] = dq[j][3] = 0.0f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int k0 = it * BK, s_ = it % C::STAGES;
+    ring_step<C::STAGES>(it, ntiles, load_kv);
+
+    // s = q·kᵀ, then dp = g·vᵀ, over the whole head: 16 queries × BK keys
+    float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
     }
-  }
-  __syncthreads();
+    const bf16 *kt = ks(s_), *vt = vs(s_);
+    scores_t<IN, BK, HD>(s, qs, kt, qplane, kplane, L.ldh, warp, nkh);
+    scores_t<IN, BK, HD>(dp, gs, vt, qplane, kplane, L.ldh, warp, nkh);
 
-  float* staged = reinterpret_cast<float*>(smem);  // [query][hc + 4]
-  const int ldo = hc + 4;
+    // ds = p·(dp − delta), p = e^(s·scale − lse); keys past S (only in the
+    // last tile) masked, though their zero rows of k add nothing to dq
+    const bool tail = k0 + BK > a.S;
+    const float fac = a.scale * kLog2e;
+    const float lse_r[2] = {stats[srow], stats[srow + 8]};
+    const float delta_r[2] = {stats[BQ + srow], stats[BQ + srow + 8]};
 #pragma unroll
-  for (int f = 0; f < MAXF; ++f) {
-    const int t = warp + f * NW;
-    if (t >= per) continue;
-    const int i = t % (BQ / 16), j = t / (BQ / 16);
-    wmma::store_matrix_sync(staged + i * 16 * ldo + j * 16, acc[f], ldo, wmma::mem_row_major);
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int h = e >> 1;
+        float p = exp2_approx(fmaf(s[j][e], fac, -lse_r[h]));
+        if (tail && k0 + j * 8 + 2 * t + (e & 1) >= a.S) p = 0.0f;
+        dp[j][e] = p * (dp[j][e] - delta_r[h]);
+      }
+    }
+
+    // dq += ds·k over the chunk's columns, ds from registers
+    grad_step<MID, IN, BK, HC>(dq, dp, kt, kplane, L.ldh, c0, hc);
+    if constexpr (C::STAGES == 1) __syncthreads();
   }
-  __syncthreads();
-  for (int e = threadIdx.x; e < BQ * hc; e += NT) {
-    const int r = e / hc, c = e % hc;
-    if (q0 + r < Tq) dq[(bn * Tq + q0 + r) * H + c0 + c] = from_f32<T>(staged[r * ldo + c] * scale);
+
+  T* dqp = pair_ptr_out<T>(a, DQ_, a.dq, pair) + c0;
+#pragma unroll
+  for (int j = 0; j < HC / 8; ++j) {
+    if (j * 8 >= hc) break;
+    const float sq[4] = {dq[j][0] * a.scale, dq[j][1] * a.scale, dq[j][2] * a.scale,
+                         dq[j][3] * a.scale};
+    store_acc<T>(dqp, a.st[DQ_][1], row0, a.T, j * 8 + 2 * t, a.H - c0, sq);
   }
 }
 
-template <typename T>
-cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
-                       const void* g, const float* lse, float* delta, void* dq, void* dk,
-                       void* dv, int BN, int Tq, int S, int H, float scale, cudaStream_t st) {
-  const BwdSmem<T> L(H);
-  if (L.total > kMaxSmem) return cudaErrorInvalidValue;
-  const int rows = BN * Tq;
-  const T *qt = static_cast<const T*>(q), *kt = static_cast<const T*>(k),
-          *vt = static_cast<const T*>(v), *gt = static_cast<const T*>(g);
-  flash_delta_kernel<T><<<(rows + NW - 1) / NW, NT, 0, st>>>(static_cast<const T*>(out), gt,
-                                                             delta, rows, H);
+template <typename K>
+cudaError_t launch(K kernel, dim3 grid, int threads, size_t smem, const BwdArgs& a,
+                   cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, threads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, int HD>
+cudaError_t launch_bwd(const BwdArgs& a, int pairs, cudaStream_t st) {
+  constexpr int NW = Bwd<T>::NW, NT = NW * 32;
+  const int rows = pairs * a.T, chunks = (a.Hp + CHUNK - 1) / CHUNK;
+  flash_delta_kernel<T><<<(rows + 7) / 8, 256, 0, st>>>(a, rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
+  err = launch(flash_bwd_dkv_kernel<T, HD>, dim3((a.S + 16 * NW - 1) / (16 * NW), pairs, chunks),
+               NT, DkvSmem<T>(a.Hp).total, a, st);
+  if (err != cudaSuccess) return err;
+  return launch(flash_bwd_dq_kernel<T, HD>, dim3((a.T + 16 * NW - 1) / (16 * NW), pairs, chunks),
+                NT, DqSmem<T, HD>(a.Hp).total, a, st);
+}
 
-  err = cudaFuncSetAttribute(flash_bwd_dkv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L.total));
-  if (err != cudaSuccess) return err;
-  const int chunks = (H + MAX_HEAD - 1) / MAX_HEAD;
-  flash_bwd_dkv_kernel<T><<<dim3((S + Cfg<T>::BK - 1) / Cfg<T>::BK, BN, chunks), NT, L.total, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), Tq, S, H, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(L.total));
-  if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<T><<<dim3((Tq + Cfg<T>::BQ - 1) / Cfg<T>::BQ, BN, chunks), NT, L.total, st>>>(
-      qt, kt, vt, gt, lse, delta, static_cast<T*>(dq), Tq, S, H, scale);
-  return cudaGetLastError();
+template <typename T>
+cudaError_t launch_bwd(const BwdArgs& a, int pairs, cudaStream_t st) {
+  if (a.Hp <= 64) return launch_bwd<T, 64>(a, pairs, st);
+  if (a.Hp <= 128) return launch_bwd<T, 128>(a, pairs, st);
+  return launch_bwd<T, 256>(a, pairs, st);
 }
 
 }  // namespace
 
+// strides: (batch, row, head) element strides of q, k, v, out, g, dq, dk, dv,
+// 24 values; lse and delta (B·N, T) f32, delta written here.
 extern "C" int vtt_flash_bwd(const void* q, const void* k, const void* v, const void* out,
                              const void* g, const float* lse, float* delta, int is_bf16, void* dq,
-                             void* dk, void* dv, int BN, int T, int S, int H, float scale,
-                             void* stream) {
-  if (BN <= 0 || BN > 65535 || T <= 0 || S <= 0 || H < 16 || H > MAX_HEAD_DIM || H % 16 != 0 ||
-      static_cast<long long>(BN) * T > 0x7fffffffLL) {
+                             void* dk, void* dv, const long long* strides, int B, int N, int T,
+                             int S, int H, float scale, void* stream) {
+  if (B <= 0 || N <= 0 || static_cast<long long>(B) * N > 65535 || T <= 0 || S <= 0 || H < 1 ||
+      H > MAX_HEAD_DIM || static_cast<long long>(B) * N * T > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  BwdArgs a{q, k, v, out, g, lse, delta, dq, dk, dv, {}, N, T, S, H, round_up(H, 16), 0, scale};
+  bool aligned = is_bf16 && H % 8 == 0;
+  for (int i = 0; i < 8; ++i) {
+    for (int j = 0; j < 3; ++j) {
+      a.st[i][j] = strides[3 * i + j];
+      if ((i == Q_ || i == K_ || i == V_ || i == G_) && a.st[i][j] % 8 != 0) aligned = false;
+    }
+  }
+  for (const void* p : {q, k, v, g}) aligned = aligned && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  a.vec = aligned;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? launch_bwd<bf16>(q, k, v, out, g, lse, delta, dq, dk, dv, BN, T, S, H, scale, st)
-              : launch_bwd<float>(q, k, v, out, g, lse, delta, dq, dk, dv, BN, T, S, H, scale, st);
+      is_bf16 ? launch_bwd<bf16>(a, B * N, st) : launch_bwd<float>(a, B * N, st);
   return static_cast<int>(err);
 }

@@ -12,12 +12,12 @@
 // nothing to q·kᵀ; the output's pad columns are never written).
 //
 // The products run on the tensor cores with K6's exact-operand planes
-// (flash_attention.cuh): bf16 inputs are one bf16 plane and p and ds, f32
+// (wmma_planes.cuh): bf16 inputs are one bf16 plane and p and ds, f32
 // on the TPU, two; f32 inputs are three planes and p and ds three, which
 // keeps f32 accuracy without TF32.
 #pragma once
 
-#include "flash_attention.cuh"
+#include "wmma_planes.cuh"
 
 namespace vtt_short {
 

@@ -26,7 +26,7 @@
 // products take 0.008 ms at the tensor cores' 989 TFLOP/s (0.11 ms at the CUDA
 // cores' 67). The tensor-core kernel pads each window to 64 rows and runs p·v on
 // two planes of p: 4.6× the products the window needs.
-#include "flash_attention.cuh"
+#include "wmma_planes.cuh"
 #include "swin_attention.cuh"
 
 using namespace vtt_swin;

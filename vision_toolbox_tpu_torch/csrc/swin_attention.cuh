@@ -237,7 +237,7 @@ __device__ __forceinline__ void weighted_rows(const float* row, const View<T>& x
 // bf16 planes each (hi, lo: 2⁻¹⁶ of the value, never rounded to bf16 once; pitch
 // TP + 8), an f32 staging tile for one output (TP × (hd + 4)) and, in the backward,
 // the block's dPE partial (T × T f32). Products run on wmma m16n16k16 tiles with
-// f32 accumulation (flash_attention.cuh `mma_planes`).
+// f32 accumulation (wmma_planes.cuh `mma_planes`).
 constexpr int TC_MAX_SEQ = 64;
 
 __host__ __device__ constexpr size_t align128(size_t n) { return (n + 127) / 128 * 128; }

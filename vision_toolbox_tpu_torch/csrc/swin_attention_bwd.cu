@@ -27,7 +27,7 @@
 // What bounds it: at swin_t stage 1, batch 128 (bf16), q, k, v, g in and dq, dk, dv
 // out are 539 MB, 0.16 ms at 3.35 TB/s; its five products (q·kᵀ, g·vᵀ and the three
 // gradients) are 19 GFLOP, 0.02 ms on the tensor cores.
-#include "flash_attention.cuh"
+#include "wmma_planes.cuh"
 #include "swin_attention.cuh"
 
 using namespace vtt_swin;

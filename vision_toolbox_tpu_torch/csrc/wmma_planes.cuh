@@ -1,5 +1,7 @@
-// Shared pieces of the flash-attention kernels (K6): flash_attention.cu (the
-// forward) and flash_attention_bwd.cu (delta, dK/dV, dQ).
+// The exact-operand wmma pieces of the short-attention (K2:
+// short_attention.cuh) and window-attention (K7: swin_attention{,_bwd}.cu)
+// kernels, in the namespace of the flash-attention kernels they were
+// written for; those (K6) now run on attention_mma.cuh's register tiles.
 //
 // Every product runs on the tensor cores (nvcuda::wmma m16n16k16, bf16
 // operands, f32 accumulation) with exact operands. An operand sits in shared
@@ -9,16 +11,10 @@
 // rounding. A product sums the plane products (i, j) with i + j below the
 // larger plane count; the terms it drops are of the order of the planes'
 // residue. bf16 × bf16 products are exact in f32.
-//  - bf16 inputs (the model's path): q, k, v and the cotangent g one plane
-//    each; p and ds, which the TPU kernels keep in f32, two planes, so
-//    neither is ever rounded to bf16 once.
+//  - bf16 inputs: q, k, v and the cotangent g one plane each; p and ds,
+//    which the TPU kernels keep in f32, two planes, so neither is ever
+//    rounded to bf16 once.
 //  - f32 inputs: every operand three planes, which keeps f32 accuracy.
-// Tiles: 64 query rows × 64 keys for bf16, 32 × 32 for f32 (three planes
-// of each operand). Heads up to 256 wide: q·kᵀ (and g·vᵀ) run over the whole
-// head, and a block computes the output (dq, dk, dv) for one ≤ 128-wide
-// chunk of its columns (grid z), recomputing the scores for each chunk, so
-// the accumulators stay those of a 128-wide head and the tiles fit a
-// block's 227 KB.
 #pragma once
 
 #include <cuda_bf16.h>

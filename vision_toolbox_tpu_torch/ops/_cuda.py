@@ -44,6 +44,7 @@ LAUNCHES: dict[str, int] = {
 _lib: ctypes.CDLL | None = None
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_LL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "vtt_error_string": ((_I,), ctypes.c_char_p),
     "vtt_attn_smem_bytes": ((_I, _I), ctypes.c_longlong),
@@ -101,8 +102,8 @@ _SIGNATURES = {
     ),
     "vtt_flash_fwd": (
         (_P, _P, _P, _P, _I, _I,  # q, k, v, bias (or null), bias_bf16, is_bf16
-         _P, _P,  # out, lse (or null)
-         _I, _I, _I, _I, _F, _P),  # BN, T, S, H, scale, stream
+         _P, _P, _LL,  # out, lse (or null), strides of q, k, v, out
+         _I, _I, _I, _I, _I, _F, _P),  # B, N, T, S, H, scale, stream
         _I,
     ),
     "vtt_dw_fwd": (
@@ -142,8 +143,8 @@ _SIGNATURES = {
     ),
     "vtt_flash_bwd": (
         (_P, _P, _P, _P, _P, _P, _P, _I,  # q, k, v, out, g, lse, delta (scratch), is_bf16
-         _P, _P, _P,  # dq, dk, dv
-         _I, _I, _I, _I, _F, _P),  # BN, T, S, H, scale, stream
+         _P, _P, _P, _LL,  # dq, dk, dv, strides of q, k, v, out, g, dq, dk, dv
+         _I, _I, _I, _I, _I, _F, _P),  # B, N, T, S, H, scale, stream
         _I,
     ),
 }
@@ -244,6 +245,18 @@ def ptr(t: torch.Tensor | None) -> int | None:
     if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
         raise ValueError("kernel operands must be contiguous, 16-byte-aligned CUDA tensors")
     return t.data_ptr()
+
+
+def strides(*tensors: torch.Tensor):
+    """(batch, row, head) element strides of (B, L, N, H) or flat (B·N, L, H)
+    CUDA tensors whose last dimension has unit stride (the flat layout as
+    N = 1), as the C array a kernel reads them from."""
+    out = []
+    for t in tensors:
+        if not t.is_cuda or (t.shape[-1] > 1 and t.stride(-1) != 1):
+            raise ValueError("kernel operands must be CUDA tensors with a unit last stride")
+        out += [t.stride(0), t.stride(1), t.stride(2) if t.ndim == 4 else 0]
+    return (ctypes.c_longlong * len(out))(*out)
 
 
 def vec(t: torch.Tensor | None) -> tuple[int | None, int]:

@@ -7,22 +7,24 @@ logsumexp ``lse``; the backward recomputes p = exp(q·kᵀ·scale − lse) tile 
 tile (FlashAttention-2: dK/dV per key tile, dQ per query tile), so no
 (T, S) tensor goes to device memory in training or inference.
 
-``flash_attention`` is the entry point, on the (B, T, N, H) layout; like the
-JAX package it relays the operands out to (B·N, T, H) (and the bias, which
-broadcasts against (B, N, T, S), to (B·N, T, S)); on CUDA tensors that copy
-zero-pads the head to the kernels' 16-column step, with the true width's
-scale passed along and the output sliced back. Heads up to 256 run: above
-128 the kernels compute the output (and dq, dk, dv) one ≤ 128-wide chunk
-of columns at a time. Without gradients
-(serving, ``torch.export``) it runs the custom op ``vtt::flash_attention``:
-on CPU tensors ``flash_attention_plain``, on CUDA tensors the hand-written
-kernel in ``csrc/flash_attention.cu``. Under autograd it runs
-``FlashAttentionFunction``, whose unbiased backward is the kernels in
-``csrc/flash_attention_bwd.cu`` on CUDA tensors and
+``flash_attention`` is the entry point, on the (B, T, N, H) layout (the bias,
+which broadcasts against (B, N, T, S), goes in as (B·N, T, S)). On CUDA
+tensors the kernels (``csrc/flash_attention{,_bwd}.cu``, register-tile
+mma.sync products from ``csrc/attention_mma.cuh``) read q, k, v and the
+cotangent in place with their strides and write the output and dq, dk, dv
+in place in (B, T, N, H): no relayout, pad or output copy. A head that is
+no multiple of 16 is zero-padded in the kernels' shared memory; heads up to
+256 run, above 128 one ≤ 128-wide chunk of output columns at a time.
+Without gradients (serving, ``torch.export``) it runs the custom op
+``vtt::flash_attention`` on the same layout: on CPU tensors
+``flash_attention_plain`` after a relayout inside the op, on CUDA tensors
+the kernel. Under autograd it runs ``FlashAttentionFunction``, whose
+unbiased backward is the kernels on CUDA tensors and
 ``flash_attention_bwd_plain`` on CPU tensors or with ``plain=True``. A CUDA
 tensor launches the kernels or raises. The biased backward, whose bias
 gradient is (T, S)-sized anyway, is the JAX package's XLA recompute on every
-device (``flash_attention_bias_bwd_plain``).
+device (``flash_attention_bias_bwd_plain``). The plain versions work on the
+flat (B·N, T, H) layout, which the CUDA wrappers also take (as N = 1).
 
 Rounding points are the TPU kernels' (``_flash_fwd_kernel``,
 ``_flash_bwd_dkv_kernel``, ``_flash_bwd_dq_kernel``): q, k, v (and the
@@ -39,7 +41,7 @@ from torch import Tensor
 from . import _cuda
 
 FLASH_MIN_SEQ = 1024  # ops/flash_attention.py PALLAS_MIN_SEQ
-MAX_HEAD_DIM = 256  # csrc/flash_attention.cuh MAX_HEAD_DIM: the widest head whose tiles fit
+MAX_HEAD_DIM = 256  # csrc/flash_attention{,_bwd}.cu MAX_HEAD_DIM: the widest head whose tiles fit
 MAX_PAIRS = 65535  # (batch·head) pairs: the kernels' grid y extent
 
 
@@ -48,9 +50,9 @@ def use_flash_attention(t: int) -> bool:
     attention dropout elsewhere): T ≥ 1024 and a multiple of 128, for any
     head width. siglip vit_b_16 at 512 px (T = 1024) passes; T = 1025 (a cls
     token), 577 (384 px) and the MAP probe (T = 1) do not. On a CUDA tensor
-    ``flash_attention`` zero-pads the head to a multiple of 16 (72 runs as
-    80), and the kernels take heads up to 256 (above 128 in column chunks);
-    a wider head raises in ``flash_attention_cuda``."""
+    the kernels zero-pad the head to a multiple of 16 in shared memory (72
+    runs as 80) and take heads up to 256 (above 128 in column chunks); a
+    wider head raises in ``flash_attention_cuda``."""
     return t >= FLASH_MIN_SEQ and t % 128 == 0
 
 
@@ -108,43 +110,71 @@ def flash_attention_bias_bwd_plain(q: Tensor, k: Tensor, v: Tensor, bias: Tensor
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), dlogits.to(bias.dtype)
 
 
-def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None) -> None:
-    BN, T, H = q.shape
+def _flat(t: Tensor) -> Tensor:
+    """(B, L, N, H) → the plain versions' (B·N, L, H); a flat tensor as it is."""
+    if t.ndim == 3:
+        return t
+    B, L, N, H = t.shape
+    return t.transpose(1, 2).reshape(B * N, L, H)
+
+
+def _unflat(t: Tensor, like: Tensor) -> Tensor:
+    """(B·N, L, H) → ``like``'s (B, L, N, H) layout (a view)."""
+    if like.ndim == 3:
+        return t
+    B, L, N, H = like.shape
+    return t.reshape(B, N, L, H).transpose(1, 2)
+
+
+def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None
+                     ) -> tuple[int, int, int, int, int]:
+    """What the kernels take: q (B, T, N, H) and k, v (B, S, N, H), or the
+    flat (B·N, T, H) and (B·N, S, H); one type, f32 or bf16; heads up to
+    MAX_HEAD_DIM with a unit last stride (the other strides are free); at
+    most MAX_PAIRS pairs; a (B·N, T, S) bias. Returns (B, N, T, S, H)."""
     if q.dtype not in (torch.float32, torch.bfloat16) or not q.dtype == k.dtype == v.dtype:
         raise TypeError("flash_attention: q, k and v must share one type, float32 or bfloat16; "
                         f"got {q.dtype}, {k.dtype}, {v.dtype}")
-    S = k.shape[1]
-    if k.shape != v.shape or k.shape[0] != BN or k.shape[2] != H or T < 1 or S < 1:
+    packed = q.ndim == 4
+    if q.ndim not in (3, 4) or k.ndim != q.ndim or k.shape != v.shape or k.shape[0] != q.shape[0] \
+            or k.shape[2:] != q.shape[2:] or q.shape[1] < 1 or k.shape[1] < 1:
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                         f"v {tuple(v.shape)} are not (B·N, T, H), (B·N, S, H), (B·N, S, H)")
-    if H % 16 or not 16 <= H <= MAX_HEAD_DIM or BN > MAX_PAIRS:
-        raise ValueError(f"flash_attention: no CUDA kernel for head_dim={H}, {BN} (batch·head) "
-                         f"pairs; it takes head widths 16..{MAX_HEAD_DIM} in steps of 16 and at "
-                         f"most {MAX_PAIRS} pairs")
-    if bias is not None and (bias.shape != (BN, T, S)
+                         f"v {tuple(v.shape)} are not (B, T, N, H), (B, S, N, H), (B, S, N, H) "
+                         "or (B·N, T, H), (B·N, S, H), (B·N, S, H)")
+    B, T, H = q.shape[0], q.shape[1], q.shape[-1]
+    N, S = q.shape[2] if packed else 1, k.shape[1]
+    if not 1 <= H <= MAX_HEAD_DIM or B * N > MAX_PAIRS:
+        raise ValueError(f"flash_attention: no CUDA kernel for head_dim={H}, {B * N} (batch·head) "
+                         f"pairs; it takes head widths up to {MAX_HEAD_DIM} and at most "
+                         f"{MAX_PAIRS} pairs")
+    if H > 1 and any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError("flash_attention: q, k and v need a unit stride along the head "
+                         f"dimension; got strides {q.stride()}, {k.stride()}, {v.stride()}")
+    if bias is not None and (bias.shape != (B * N, T, S)
                              or bias.dtype not in (torch.float32, torch.bfloat16)):
-        raise ValueError(f"flash_attention: bias must be ({BN}, {T}, {S}) float32 or bfloat16, "
-                         f"got {tuple(bias.shape)} {bias.dtype}")
+        raise ValueError(f"flash_attention: bias must be ({B * N}, {T}, {S}) float32 or "
+                         f"bfloat16, got {tuple(bias.shape)} {bias.dtype}")
+    return B, N, T, S, H
 
 
 def flash_attention_cuda(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, *,
                          with_lse: bool = True, scale: float | None = None
                          ) -> tuple[Tensor, Tensor | None]:
-    """Launch ``csrc/flash_attention.cu`` on the current stream: (out, lse or
-    None). Inference asks for no lse. ``scale`` defaults to H**-0.5 (a
-    zero-padded head passes its true width's)."""
-    _check_cuda_args(q, k, v, bias)
-    BN, T, H = q.shape
+    """Launch ``csrc/flash_attention.cu`` on the current stream on (B, T, N, H)
+    or flat (B·N, T, H) operands, read in place: (out in q's layout,
+    contiguous; lse (B·N, T, 1) f32 or None). Inference asks for no lse.
+    ``scale`` defaults to H**-0.5."""
+    B, N, T, S, H = _check_cuda_args(q, k, v, bias)
     scale = H**-0.5 if scale is None else scale
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     bias = None if bias is None else bias.contiguous()
-    out = torch.empty_like(q)
-    lse = torch.empty(BN, T, 1, device=q.device) if with_lse else None
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = torch.empty(B * N, T, 1, device=q.device) if with_lse else None
+    strides = _cuda.strides(q, k, v, out)
     with torch.cuda.device(q.device):
         err = _cuda.lib().vtt_flash_fwd(
-            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(bias),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), _cuda.ptr(bias),
             int(bias is not None and bias.dtype == torch.bfloat16), int(q.dtype == torch.bfloat16),
-            _cuda.ptr(out), _cuda.ptr(lse), BN, T, k.shape[1], H, float(scale), _cuda.stream(),
+            _cuda.ptr(out), _cuda.ptr(lse), strides, B, N, T, S, H, float(scale), _cuda.stream(),
         )
         _cuda.check(err, "flash_attention")
     _cuda.LAUNCHES["flash_attention"] += 1
@@ -155,24 +185,24 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: 
                              g: Tensor, scale: float | None = None
                              ) -> tuple[Tensor, Tensor, Tensor]:
     """Launch ``csrc/flash_attention_bwd.cu`` (delta, dK/dV, dQ) on the
-    current stream."""
-    _check_cuda_args(q, k, v, None)
-    BN, T, H = q.shape
+    current stream on (B, T, N, H) or flat operands, read in place; dq, dk
+    and dv come back contiguous in q's, k's and v's layouts."""
+    B, N, T, S, H = _check_cuda_args(q, k, v, None)
     scale = H**-0.5 if scale is None else scale
-    if out.shape != q.shape or g.shape != q.shape or lse.shape != (BN, T, 1):
+    if out.shape != q.shape or g.shape != q.shape or lse.shape != (B * N, T, 1):
         raise ValueError("flash_attention backward: out and g must match q, lse be (B·N, T, 1)")
     if out.dtype != q.dtype or g.dtype != q.dtype or lse.dtype != torch.float32:
         raise TypeError("flash_attention backward: out and g in q's type, lse float32")
-    q, k, v, out, g = (t.contiguous() for t in (q, k, v, out, g))
     lse = lse.contiguous()
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(BN, T, device=q.device)  # Σ g·out per query row, f32
+    dq, dk, dv = (torch.empty(t.shape, dtype=t.dtype, device=t.device) for t in (q, k, v))
+    delta = torch.empty(B * N, T, device=q.device)  # Σ g·out per query row, f32
+    strides = _cuda.strides(q, k, v, out, g, dq, dk, dv)
     with torch.cuda.device(q.device):
         err = _cuda.lib().vtt_flash_bwd(
-            _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(out), _cuda.ptr(g),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
             _cuda.ptr(lse), _cuda.ptr(delta), int(q.dtype == torch.bfloat16),
-            _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), BN, T, k.shape[1], H,
-            float(scale), _cuda.stream(),
+            _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), strides, B, N, T, S, H, float(scale),
+            _cuda.stream(),
         )
         _cuda.check(err, "flash_attention backward")
     _cuda.LAUNCHES["flash_attention_bwd"] += 1
@@ -180,15 +210,17 @@ def flash_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, out: Tensor, lse: 
 
 
 class FlashAttentionFunction(torch.autograd.Function):
-    """Differentiable flash attention on (B·N, T, H) operands: the kernels on
-    CUDA tensors, the plain versions on CPU tensors or with ``plain``. Saves
-    q, k, v, the output and lse (and the bias, if any): nothing of size
-    (T, S) but a bias given as such."""
+    """Differentiable flash attention on (B, T, N, H) operands: the kernels
+    on CUDA tensors, in place, the plain versions on CPU tensors or with
+    ``plain``. Saves q, k, v, the output and lse (B·N, T, 1) in the caller's
+    layout (and the bias, if any): nothing of size (T, S) but a bias given
+    as such."""
 
     @staticmethod
     def forward(ctx, q, k, v, bias, scale, plain):
         if plain or not q.is_cuda:
-            out, lse = flash_attention_plain(q, k, v, bias, scale)
+            out, lse = flash_attention_plain(_flat(q), _flat(k), _flat(v), bias, scale)
+            out = _unflat(out, q)
         else:
             out, lse = flash_attention_cuda(q, k, v, bias, scale=scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
@@ -199,17 +231,26 @@ class FlashAttentionFunction(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
         g = g.to(q.dtype)
+        if bias is None and not ctx.plain and g.is_cuda:
+            if g.shape[-1] > 1 and g.stride(-1) != 1:  # e.g. the expanded cotangent of a sum
+                g = g.contiguous()
+            return (*flash_attention_bwd_cuda(q, k, v, out, lse, g, ctx.scale), None, None, None)
+        flat = [_flat(t) for t in (q, k, v)]
         if bias is not None:
-            dq, dk, dv, dbias = flash_attention_bias_bwd_plain(q, k, v, bias, g, ctx.scale)
-            return dq, dk, dv, dbias, None, None
-        bwd = flash_attention_bwd_plain if ctx.plain or not g.is_cuda else flash_attention_bwd_cuda
-        return (*bwd(q, k, v, out, lse, g, ctx.scale), None, None, None)
+            *grads, dbias = flash_attention_bias_bwd_plain(*flat, bias, _flat(g), ctx.scale)
+        else:
+            grads, dbias = flash_attention_bwd_plain(*flat, _flat(out), lse, _flat(g),
+                                                     ctx.scale), None
+        return (*(_unflat(d, t) for d, t in zip(grads, (q, k, v))), dbias, None, None)
 
 
 @torch.library.custom_op("vtt::flash_attention", mutates_args=(), device_types="cpu")
 def _flash_attention_op(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None,
                         scale: float | None = None) -> Tensor:
-    return flash_attention_plain(q, k, v, bias, scale)[0]
+    """On (B, T, N, H) (or flat) operands; on CPU the plain version after a
+    relayout to (B·N, T, H) here, inside the op."""
+    out = flash_attention_plain(_flat(q), _flat(k), _flat(v), bias, scale)[0]
+    return _unflat(out, q).contiguous()
 
 
 @_flash_attention_op.register_kernel("cuda")
@@ -219,14 +260,7 @@ def _(q, k, v, bias, scale=None):
 
 @_flash_attention_op.register_fake
 def _(q, k, v, bias, scale=None):
-    return torch.empty_like(q)
-
-
-def padded_head(h: int, is_cuda: bool) -> int:
-    """The head width the operands are relaid out to: on a CUDA tensor the
-    next multiple of 16 (the kernels' width step; zero columns add nothing
-    to q·kᵀ, and v's give output columns that are sliced away), else ``h``."""
-    return -(-h // 16) * 16 if is_cuda else h
+    return q.new_empty(q.shape)
 
 
 def flash_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, *,
@@ -234,21 +268,14 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None,
     """Flash attention on (B, T, N, H) operands; ``bias`` broadcasts against
     (B, N, T, S). Returns (B, T, N, H) in q's type. Differentiable;
     ``plain`` runs the plain PyTorch versions on any device (for checking
-    the kernels)."""
+    the kernels). On CUDA tensors nothing is copied around the kernels."""
     B, T, N, H = q.shape
     S = k.shape[1]
-    Hp = padded_head(H, q.is_cuda and not plain)
-
-    def heads(t: Tensor, n: int) -> Tensor:  # the relayout copy, zero-padded to Hp
-        t = t.transpose(1, 2)
-        return (t if Hp == H else torch.nn.functional.pad(t, (0, Hp - H))).reshape(B * N, n, Hp)
-
-    args = (heads(q, T), heads(k, S), heads(v, S),
-            None if bias is None else bias.expand(B, N, T, S).reshape(B * N, T, S), H**-0.5)
-    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in args[:4]):
-        out = FlashAttentionFunction.apply(*args, plain)
-    elif plain:
-        out = flash_attention_plain(*args)[0]
-    else:
-        out = _flash_attention_op(*args)
-    return out.reshape(B, N, T, Hp)[..., :H].transpose(1, 2)
+    if bias is not None:
+        bias = bias.expand(B, N, T, S).reshape(B * N, T, S)
+    scale = H**-0.5
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (q, k, v, bias)):
+        return FlashAttentionFunction.apply(q, k, v, bias, scale, plain)
+    if plain:
+        return _unflat(flash_attention_plain(_flat(q), _flat(k), _flat(v), bias, scale)[0], q)
+    return _flash_attention_op(q, k, v, bias, scale)
