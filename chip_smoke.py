@@ -82,7 +82,15 @@ sm_90a, one process per source) and drives the port's paths:
   step on the unfused block chain (``force_unfused``, the JAX package's chain
   under token sharding) at bs128@224 for 3 warm-up and 10 timed steps, and
   one step at bs8 through the kernels against the plain versions and an f32
-  reference.
+  reference;
+- K2 redesigned for Hopper (slice 10): phases 34–37 run the register-tile
+  K2 kernels; phase 34 adds the second-plane control (in bf16 the kernels
+  lie at most half as far from their plain versions as
+  ``dense_attention``, which rounds p to bf16 once, and
+  ``short_attention_bwd_one_plane``, which rounds p and ds once), phase 35
+  prints the earlier wmma design's times and the kernels' registers and
+  spills (none at bf16 head 64), phase 37 K2's 12 + 12 launches a step, and
+  phases 17, 33 and 29 print K6's and K7's times beside PERF.md §6's.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -103,6 +111,7 @@ import contextlib
 import functools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -279,15 +288,24 @@ SHORT_CASES = ((8, 197, 197, 12, 64, "packed"), (128, 197, 197, 12, 64, "packed"
                (1, 512, 512, 64, 128, "packed"), (8, 50, 197, 12, 64, "packed"),
                (64, 2, 2, 1, 64, "packed"), (4, 197, 197, 16, 40, "packed"))
 SHORT_TIME_BATCH = 128
+# the second-plane control's cases (B, T, S, N, H), bf16: vit_b_16 at batch 8
+# and a head of 40; the kernels lie at most SECOND_PLANE of the controls'
+# distance (rel L2) from the plain versions
+SHORT_CONTROL_CASES = ((8, 197, 197, 12, 64), (4, 197, 197, 16, 40))
+SECOND_PLANE = 0.5
 VIT_DROPOUT = dict(dropout=0.1)  # ViT-B/16's ImageNet rate (Dosovitskiy et al., Table 3)
 VIT_UNFUSED_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
                          compare_batch=8)
 UNFUSED = dict(force_unfused=True)
-# PERF.md §6's times of the K7 and K2 kernels (swin_t stage 1 and vit_b_16 at
-# batch 128, bf16; NVIDIA H100 80GB HBM3, 700 W), which phases 29 and 35
-# print beside this run's: kernels the K6 redesign leaves as they were
-SECTION6_MS = {"swin_attention": 1.3428, "swin_attention_bwd": 2.4855,
-               "short_attention": 0.8728, "short_attention_bwd": 2.6521}
+# PERF.md §6's times of the K6 and K7 kernels (SigLIP vit_b_16 b32 and head
+# 256, swin_t stage 1 b128, bf16; NVIDIA H100 80GB HBM3, 700 W), which phases
+# 17, 33 and 29 print beside this run's: kernels the K2 redesign leaves as
+# they were; and the times of K2's earlier wmma design (vit_b_16 b128,
+# PERF.md §6), which phase 35 prints beside the redesigned kernels'
+SECTION6_MS = {"flash_attention": 0.6930, "flash_attention_bwd": 2.1940,
+               "flash_attention_head256": 0.3777, "flash_attention_bwd_head256": 1.2760,
+               "swin_attention": 1.3428, "swin_attention_bwd": 2.4855}
+K2_EARLIER_MS = {"short_attention": 0.8728, "short_attention_bwd": 2.6521}
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -1387,9 +1405,12 @@ def time_flash(report: dict, name_power: str) -> dict[str, tuple[float, float, f
         raise AssertionError(f"K6 forward + backward took {peak} bytes, a (B, N, T, S) tensor "
                              f"is {scores}")
     f, fb = rows["forward"], rows["forward+backward"]
-    return {"flash_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
-            "flash_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
-                                                                      "library_ms"))}
+    out = {"flash_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
+           "flash_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
+                                                                     "library_ms"))}
+    for name in out:
+        log(f"[flash-time] {name}: {against_section6(name, out[name][0])}")
+    return out
 
 
 def serve_siglip(report: dict, name_power: str) -> int:
@@ -2062,6 +2083,10 @@ def repaired_head_widths(report: dict, name_power: str) -> None:
         log(f"[repairs-f3] K6 {what:16s} B={B} N={N} T=S={T} head {H} bf16: kernel "
             f"{times[what]['ms']:.4f} ms  scaled_dot_product_attention "
             f"{times[what]['library_ms']:.4f} ms  [{name_power}]")
+    fb = times["forward+backward"]["ms"] - times["forward"]["ms"]
+    for name, ms in (("flash_attention_head256", times["forward"]["ms"]),
+                     ("flash_attention_bwd_head256", fb)):
+        log(f"[repairs-f3] {name}: {against_section6(name, ms)}")
     report["repaired_head_widths"] = dict(checks=checks.rows, k6_head256_times=times)
     bad = [r for r in checks.rows if not r["ok"]]
     if bad:
@@ -2095,13 +2120,18 @@ def compare_short(report: dict) -> dict[str, float]:
     BOUND·max|plain| and the gradients also by rel L2 ≤ BWD_REL_L2, and a
     second backward bit-equal to the first (no atomics). The flat case runs
     through the ``short_attention`` entry and autograd, which must launch
-    each kernel once a call. Returns the forward's and the backward's (worst
-    of dq, dk, dv) max abs error at vit_b_16 bs128, bf16."""
+    each kernel once a call. At SHORT_CONTROL_CASES in bf16, the second-plane
+    control: the kernels' rel L2 from the plain versions at most
+    SECOND_PLANE of ``dense_attention``'s (out: p rounded to bf16 once) and
+    ``short_attention_bwd_one_plane``'s (dq, dk, dv: p and ds rounded once),
+    which a kernel that drops p's or ds's second plane fails though the bf16
+    bound admits it. Returns the forward's and the backward's (worst of dq,
+    dk, dv) max abs error at vit_b_16 bs128, bf16."""
     from vision_toolbox_tpu_torch.ops import _cuda
     from vision_toolbox_tpu_torch.ops import short_attention as sa
 
     g = torch.Generator().manual_seed(34)
-    checks, main_err = Checks(), {}
+    checks, main_err, control = Checks(), {}, []
     for B, T, S, N, H, entry in SHORT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, dout = short_args(g, B, T, S, N, H, dtype)
@@ -2136,13 +2166,52 @@ def compare_short(report: dict) -> dict[str, float]:
                 f"{checks.summary(case)}")
             if (B, T, N, dtype) == (SHORT_TIME_BATCH, 197, 12, torch.bfloat16):
                 main_err["short_attention"], main_err["short_attention_bwd"] = err, max(errs)
+            if (B, T, S, N, H) in SHORT_CONTROL_CASES and dtype == torch.bfloat16:
+                ctrl = (sa.dense_attention(q, k, v), *sa.short_attention_bwd_one_plane(q, k, v,
+                                                                                     dout))
+                row = dict(B=B, T=T, S=S, N=N, H=H, **{
+                    n: dict(kernel=rel_l2(a, b), control=rel_l2(c, b))
+                    for n, a, b, c in zip(("out", "dq", "dk", "dv"), (out, *got),
+                                          (want_out, *want), ctrl)})
+                row["ok"] = all(row[n]["kernel"] <= SECOND_PLANE * row[n]["control"]
+                                for n in ("out", "dq", "dk", "dv"))
+                control.append(row)
+                log(f"[short] second-plane control B={B} N={N} H={H} bf16, rel L2 from the "
+                    f"plain versions, kernel / control: " + ", ".join(
+                        f"{n} {row[n]['kernel']:.2e} / {row[n]['control']:.2e}"
+                        for n in ("out", "dq", "dk", "dv"))
+                    + f" (kernel ≤ {SECOND_PLANE} × control) {'ok' if row['ok'] else 'FAIL'}")
+                del ctrl
             del q, k, v, dout, out, got, again, want, want_out
         torch.cuda.empty_cache()
     report["compare_short"] = checks.rows
+    report["short_second_plane_control"] = control
     bad = [r for r in checks.rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} K2 comparisons out of bounds: {bad[:8]}")
+    if len(control) != len(SHORT_CONTROL_CASES) or not all(r["ok"] for r in control):
+        raise AssertionError(f"K2 fails its second-plane control: {control}")
     return main_err
+
+
+def k2_ptxas(build_log: str) -> list[dict]:
+    """ptxas's registers and spill bytes of each K2 kernel in the build log."""
+    rows, entry = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(short_(?:fwd|bwd_rows|bwd_keys)_kernel)I(13__nv_bfloat16|f)Li(\d+)E",
+                          m.group(1))
+            entry = None if k is None else dict(
+                kernel=k.group(1), dtype="float32" if k.group(2) == "f" else "bfloat16",
+                head_class=int(k.group(3)))
+            if entry:
+                rows.append(entry)
+        elif entry and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif entry and "spill" in line:
+            entry["spill_bytes"] = sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+    return rows
 
 
 def time_short(report: dict, name_power: str) -> dict[str, tuple[float, float, float]]:
@@ -2150,9 +2219,11 @@ def time_short(report: dict, name_power: str) -> dict[str, tuple[float, float, f
     pairs, T = S = 197, head 64): K2 forward and backward against their plain
     versions, in turns, and torch's scaled_dot_product_attention on the same
     memory seen as (B, N, T, H) (the library yardstick; the port never calls
-    it; its backward is forward + backward less the forward). K2's backward
-    recomputes p from q, k, v, so it is timed alone. Returns (kernel, plain,
-    library) ms."""
+    it; its backward is forward + backward less the forward), beside the
+    earlier wmma design's times (K2_EARLIER_MS). K2's backward recomputes p
+    from q, k, v, so it is timed alone. Also the K2 kernels' registers and
+    spills (ptxas), 0 bytes at bf16 head 64 or the phase fails. Returns
+    (kernel, plain, library) ms."""
     import torch.nn.functional as F
 
     from vision_toolbox_tpu_torch.ops import short_attention as sa
@@ -2182,8 +2253,16 @@ def time_short(report: dict, name_power: str) -> dict[str, tuple[float, float, f
         log(f"[short-time] {name:19s} B={B} N={N} T=S={T} H={H} bf16: kernel {r['ms']:.4f} ms  "
             f"plain {r['plain_ms']:.4f} ms  scaled_dot_product_attention "
             f"{r['library_ms']:.4f} ms  bound {r['bound_ms']:.4f} ms ({r['bound_by']})  "
-            f"[{name_power}]; {against_section6(name, r['ms'])}")
-    report["short_times"] = rows
+            f"[{name_power}]; earlier wmma design (PERF.md §6) {K2_EARLIER_MS[name]:.4f} ms, "
+            f"this / earlier = {r['ms'] / K2_EARLIER_MS[name]:.3f}")
+    regs = k2_ptxas(report["build_log"])
+    for r in regs:
+        log(f"[short-time] ptxas {r['kernel']}<{r['dtype']}, head ≤ {r['head_class']}>: "
+            f"{r.get('registers')} registers, {r.get('spill_bytes')} bytes of spills")
+    report["short_times"] = dict(rows, ptxas=regs)
+    main = [r for r in regs if (r["dtype"], r["head_class"]) == ("bfloat16", 64)]
+    if len(main) != 3 or any(r.get("spill_bytes") != 0 for r in main):
+        raise AssertionError(f"K2 kernels at bf16 head 64 spill or were not found: {main}")
     return {n: (r["ms"], r["plain_ms"], r["library_ms"]) for n, r in rows.items()}
 
 
@@ -2209,8 +2288,12 @@ def train_vit_unfused(report: dict, name_power: str) -> dict[str, int]:
     watched = ("head.weight", "backbone.pe", "backbone.blocks.0.mha.q_proj.weight",
                "backbone.blocks.5.mlp_norm.weight", "backbone.blocks.11.mlp.linear2.bias")
     per_step = NO_LAUNCHES | dict.fromkeys(("short_attention", "short_attention_bwd"), 12)
-    return train_transformer(report, "vit_unfused_train", "vit_b_16", VIT_UNFUSED_TRAIN,
-                             per_step, watched, name_power, forward_kw=UNFUSED)
+    launches = train_transformer(report, "vit_unfused_train", "vit_b_16", VIT_UNFUSED_TRAIN,
+                                 per_step, watched, name_power, forward_kw=UNFUSED)
+    n = VIT_UNFUSED_TRAIN["warmup"] + VIT_UNFUSED_TRAIN["steps"]
+    log(f"[vit-unfused-train] K2 launches per step: {launches['short_attention'] / n:g} forward "
+        f"+ {launches['short_attention_bwd'] / n:g} backward (12 + 12 expected)")
+    return launches
 
 
 def main() -> int:

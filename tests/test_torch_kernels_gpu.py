@@ -32,8 +32,11 @@ and ds as two bf16 planes): out, dq, dk, dv within the dtype's bound, dPE by
 rel L2, and a second backward bit-equal to the first (no atomics). The
 shifted-window relayout kernels (K8) are permutations: bit for bit. The
 short-attention kernels (K2) compute in f32 from the inputs like their plain
-versions (K6's exact-operand planes): out, dq, dk, dv within the dtype's
-bound and by rel L2, and a second backward bit-equal to the first.
+versions (K6's register tiles and exact-operand planes): out, dq, dk, dv
+within the dtype's bound and by rel L2, a second backward bit-equal to the
+first, and in bf16 at most half as far (rel L2) from the plain versions as
+the second-plane controls (p, and ds, rounded to bf16 once), which the
+dtype's bound alone would not refuse.
 """
 
 import pytest
@@ -851,6 +854,60 @@ def test_short_attention_kernels_match_plain(cuda, dtype, B, T, S, N, H):
         _check(a, b)
         _check_rel_l2(a, b, name)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# the second-plane control's cases: vit_b_16 at batch 8 and a head of 40
+SHORT_CONTROL_SHAPES = [(8, 197, 197, 12, 64), (4, 197, 197, 16, 40)]
+
+
+@pytest.mark.parametrize("B,T,S,N,H", SHORT_CONTROL_SHAPES)
+def test_short_attention_keeps_the_second_plane(cuda, B, T, S, N, H):
+    """bf16: the forward kernel lies at most half as far (rel L2) from
+    ``short_attention_plain`` as ``dense_attention``, which rounds p to bf16
+    once; the backward's dq, dk and dv at most half as far from
+    ``short_attention_bwd_plain`` as ``short_attention_bwd_one_plane``, which
+    rounds p (for dv) and ds (for dq and dk) once. A kernel that fed p or ds
+    to the tensor cores as one bf16 plane computes the controls' function
+    and fails."""
+    from vision_toolbox_tpu_torch.ops import short_attention as sa
+
+    g = torch.Generator().manual_seed(B * T + S + N * H)
+    q = _rand(g, B, T, N, H).to(cuda, torch.bfloat16)
+    k, v = (_rand(g, B, S, N, H).to(cuda, torch.bfloat16) for _ in range(2))
+    dout = _rand(g, B, T, N, H).to(cuda, torch.bfloat16)
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    got = (sa.short_attention_cuda(q, k, v), *sa.short_attention_bwd_cuda(q, k, v, dout))
+    want = (sa.short_attention_plain(q, k, v), *sa.short_attention_bwd_plain(q, k, v, dout))
+    control = (sa.dense_attention(q, k, v), *sa.short_attention_bwd_one_plane(q, k, v, dout))
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, want, control):
+        assert rel(a, b) <= 0.5 * rel(c, b), (name, rel(a, b), rel(c, b))
+
+
+def test_short_attention_allocates_no_score_tensor(cuda):
+    """At vit_b_16 b128 (1536 pairs, T = S = 197) the forward allocates
+    nothing beyond its output and the backward nothing beyond dq, dk, dv and
+    the per-row lse and delta (``torch.cuda.memory_stats``): no (B·N, T, S)
+    tensor, not even of one byte an element."""
+    from vision_toolbox_tpu_torch.ops import short_attention as sa
+
+    B, T, N, H = 128, 197, 12, 64
+    g = torch.Generator().manual_seed(5)
+    q, k, v, dout = (_rand(g, B, T, N, H).to(cuda, torch.bfloat16) for _ in range(4))
+    scores = B * N * T * T
+    for what, run, made in (
+        ("forward", lambda: sa.short_attention_cuda(q, k, v), q.nbytes),
+        ("backward", lambda: sa.short_attention_bwd_cuda(q, k, v, dout),
+         3 * q.nbytes + 2 * B * N * T * 4),
+    ):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+        result = run()
+        torch.cuda.synchronize()
+        extra = torch.cuda.memory_stats()["allocated_bytes.all.peak"] - base
+        assert extra - made < scores, (what, extra, made, scores)
+        del result
 
 
 def test_short_attention_refuses_what_its_gate_refuses(cuda):

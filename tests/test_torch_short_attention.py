@@ -18,6 +18,12 @@ short_attention.py, K2) vs the JAX package's on CPU.
   on a CPU runs ``jax.nn.dot_product_attention`` (p rounded to v's type).
   In f32 the two agree to summation order; in bf16 they differ by p's
   rounding, held to rel L2 ≤ 1e-2.
+- The second-plane controls, bf16: ``dense_attention`` (p rounded to bf16
+  once) and ``short_attention_bwd_one_plane`` (p and ds rounded once) lie at
+  least twice as far (rel L2) from the JAX kernel as the plain twins, the
+  rule the card holds the kernels to against the same controls.
+- The CUDA entries' argument checks, on meta tensors: they raise before
+  any launch.
 """
 
 import numpy as np
@@ -146,3 +152,49 @@ def test_standing_difference_from_jax_default_path(dtype):
     else:
         assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
         assert not np.array_equal(got, want)
+
+
+def _rel_l2(got: torch.Tensor, want: np.ndarray) -> float:
+    return float(np.linalg.norm(as_f32(got) - want) / np.linalg.norm(want))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_second_plane_controls_lie_farther_from_the_jax_kernel(case):
+    """bf16: the forward's control ``dense_attention`` (p rounded to bf16
+    once before p·v) and the backward's ``short_attention_bwd_one_plane``
+    (p rounded before dv, ds before dq and dk) against the JAX kernel in
+    interpret mode: the plain twins lie at most half as far (rel L2), the
+    rule that lets the card's control refuse a kernel that drops p's or ds's
+    second plane (measured: twins ≤ 6e-5, controls ≥ 2.5e-3)."""
+    want = _jax_kernel("packed", case, "bfloat16")
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in _inputs(case))
+    twin = (sa.short_attention_plain(q, k, v), *sa.short_attention_bwd_plain(q, k, v, g))
+    control = (sa.dense_attention(q, k, v), *sa.short_attention_bwd_one_plane(q, k, v, g))
+    for name, a, b, w in zip(("out", "dq", "dk", "dv"), twin, control, want):
+        assert _rel_l2(a, w) <= 0.5 * _rel_l2(b, w), name
+
+
+@pytest.mark.parametrize("what,shapes,dtype,error", [
+    ("type", ((8, 17, 8, 16), (8, 17, 8, 16)), torch.float16, TypeError),
+    ("head above 128", ((1, 17, 64, 136), (1, 17, 64, 136)), torch.bfloat16, ValueError),
+    ("T above 512", ((1, 513, 64, 64), (1, 17, 64, 64)), torch.bfloat16, ValueError),
+    ("S above 512", ((1, 17, 64, 64), (1, 513, 64, 64)), torch.bfloat16, ValueError),
+    ("mismatched heads", ((8, 17, 8, 16), (8, 17, 4, 16)), torch.bfloat16, ValueError),
+])
+def test_cuda_entries_check_their_arguments(what, shapes, dtype, error):
+    """``short_attention_cuda`` and ``short_attention_bwd_cuda`` refuse what
+    the kernels do not take before anything reaches the card (meta
+    tensors: no data, no launch); the backward also a cotangent unlike q."""
+    (qs, ks) = shapes
+    q = torch.empty(qs, dtype=dtype, device="meta")
+    k = v = torch.empty(ks, dtype=dtype, device="meta")
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(error):
+        sa.short_attention_cuda(q, k, v)
+    with pytest.raises(error):
+        sa.short_attention_bwd_cuda(q, k, v, q)
+    if what == "type":
+        ok = torch.empty(qs, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="must match q"):
+            sa.short_attention_bwd_cuda(ok, ok, ok, q)
+    assert _cuda.LAUNCHES == before

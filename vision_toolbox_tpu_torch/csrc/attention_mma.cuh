@@ -1,6 +1,6 @@
 // Register-tile attention machinery for Hopper (sm_90a), used by the
 // flash-attention kernels (K6: flash_attention.cu, flash_attention_bwd.cu)
-// and written so that the other attention kernels can adopt it.
+// and the short-attention kernels (K2: short_attention{,_bwd}.cu).
 //
 // Products run as mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 with
 // their f32 accumulators in registers. One warp owns a 16-row tile of the
@@ -243,6 +243,61 @@ __device__ __forceinline__ void acc_to_a(const float c0[4], const float c1[4], u
     a[i][1] = r1[i];
     a[i][2] = r2[i];
     a[i][3] = r3[i];
+  }
+}
+
+// ---- the two products of an attention tile --------------------------------
+
+// acc (16 rows × NC columns) = a·bᵀ over the whole head: the warp's 16
+// rows of the [row][h] tile `a` (plane stride a_plane) against the NC rows
+// of the [col][h] tile `b` (plane stride b_plane), both of pitch ld. Only
+// the first `ncg` 16-wide column groups are formed (the rest stay as they
+// were): a caller whose last tile is ragged stops at the next multiple of
+// 16 past its end.
+template <int IN, int NC, int HD>
+__device__ __forceinline__ void scores_t(float (*acc)[4], const bf16* a, const bf16* b,
+                                         int a_plane, int b_plane, int ld, int warp, int nkh,
+                                         int ncg = NC / 16) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    if (kk >= nkh) break;
+    uint32_t af[IN][4];
+#pragma unroll
+    for (int i = 0; i < IN; ++i) ldsm_x4<false>(af[i], a + i * a_plane, ld, warp * 16, kk * 16);
+#pragma unroll
+    for (int jj = 0; jj < NC / 16; ++jj) {
+      if (jj >= ncg) break;
+      uint32_t bfr[IN][4];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) ldsm_b_nk(bfr[i], b + i * b_plane, ld, jj * 16, kk * 16);
+      mma_planes2<IN, IN>(acc[2 * jj], acc[2 * jj + 1], af, bfr);
+    }
+  }
+}
+
+// acc (16 rows × the chunk's columns) += x·b: x (16 × NK) the warp's f32
+// accumulator tiles as MID-plane A fragments, b the [k][h] tile (NK rows,
+// plane stride b_plane, pitch ld) at columns c0.. c0 + hc. Only the first
+// `nkg` 16-deep steps are taken (x is zero past them).
+template <int MID, int IN, int NK, int HC>
+__device__ __forceinline__ void grad_step(float (*acc)[4], float (*x)[4], const bf16* b,
+                                          int b_plane, int ld, int c0, int hc,
+                                          int nkg = NK / 16) {
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk) {
+    if (kk >= nkg) break;
+    uint32_t xa[MID][4];
+    acc_to_a<MID>(x[2 * kk], x[2 * kk + 1], xa);
+#pragma unroll
+    for (int nn = 0; nn < HC / 16; ++nn) {
+      if (nn * 16 >= hc) break;
+      uint32_t bfr[IN][4];
+#pragma unroll
+      for (int i = 0; i < IN; ++i) {
+        ldsm_x4<true>(bfr[i], b + i * b_plane, ld, kk * 16, c0 + nn * 16);
+      }
+      mma_planes2<MID, IN>(acc[2 * nn], acc[2 * nn + 1], xa, bfr);
+    }
   }
 }
 

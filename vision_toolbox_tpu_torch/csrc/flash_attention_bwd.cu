@@ -101,51 +101,6 @@ __device__ __forceinline__ T* pair_ptr_out(const BwdArgs& a, int which, void* p,
   return Mat<T>{static_cast<T*>(p), a.st[which][0], a.st[which][1], a.st[which][2]}.pair(pair, a.N);
 }
 
-// acc (16 rows × NC columns) = a·bᵀ over the whole head: the warp's 16
-// rows of the [row][h] tile `a` (plane stride a_plane) against the NC rows
-// of the [col][h] tile `b` (plane stride b_plane), both of pitch ld.
-template <int IN, int NC, int HD>
-__device__ __forceinline__ void scores_t(float (*acc)[4], const bf16* a, const bf16* b,
-                                         int a_plane, int b_plane, int ld, int warp, int nkh) {
-#pragma unroll
-  for (int kk = 0; kk < HD / 16; ++kk) {
-    if (kk >= nkh) break;
-    uint32_t af[IN][4];
-#pragma unroll
-    for (int i = 0; i < IN; ++i) ldsm_x4<false>(af[i], a + i * a_plane, ld, warp * 16, kk * 16);
-#pragma unroll
-    for (int jj = 0; jj < NC / 16; ++jj) {
-      uint32_t bfr[IN][4];
-#pragma unroll
-      for (int i = 0; i < IN; ++i) ldsm_b_nk(bfr[i], b + i * b_plane, ld, jj * 16, kk * 16);
-      mma_planes2<IN, IN>(acc[2 * jj], acc[2 * jj + 1], af, bfr);
-    }
-  }
-}
-
-// acc (16 rows × the chunk's columns) += x·b: x (16 × NK) the warp's f32
-// accumulator tiles as MID-plane A fragments, b the [k][h] tile (NK rows,
-// plane stride b_plane, pitch ld) at columns c0.. c0 + hc.
-template <int MID, int IN, int NK, int HC>
-__device__ __forceinline__ void grad_step(float (*acc)[4], float (*x)[4], const bf16* b,
-                                          int b_plane, int ld, int c0, int hc) {
-#pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk) {
-    uint32_t xa[MID][4];
-    acc_to_a<MID>(x[2 * kk], x[2 * kk + 1], xa);
-#pragma unroll
-    for (int nn = 0; nn < HC / 16; ++nn) {
-      if (nn * 16 >= hc) break;
-      uint32_t bfr[IN][4];
-#pragma unroll
-      for (int i = 0; i < IN; ++i) {
-        ldsm_x4<true>(bfr[i], b + i * b_plane, ld, kk * 16, c0 + nn * 16);
-      }
-      mma_planes2<MID, IN>(acc[2 * nn], acc[2 * nn + 1], xa, bfr);
-    }
-  }
-}
-
 // (a): delta[pair·T + t] = Σ_h g·out, one warp per row, rows pair-major.
 template <typename T>
 __global__ void __launch_bounds__(256) flash_delta_kernel(const BwdArgs a, int rows) {

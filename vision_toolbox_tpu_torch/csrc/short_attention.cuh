@@ -1,32 +1,67 @@
 // Shared pieces of the short-sequence attention kernels (K2):
-// short_attention.cu (the forward) and short_attention_bwd.cu (dq with the
-// row statistics, then dK/dV).
+// short_attention.cu (the forward) and short_attention_bwd.cu (the rows
+// pass: lse, delta and dq; the keys pass: dK/dV).
 //
 // K2 computes softmax(q·kᵀ·scale)·v for 2 ≤ T, S ≤ 512 and heads up to 128
-// wide, with the whole (T, S) logit row of a query on chip and no running
-// softmax: p = e / Σe exactly, then p·v, both in f32. The kernels read and
-// write the packed (B, L, N, H) layout in place: the (batch·head) pair
-// (b, n) is the matrix at b·L·N·H + n·H with a row pitch of N·H, so no
-// (B·N, L, H) copy is made. A head that is no multiple of 16 wide is
-// zero-padded in shared memory to the next multiple (zero columns add
-// nothing to q·kᵀ; the output's pad columns are never written).
+// wide. The kernels read and write the packed (B, L, N, H) layout in place:
+// the (batch·head) pair (b, n) is the matrix at b·L·N·H + n·H with a row
+// pitch of N·H, so no (B·N, L, H) copy is made. A head that is no multiple
+// of 16 wide is zero-padded in shared memory to the next multiple (zero
+// columns add nothing to q·kᵀ; the output's pad columns are never written).
 //
-// The products run on the tensor cores with K6's exact-operand planes
-// (wmma_planes.cuh): bf16 inputs are one bf16 plane and p and ds, f32
-// on the TPU, two; f32 inputs are three planes and p and ds three, which
-// keeps f32 accuracy without TF32.
+// They run on K6's register tiles (attention_mma.cuh): mma.sync m16n8k16
+// with the scores, p, dp, ds and every accumulator in registers, fragments
+// read by ldmatrix from padded shared-memory tiles that a cp.async ring
+// fills, one barrier a tile. Each warp owns 16 rows (queries in the forward
+// and the rows pass, keys in the keys pass), so T and S are padded to 16,
+// not to a block's tile: a pair's 16-row tiles are spread evenly over the
+// fewest blocks of at most WMAX warps (`split_rows`; T = 197: two blocks of
+// seven warps, 13 tiles in 14 slots), a query tile with no valid row does
+// no products, and the products over the streamed dimension stop at the
+// next multiple of 16 past its end (`groups16`; 208 at S = 197), whatever
+// the ring's tile. Exact operands: bf16 inputs are one bf16 plane and p and ds,
+// f32 on the TPU, two planes split in registers (never rounded to bf16
+// once); f32 inputs are three planes and p and ds three, which keeps f32
+// accuracy without TF32.
 #pragma once
 
-#include "wmma_planes.cuh"
+#include <initializer_list>
+
+#include "attention_mma.cuh"
 
 namespace vtt_short {
 
-using namespace vtt_flash;
+using namespace vtt_mma;
 
-constexpr int MAX_SEQ = 512;   // T and S: the gate's bound, and the logit rows' room
+constexpr int MAX_SEQ = 512;    // T and S: the gate's bound
 constexpr int MAX_WIDTH = 128;  // the widest head
+constexpr size_t kMaxSmem = 227 * 1024;
 
-__host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
+// Per input type: the most warps a block, the streamed key tile of the
+// forward (BK) and of the rows pass (BKR), the streamed query tile of the
+// keys pass (BQ), ring stages, bf16 planes of an input operand and of p and
+// ds. bf16: the rows pass, which holds s, dp and dq, streams 32 keys, not
+// 64: at 64 it spilled 88 bytes at 128 registers (two blocks an SM), at 48
+// 12 (scripts/ab_short_attention.py --variant, vit_b_16 b128, H100). f32's
+// three planes take three times the registers and shared memory: small
+// blocks and tiles, one stage.
+template <typename T>
+struct Cfg;
+template <>
+struct Cfg<bf16> {
+  static constexpr int WMAX = 8, BK = 64, BKR = 32, BQ = 32, STAGES = 2, IN = 1, MID = 2;
+};
+template <>
+struct Cfg<float> {
+  static constexpr int WMAX = 2, BK = 16, BKR = 16, BQ = 16, STAGES = 1, IN = 3, MID = 3;
+};
+
+// Two blocks an SM for bf16 heads up to 64, as K6's head-64 kernels;
+// wider heads and f32 take what they need.
+template <typename T, int HD>
+__host__ __device__ constexpr int min_blocks() {
+  return std::is_same<T, bf16>::value && HD == 64 ? 2 : 1;
+}
 
 // Offset of pair `pair` (= b·N + n) of a packed (B, L, N, H) tensor.
 __device__ __forceinline__ size_t pair_offset(int pair, int N, int L, int H) {
@@ -34,65 +69,31 @@ __device__ __forceinline__ size_t pair_offset(int pair, int N, int L, int H) {
   return (static_cast<size_t>(b) * L * N + n) * H;
 }
 
-// Rows [r0, r0 + rows) of one pair's (n × H) matrix (row pitch src_ld) into
-// NP bf16 planes of pitch ld, plane stride `plane`; columns H..Hp and rows
-// at or past n read as zero.
-template <typename T, int NP>
-__device__ __forceinline__ void load_padded(const T* __restrict__ src, size_t src_ld, int r0,
-                                            int rows, int n, int H, int Hp, bf16* dst, int ld,
-                                            int plane) {
-  if constexpr (NP == 1 && std::is_same<T, bf16>::value) {
-    if (H % 8 == 0) {  // 16-byte pieces: the pair's offset and pitch are multiples of 8
-      const int per = Hp / 8;
-      for (int e = threadIdx.x; e < rows * per; e += NT) {
-        const int r = e / per, c = (e % per) * 8;
-        uint4 val = make_uint4(0, 0, 0, 0);
-        if (r0 + r < n && c < H) {
-          val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * src_ld + c);
-        }
-        *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
-      }
-      return;
-    }
-  }
-  for (int e = threadIdx.x; e < rows * Hp; e += NT) {
-    const int r = e / Hp, c = e % Hp;
-    const float x =
-        r0 + r < n && c < H ? to_f32(src[static_cast<size_t>(r0 + r) * src_ld + c]) : 0.0f;
-    split_store<NP>(x, dst + r * ld + c, plane);
-  }
+// 16-wide groups of the `tile` rows from r0 that reach a valid row (< end).
+__device__ __forceinline__ int groups16(int r0, int tile, int end) {
+  return min(tile, end - r0 + 15) / 16;
 }
 
-// One warp: the f32 row of q·kᵀ (S valid columns of Sp) becomes p = e / Σe,
-// e = exp(x·scale − max), in place, zero past S. Returns (max, Σe).
-__device__ __forceinline__ float2 softmax_row(float* row, int S, int Sp, float scale) {
-  const int lane = threadIdx.x & 31;
-  float mx = kNegInf;
-  for (int c = lane; c < S; c += 32) mx = fmaxf(mx, row[c] * scale);
-  mx = warp_max(mx);
-  float sum = 0.0f;
-  for (int c = lane; c < S; c += 32) {
-    const float e = expf(row[c] * scale - mx);
-    row[c] = e;
-    sum += e;
-  }
-  sum = warp_sum(sum);
-  for (int c = lane; c < Sp; c += 32) row[c] = c < S ? row[c] / sum : 0.0f;
-  return make_float2(mx, sum);
+// A pair's n rows as 16-row tiles, one a warp, over the fewest blocks of at
+// most wmax warps, the same number of warps in each.
+struct Split {
+  int blocks, warps;
+};
+inline Split split_rows(int n, int wmax) {
+  const int tiles = (n + 15) / 16, blocks = (tiles + wmax - 1) / wmax;
+  return {blocks, (tiles + blocks - 1) / blocks};
 }
 
-// Rows of an f32 (BQ × ·) staging buffer (pitch lds) to one pair's rows
-// [r0, r0 + BQ) of a packed output (pitch dst_ld), H columns, times `mul`,
-// rounded once; rows at or past n are not written.
-template <typename T>
-__device__ __forceinline__ void store_rows(const float* staged, int lds, int rows, T* dst,
-                                           size_t dst_ld, int r0, int n, int H, float mul) {
-  for (int e = threadIdx.x; e < rows * H; e += NT) {
-    const int r = e / H, c = e % H;
-    if (r0 + r < n) {
-      dst[static_cast<size_t>(r0 + r) * dst_ld + c] = from_f32<T>(staged[r * lds + c] * mul);
-    }
-  }
+// Launches `kernel` on `blocks` one-dimensional blocks of `warps` warps.
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, long long blocks, int warps, size_t smem, cudaStream_t st,
+                   Args... args) {
+  if (blocks > 0x7fffffffLL || smem > kMaxSmem) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), warps * 32, smem, st>>>(args...);
+  return cudaGetLastError();
 }
 
 }  // namespace vtt_short

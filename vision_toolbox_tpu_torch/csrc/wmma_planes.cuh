@@ -1,7 +1,7 @@
-// The exact-operand wmma pieces of the short-attention (K2:
-// short_attention.cuh) and window-attention (K7: swin_attention{,_bwd}.cu)
-// kernels, in the namespace of the flash-attention kernels they were
-// written for; those (K6) now run on attention_mma.cuh's register tiles.
+// The exact-operand wmma pieces of the window-attention kernels (K7:
+// swin_attention{,_bwd}.cu), in the namespace of the flash-attention
+// kernels they were written for; those (K6) and the short-attention
+// kernels (K2) now run on attention_mma.cuh's register tiles.
 //
 // Every product runs on the tensor cores (nvcuda::wmma m16n16k16, bf16
 // operands, f32 accumulation) with exact operands. An operand sits in shared
@@ -34,22 +34,7 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 constexpr int NT = 256;  // eight warps
 constexpr int NW = NT / 32;
 constexpr int MAX_HEAD = 128;      // output columns of a block: a chunk of the head
-constexpr int MAX_HEAD_DIM = 256;  // the widest head
-constexpr float kNegInf = -1e30f;  // the TPU kernel's mask value
 constexpr size_t kMaxSmem = 227 * 1024;
-
-// Per input type: bf16 planes of an input operand and of an f32
-// intermediate (p, ds), query rows and keys of a tile.
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<bf16> {
-  static constexpr int IN = 1, MID = 2, BQ = 64, BK = 64;
-};
-template <>
-struct Cfg<float> {
-  static constexpr int IN = 3, MID = 3, BQ = 32, BK = 32;
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -97,11 +82,6 @@ __device__ __forceinline__ void load_rows(const T* __restrict__ src, int r0, int
       split_store<NP>(x, dst + r * ld + c, plane);
     }
   }
-}
-
-// Output columns [c0, c0 + width) of the chunk blockIdx.z of a head H wide.
-__host__ __device__ inline int chunk_width(int H, int c0) {
-  return H - c0 < MAX_HEAD ? H - c0 : MAX_HEAD;
 }
 
 // acc += A·B over depth K (a multiple of 16): A a 16 × K and B a K × 16

@@ -90,19 +90,37 @@ def short_attention_plain(q: Tensor, k: Tensor, v: Tensor) -> Tensor:
     return torch.einsum("bnts,bsnh->btnh", p, v.float()).to(q.dtype)
 
 
+def _bwd(q: Tensor, k: Tensor, v: Tensor, g: Tensor, operand
+         ) -> tuple[Tensor, Tensor, Tensor]:
+    """The backward's math, p and ds passed through ``operand`` where they
+    enter their products."""
+    qs, p = _probs(q, k)
+    g32, k32 = g.float(), k.float()
+    dv = torch.einsum("bnts,btnh->bsnh", operand(p), g32)
+    dp = torch.einsum("btnh,bsnh->bnts", g32, v.float())
+    ds = operand(p * (dp - (dp * p).sum(-1, keepdim=True)))
+    dq = torch.einsum("bnts,bsnh->btnh", ds, k32) * q.shape[-1] ** -0.5
+    dk = torch.einsum("bnts,btnh->bsnh", ds, qs)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def short_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, g: Tensor
                               ) -> tuple[Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the backward kernels: p recomputed from q, k,
     every intermediate f32, dq, dk, dv rounded once to their operands'
     types."""
-    qs, p = _probs(q, k)
-    g32, k32 = g.float(), k.float()
-    dv = torch.einsum("bnts,btnh->bsnh", p, g32)
-    dp = torch.einsum("btnh,bsnh->bnts", g32, v.float())
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq = torch.einsum("bnts,bsnh->btnh", ds, k32) * q.shape[-1] ** -0.5
-    dk = torch.einsum("bnts,btnh->bsnh", ds, qs)
-    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+    return _bwd(q, k, v, g, lambda x: x)
+
+
+def short_attention_bwd_one_plane(q: Tensor, k: Tensor, v: Tensor, g: Tensor
+                                  ) -> tuple[Tensor, Tensor, Tensor]:
+    """The backward's second-plane control: ``short_attention_bwd_plain``
+    with p rounded to bf16 once before dv = pᵀ·g and ds rounded to bf16 once
+    before dq = ds·k and dk = dsᵀ·q, as a kernel that fed them to the tensor
+    cores as one bf16 plane would compute (``dense_attention`` is the
+    forward's). The checks use it to show that their bounds tell such a
+    kernel from K2; the port never calls it."""
+    return _bwd(q, k, v, g, lambda x: x.bfloat16().float())
 
 
 def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor) -> None:
