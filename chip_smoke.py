@@ -90,7 +90,16 @@ sm_90a, one process per source) and drives the port's paths:
   ``short_attention_bwd_one_plane``, which rounds p and ds once), phase 35
   prints the earlier wmma design's times and the kernels' registers and
   spills (none at bf16 head 64), phase 37 K2's 12 + 12 launches a step, and
-  phases 17, 33 and 29 print K6's and K7's times beside PERF.md §6's.
+  phases 17 and 33 print K6's times beside PERF.md §6's;
+- K7 redesigned for Hopper (slice 11): phase 28 runs the register-tile K7
+  kernels at every case, window 14 in bf16 included, and adds the
+  second-plane control (as phase 34's for K2); phase 29 prints stage 1's
+  times beside the earlier wmma design's (K7_EARLIER_MS), times window 14
+  (swin_s3_t stage 3 at batch 128) with both bounds beside
+  scaled_dot_product_attention, and prints the kernels' registers and spills;
+  phase 38 times the K3/K4 half-blocks through the port's module chain at
+  vit_b_16's and ConvNeXt-T stage 1's shapes (the yardstick of their
+  redesign; several calls, so "chain ms").
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -261,10 +270,11 @@ SWIN_STAGES = ((56, 64, 3, 2, 1), (28, 16, 6, 2, 1), (14, 4, 12, 6, 3), (7, 1, 2
 # K7 cases (B, nW, T, heads, head width, masked): each swin_t stage at batch
 # 8 (shifted stages with their mask), window 8 at head 128 (the tensor-core
 # kernels' widest), window 14 (T = 196, the S3 variants) with and without a
-# mask, and T = 256 at head 128, whose operands stay in device memory
+# mask, one image a block and (batch 32 and 64) two and three, and T = 256 at
+# head 128, whose operands stay in device memory
 SWIN_ATTENTION_CASES = tuple((8, nw, 49, n, 32, k > 0) for _, nw, n, _, k in SWIN_STAGES) + (
     (4, 4, 64, 2, 128, True), (8, 1, 196, 12, 32, False), (2, 16, 196, 3, 32, True),
-    (2, 2, 256, 2, 128, True))
+    (32, 1, 196, 12, 32, False), (64, 4, 196, 3, 32, True), (2, 2, 256, 2, 128, True))
 # K8 cases (B, H, W, C, window, shift): swin_t's three shifted stages at
 # batch 8, window 14, and channels whose bytes take narrower copies
 SWIN_RELAYOUT_CASES = tuple((8, h, h, 96 * 2**i, 7, 3) for i, (h, *_) in
@@ -297,15 +307,25 @@ VIT_DROPOUT = dict(dropout=0.1)  # ViT-B/16's ImageNet rate (Dosovitskiy et al.,
 VIT_UNFUSED_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
                          compare_batch=8)
 UNFUSED = dict(force_unfused=True)
-# PERF.md §6's times of the K6 and K7 kernels (SigLIP vit_b_16 b32 and head
-# 256, swin_t stage 1 b128, bf16; NVIDIA H100 80GB HBM3, 700 W), which phases
-# 17, 33 and 29 print beside this run's: kernels the K2 redesign leaves as
-# they were; and the times of K2's earlier wmma design (vit_b_16 b128,
-# PERF.md §6), which phase 35 prints beside the redesigned kernels'
+# PERF.md §6's times of the K6 kernels (SigLIP vit_b_16 b32 and head 256, bf16;
+# NVIDIA H100 80GB HBM3, 700 W), which phases 17 and 33 print beside this run's:
+# kernels the K2 and K7 redesigns leave as they were; and the times of K2's and
+# K7's earlier wmma designs (vit_b_16 b128; swin_t stage 1 b128, PERF.md §6),
+# which phases 35 and 29 print beside the redesigned kernels'
 SECTION6_MS = {"flash_attention": 0.6930, "flash_attention_bwd": 2.1940,
-               "flash_attention_head256": 0.3777, "flash_attention_bwd_head256": 1.2760,
-               "swin_attention": 1.3428, "swin_attention_bwd": 2.4855}
+               "flash_attention_head256": 0.3777, "flash_attention_bwd_head256": 1.2760}
 K2_EARLIER_MS = {"short_attention": 0.8728, "short_attention_bwd": 2.6521}
+K7_EARLIER_MS = {"swin_attention": 1.3428, "swin_attention_bwd": 2.4855}
+# K7's second-plane control cases (B, nW, T, N, hd, masked), bf16: swin_t stage
+# 1 at batch 8 and window 14 (swin_s3_t stage 3); held as K2's (SECOND_PLANE)
+SWIN_CONTROL_CASES = ((8, 64, 49, 3, 32, True), (8, 1, 196, 12, 32, False))
+# window 14 timed beside stage 1: swin_s3_t stage 3 at batch 128
+SWIN_WINDOW14 = (SWIN_TIME_BATCH, 1, 196, 12, 32, False)
+# the K3/K4 half-blocks through the port's module chain (phase 38): vit_b_16's
+# at batch 8 and 128, ConvNeXt-T stage 1's MLP half (γ, residual) at batch 128
+CHAIN_CASES = (("block_mlp", 8, 197, 768), ("block_attention", 8, 197, 768),
+               ("block_mlp", 128, 197, 768), ("block_attention", 128, 197, 768),
+               ("block_mlp_convnext", 128, 56 * 56, 96))
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -1828,12 +1848,12 @@ def repairs_on_card(report: dict, name_power: str) -> None:
 
 
 def swin_attention_work(name: str, B: int, nW: int, T: int, N: int, hd: int,
-                        x_bytes: int) -> tuple[float, float]:
+                        x_bytes: int, masked: bool = True) -> tuple[float, float]:
     """(product operations, bytes) of one K7 call: the forward's q·kᵀ and
     p·v per window and head; the backward's five products (the recomputed
     logits, g·vᵀ, dv, dq, dk). Bytes: q, k, v (and g) in, out (dq, dk, dv)
-    out, pe and the mask in (and dPE out, f32)."""
-    x, tables = B * nW * T * N * hd * x_bytes, (N + nW) * T * T * x_bytes
+    out, pe and the mask (where there is one) in (and dPE out, f32)."""
+    x, tables = B * nW * T * N * hd * x_bytes, (N + nW * masked) * T * T * x_bytes
     if name == "swin_attention":
         return 4 * B * nW * N * T * T * hd, 4 * x + tables
     return 10 * B * nW * N * T * T * hd, 7 * x + tables + N * T * T * 4
@@ -1856,15 +1876,19 @@ def compare_swin(report: dict) -> tuple[dict[str, float], float]:
     SWIN_ATTENTION_CASES, f32 and bf16: out, dq, dk, dv by max abs error
     against BOUND·max|plain|, dPE (an f32 sum over batch and windows in
     another order) by rel L2 ≤ BWD_REL_L2, and a second backward bit-equal
-    to the first; K8 partition and unpartition at SWIN_RELAYOUT_CASES,
-    bit-exact against their plain versions. Returns the max abs errors at
-    swin_t stage 1, batch 8, bf16 (K7: out and the worst of dq, dk, dv) and
-    dPE's rel L2 there."""
+    to the first; at SWIN_CONTROL_CASES in bf16 the second-plane control, as
+    phase 34's for K2: the kernels' rel L2 from the plain versions at most
+    SECOND_PLANE of ``swin_attention_one_plane``'s (out: p rounded to bf16
+    once) and ``swin_attention_bwd_one_plane``'s (dq, dk, dv: p and ds rounded
+    once); K8 partition and unpartition at SWIN_RELAYOUT_CASES, bit-exact
+    against their plain versions. Returns the max abs errors at swin_t stage
+    1, batch 8, bf16 (K7: out and the worst of dq, dk, dv) and dPE's rel L2
+    there."""
     from vision_toolbox_tpu_torch.ops import swin_attention as sa
     from vision_toolbox_tpu_torch.ops import swin_relayout as sr
 
     g = torch.Generator().manual_seed(28)
-    checks, main_err, main_dpe = Checks(), {}, None
+    checks, main_err, main_dpe, control = Checks(), {}, None, []
     for B, nW, T, N, hd, masked in SWIN_ATTENTION_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, pe, mask, dout = swin_attention_args(g, B, nW, T, N, hd, masked, dtype)
@@ -1887,6 +1911,27 @@ def compare_swin(report: dict) -> tuple[dict[str, float], float]:
                 main_err["swin_attention"], main_err["swin_attention_bwd"] = err, max(errs)
                 main_dpe = dpe
             del q, k, v, pe, mask, dout, got, again, want
+    for B, nW, T, N, hd, masked in SWIN_CONTROL_CASES:
+        args = swin_attention_args(g, B, nW, T, N, hd, masked, torch.bfloat16)
+        q, k, v, pe, mask, dout = args
+        got = (sa.swin_attention_cuda(q, k, v, pe, mask, N),
+               *sa.swin_attention_bwd_cuda(*args[:5], N, dout)[:3])
+        want = (sa.swin_attention_plain(q, k, v, pe, mask, N),
+                *sa.swin_attention_bwd_plain(*args[:5], N, dout)[:3])
+        ctrl = (sa.swin_attention_one_plane(q, k, v, pe, mask, N),
+                *sa.swin_attention_bwd_one_plane(*args[:5], N, dout)[:3])
+        row = dict(B=B, nW=nW, T=T, N=N, hd=hd, masked=masked, **{
+            n: dict(kernel=rel_l2(a, b), control=rel_l2(c, b))
+            for n, a, b, c in zip(("out", "dq", "dk", "dv"), got, want, ctrl)})
+        row["ok"] = all(row[n]["kernel"] <= SECOND_PLANE * row[n]["control"]
+                        for n in ("out", "dq", "dk", "dv"))
+        control.append(row)
+        log(f"[swin-attention] second-plane control B={B} nW={nW} T={T} N={N} bf16, rel L2 from "
+            f"the plain versions, kernel / control: " + ", ".join(
+                f"{n} {row[n]['kernel']:.2e} / {row[n]['control']:.2e}"
+                for n in ("out", "dq", "dk", "dv"))
+            + f" (kernel ≤ {SECOND_PLANE} × control) {'ok' if row['ok'] else 'FAIL'}")
+        del args, q, k, v, pe, mask, dout, got, want, ctrl
     for B, H, W, C, w, s in SWIN_RELAYOUT_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             x = torch.randn(B, H, W, C, generator=g).to("cuda", dtype)
@@ -1906,34 +1951,70 @@ def compare_swin(report: dict) -> tuple[dict[str, float], float]:
             log(f"[swin-relayout] B={B} {H}x{W}x{C} w={w} s={s} {case['dtype']:8s} "
                 f"{checks.summary(case)}")
     report["compare_swin"] = checks.rows
+    report["swin_second_plane_control"] = control
     bad = [r for r in checks.rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} K7/K8 comparisons out of bounds: {bad[:8]}")
+    if len(control) != len(SWIN_CONTROL_CASES) or not all(r["ok"] for r in control):
+        raise AssertionError(f"K7 fails its second-plane control: {control}")
     return main_err, main_dpe
 
 
-def time_swin(report: dict, name_power: str) -> dict[str, tuple[float, float, float | None]]:
-    """Phase 29: at swin_t stage 1, batch SWIN_TIME_BATCH, bf16 (64 windows
-    of 49 tokens, 3 heads of 32, the shift mask), in turns with their plain
-    versions: K7 forward and backward, and beside them torch's
-    scaled_dot_product_attention (the library yardstick; the port never
-    calls it) on (B, nW·N, T, hd) with pe + mask summed once, outside the
-    timing, into one bf16 attn_mask broadcast over the batch (its backward:
-    forward + backward less the forward); K8 partition and unpartition of
-    the 56×56×96 map (no PyTorch call computes them). Returns (kernel,
-    plain, library) ms."""
+def k7_ptxas(build_log: str) -> list[dict]:
+    """ptxas's registers and spill bytes of each register-tile K7 kernel in
+    the build log (head-width class, and whether the window takes one key
+    tile: ≤ 64 tokens)."""
+    rows, entry = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(swin_(?:fwd|bwd)_rt_kernel)ILi(\d+)ELb([01])E", m.group(1))
+            entry = None if k is None else dict(kernel=k.group(1), head_class=int(k.group(2)),
+                                                small_window=k.group(3) == "1")
+            if entry:
+                rows.append(entry)
+        elif entry and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif entry and "spill" in line:
+            entry["spill_bytes"] = sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+    return rows
+
+
+def time_k7_case(g, case: tuple, name_power: str) -> dict[str, dict]:
+    """K7 forward and forward + backward at ``case`` (B, nW, T, N, hd,
+    masked), bf16, in turns with their plain versions, and torch's
+    scaled_dot_product_attention on (B, nW·N, T, hd) with pe + mask summed
+    once, outside the timing, into one bf16 attn_mask broadcast over the
+    batch (the library yardstick; the port never calls it). First the
+    kernels are held against their plain versions on these inputs as phase
+    28 holds them (out, dq, dk, dv by BOUND, dPE by BWD_REL_L2): at batch 128
+    a block takes several images in turn."""
     import torch.nn.functional as F
 
     from vision_toolbox_tpu_torch.ops import swin_attention as sa
-    from vision_toolbox_tpu_torch.ops import swin_relayout as sr
 
-    g = torch.Generator().manual_seed(29)
-    B, (H, nW, N, _, _), T, hd = SWIN_TIME_BATCH, SWIN_STAGES[0], 49, 32
-    q, k, v, pe, mask, dout = swin_attention_args(g, B, nW, T, N, hd, True, torch.bfloat16)
+    B, nW, T, N, hd, masked = case
+    q, k, v, pe, mask, dout = swin_attention_args(g, B, nW, T, N, hd, masked, torch.bfloat16)
+    checks, check = Checks(), dict(kernel="swin_attention", B=B, nW=nW, T=T, N=N, hd=hd,
+                                   masked=masked, dtype="bfloat16")
+    got = (sa.swin_attention_cuda(q, k, v, pe, mask, N),
+           *sa.swin_attention_bwd_cuda(q, k, v, pe, mask, N, dout))
+    want = (sa.swin_attention_plain(q, k, v, pe, mask, N),
+            *sa.swin_attention_bwd_plain(q, k, v, pe, mask, N, dout))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        checks.elementwise(check, name, a, b)
+    checks.reduced(check, "dpe", got[4], want[4])
+    log(f"[swin-time] B={B} nW={nW} T={T} N={N} hd={hd} bf16 against the plain versions: "
+        f"{checks.summary(check)}")
+    if not all(r["ok"] for r in checks.rows):
+        raise AssertionError(f"K7 disagrees with its plain version at the timed shape "
+                             f"{case}: {checks.rows}")
+    del got, want
     heads = lambda t: t.view(B, nW, T, N, hd).transpose(2, 3).reshape(B, nW * N, T, hd)
     sq, sk, sv, sg = map(heads, (q, k, v, dout))
-    bias = (pe.float()[None] + mask.float()[None, :, None]).to(torch.bfloat16)
-    bias = bias.reshape(1, nW * N, T, T)
+    bias = pe.float()[None] + (0.0 if mask is None else mask.float()[None, :, None])
+    bias = bias.expand(1, nW, N, T, T).to(torch.bfloat16).reshape(1, nW * N, T, T)
     leaves = [t.detach().requires_grad_() for t in (sq, sk, sv)]
 
     def sdpa_fb():
@@ -1948,7 +2029,7 @@ def time_swin(report: dict, name_power: str) -> dict[str, tuple[float, float, fl
         sa.swin_attention_plain(q, k, v, pe, mask, N)
         sa.swin_attention_bwd_plain(q, k, v, pe, mask, N, dout)
 
-    rows = {}
+    rows = {"check": checks.rows}
     for what, plain, kernel, library in (
         ("forward", lambda: sa.swin_attention_plain(q, k, v, pe, mask, N),
          lambda: sa.swin_attention_cuda(q, k, v, pe, mask, N),
@@ -1957,16 +2038,50 @@ def time_swin(report: dict, name_power: str) -> dict[str, tuple[float, float, fl
     ):
         plain_ms, ms = alternate(plain, kernel, iters=10)
         rows[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=time_ms(library, iters=10))
-        log(f"[swin-time] {what:16s} B={B} nW={nW} T={T} N={N} hd={hd} bf16 masked: kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  scaled_dot_product_attention "
-            f"{rows[what]['library_ms']:.4f} ms  [{name_power}]")
-    f, fb = rows["forward"], rows["forward+backward"]
-    out = {"swin_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
-           "swin_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
-                                                                    "library_ms"))}
-    for name in ("swin_attention", "swin_attention_bwd"):
-        log(f"[swin-time] {name}: {against_section6(name, out[name][0])}")
-    del q, k, v, dout, sq, sk, sv, sg, leaves
+        log(f"[swin-time] {what:16s} B={B} nW={nW} T={T} N={N} hd={hd} bf16"
+            f"{' masked' if masked else ''}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+            f"scaled_dot_product_attention {rows[what]['library_ms']:.4f} ms  [{name_power}]")
+    return rows
+
+
+def time_swin(report: dict, name_power: str) -> dict[str, tuple[float, float, float | None]]:
+    """Phase 29: at swin_t stage 1, batch SWIN_TIME_BATCH, bf16 (64 windows
+    of 49 tokens, 3 heads of 32, the shift mask): K7 forward and backward
+    (``time_k7_case``; the backward: forward + backward less the forward),
+    beside the earlier wmma design's times (K7_EARLIER_MS); the same at window
+    14 (SWIN_WINDOW14) with its bounds; the register-tile kernels' registers
+    and spills (ptxas); K8 partition and unpartition of the 56×56×96 map in
+    turns with their plain versions (no PyTorch call computes them). Returns
+    (kernel, plain, library) ms at stage 1."""
+    from vision_toolbox_tpu_torch.ops import swin_relayout as sr
+
+    g = torch.Generator().manual_seed(29)
+    B, (H, nW, N, _, _), T, hd = SWIN_TIME_BATCH, SWIN_STAGES[0], 49, 32
+    rows, out = {}, {}
+    for label, case in (("stage1", (B, nW, T, N, hd, True)), ("window14", SWIN_WINDOW14)):
+        r = time_k7_case(g, case, name_power)
+        f, fb = r["forward"], r["forward+backward"]
+        times = {"swin_attention": (f["ms"], f["plain_ms"], f["library_ms"]),
+                 "swin_attention_bwd": tuple(fb[key] - f[key] for key in ("ms", "plain_ms",
+                                                                          "library_ms"))}
+        for name, (ms, _, lib_ms) in times.items():
+            bound_ms, bound_by = bound(*swin_attention_work(name, *case[:5], 2, case[5]))
+            r[name] = dict(ms=ms, library_ms=lib_ms, bound_ms=bound_ms, bound_by=bound_by)
+            earlier = (f"; earlier wmma design (PERF.md §6) {K7_EARLIER_MS[name]:.4f} ms, this / "
+                       f"earlier = {ms / K7_EARLIER_MS[name]:.3f}" if label == "stage1" else "")
+            log(f"[swin-time] {label} {name:18s}: kernel {ms:.4f} ms  "
+                f"scaled_dot_product_attention {lib_ms:.4f} ms  bound {bound_ms:.4f} ms "
+                f"({bound_by})  [{name_power}]{earlier}")
+        rows[label] = r
+        if label == "stage1":
+            out = times
+        torch.cuda.empty_cache()
+    regs = k7_ptxas(report["build_log"])
+    for r in regs:
+        log(f"[swin-time] ptxas {r['kernel']}<head ≤ {r['head_class']}, "
+            f"{'≤ 64 tokens' if r['small_window'] else '> 64 tokens'}>: {r.get('registers')} "
+            f"registers, {r.get('spill_bytes')} bytes of spills")
+    rows["ptxas"] = regs
     x = torch.randn(B, H, H, 96, generator=g).to("cuda", torch.bfloat16)
     y = sr.shifted_window_partition_cuda(x, 7, 3)
     for name, plain, kernel in (
@@ -2296,6 +2411,52 @@ def train_vit_unfused(report: dict, name_power: str) -> dict[str, int]:
     return launches
 
 
+def time_chains(report: dict, name_power: str) -> None:
+    """Phase 38: the K3/K4 half-blocks through the port's module chain, the
+    path a block takes where the fused gates refuse it (cuBLAS products on
+    bf16 operands, the LayerNorm module, exact GELU; attention through MHA,
+    whose K2 runs at 64 pairs or more), at PERF.md §6's K3/K4 shapes
+    (CHAIN_CASES), bf16: the forward, and the backward to x (forward +
+    backward less the forward; the weight gradients, which the fused kernels
+    leave to torch.matmul, are not asked for). It is the yardstick of a K3/K4
+    redesign: "chain ms", several calls, not one library call."""
+    from vision_toolbox_tpu_torch.models.convnext import ConvNeXtBlock
+    from vision_toolbox_tpu_torch.nn.attention import ViTBlock
+    from vision_toolbox_tpu_torch.nn.layers import _gelu_exact
+
+    g = torch.Generator().manual_seed(38)
+    vit = ViTBlock(VIT_B["D"], VIT_B["H"], dtype=torch.bfloat16, generator=g).cuda()
+    cnx = ConvNeXtBlock(96, dtype=torch.bfloat16, generator=g).cuda()
+    halves = {
+        "block_mlp": lambda x, res: res + vit.mlp(vit.mlp_norm(x)),
+        "block_attention": lambda x, res: res + vit.mha(vit.mha_norm(x)),
+        "block_mlp_convnext": lambda x, res: res + cnx.layer_scale(
+            cnx.pwconv2(_gelu_exact(cnx.pwconv1(cnx.norm(x))))),
+    }
+    rows = []
+    for name, B, T, D in CHAIN_CASES:
+        x, res, dout = (torch.randn(B, T, D, generator=g).to("cuda", torch.bfloat16)
+                        for _ in range(3))
+        if name != "block_mlp_convnext":
+            res = x  # the transformer block's residual is its input
+        leaf = x.detach().requires_grad_()
+
+        def forward():
+            with torch.no_grad():
+                halves[name](x, res)
+
+        def forward_backward():
+            torch.autograd.grad(halves[name](leaf, leaf if res is x else res), leaf, dout)
+
+        f_ms = time_ms(forward, iters=10)
+        fb_ms = time_ms(forward_backward, iters=10)
+        rows.append(dict(half=name, B=B, T=T, D=D, chain_ms=f_ms, chain_bwd_ms=fb_ms - f_ms))
+        log(f"[chain-time] {name:18s} B={B:3d} T={T} D={D} bf16: chain forward {f_ms:.4f} ms, "
+            f"chain backward to x {fb_ms - f_ms:.4f} ms  [{name_power}]")
+        del x, res, dout, leaf
+    report["chain_times"] = rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2449,6 +2610,9 @@ def main() -> int:
     times |= {k: t[:2] for k, t in short_times.items()}
     launches["short_attention"] = serve_vit_dropout(report, name_power)
     launches["short_attention_bwd"] = train_vit_unfused(report, name_power)["short_attention_bwd"]
+
+    # phase 38: the K3/K4 half-blocks through the module chain, their yardstick
+    time_chains(report, name_power)
 
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)

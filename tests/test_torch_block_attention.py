@@ -71,7 +71,9 @@ def test_op_on_cpu_is_the_plain_version():
 
 def test_dispatch_rules():
     assert port.use_fused_attention(768, 12, 197, 0.0, True)  # vit_b_16 @224
-    assert port.use_fused_attention(1280, 16, 257, 0.0, True)  # vit_h_14 @224, head_dim 80
+    assert port.use_fused_attention(1024, 16, 197, 0.0, True)  # vit_l_16: JAX's 2-slice plan
+    assert not port.use_fused_attention(1280, 16, 257, 0.0, True)  # vit_h_14: no JAX plan
+    assert not port.use_fused_attention(192, 3, 197, 0.0, True)  # vit_ti_16: d_model % 128
     assert port.use_fused_attention(768, 12, 512, 0.0, True)
     assert not port.use_fused_attention(768, 12, 513, 0.0, True)  # keys exceed one block
     assert not port.use_fused_attention(768, 12, 197, 0.1, True)  # dropout

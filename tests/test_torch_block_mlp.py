@@ -89,11 +89,17 @@ def test_gelu_as_matches_jax():
 
 
 def test_dispatch_rules():
-    assert port.use_fused_mlp(768, 3072, 0.0)  # vit_b_16
-    assert port.use_fused_mlp(192, 768, 0.0)  # vit_ti_16
-    assert port.use_fused_mlp(1280, 5120, 0.0)  # vit_h_14: weights stream, no split
-    assert not port.use_fused_mlp(768, 3072, 0.1)  # dropout
-    assert port.use_fused_mlp(96, 384, 0.0)  # ConvNeXt-T / Swin-T stage 1: 32-column tiles
-    assert port.use_fused_mlp(288, 1152, 0.0)  # cait_xs
-    assert not port.use_fused_mlp(40, 160, 0.0)  # convnext_a stage 1: JAX's d % 32 refuses it
-    assert not port.use_fused_mlp(100, 400, 0.0)
+    assert port.use_fused_mlp(768, 3072, 197, 0.0)  # vit_b_16
+    assert port.use_fused_mlp(192, 768, 197, 0.0)  # vit_ti_16
+    assert port.use_fused_mlp(1280, 5120, 257, 0.0)  # vit_h_14: JAX's 4-slice plan
+    assert not port.use_fused_mlp(768, 3072, 197, 0.1)  # dropout
+    assert port.use_fused_mlp(96, 384, 56 * 56, 0.0)  # Swin-T stage 1: 32-column tiles
+    assert port.use_fused_mlp(96, 384, 56 * 56, 0.0, has_res=True, has_ls=True)  # ConvNeXt-T
+    assert port.use_fused_mlp(288, 1152, 196, 0.0, has_ls=True)  # cait_xs
+    assert not port.use_fused_mlp(40, 160, 56 * 56, 0.0)  # convnext_a stage 1: d % 32
+    assert not port.use_fused_mlp(100, 400, 197, 0.0)
+    # the JAX plan's budgets: convnext_xl's stage 4 (d 2048) has no hidden
+    # split; vit_h_14's widths at T = 1024 (448 px without a cls token) fill
+    # its f32 row scratches
+    assert not port.use_fused_mlp(2048, 8192, 49, 0.0, has_res=True, has_ls=True)
+    assert not port.use_fused_mlp(1280, 5120, 1024, 0.0)

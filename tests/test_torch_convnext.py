@@ -116,7 +116,8 @@ def test_convnext_forward_matches_jax(jax_k3_on, monkeypatch, v2, dtype):
         monkeypatch.setattr(jdc, "use_depthwise_kernel", lambda *a: True)
     pm = ConvNeXt(**NARROW, v2=v2, dtype=tdt, device="cpu")
     pm.load_state_dict(flax_to_state_dict(_np(params)), strict=True)
-    assert all(b.fused != v2 for stage in pm.stages for b in stage)
+    assert all(b.fused_at(t) != v2  # the stages' tokens at 64 px
+               for t, stage in zip((256, 64, 16, 4), pm.stages) for b in stage)
     x = np.random.default_rng(1).random((2, 64, 64, 3), dtype=np.float32)
     want = jax.jit(lambda p, x: jm.apply({"params": p}, x))(params, jnp.asarray(x))
     with torch.no_grad():
@@ -255,7 +256,8 @@ def test_default_device_is_the_card():
             create_backbone("convnext_a")
     m = create_backbone("convnext_a", device="cpu")
     assert [len(s) for s in m.stages] == [2, 2, 6, 2] and m.last_out_channels == 320
-    assert [b.fused for s in m.stages for b in s][::2] == [False, False, True, True, True, True]
+    assert [b.fused_at(t) for t, s in zip((64, 16, 4, 1), m.stages) for b in s][::2] == [
+        False, False, True, True, True, True]  # the stages' tokens at 32 px
     with torch.no_grad():
         assert m(torch.zeros(1, 32, 32, 3)).shape == (1, 320)
 

@@ -200,7 +200,7 @@ def test_weight_grad_rounds_once_from_f32(cuda, M, N):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H,extras", [(2, 50, 128, 2, True), (3, 197, 768, 12, False),
                                             (1, 512, 128, 2, True), (1, 480, 256, 2, False),
-                                            (2, 17, 64, 4, True)])
+                                            (2, 17, 128, 8, True)])
 def test_attention_backward_kernels_match_plain(cuda, dtype, B, T, D, H, extras):
     """Every shape class the forward gate admits: ragged T, T = 512, head
     width 128 at T = 480 (the widest head that fits the forward at that
@@ -706,13 +706,15 @@ def test_convnext_builds_on_the_card_and_runs_its_kernels(cuda):
 # windows 8 and 4 with heads of 128 and 16 (the tensor-core kernels' widest and
 # narrowest), window 14 (the S3 variants: T = 196, a dPE plane of 150 KB in
 # shared memory beside bf16 operands, in device memory beside f32 ones) with
-# and without its mask, T = 256 at head 128, whose operands are read from
-# device memory, and a head of 20 (no multiple of 16)
+# and without its mask, one image a block and (SWIN_RUN_SHAPES) two and three
+# in turn, T = 256 at head 128, whose operands are read from device memory, and
+# a head of 20 (no multiple of 16)
+SWIN_RUN_SHAPES = [(32, 1, 196, 12, 32, False), (64, 4, 196, 3, 32, True)]
 SWIN_ATTENTION_SHAPES = [(2, 64, 49, 3, 32, True), (2, 16, 49, 6, 32, True),
                          (3, 4, 49, 12, 32, True), (2, 1, 49, 24, 32, False),
                          (2, 3, 64, 2, 128, True), (2, 5, 16, 4, 16, False),
                          (2, 1, 196, 12, 32, False), (1, 16, 196, 3, 32, True),
-                         (1, 2, 256, 2, 128, True), (2, 3, 9, 2, 20, True)]
+                         *SWIN_RUN_SHAPES, (1, 2, 256, 2, 128, True), (2, 3, 9, 2, 20, True)]
 
 
 def _swin_args(g, B, nW, T, N, hd, masked, dtype, device):
@@ -750,6 +752,46 @@ def test_swin_attention_kernels_match_plain(cuda, dtype, B, nW, T, N, hd, masked
     assert got[3].dtype == want[3].dtype == torch.float32
     _check_rel_l2(got[3], want[3], "dpe")
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("B,nW,T,N,hd,masked", SWIN_RUN_SHAPES)
+def test_swin_attention_window14_blocks_take_several_images(cuda, B, nW, T, N, hd, masked):
+    """At SWIN_RUN_SHAPES, bf16, both kernels run the large-window register
+    tiles and a block takes window w of more than one image in turn, so the
+    matching test above holds their loop over images."""
+    from vision_toolbox_tpu_torch.ops import swin_attention as sa
+
+    g = torch.Generator().manual_seed(B + nW)
+    q, _, _, pe, mask, _ = _swin_args(g, 1, nW, T, N, hd, masked, torch.bfloat16, cuda)
+    for bwd in (False, True):
+        route = sa.kernel_route(q, pe, mask, N, bwd)
+        assert route == sa.ROUTE_LARGE and sa.windows_per_block(B, nW, N, route) > 1
+
+
+@pytest.mark.parametrize("B,nW,T,N,hd,masked", [(4, 64, 49, 3, 32, True),
+                                                (2, 1, 196, 12, 32, False)])
+def test_swin_attention_keeps_the_second_plane(cuda, B, nW, T, N, hd, masked):
+    """bf16, swin_t stage 1 and window 14: the forward kernel lies at most
+    half as far (rel L2) from ``swin_attention_plain`` as
+    ``swin_attention_one_plane``, which rounds p to bf16 once; the backward's
+    dq, dk and dv at most half as far from ``swin_attention_bwd_plain`` as
+    ``swin_attention_bwd_one_plane``, which rounds p (for dv) and ds (for dq
+    and dk) once."""
+    from vision_toolbox_tpu_torch.ops import swin_attention as sa
+
+    g = torch.Generator().manual_seed(B * nW * T + N)
+    args = _swin_args(g, B, nW, T, N, hd, masked, torch.bfloat16, cuda)
+    q, k, v, pe, mask, dout = args
+    rel = lambda a, b: ((a.float() - b.float()).norm() / b.float().norm()).item()
+    got = (sa.swin_attention_cuda(q, k, v, pe, mask, N),
+           *sa.swin_attention_bwd_cuda(*args[:5], N, dout)[:3])
+    want = (sa.swin_attention_plain(q, k, v, pe, mask, N),
+            *sa.swin_attention_bwd_plain(*args[:5], N, dout)[:3])
+    control = (sa.swin_attention_one_plane(q, k, v, pe, mask, N),
+               *sa.swin_attention_bwd_one_plane(*args[:5], N, dout)[:3])
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(("out", "dq", "dk", "dv"), got, want, control):
+        assert rel(a, b) <= 0.5 * rel(c, b), (name, rel(a, b), rel(c, b))
 
 
 def test_swin_attention_refuses_what_its_gate_refuses(cuda):

@@ -283,7 +283,8 @@ def test_default_device_is_the_card():
     assert [len(s) for s in m.stages] == [2, 2, 6, 2] and m.last_out_channels == 768
     assert [(i, j) for i, s in enumerate(m.stages) for j, b in enumerate(s) if b.mha.shift] == [
         (0, 1), (1, 1), (2, 1), (2, 3), (2, 5)]
-    assert all(b.fused for s in m.stages for b in s)
+    assert all(b.fused_at(t)  # the stages' tokens at 224 px
+               for t, s in zip((3136, 784, 196, 49), m.stages) for b in s)
 
 
 def test_exported_program_calls_the_kernels_ops():

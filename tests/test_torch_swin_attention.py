@@ -91,6 +91,27 @@ def test_plain_versions_match_the_jax_kernel(masked, dtype, i, name):
         assert_matches_kernel(got / scale, want / scale)
 
 
+@pytest.mark.parametrize("masked", [False, True], ids=["no-mask", "mask"])
+def test_second_plane_controls_lie_farther_from_the_jax_kernel(masked):
+    """bf16: the forward's control ``swin_attention_one_plane`` (p rounded to
+    bf16 once before p·v) and the backward's ``swin_attention_bwd_one_plane``
+    (p rounded before dv, ds before dq and dk) against the JAX kernel in
+    interpret mode: the plain twins lie at most half as far (rel L2), the rule
+    that lets the card's control refuse a kernel that drops p's or ds's
+    second plane."""
+    want = _jax_side(masked, "bfloat16")
+    q, k, v, g, pe, mask = (None if a is None else torch.from_numpy(a).to(torch.bfloat16)
+                            for a in _inputs(masked))
+    N = SHAPE[3]
+    twin = (sa.swin_attention_plain(q, k, v, pe, mask, N),
+            *sa.swin_attention_bwd_plain(q, k, v, pe, mask, N, g)[:3])
+    control = (sa.swin_attention_one_plane(q, k, v, pe, mask, N),
+               *sa.swin_attention_bwd_one_plane(q, k, v, pe, mask, N, g)[:3])
+    for name, a, b, w in zip(("out", "dq", "dk", "dv"), twin, control, want):
+        err = lambda t: float(np.linalg.norm(t.float().numpy() - w) / np.linalg.norm(w))
+        assert err(a) <= 0.5 * err(b), (name, err(a), err(b))
+
+
 @pytest.mark.parametrize("t,s,hd,admitted", [
     (49, 49, 32, True),     # window 7: every registered Swin's heads
     (196, 196, 32, True),   # window 14: the S3 variants
@@ -118,11 +139,20 @@ def test_custom_op_runs_the_plain_version_on_cpu():
 
 
 def test_windows_per_block_covers_every_window():
-    """The kernels' blocks take consecutive windows and cover each once."""
-    for n_windows, heads in ((8192, 3), (512, 24), (128, 12), (1, 1), (7, 2000)):
-        per = sa.windows_per_block(n_windows, heads)
-        blocks = -(-n_windows // per)
-        assert per >= 1 and (blocks - 1) * per < n_windows <= blocks * per
+    """The kernels' blocks take one window index of a run of consecutive
+    images and cover each image once, for each kernel route: (B, nW, heads)
+    at swin_t's four stages at batch 128, window 14, one image, and more heads
+    than the card has blocks. The CUDA-core kernels keep the card's eight
+    blocks an SM (at window 14, batch 128: two images a block, 768 blocks),
+    the large-window register tiles take two (six images a block)."""
+    routes = (sa.ROUTE_CORES, sa.ROUTE_SMALL, sa.ROUTE_LARGE)
+    for batch, n_windows, heads in ((128, 64, 3), (128, 16, 6), (128, 4, 12), (128, 1, 24),
+                                    (128, 1, 12), (1, 1, 1), (7, 1, 2000), (3, 64, 3)):
+        for route in routes:
+            per = sa.windows_per_block(batch, n_windows, heads, route)
+            runs = -(-batch // per)
+            assert 1 <= per <= batch and (runs - 1) * per < batch <= runs * per
+    assert [sa.windows_per_block(128, 1, 12, r) for r in routes] == [2, 2, 6]
 
 
 class _Masks:

@@ -8,149 +8,349 @@
 // Replaces the TPU kernel vision_toolbox_tpu/ops/swin_attention.py
 // `_swin_attention_bwd` (`_bwd_kernel`), which walks the images in order and carries
 // dPE in a VMEM scratch across its sequential grid. Here blocks run in parallel
-// (swin_attention.cuh's blocks: a run of windows, one head), each adding ds into its
-// own (T, T) dPE partial, row t always by warp t mod 8, so in a fixed order; a
-// second launch sums the blocks' partials in block order. No atomics: the same bits
-// on every run. Two kernels, as in the forward (swin_attention.cu):
-//  - the tensor cores (bf16, windows of up to 64 tokens, heads a multiple of 16):
-//    the window-head whole in shared memory; q·kᵀ and g·vᵀ on wmma tiles; the row
-//    step (p, delta, ds, the dPE partial) a warp a row; p and ds as two bf16
-//    planes each; dv = pᵀ·g, dk = dsᵀ·q·scale, dq = ds·k·scale on the tensor cores.
-//  - the CUDA cores (everything else): a row pass, a warp per query row t (p and
-//    m, l (max, Σe) recomputed, dp, delta, ds, dq), then a key pass, a warp per key
-//    s, lane j the rows j + 32i, that recomputes p and ds bit for bit from the row
-//    pass's m, l and delta and sums dk and dv over the rows in order: no (T, T)
-//    plane of p or ds is kept. The dPE partial is a shared-memory plane where it
-//    fits beside the staged operands (150 KB at window 14, T = 196), else in device
-//    memory.
+// (swin_attention.cuh's blocks: one head, one window index, a run of images), each
+// adding ds into its own (T, T) dPE partial, each element by one thread in image
+// order; a second launch sums the blocks' partials in block order. No atomics: the
+// same bits on every run. Two kernels, as in the forward (swin_attention.cu):
+//  - the register tiles (bf16), per window-head, warp r on query rows (then keys)
+//    16r..16r + 15. Windows of up to 64 tokens: (a) s = q·kᵀ and dp = g·vᵀ over all
+//    keys at once, the logits with pe and the mask, the softmax of whole rows, p =
+//    e / Σe, delta = Σ e·dp / Σe = Σ_s dp·p (the TPU kernel's own delta; out is
+//    not saved), ds = p·(dp − delta), each thread's part of the dPE partial += ds
+//    in registers, dq += ds·k with ds as two bf16 planes; p's and ds's planes go
+//    to shared memory once (the exchange), and (b) dv = pᵀ·g and dk = dsᵀ·q read
+//    them back transposed (ldmatrix .trans): 2 + 2 + 2 + 2 product units of 64 ×
+//    64 × 32. Larger windows (window 14), whose planes do not fit: K2's passes. (a)
+//    rows: sweep 1 keeps the running max m, Σe and Σ e·dp (rescaled as m grows),
+//    so lse = m + log Σe and delta need no whole f32 row on chip; sweep 2 forms p
+//    = e^(logit − lse), ds, the partial (in device memory) and dq; lse and delta
+//    go to shared memory. (b) keys: sᵀ = k·qᵀ and dpᵀ = v·gᵀ recomputed over query
+//    tiles, pᵀ and dsᵀ as A fragments, dv += pᵀ·g and dk += dsᵀ·q on two planes.
+//  - the CUDA cores (f32, and bf16 windows the register tiles do not take): a row
+//    pass, a warp per query row t (p and m, l (max, Σe) recomputed, dp, delta,
+//    ds, dq), then a key pass, a warp per key s, lane j the rows j + 32i, that
+//    recomputes p and ds bit for bit from the row pass's m, l and delta and sums
+//    dk and dv over the rows in order: no (T, T) plane of p or ds is kept. The
+//    dPE partial is a shared-memory plane where it fits beside the staged
+//    operands, else in device memory.
 //
 // What bounds it: at swin_t stage 1, batch 128 (bf16), q, k, v, g in and dq, dk, dv
 // out are 539 MB, 0.16 ms at 3.35 TB/s; its five products (q·kᵀ, g·vᵀ and the three
-// gradients) are 19 GFLOP, 0.02 ms on the tensor cores.
-#include "wmma_planes.cuh"
+// gradients) are 19 GFLOP, 0.02 ms on the tensor cores. The register tiles issue
+// 8 units of 64 × 64 × 32 a window-head: 52 GFLOP.
 #include "swin_attention.cuh"
 
 using namespace vtt_swin;
+using vtt_mma::kLog2e;
+using vtt_mma::kNegInf;
 
 namespace {
 
-namespace wmma = nvcuda::wmma;
-using vtt_flash::Acc;
-
 constexpr int REDUCE_THREADS = 256;
 
-// One gradient of the tensor-core backward: acc = a·b over the window (depth `depth`)
-// tile by tile into the staging tile, then rows < T × `cols` columns, times `alpha`,
-// rounded to bf16 into out (row stride D). LA and a_step pick pᵀ/dsᵀ (column-major
-// reads of the [query][key] planes) or ds (row-major).
-template <typename LA, int NA>
-__device__ __forceinline__ void tc_gradient(const bf16* a, int lda, int a_step, int a_plane,
-                                            int a_tile_step, const bf16* b, int ldb, int b_plane,
-                                            int depth, int tiles, int hd, float* of, int ldo,
-                                            int T_, int D, float alpha, bf16* out) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int t = warp; t < tiles * (hd / 16); t += NW) {
-    const int i = t % tiles, j = t / tiles;
-    Acc acc;
-    wmma::fill_fragment(acc, 0.0f);
-    vtt_flash::mma_planes<LA, wmma::row_major, NA, 1>(acc, a + i * a_tile_step, lda, a_step,
-                                                      a_plane, b + j * 16, ldb, 16 * ldb, b_plane,
-                                                      depth);
-    wmma::store_matrix_sync(of + i * 16 * ldo + j * 16, acc, ldo, wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int r = warp; r < T_; r += NW) {
-    for (int c = lane; c < hd; c += 32) {
-      out[static_cast<size_t>(r) * D + c] = __float2bfloat16(of[r * ldo + c] * alpha);
-    }
-  }
-  __syncthreads();  // the staging tile is free again
-}
-
-// Backward on the tensor cores (swin_attention.cuh TcSmem): per window-head, S = q·kᵀ
-// and dP = g·vᵀ, the row step (p, delta, ds, the dPE partial: row r by warp r mod
-// 8), then dv = pᵀ·g, dk = dsᵀ·q·scale, dq = ds·k·scale through the staging tile.
-__global__ void __launch_bounds__(NT)
-swin_bwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+// Backward on the register tiles: for each window-head of the block's run, (a)
+// then (b), warp r on rows (then keys) 16r..16r + 15.
+template <int HD, bool SMALL>
+__global__ void __launch_bounds__(rt_threads<SMALL>(), (rt_min_blocks<SMALL, HD, true>()))
+swin_bwd_rt_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ g,
                    const void* __restrict__ pe, int pe_bf16, const void* __restrict__ mask,
                    int mask_bf16, bf16* __restrict__ dq, bf16* __restrict__ dk,
-                   bf16* __restrict__ dv, float* __restrict__ partials, int n_windows, int nW,
-                   int T_, int D, int hd, int per_block, float scale) {
+                   bf16* __restrict__ dv, float* __restrict__ partials, int B, int nW, int T_,
+                   int D, int hd, int Hp, int per_block, int runs, int vec, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const TcSmem L(T_, hd, 4, 2, 2, true);
-  const int h = blockIdx.y, N = gridDim.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int tp = L.tp, tiles = tp / 16, op_plane = tp * L.ldh, p_plane = tp * L.ldp;
-  bf16* qs = reinterpret_cast<bf16*>(smem + L.ops);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L.ops + L.op_bytes);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L.ops + 2 * L.op_bytes);
-  bf16* gs = reinterpret_cast<bf16*>(smem + L.ops + 3 * L.op_bytes);
-  float* sf = reinterpret_cast<float*>(smem + L.f);
-  float* dpf = reinterpret_cast<float*>(smem + L.f + L.f_bytes);
-  bf16* ps = reinterpret_cast<bf16*>(smem + L.p);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L.p + L.p_bytes);
-  float* of = reinterpret_cast<float*>(smem + L.o);
-  float* dpe = reinterpret_cast<float*>(smem + L.dpe);
-  const size_t plane = static_cast<size_t>(T_) * T_, pe_base = static_cast<size_t>(h) * plane;
-  for (size_t i = threadIdx.x; i < plane; i += NT) dpe[i] = 0.0f;
-  const int first = blockIdx.x * per_block, last = min(n_windows, first + per_block);
-
-  for (int bw = first; bw < last; ++bw) {
-    const size_t base = static_cast<size_t>(bw) * T_ * D + static_cast<size_t>(h) * hd;
-    const size_t mask_base = static_cast<size_t>(bw % nW) * plane;
-    __syncthreads();  // the last window is done with every tile
-    vtt_flash::load_rows<bf16, 1>(q + base, 0, tp, T_, D, hd, qs, L.ldh, op_plane);
-    vtt_flash::load_rows<bf16, 1>(k + base, 0, tp, T_, D, hd, ks, L.ldh, op_plane);
-    vtt_flash::load_rows<bf16, 1>(v + base, 0, tp, T_, D, hd, vs, L.ldh, op_plane);
-    vtt_flash::load_rows<bf16, 1>(g + base, 0, tp, T_, D, hd, gs, L.ldh, op_plane);
-    __syncthreads();
-    for (int t = warp; t < 2 * tiles * tiles; t += NW) {  // S = q·kᵀ, dP = g·vᵀ
-      const int which = t / (tiles * tiles), rem = t % (tiles * tiles);
-      const int i = rem % tiles, j = rem / tiles;
-      Acc acc;
-      wmma::fill_fragment(acc, 0.0f);
-      vtt_flash::mma_planes<wmma::row_major, wmma::col_major, 1, 1>(
-          acc, (which ? gs : qs) + i * 16 * L.ldh, L.ldh, 16, op_plane,
-          (which ? vs : ks) + j * 16 * L.ldh, L.ldh, 16, op_plane, hd);
-      wmma::store_matrix_sync((which ? dpf : sf) + i * 16 * L.lds + j * 16, acc, L.lds,
-                              wmma::mem_row_major);
+  const bool masked = mask != nullptr;
+  const RtSmem L(T_, Hp, SMALL, pe_bf16, masked, mask_bf16, true);
+  const int tid = threadIdx.x, nt = blockDim.x, r = tid >> 5;
+  const int t = vtt_mma::lane_t(), gq = vtt_mma::lane_g();
+  const BlockJob job(D / hd, runs);
+  const int h = job.h, w = job.w, run = job.run;
+  const int b0 = run * per_block, n = min(B, b0 + per_block) - b0;
+  const int nkh = Hp / 16;
+  const size_t plane = static_cast<size_t>(T_) * T_;
+  auto op = [&](int s, int i) { return reinterpret_cast<bf16*>(smem + (4 * s + i) * L.tile); };
+  auto load = [&](int it) {  // window w of image b0 + it: q, k, v, g into its ring stage
+    const size_t base = window_head(b0 + it, w, h, nW, T_, D, hd);
+    const bf16* src[4] = {q + base, k + base, v + base, g + base};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      vtt_mma::load_tile<bf16, 1>(op(it % BWD_STAGES, i), L.ldh, 0, src[i], D, 0, L.tp, T_, hd,
+                                  Hp, vec, tid, nt);
     }
-    __syncthreads();
-    for (int r = warp; r < tp; r += NW) {  // the row step
-      float p[2], ds[2];
-      tc_softmax_row(sf + r * L.lds, r, T_, scale, pe, pe_bf16, pe_base, mask, mask_bf16,
-                     mask_base, p);
-      float pdp = 0.0f;
+  };
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int s = lane + 32 * u;
-        ds[u] = s < tp ? dpf[r * L.lds + s] : 0.0f;
-        pdp += p[u] * ds[u];
+  for (int it = 0; it < BWD_STAGES - 1; ++it) {  // the ring's first tiles, each its own group
+    if (it < n) load(it);
+    vtt_mma::cp_async_commit();
+  }
+
+  const void* pe_h = static_cast<const char*>(pe) + h * plane * (pe_bf16 ? 2 : 4);
+  const void* mask_w = masked ? static_cast<const char*>(mask) + w * plane * (mask_bf16 ? 2 : 4)
+                              : nullptr;
+  Table pe_t{pe_h, pe_bf16, T_}, mask_t{mask_w, mask_bf16, T_};
+  float* own = partials + blockIdx.x * plane;  // (w·runs + run, h) of (nW·runs, N, T, T)
+  if constexpr (SMALL) {  // once a block; the first ring step's barrier publishes them
+    pe_t = stage_table(pe_h, pe_bf16, T_, smem + L.pe);
+    if (masked) mask_t = stage_table(mask_w, mask_bf16, T_, smem + L.mask);
+  } else {  // the partial in device memory, zeroed before the first ring step's barrier
+    for (size_t i = tid; i < plane; i += nt) own[i] = 0.0f;
+  }
+  const int row0 = 16 * r + gq;  // this thread's rows (then keys): row0 and row0 + 8
+  // Small windows: this thread's part of the block's dPE partial, in the
+  // accumulator layout (in shared memory it cost a block an SM: 30% slower)
+  float dpe[SMALL ? BK / 8 : 1][4] = {};
+
+  for (int it = 0; it < n; ++it) {
+    vtt_mma::ring_step<BWD_STAGES>(it, n, load);
+    const int st = it % BWD_STAGES;
+    const bf16 *qs = op(st, 0), *ks = op(st, 1), *vs = op(st, 2), *gs = op(st, 3);
+    const size_t base = window_head(b0 + it, w, h, nW, T_, D, hd);
+    float acc[HD / 8][4];
+#pragma unroll
+    for (int j = 0; j < HD / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.0f;
+
+    if constexpr (SMALL) {
+      // (a) all keys in one tile: s, dp, the softmax of whole rows, ds, dPE, dq;
+      // p and ds to the exchange as two planes each
+      bf16* xp = reinterpret_cast<bf16*>(smem + L.extra);
+      const int xplane = L.tp * XP, nkg = groups16(0, BK, T_);
+      float s[BK / 8][4], dp[BK / 8][4];
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
       }
-      const float delta = warp_sum(pdp);
+      vtt_mma::scores_t<1, BK, HD>(s, qs, ks, 0, 0, L.ldh, r, nkh, nkg);
+      vtt_mma::scores_t<1, BK, HD>(dp, gs, vs, 0, 0, L.ldh, r, nkh, nkg);
+      logits<true>(s, 0, row0, T_, scale, pe_t, mask_t, masked);
+      float mx[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, d[2] = {0.0f, 0.0f};
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int s = lane + 32 * u;
-        ds[u] = p[u] * (ds[u] - delta);
-        if (r < T_ && s < T_) dpe[static_cast<size_t>(r) * T_ + s] += ds[u];
-        if (s < tp) {
-          vtt_flash::split_store<2>(p[u], ps + r * L.ldp + s, p_plane);
-          vtt_flash::split_store<2>(ds[u], dss + r * L.ldp + s, p_plane);
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+      }
+      const float mb[2] = {vtt_mma::quad_max(mx[0]) * kLog2e, vtt_mma::quad_max(mx[1]) * kLog2e};
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {  // e = exp(logit − max), 0 at keys ≥ T
+          s[j][e] = vtt_mma::exp2_approx(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
+          l[e >> 1] += s[j][e];
+          d[e >> 1] = fmaf(s[j][e], dp[j][e], d[e >> 1]);
         }
       }
+      float inv[2], dl[2];  // 1 / Σe and delta = Σ e·dp / Σe = Σ_s dp·p
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float lt = vtt_mma::quad_sum(l[hh]);
+        inv[hh] = 1.0f / lt;
+        dl[hh] = vtt_mma::quad_sum(d[hh]) / lt;
+      }
+#pragma unroll
+      for (int j = 0; j < BK / 8; ++j) {
+        const int c = j * 8 + 2 * t;
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          float* pp = s[j] + 2 * hh;
+          float* x = dp[j] + 2 * hh;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            pp[u] *= inv[hh];              // p = e / Σe
+            x[u] = pp[u] * (x[u] - dl[hh]);  // ds, 0 at keys ≥ T and rows ≥ T
+            dpe[j][2 * hh + u] += x[u];
+          }
+          uint32_t pw[2], dw[2];
+          vtt_mma::split_pair<2>(pp[0], pp[1], pw);
+          vtt_mma::split_pair<2>(x[0], x[1], dw);
+          const int at = (row0 + 8 * hh) * XP + c;
+#pragma unroll
+          for (int i = 0; i < 2; ++i) {
+            *reinterpret_cast<uint32_t*>(xp + i * xplane + at) = pw[i];
+            *reinterpret_cast<uint32_t*>(xp + (2 + i) * xplane + at) = dw[i];
+          }
+        }
+      }
+      vtt_mma::grad_step<2, 1, BK, HD>(acc, dp, ks, 0, L.ldh, 0, Hp, nkg);  // dq += ds·k
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (j * 8 >= Hp) break;
+        const float val[4] = {acc[j][0] * scale, acc[j][1] * scale, acc[j][2] * scale,
+                              acc[j][3] * scale};
+        vtt_mma::store_acc<bf16>(dq + base, D, row0, T_, j * 8 + 2 * t, hd, val);
+      }
+      __syncthreads();  // the exchange is complete
+
+      // (b) dv = pᵀ·g and dk = dsᵀ·q from the exchange, over the window's queries
+      float dka[HD / 8][4];
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = dka[j][e] = 0.0f;
+      }
+      exchange_step<HD>(acc, xp, xplane, 16 * r, gs, L.ldh, Hp, nkg);
+      exchange_step<HD>(dka, xp + 2 * xplane, xplane, 16 * r, qs, L.ldh, Hp, nkg);
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (j * 8 >= Hp) break;
+        const float sk[4] = {dka[j][0] * scale, dka[j][1] * scale, dka[j][2] * scale,
+                             dka[j][3] * scale};
+        vtt_mma::store_acc<bf16>(dv + base, D, row0, T_, j * 8 + 2 * t, hd, acc[j]);
+        vtt_mma::store_acc<bf16>(dk + base, D, row0, T_, j * 8 + 2 * t, hd, sk);
+      }
+    } else {
+      // the rows pass's key tile and the keys pass's query tile: the warp holds s
+      // and dp (then sᵀ and dpᵀ) of a tile beside dq (then dk and dv); head 32
+      // takes 16 to fit two blocks an SM (rt_min_blocks)
+      constexpr int BKR = HD <= 32 ? 16 : 32, BQ = HD <= 32 || HD > 64 ? 16 : 32;
+      float* lse2 = reinterpret_cast<float*>(smem + L.extra);  // per query row: lse·log2 e
+      float* dlt = lse2 + stat_rows(T_);                        // and delta
+      // (a) sweep 1: per row the running max m and this thread's part of Σe and Σ e·dp
+      float s[BKR / 8][4], dp[BKR / 8][4];
+      float m[2] = {kNegInf, kNegInf}, l[2] = {0.0f, 0.0f}, d[2] = {0.0f, 0.0f};
+      for (int k0 = 0; k0 < T_; k0 += BKR) {
+        const int nkg = groups16(k0, BKR, T_);
+#pragma unroll
+        for (int j = 0; j < BKR / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+        }
+        vtt_mma::scores_t<1, BKR, HD>(s, qs, ks + k0 * L.ldh, 0, 0, L.ldh, r, nkh, nkg);
+        vtt_mma::scores_t<1, BKR, HD>(dp, gs, vs + k0 * L.ldh, 0, 0, L.ldh, r, nkh, nkg);
+        logits<false>(s, k0, row0, T_, scale, pe_t, mask_t, masked);
+        float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+        for (int j = 0; j < BKR / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+        }
+        float mb[2];
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const float m_new = fmaxf(m[hh], vtt_mma::quad_max(mx[hh]));
+          const float alpha = vtt_mma::exp2_approx((m[hh] - m_new) * kLog2e);
+          m[hh] = m_new;
+          mb[hh] = m_new * kLog2e;
+          l[hh] *= alpha;
+          d[hh] *= alpha;
+        }
+#pragma unroll
+        for (int j = 0; j < BKR / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float p = vtt_mma::exp2_approx(fmaf(s[j][e], kLog2e, -mb[e >> 1]));
+            l[e >> 1] += p;
+            d[e >> 1] = fmaf(p, dp[j][e], d[e >> 1]);
+          }
+        }
+      }
+      // lse (as lse·log2 e) and delta of the rows, to shared memory for (b); rows
+      // ≥ T get +1e30 and 0, so that their p is zero there
+      float lb[2], dl[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float lt = vtt_mma::quad_sum(l[hh]);
+        lb[hh] = (m[hh] + logf(lt)) * kLog2e;
+        dl[hh] = vtt_mma::quad_sum(d[hh]) / lt;
+        const int row = row0 + 8 * hh;
+        if (t == 0) {
+          lse2[row] = row < T_ ? lb[hh] : 1e30f;
+          dlt[row] = row < T_ ? dl[hh] : 0.0f;
+        }
+      }
+      // (a) sweep 2: p, ds = p·(dp − delta), the dPE partial, dq += ds·k
+      for (int k0 = 0; k0 < T_; k0 += BKR) {
+        const int nkg = groups16(k0, BKR, T_);
+#pragma unroll
+        for (int j = 0; j < BKR / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.0f;
+        }
+        vtt_mma::scores_t<1, BKR, HD>(s, qs, ks + k0 * L.ldh, 0, 0, L.ldh, r, nkh, nkg);
+        vtt_mma::scores_t<1, BKR, HD>(dp, gs, vs + k0 * L.ldh, 0, 0, L.ldh, r, nkh, nkg);
+        logits<false>(s, k0, row0, T_, scale, pe_t, mask_t, masked);
+#pragma unroll
+        for (int j = 0; j < BKR / 8; ++j) {
+          const int c = k0 + j * 8 + 2 * t;
+#pragma unroll
+          for (int hh = 0; hh < 2; ++hh) {
+            float* x = dp[j] + 2 * hh;
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float p = vtt_mma::exp2_approx(fmaf(s[j][2 * hh + u], kLog2e, -lb[hh]));
+              x[u] = p * (x[u] - dl[hh]);  // keys ≥ T: p = 0
+            }
+            const int row = row0 + 8 * hh;
+            if (row < T_) {
+              float* at = own + static_cast<size_t>(row) * T_ + c;
+              if (c < T_) at[0] += x[0];
+              if (c + 1 < T_) at[1] += x[1];
+            }
+          }
+        }
+        vtt_mma::grad_step<2, 1, BKR, HD>(acc, dp, ks + k0 * L.ldh, 0, L.ldh, 0, Hp, nkg);
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (j * 8 >= Hp) break;
+        const float val[4] = {acc[j][0] * scale, acc[j][1] * scale, acc[j][2] * scale,
+                              acc[j][3] * scale};
+        vtt_mma::store_acc<bf16>(dq + base, D, row0, T_, j * 8 + 2 * t, hd, val);
+      }
+      __syncthreads();  // every row's lse and delta are in
+
+      // (b) the keys pass: sᵀ = k·qᵀ, dpᵀ = v·gᵀ over query tiles, dv += pᵀ·g,
+      // dk += dsᵀ·q
+      float dka[HD / 8][4];
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = dka[j][e] = 0.0f;
+      }
+      for (int q0 = 0; q0 < T_; q0 += BQ) {
+        const int nqg = groups16(q0, BQ, T_);
+        float sq[BQ / 8][4], dpt[BQ / 8][4];
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sq[j][e] = dpt[j][e] = 0.0f;
+        }
+        vtt_mma::scores_t<1, BQ, HD>(sq, ks, qs + q0 * L.ldh, 0, 0, L.ldh, r, nkh, nqg);
+        vtt_mma::scores_t<1, BQ, HD>(dpt, vs, gs + q0 * L.ldh, 0, 0, L.ldh, r, nkh, nqg);
+        logits_t(sq, q0, row0, T_, scale, pe_t, mask_t, masked);
+#pragma unroll
+        for (int j = 0; j < BQ / 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int qc = q0 + j * 8 + 2 * t + (e & 1);
+            const float p = vtt_mma::exp2_approx(fmaf(sq[j][e], kLog2e, -lse2[qc]));
+            sq[j][e] = p;
+            dpt[j][e] = p * (dpt[j][e] - dlt[qc]);
+          }
+        }
+        vtt_mma::grad_step<2, 1, BQ, HD>(acc, sq, gs + q0 * L.ldh, 0, L.ldh, 0, Hp, nqg);
+        vtt_mma::grad_step<2, 1, BQ, HD>(dka, dpt, qs + q0 * L.ldh, 0, L.ldh, 0, Hp, nqg);
+      }
+#pragma unroll
+      for (int j = 0; j < HD / 8; ++j) {
+        if (j * 8 >= Hp) break;
+        const float sk[4] = {dka[j][0] * scale, dka[j][1] * scale, dka[j][2] * scale,
+                             dka[j][3] * scale};
+        vtt_mma::store_acc<bf16>(dv + base, D, row0, T_, j * 8 + 2 * t, hd, acc[j]);
+        vtt_mma::store_acc<bf16>(dk + base, D, row0, T_, j * 8 + 2 * t, hd, sk);
+      }
     }
-    __syncthreads();
-    // dv = pᵀ·g and dk = dsᵀ·q (depth: the query rows), dq = ds·k (depth: the keys)
-    tc_gradient<wmma::col_major, 2>(ps, L.ldp, 16 * L.ldp, p_plane, 16, gs, L.ldh, op_plane,
-                                    tp, tiles, hd, of, L.ldo, T_, D, 1.0f, dv + base);
-    tc_gradient<wmma::col_major, 2>(dss, L.ldp, 16 * L.ldp, p_plane, 16, qs, L.ldh, op_plane,
-                                    tp, tiles, hd, of, L.ldo, T_, D, scale, dk + base);
-    tc_gradient<wmma::row_major, 2>(dss, L.ldp, 16, p_plane, 16 * L.ldp, ks, L.ldh, op_plane,
-                                    tp, tiles, hd, of, L.ldo, T_, D, scale, dq + base);
+    if constexpr (BWD_STAGES == 1) __syncthreads();  // the one stage is refilled next
   }
-  __syncthreads();
-  float* own = partials + (static_cast<size_t>(blockIdx.x) * N + h) * plane;
-  for (size_t i = threadIdx.x; i < plane; i += NT) own[i] = dpe[i];
+  if constexpr (SMALL) {  // this thread's part of the block's T × T partial
+#pragma unroll
+    for (int j = 0; j < BK / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + 8 * (e >> 1), c = j * 8 + 2 * t + (e & 1);
+        if (row < T_ && c < T_) own[static_cast<size_t>(row) * T_ + c] = dpe[j][e];
+      }
+    }
+  }
 }
 
 template <typename T, bool STAGED>
@@ -158,11 +358,12 @@ __global__ void __launch_bounds__(NT)
 swin_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ g, const void* __restrict__ pe, int pe_bf16,
                 const void* __restrict__ mask, int mask_bf16, T* __restrict__ dq,
-                T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ partials,
-                int n_windows, int nW, int T_, int D, int hd, int per_block, float scale,
+                T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ partials, int B,
+                int nW, int T_, int D, int hd, int per_block, int runs, float scale,
                 int plane_in_smem) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int h = blockIdx.y, N = gridDim.y, warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int h = blockIdx.y, N = gridDim.y, w = blockIdx.x / runs;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int pitch = stage_pitch<T>(hd);
   const size_t op_bytes = staged_bytes<T>(1, T_, hd), plane = static_cast<size_t>(T_) * T_;
   // this warp's rows: two of T (score gradients, probabilities), two of hd
@@ -180,10 +381,11 @@ swin_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
                              : own;
   for (size_t i = threadIdx.x; i < plane; i += NT) dpe[i] = 0.0f;
   const size_t pe_base = static_cast<size_t>(h) * plane;
-  const int first = blockIdx.x * per_block, last = min(n_windows, first + per_block);
+  const size_t mask_base = static_cast<size_t>(w) * plane;
+  const int b0 = blockIdx.x % runs * per_block, b1 = min(B, b0 + per_block);
 
-  for (int bw = first; bw < last; ++bw) {
-    const size_t base = static_cast<size_t>(bw) * T_ * D + static_cast<size_t>(h) * hd;
+  for (int b = b0; b < b1; ++b) {
+    const size_t base = window_head(b, w, h, nW, T_, D, hd);
     View<T> Q{q + base, D}, K{k + base, D}, V{v + base, D}, G{g + base, D};
     __syncthreads();  // the last window's key pass is done with the stats and operands
     if constexpr (STAGED) {
@@ -201,7 +403,6 @@ swin_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       V = View<T>{s2, pitch};
       G = View<T>{s3, pitch};
     }
-    const size_t mask_base = static_cast<size_t>(bw % nW) * plane;
 
     // row pass: dq, the row statistics and the dPE partial
     for (int t = warp; t < T_; t += NW) {
@@ -287,28 +488,40 @@ dpe_reduce_kernel(const float* __restrict__ partials, int n, size_t per, float* 
   dpe[i] = acc;
 }
 
-cudaError_t launch_tc(const void* q, const void* k, const void* v, const void* g, const void* pe,
+template <int HD, bool SMALL>
+cudaError_t launch_rt_width(const void* q, const void* k, const void* v, const void* g,
+                            const void* pe, int pe_bf16, const void* mask, int mask_bf16, void* dq,
+                            void* dk, void* dv, float* partials, int B, int nW, int T_, int N,
+                            int hd, int per_block, int runs, int vec, float scale,
+                            cudaStream_t st) {
+  const int Hp = vtt_mma::round_up(hd, 16);
+  const RtSmem L(T_, Hp, SMALL, pe_bf16, mask != nullptr, mask_bf16, true);
+  return rt_launch(swin_bwd_rt_kernel<HD, SMALL>, nW * runs, N, L.tp / 16, L.total, st,
+                   static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                   static_cast<const bf16*>(v), static_cast<const bf16*>(g), pe, pe_bf16, mask,
+                   mask_bf16, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                   static_cast<bf16*>(dv), partials, B, nW, T_, N * hd, hd, Hp, per_block, runs,
+                   vec, scale);
+}
+
+template <bool SMALL>
+cudaError_t launch_rt(const void* q, const void* k, const void* v, const void* g, const void* pe,
                       int pe_bf16, const void* mask, int mask_bf16, void* dq, void* dk, void* dv,
-                      float* partials, int n_windows, int blocks, int nW, int T_, int N, int hd,
-                      int per_block, float scale, cudaStream_t st) {
-  const TcSmem L(T_, hd, 4, 2, 2, true);
-  cudaError_t err = cudaFuncSetAttribute(swin_bwd_tc_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(L.total));
-  if (err != cudaSuccess) return err;
-  swin_bwd_tc_kernel<<<dim3(blocks, N), NT, L.total, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(g), pe, pe_bf16, mask, mask_bf16, static_cast<bf16*>(dq),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), partials, n_windows, nW, T_, N * hd, hd,
-      per_block, scale);
-  return cudaGetLastError();
+                      float* partials, int B, int nW, int T_, int N, int hd, int per_block,
+                      int runs, int vec, float scale, cudaStream_t st) {
+  const int Hp = vtt_mma::round_up(hd, 16);
+  auto fn = Hp <= 32   ? launch_rt_width<32, SMALL>
+            : Hp <= 64 ? launch_rt_width<64, SMALL>
+                       : launch_rt_width<128, SMALL>;
+  return fn(q, k, v, g, pe, pe_bf16, mask, mask_bf16, dq, dk, dv, partials, B, nW, T_, N, hd,
+            per_block, runs, vec, scale, st);
 }
 
 template <typename T>
 cudaError_t launch_simt(const void* q, const void* k, const void* v, const void* g, const void* pe,
                         int pe_bf16, const void* mask, int mask_bf16, void* dq, void* dk,
-                        void* dv, float* partials, int n_windows, int blocks, int nW, int T_,
-                        int N, int hd, int per_block, float scale, cudaStream_t st) {
+                        void* dv, float* partials, int B, int nW, int T_, int N, int hd,
+                        int per_block, int runs, float scale, cudaStream_t st) {
   const size_t ops = staged_bytes<T>(4, T_, hd), stats = align16(3 * T_ * sizeof(float));
   const size_t plane = static_cast<size_t>(T_) * T_ * sizeof(float);
   const size_t rows = warp_rows_bytes(2, 2, T_, hd);
@@ -320,18 +533,19 @@ cudaError_t launch_simt(const void* q, const void* k, const void* v, const void*
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(dyn));
   if (err != cudaSuccess) return err;
-  kernel<<<dim3(blocks, N), NT, dyn, st>>>(
+  kernel<<<dim3(nW * runs, N), NT, dyn, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(g), pe, pe_bf16, mask, mask_bf16, static_cast<T*>(dq),
-      static_cast<T*>(dk), static_cast<T*>(dv), partials, n_windows, nW, T_, N * hd, hd,
-      per_block, scale, plane_in_smem);
+      static_cast<T*>(dk), static_cast<T*>(dv), partials, B, nW, T_, N * hd, hd, per_block, runs,
+      scale, plane_in_smem);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // As vtt_swin_attention_fwd, with the cotangent g like q; dq, dk, dv like q; scratch
-// `partials` (⌈B·nW / per_block⌉, N, T, T) f32 from the caller; dpe (N, T, T) f32.
+// `partials` (nW·⌈B / per_block⌉, N, T, T) f32 from the caller, one plane a block;
+// dpe (N, T, T) f32.
 extern "C" int vtt_swin_attention_bwd(const void* q, const void* k, const void* v, const void* g,
                                       const void* pe, int pe_bf16, const void* mask,
                                       int mask_bf16, int is_bf16, void* dq, void* dk, void* dv,
@@ -341,18 +555,25 @@ extern "C" int vtt_swin_attention_bwd(const void* q, const void* k, const void* 
       hd > MAX_HEAD || per_block < 1 || static_cast<long long>(B) * nW > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int runs = (B + per_block - 1) / per_block;
+  if (static_cast<long long>(nW) * runs > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int blocks = nW * runs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int n_windows = B * nW, blocks = (n_windows + per_block - 1) / per_block;
+  const Route route = swin_route(T, hd, is_bf16, pe_bf16, mask != nullptr, mask_bf16, true);
   cudaError_t err;
-  if (use_tc(is_bf16, T, hd)) {
-    err = launch_tc(q, k, v, g, pe, pe_bf16, mask, mask_bf16, dq, dk, dv, partials, n_windows,
-                    blocks, nW, T, N, hd, per_block, scale, st);
-  } else if (is_bf16) {
-    err = launch_simt<bf16>(q, k, v, g, pe, pe_bf16, mask, mask_bf16, dq, dk, dv, partials,
-                            n_windows, blocks, nW, T, N, hd, per_block, scale, st);
+  if (route != ROUTE_CORES) {
+    // cp.async takes 16-byte rows: heads a multiple of 8, 16-byte-aligned operands
+    int vec = hd % 8 == 0 && (N * hd) % 8 == 0;
+    for (const void* p : {q, k, v, g}) vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+    auto fn = route == ROUTE_SMALL ? launch_rt<true> : launch_rt<false>;
+    err = fn(q, k, v, g, pe, pe_bf16, mask, mask_bf16, dq, dk, dv, partials, B, nW, T, N, hd,
+             per_block, runs, vec, scale, st);
   } else {
-    err = launch_simt<float>(q, k, v, g, pe, pe_bf16, mask, mask_bf16, dq, dk, dv, partials,
-                             n_windows, blocks, nW, T, N, hd, per_block, scale, st);
+    auto fn = is_bf16 ? launch_simt<bf16> : launch_simt<float>;
+    err = fn(q, k, v, g, pe, pe_bf16, mask, mask_bf16, dq, dk, dv, partials, B, nW, T, N, hd,
+             per_block, runs, scale, st);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t per = static_cast<size_t>(N) * T * T;

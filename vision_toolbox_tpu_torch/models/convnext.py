@@ -35,7 +35,7 @@ from ..nn.initializers import torch_default_bias
 from ..nn.layers import (
     Conv2d, DepthwiseConv, LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, as_dtype,
 )
-from ..ops.block_mlp import use_fused_mlp
+from ..ops import block_mlp
 from .base import Backbone, register_model, to_device
 
 
@@ -71,15 +71,21 @@ class ConvNeXtBlock(nn.Module):
         self.pwconv2 = Linear(hidden, d_model, bias, dtype=dtype, generator=generator)
         self.layer_scale = LayerScale(d_model, ls) if ls is not None else None
         self.droppath = StochasticDepth(stochastic_depth)
-        self.fused = not v2 and bias and use_fused_mlp(d_model, hidden, 0.0)
+        self.fusable = not v2 and bias  # the fused half has no GRN and takes the biases
+
+    def fused_at(self, t: int) -> bool:
+        """Whether the MLP half runs the fused kernel on maps of ``t`` tokens."""
+        hidden, d_model = self.pwconv1.weight.shape
+        return self.fusable and block_mlp.use_fused_mlp(d_model, hidden, t, 0.0, has_res=True,
+                                                        has_ls=self.layer_scale is not None)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
         """``force_unfused`` keeps the MLP half on the module chain; ``plain``
         runs the kernels' plain versions on any device."""
         y = self.dwconv(x, plain=plain)
-        if self.fused and not force_unfused:
-            B, H, W, C = y.shape
+        B, H, W, C = y.shape
+        if not force_unfused and self.fused_at(H * W):
             out = fused_mlp_halfblock(
                 y.reshape(B, H * W, C), self.norm, self.pwconv1, self.pwconv2, self.layer_scale,
                 self.droppath, residual=x.reshape(B, H * W, C), train=train, plain=plain,
@@ -108,7 +114,8 @@ class ConvNeXt(Backbone):
         self.compute_dtype = torch.float32 if dtype is None else dtype
         self.stem_conv = Conv2d(3, d_model, 4, 4, dtype=dtype, generator=gen)
         self.stem_norm = LayerNorm(d_model, norm_eps)
-        rates = torch.linspace(0, stochastic_depth, sum(self.depths), dtype=torch.float64).tolist()
+        rates = torch.linspace(0, stochastic_depth, sum(self.depths), dtype=torch.float64,
+                               device="cpu").tolist()
         d, self.stages = d_model, nn.ModuleList()
         for i, depth in enumerate(self.depths):
             if i > 0:

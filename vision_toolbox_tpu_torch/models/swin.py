@@ -49,7 +49,7 @@ from torch import Tensor, nn
 from ..nn.attention import MLP, fused_mlp_halfblock
 from ..nn.initializers import trunc_normal
 from ..nn.layers import Conv2d, LayerNorm, LayerScale, Linear, StochasticDepth, dropout
-from ..ops.block_mlp import use_fused_mlp
+from ..ops import block_mlp
 from ..ops.swin_attention import swin_window_attention
 from ..ops.swin_relayout import (
     shifted_window_partition, shifted_window_unpartition, use_swin_relayout, window_partition,
@@ -169,7 +169,12 @@ class SwinBlock(nn.Module):
         self.mlp = MLP(d_model, hidden, dropout, dtype=dtype, generator=generator)
         self.mlp_scale = LayerScale(d_model, ls) if ls is not None else None
         self.mlp_droppath = StochasticDepth(stochastic_depth)
-        self.fused = use_fused_mlp(d_model, hidden, dropout)
+
+    def fused_at(self, t: int) -> bool:
+        """Whether the MLP half runs the fused kernel on maps of ``t`` tokens."""
+        hidden, d_model = self.mlp.linear1.weight.shape
+        return block_mlp.use_fused_mlp(d_model, hidden, t, self.mlp.dropout,
+                                       has_ls=self.mlp_scale is not None)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
@@ -180,8 +185,8 @@ class SwinBlock(nn.Module):
         if self.mha_scale is not None:
             y = self.mha_scale(y)
         x = x + self.mha_droppath(y, train=train, generator=g)
-        if self.fused and not force_unfused:
-            B, H, W, C = x.shape
+        B, H, W, C = x.shape
+        if not force_unfused and self.fused_at(H * W):
             out = fused_mlp_halfblock(x.reshape(B, H * W, C), self.mlp_norm, self.mlp.linear1,
                                       self.mlp.linear2, self.mlp_scale, self.mlp_droppath,
                                       train=train, plain=plain, generator=g)

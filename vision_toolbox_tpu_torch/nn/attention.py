@@ -159,7 +159,8 @@ class ViTBlock(nn.Module):
                 y = self.mha_scale(y)
             x = x + self.mha_droppath(y, train=train, generator=g)
 
-        if fused and block_mlp.use_fused_mlp(self.d_model, self.hidden, self.dropout):
+        if fused and block_mlp.use_fused_mlp(self.d_model, self.hidden, x.shape[1], self.dropout,
+                                             has_ls=self.mlp_scale is not None):
             return fused_mlp_halfblock(x, self.mlp_norm, self.mlp.linear1, self.mlp.linear2,
                                        self.mlp_scale, self.mlp_droppath, train=train,
                                        plain=plain, generator=g)

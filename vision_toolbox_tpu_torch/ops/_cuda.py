@@ -119,6 +119,8 @@ _SIGNATURES = {
     ),
     "vtt_swin_partition": ((_P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I),  # x, out, B, H, W,
     "vtt_swin_unpartition": ((_P, _P, _I, _I, _I, _I, _I, _I, _I, _P), _I),  # C, bytes, w, s
+    "vtt_swin_attention_route": ((_I, _I, _I, _I, _I, _I, _I), _I),  # T, hd, is_bf16, pe_bf16,
+    # masked, mask_bf16, bwd
     "vtt_swin_attention_fwd": (
         (_P, _P, _P, _P, _I, _P, _I, _I, _P,  # q, k, v, pe, pe_bf16, mask, mask_bf16, is_bf16, out
          _I, _I, _I, _I, _I, _I, _F, _P),  # B, nW, T, N, hd, windows per block, scale, stream

@@ -65,23 +65,59 @@ def _attn_smem_bytes(t: int, head_dim: int) -> int:
     )
 
 
-def use_fused_attention(d_model: int, n_heads: int, t: int, dropout: float, bias: bool) -> bool:
-    """Shape rule of the CUDA kernels: the projections fill whole 64-column
-    tiles, a head is a whole number of 16-wide tensor-core steps (≤ 128),
-    and all T keys of an image fit one block's shared memory (T ≤ 512).
-    vit_b_16 at 224 px (T=197, head_dim 64) takes 75.5 KB. The backward
-    kernels cover every shape this admits (they stream keys and queries in
-    tiles)."""
-    if dropout != 0.0 or not bias or n_heads <= 0 or d_model % n_heads:
+def _kernel_admits(d_model: int, n_heads: int, t: int) -> bool:
+    """The CUDA kernels' own shape terms: the projections fill whole
+    64-column tiles, a head is a whole number of 16-wide tensor-core steps
+    (≤ 128), and all T keys of an image fit one block's shared memory
+    (T ≤ 512). vit_b_16 at 224 px (T=197, head_dim 64) takes 75.5 KB. The
+    backward kernels cover every shape this admits (they stream keys and
+    queries in tiles)."""
+    if n_heads <= 0 or d_model % n_heads:
         return False
     hd = d_model // n_heads
-    return (
-        d_model % 64 == 0
-        and hd % 16 == 0
-        and hd <= 128
-        and 1 <= t <= MAX_SEQ
-        and _attn_smem_bytes(t, hd) <= SMEM_LIMIT
-    )
+    return (d_model % 64 == 0 and hd % 16 == 0 and hd <= 128 and 1 <= t <= MAX_SEQ
+            and _attn_smem_bytes(t, hd) <= SMEM_LIMIT)
+
+
+# The JAX rule's admission terms, copied from
+# vision_toolbox_tpu/ops/block_attention.py (``_head_splits``,
+# ``_program_vmem_bytes``): the rule asks for a head-split plan whose bf16
+# weight slices and per-program blocks fit the TPU's VMEM. The port's
+# kernels never split heads; the plan only decides which shapes the fused
+# half-block takes, so that the port rounds where the reference rounds.
+_RESIDENT_BUDGET = 8 * 1024 * 1024
+_PROGRAM_BUDGET = 12 * 1024 * 1024
+_LANE_ALIGN = 128
+
+
+def _head_splits(d_model: int, n_heads: int, t: int) -> int:
+    """Head-group slices of the JAX plan (1, 2 or 4), 0 where there is none:
+    ViT-Ti/S/B take 1, ViT-L at 224 px 2, ViT-H none."""
+    for ns in (1, 2, 4):
+        if n_heads % ns or d_model % ns or (d_model // ns) % _LANE_ALIGN:
+            continue
+        if (4 * d_model * (d_model // ns) * 2 < _RESIDENT_BUDGET
+                and _program_vmem_bytes(d_model, n_heads, t, ns) <= _PROGRAM_BUDGET):
+            return ns
+    return 0
+
+
+def _program_vmem_bytes(d_model: int, n_heads: int, t: int, ns: int) -> int:
+    """The JAX plan's per-program estimate for one call of ``ns`` (one image):
+    weight slices, the bf16 streams, the saved probabilities, rstd."""
+    dq = d_model // ns
+    return 4 * d_model * dq * 2 + (6 * d_model + 4 * dq) * t * 2 + (n_heads // ns) * t * t * 2 \
+        + t * 4
+
+
+def use_fused_attention(d_model: int, n_heads: int, t: int, dropout: float, bias: bool) -> bool:
+    """Whether a block takes the fused half-block: the JAX package's rule
+    without its TPU test (no dropout, a bias, d_model % 128, 2 ≤ T ≤ 512 and
+    a head-split plan), and the CUDA kernels' own terms (``_kernel_admits``).
+    Elsewhere the block runs the module chain, as the reference runs XLA's
+    attention there (vit_ti_16, vit_h_14)."""
+    return (dropout == 0.0 and bias and d_model % 128 == 0 and 2 <= t <= MAX_SEQ
+            and _kernel_admits(d_model, n_heads, t) and _head_splits(d_model, n_heads, t) > 0)
 
 
 class AttnSaves(NamedTuple):
@@ -188,7 +224,7 @@ def _check_cuda_args(x: Tensor, ws: tuple[Tensor, ...], n_heads: int) -> None:
         raise TypeError(f"fused_attention_block: x must be float32 or bfloat16, got {x.dtype}")
     if any(w.shape != (D, D) for w in ws):
         raise ValueError(f"fused_attention_block: weights must be ({D}, {D})")
-    if not use_fused_attention(D, n_heads, T, 0.0, True):
+    if not _kernel_admits(D, n_heads, T):
         raise ValueError(f"fused_attention_block: no CUDA kernel for d_model={D}, "
                          f"n_heads={n_heads}, t={T}; gate calls with use_fused_attention()")
 

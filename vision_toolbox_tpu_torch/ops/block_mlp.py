@@ -219,13 +219,66 @@ def fused_mlp_bwd_plain(
     return MLPGrads(dx.to(dout.dtype), dhb, dh.sum((0, 1)), db2, dlns, dlnb, dls)
 
 
-def use_fused_mlp(d_model: int, hidden: int, dropout: float) -> bool:
-    """Shape rule of the CUDA kernels, the JAX package's lane rule: both
-    widths are multiples of 32 (the GEMM runs 64-column tiles where a width
-    allows them, 32-column ones elsewhere: ConvNeXt stage 1's 96, cait_xs's
-    288). No dropout: the kernel has none."""
-    return (dropout == 0.0 and d_model % _GEMM_WIDTH_STEP == 0
-            and hidden % _GEMM_WIDTH_STEP == 0)
+# The JAX rule's admission terms, copied from vision_toolbox_tpu/ops/block_mlp.py
+# (``_pick_hidden_tile``, ``_hidden_splits``, ``_chunk_plan``, ``_row_chunk``
+# and the two row budgets of ``use_fused_mlp``): TPU VMEM budgets for the
+# resident weights and the f32 row scratches. The port's kernels stream
+# their weights and never split; the plan only decides which shapes the
+# fused half-block takes, so that the port rounds where the reference rounds.
+_RESIDENT_BUDGET = 10 * 1024 * 1024
+_ROW_BUDGET = 2 * 1024 * 1024  # f32 (T, D) row scratches
+_GELU_BUDGET = 8 * 1024 * 1024  # f32 (T, hidden tile) GELU temporaries
+
+
+def _pick_hidden_tile(dh: int) -> int:
+    if dh <= 3072:
+        return dh
+    for ht in (1536, 1024, 768, 512, 384, 256, 128):
+        if dh % ht == 0:
+            return ht
+    return dh
+
+
+def _hidden_splits(d_model: int, hidden: int) -> int:
+    """Hidden slices of the JAX plan (1, 2 or 4), 0 where there is none:
+    ViT-Ti/S/B take 1, ViT-L 2, ViT-H 4."""
+    for ns in (1, 2, 4):
+        if (hidden % ns == 0 and 2 * d_model * (hidden // ns) * 2 <= _RESIDENT_BUDGET
+                and _pick_hidden_tile(hidden // ns) <= 3072):
+            return ns
+    return 0
+
+
+def _row_chunk(t: int, target: int) -> int:
+    """Smallest k dividing t with t / k ≤ target (1 if t fits, or t is a
+    prime above it)."""
+    if t <= target:
+        return 1
+    for k in range(2, t + 1):
+        if t % k == 0 and t // k <= target:
+            return k
+    return 1
+
+
+def _chunk_plan(t: int, d: int, heavy: bool) -> int:
+    light = not heavy and t * d * 4 <= _ROW_BUDGET
+    return _row_chunk(t, 3136 if light else 512)
+
+
+def use_fused_mlp(d_model: int, hidden: int, t: int, dropout: float, has_res: bool = False,
+                  has_ls: bool = False) -> bool:
+    """Whether a block takes the fused half-block on T tokens (an image or a
+    flattened feature map), with a separate residual and LayerScale as
+    flagged: the JAX package's rule without its TPU test (no dropout,
+    d_model % 32, a hidden-split plan, the row chunk's f32 scratches within
+    their budgets), and the CUDA kernels' own term, hidden % 32 (the GEMM's
+    32-column tiles; every registered width has it)."""
+    ns = _hidden_splits(d_model, hidden)
+    if ns == 0 or dropout != 0.0 or d_model % _GEMM_WIDTH_STEP or hidden % _GEMM_WIDTH_STEP:
+        return False
+    t_eff = t // _chunk_plan(t, d_model, heavy=has_res or has_ls or ns > 1)
+    return (t_eff * d_model * 4 <= _ROW_BUDGET
+            and t_eff * _pick_hidden_tile(hidden // ns) * 4 <= _GELU_BUDGET)
 
 
 def _check_cuda_args(x: Tensor, w1: Tensor, w2: Tensor, residual: Tensor | None) -> None:
@@ -235,7 +288,7 @@ def _check_cuda_args(x: Tensor, w1: Tensor, w2: Tensor, residual: Tensor | None)
     if w1.shape != (Dh, D) or w2.shape != (D, Dh):
         raise ValueError(f"fused_mlp_block: w1 {tuple(w1.shape)} / w2 {tuple(w2.shape)} "
                          f"do not match d_model={D} in the (out, in) layout")
-    if not use_fused_mlp(D, Dh, 0.0):
+    if D % _GEMM_WIDTH_STEP or Dh % _GEMM_WIDTH_STEP:
         raise ValueError(f"fused_mlp_block: no CUDA kernel for d_model={D}, hidden={Dh}; "
                          "gate calls with use_fused_mlp()")
     if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype):

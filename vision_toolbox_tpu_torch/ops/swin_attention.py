@@ -21,11 +21,17 @@ q, k, v, pe, the mask and the cotangent are read in their types and widened
 to f32; q·scale, the logits (pe and the mask added separately), the softmax
 and every backward intermediate are f32; out, dq, dk and dv are rounded once
 to the input type; dPE is the f32 sum of ds over batch and windows, returned
-in pe's type; the mask's cotangent is zero. On the card, bf16 windows of up
-to 64 tokens (window 7 and 8) run tensor-core kernels, which form the logits
-as (q·kᵀ)·scale and hold p and ds as two bf16 planes: the same values up to
-f32 rounding; other shapes run CUDA-core kernels in the TPU kernels' order.
-The JAX package's default dispatch runs its einsum path instead
+in pe's type; the mask's cotangent is zero. On the card, bf16 windows run
+register-tile kernels (``mma.sync`` with the scores and the softmax in
+registers, p and ds as two bf16 planes) wherever a window-head's q, k, v (and
+g) tiles fit shared memory: every window up to 64 tokens and window 14 at
+head 32, so every registered Swin; they form the logits as
+(q·kᵀ)·scale and normalise the softmax after the product: the same values up
+to f32 rounding. f32 operands, and the bf16 windows the tiles do not take,
+run CUDA-core kernels in the TPU kernels' order; the library's launcher
+chooses (``kernel_route``). A kernel block owns one head, one window index
+and a run of images (``windows_per_block``, sized for the chosen kernels). The
+JAX package's default dispatch runs its einsum path instead
 (``use_swin_kernel`` is off, a v5e measurement), which rounds the logits and
 the softmax in the input type.
 """
@@ -39,7 +45,13 @@ from . import _cuda
 
 MAX_WINDOW_SEQ = 256  # ops/swin_attention.py MAX_WINDOW_SEQ; csrc/swin_attention.cuh MAX_SEQ
 MAX_HEAD_DIM = 128  # csrc/swin_attention.cuh MAX_HEAD: four head columns a lane
-_TARGET_BLOCKS = 132 * 8  # eight 256-thread blocks on each of the H100's 132 SMs
+# The kernels a call runs, as csrc/swin_attention.cuh `swin_route` chooses them:
+# the CUDA-core kernels, or the register tiles for windows of one key tile or of
+# more. Blocks in all that fill the card for each: eight 256-thread blocks on each
+# of the H100's 132 SMs for the CUDA cores and for one key tile, two for more,
+# whose blocks take up to 13 warps and hold a T × T dPE partial each
+ROUTE_CORES, ROUTE_SMALL, ROUTE_LARGE = 0, 1, 2
+_TARGET_BLOCKS = {ROUTE_CORES: 132 * 8, ROUTE_SMALL: 132 * 8, ROUTE_LARGE: 132 * 2}
 
 
 def use_swin_kernel(t: int, s: int, head_dim: int) -> bool:
@@ -49,12 +61,22 @@ def use_swin_kernel(t: int, s: int, head_dim: int) -> bool:
     return t == s and 1 <= t <= MAX_WINDOW_SEQ and 1 <= head_dim <= MAX_HEAD_DIM
 
 
-def windows_per_block(n_windows: int, n_heads: int) -> int:
-    """Windows of the flattened (B·nW) axis a kernel block takes in turn:
-    enough blocks of one head each to fill the card (``_TARGET_BLOCKS``), no
-    more than one per window."""
-    blocks = max(1, min(n_windows, -(-_TARGET_BLOCKS // n_heads)))
-    return -(-n_windows // blocks)
+def windows_per_block(batch: int, n_windows: int, n_heads: int, route: int) -> int:
+    """Windows a kernel block takes in turn: one window index and one head,
+    in a run of this many consecutive images, so that the head's pe and the
+    window's mask serve the whole run. Runs are as short as filling the card
+    asks (``_TARGET_BLOCKS`` blocks in all for the ``route``'s kernels), at
+    least one image each."""
+    runs = max(1, min(batch, -(-_TARGET_BLOCKS[route] // (n_windows * n_heads))))
+    return -(-batch // runs)
+
+
+def kernel_route(q: Tensor, pe: Tensor, mask: Tensor | None, n_heads: int, bwd: bool) -> int:
+    """The kernels (``ROUTE_*``) the forward or the backward launches for
+    these operands, as the library's launcher chooses them."""
+    T, D = q.shape[-2:]
+    return _cuda.lib().vtt_swin_attention_route(T, D // n_heads, _is_bf16(q), _is_bf16(pe),
+                                                int(mask is not None), _is_bf16(mask), int(bwd))
 
 
 def _heads(t: Tensor, n_heads: int) -> Tensor:
@@ -79,26 +101,57 @@ def _probs(q: Tensor, k: Tensor, pe: Tensor, mask: Tensor | None, n_heads: int):
     return e / e.sum(-1, keepdim=True), qs
 
 
+def _fwd(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tensor | None, n_heads: int,
+         operand) -> Tensor:
+    """The forward's math, p passed through ``operand`` where it enters p·v."""
+    p, _ = _probs(q, k, pe, mask, n_heads)
+    return _merge(operand(p) @ _heads(v, n_heads), q.dtype)
+
+
 def swin_attention_plain(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tensor | None,
                          n_heads: int) -> Tensor:
     """Plain PyTorch version of the forward kernel, same rounding points."""
-    p, _ = _probs(q, k, pe, mask, n_heads)
-    return _merge(p @ _heads(v, n_heads), q.dtype)
+    return _fwd(q, k, v, pe, mask, n_heads, lambda x: x)
+
+
+def swin_attention_one_plane(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tensor | None,
+                             n_heads: int) -> Tensor:
+    """The forward's second-plane control: ``swin_attention_plain`` with p
+    rounded to bf16 once before p·v, as a kernel that fed it to the tensor
+    cores as one bf16 plane would compute. The checks use it to show that
+    their bounds tell such a kernel from K7; the port never calls it."""
+    return _fwd(q, k, v, pe, mask, n_heads, lambda x: x.bfloat16().float())
+
+
+def _bwd(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tensor | None, n_heads: int,
+         g: Tensor, operand) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The backward's math, p and ds passed through ``operand`` where they
+    enter dv = pᵀ·g, dq = ds·k and dk = dsᵀ·(q·scale); dPE sums ds itself."""
+    p, qs = _probs(q, k, pe, mask, n_heads)
+    go, kh = _heads(g, n_heads), _heads(k, n_heads)
+    dv = operand(p).transpose(-1, -2) @ go
+    dp = go @ _heads(v, n_heads).transpose(-1, -2)
+    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
+    dq = (operand(ds) @ kh) * (q.shape[-1] // n_heads) ** -0.5
+    dk = operand(ds).transpose(-1, -2) @ qs
+    return (_merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype),
+            ds.sum((0, 1))[None])
 
 
 def swin_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tensor | None,
                              n_heads: int, g: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor]:
     """Plain PyTorch version of the backward kernels, same rounding points:
     (dq, dk, dv in their operands' types, dPE (1, N, T, S) f32)."""
-    p, qs = _probs(q, k, pe, mask, n_heads)
-    go, kh = _heads(g, n_heads), _heads(k, n_heads)
-    dv = p.transpose(-1, -2) @ go
-    dp = go @ _heads(v, n_heads).transpose(-1, -2)
-    ds = p * (dp - (dp * p).sum(-1, keepdim=True))
-    dq = (ds @ kh) * (q.shape[-1] // n_heads) ** -0.5
-    dk = ds.transpose(-1, -2) @ qs
-    return (_merge(dq, q.dtype), _merge(dk, k.dtype), _merge(dv, v.dtype),
-            ds.sum((0, 1))[None])
+    return _bwd(q, k, v, pe, mask, n_heads, g, lambda x: x)
+
+
+def swin_attention_bwd_one_plane(q: Tensor, k: Tensor, v: Tensor, pe: Tensor,
+                                 mask: Tensor | None, n_heads: int, g: Tensor
+                                 ) -> tuple[Tensor, Tensor, Tensor, Tensor]:
+    """The backward's second-plane control: ``swin_attention_bwd_plain`` with
+    p rounded to bf16 once before dv and ds before dq and dk
+    (``swin_attention_one_plane`` is the forward's); the port never calls it."""
+    return _bwd(q, k, v, pe, mask, n_heads, g, lambda x: x.bfloat16().float())
 
 
 def _check_cuda_args(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tensor | None,
@@ -136,7 +189,9 @@ def swin_attention_cuda(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: Tenso
         err = _cuda.lib().vtt_swin_attention_fwd(
             _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(pe), _is_bf16(pe),
             _cuda.ptr(mask), _is_bf16(mask), _is_bf16(q), _cuda.ptr(out), B, nW, T, n_heads,
-            D // n_heads, windows_per_block(B * nW, n_heads), float((D // n_heads) ** -0.5),
+            D // n_heads, windows_per_block(B, nW, n_heads, kernel_route(q, pe, mask, n_heads,
+                                                                         False)),
+            float((D // n_heads) ** -0.5),
             _cuda.stream(),
         )
         _cuda.check(err, "swin_window_attention")
@@ -154,8 +209,8 @@ def swin_attention_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, pe: Tensor, mask: T
     q, k, v, pe, g = (t.contiguous() for t in (q, k, v, pe, g))
     mask = None if mask is None else mask.contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    per_block = windows_per_block(B * nW, n_heads)
-    blocks = -(-(B * nW) // per_block)
+    per_block = windows_per_block(B, nW, n_heads, kernel_route(q, pe, mask, n_heads, True))
+    blocks = nW * -(-B // per_block)  # of each head
     partials = torch.empty(blocks, n_heads, T, T, device=q.device)  # each block's dPE sum
     dpe = torch.empty(1, n_heads, T, T, device=q.device)
     with torch.cuda.device(q.device):
