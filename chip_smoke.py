@@ -99,7 +99,19 @@ sm_90a, one process per source) and drives the port's paths:
   scaled_dot_product_attention, and prints the kernels' registers and spills;
   phase 38 times the K3/K4 half-blocks through the port's module chain at
   vit_b_16's and ConvNeXt-T stage 1's shapes (the yardstick of their
-  redesign; several calls, so "chain ms").
+  redesign; several calls, so "chain ms");
+- K9 redesigned for Hopper (slice 12): phase 21 runs the redesigned
+  depthwise-conv kernels at every case, with the route each launch takes
+  (16-byte staging, or one element at a time for C = 20 and an offset
+  view), adds 7 × 7 and 14 × 14 regions, one-wide and one-high maps, a
+  run-time k and the gate's top k, holds bf16 out and dx bit-equal to the
+  plain versions (the count of differing elements, bound 0) and a second
+  backward bit-equal at stage 1; phase 22 prints each stage's route and
+  launch geometry, and stage 1's times beside the first design's
+  (K9_EARLIER_MS), then holds every stage's timed operands (and stage 1's
+  in f32) against the plain versions in the same way, with a second
+  backward bit-equal: at batch 128 a block walks several regions through
+  its ring, which stage 1's geometry must show.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -246,11 +258,15 @@ FLASH_TIME_BATCH = 32
 SIGLIP_TRAIN = dict(batch=64, img=512, classes=1000, warmup=3, steps=10, lr=0.1,
                     compare_batch=8)
 # convnext_t: its four stages' depthwise-conv shapes (H = W, C) at 224 px,
-# 3/3/9/3 blocks; K9 cases (B, H, W, C, k): each stage at batch 8, k = 3 and
-# 5, a C that is no multiple of 8 (convnext_a's 40 is; 20 is not)
+# 3/3/9/3 blocks; K9 cases (B, H, W, C, k, offset): each stage at batch 8
+# (the 7 × 7 and 14 × 14 regions among them), k = 3 and 5, a C that is no
+# multiple of 8 (convnext_a's 40 is; 20 is not), a one-wide and a one-high
+# map, a run-time k (9) and the gate's top (21), and stage 1 as a view one
+# element into its buffer: C = 20 and the offset view take the scalar route
 CONVNEXT_STAGES = ((56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3))
-DEPTHWISE_CASES = tuple((8, h, h, c, 7) for h, c, _ in CONVNEXT_STAGES) + (
-    (4, 28, 28, 64, 3), (4, 19, 23, 48, 5), (3, 13, 17, 20, 7))
+DEPTHWISE_CASES = tuple((8, h, h, c, 7, 0) for h, c, _ in CONVNEXT_STAGES) + (
+    (4, 28, 28, 64, 3, 0), (4, 19, 23, 48, 5, 0), (3, 13, 17, 20, 7, 0), (4, 11, 1, 64, 7, 0),
+    (2, 1, 13, 40, 5, 0), (2, 12, 20, 16, 9, 0), (1, 9, 9, 32, 21, 0), (8, 56, 56, 96, 7, 1))
 DEPTHWISE_TIME_BATCH = 128
 # convnext_t's LayerScale init (1e-6) rounds every residual branch away in
 # bf16, as CaiT's does; its paths run with γ drawn around CAIT_LAYER_SCALE
@@ -316,6 +332,9 @@ SECTION6_MS = {"flash_attention": 0.6930, "flash_attention_bwd": 2.1940,
                "flash_attention_head256": 0.3777, "flash_attention_bwd_head256": 1.2760}
 K2_EARLIER_MS = {"short_attention": 0.8728, "short_attention_bwd": 2.6521}
 K7_EARLIER_MS = {"swin_attention": 1.3428, "swin_attention_bwd": 2.4855}
+# K9's first design's times at convnext_t stage 1 b128 bf16 (PERF.md §6),
+# which phase 22 prints beside the redesigned kernels'
+K9_EARLIER_MS = {"depthwise_conv": 0.3935, "depthwise_conv_bwd": 1.2059}
 # K7's second-plane control cases (B, nW, T, N, hd, masked), bf16: swin_t stage
 # 1 at batch 8 and window 14 (swin_s3_t stage 3); held as K2's (SECOND_PLANE)
 SWIN_CONTROL_CASES = ((8, 64, 49, 3, 32, True), (8, 1, 196, 12, 32, False))
@@ -1546,42 +1565,76 @@ def depthwise_work(name: str, B: int, H: int, W: int, C: int, k: int,
     return 0.0, 3 * n * x_bytes + 2 * k * k * C * x_bytes, 4 * k * k * n
 
 
-def depthwise_args(g, B, H, W, C, k, dtype):
-    """x (B, H, W, C), w (k, k, 1, C) and a cotangent like x, on the card."""
-    r = lambda *s, scale=1.0: torch.randn(s, generator=g) * scale
-    return (r(B, H, W, C).to("cuda", dtype), r(k, k, 1, C, scale=0.2).to("cuda", dtype),
-            r(B, H, W, C).to("cuda", dtype))
+def depthwise_args(g, B, H, W, C, k, dtype, offset: int = 0):
+    """x (B, H, W, C), w (k, k, 1, C) and a cotangent like x, on the card;
+    x and the cotangent ``offset`` elements into their buffers."""
+    def r(*s, scale=1.0, offset=0):
+        buf = torch.empty(math.prod(s) + offset, dtype=dtype, device="cuda")
+        t = buf[offset:].view(s)
+        t.copy_(torch.randn(s, generator=g) * scale)
+        return t
+    return r(B, H, W, C, offset=offset), r(k, k, 1, C, scale=0.2), r(B, H, W, C, offset=offset)
+
+
+def hold_depthwise(checks: Checks, case: dict, x, w, dout,
+                   second: bool) -> tuple[list[float], float, list[int] | None]:
+    """One K9 forward and backward on (x, w, dout) against the plain
+    versions: bf16 out and dx bit-equal (the count of differing elements,
+    bound 0: the same f32 taps summed in the same order and rounded once),
+    f32 by max abs error against BOUND·max|plain|; dw by rel L2 ≤
+    BWD_REL_L2 (its f32 sum runs in another order: block partials, then a
+    fixed-order sum); with ``second``, a second backward bit-equal to the
+    first. Returns max|out − plain| and max|dx − plain|, dw's rel L2 and,
+    in bf16, the counts of differing out and dx elements."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    out = dc.depthwise_conv2d_cuda(x, w)
+    dx, dw = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    want, (want_dx, want_dw) = (dc.depthwise_conv2d_plain(x, w),
+                                dc.depthwise_conv2d_bwd_plain(x, w, dout))
+    torch.cuda.synchronize()
+    errs = [(a.float() - b.float()).abs().max().item() for a, b in ((out, want), (dx, want_dx))]
+    differ = None
+    if x.dtype == torch.bfloat16:
+        differ = [checks.exact(case, "out", out, want), checks.exact(case, "dx", dx, want_dx)]
+    else:
+        checks.elementwise(case, "out", out, want)
+        checks.elementwise(case, "dx", dx, want_dx)
+    err_dw = checks.reduced(case, "dw", dw, want_dw)
+    if second:
+        dx2, dw2 = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+        torch.cuda.synchronize()
+        checks.exact(case, "dx second backward", dx2, dx)
+        checks.exact(case, "dw second backward", dw2, dw)
+    return errs, err_dw, differ
 
 
 def compare_depthwise(report: dict) -> tuple[dict[str, float], float]:
-    """Phase 21: K9 forward and backward vs their plain versions at
-    DEPTHWISE_CASES (convnext_t's four stage shapes at batch 8, k = 3 and 5,
-    C = 20), f32 and bf16. out and dx by max abs error against
-    BOUND·max|plain| (the forward sums the same f32 taps in the same order);
-    dw by rel L2 ≤ BWD_REL_L2: its f32 sum over up to 4·10⁵ pixels runs in
-    another order (block partials, then a fixed-order pass). Returns the max
+    """Phase 21: K9 forward and backward vs their plain versions
+    (``hold_depthwise``) at DEPTHWISE_CASES (convnext_t's four stage shapes
+    at batch 8, k = 3, 5, 9 and 21, C = 20, one-wide and one-high maps, an
+    offset view), f32 and bf16, each with the route its launch takes; at
+    stage 1 bf16 a second backward bit-equal to the first. Returns the max
     abs error of out and of dx, and dw's rel L2, at convnext_t stage 1,
     batch 8, bf16."""
     from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
 
     g = torch.Generator().manual_seed(21)
     checks, main_err = Checks(), {}
-    for B, H, W, C, k in DEPTHWISE_CASES:
+    for B, H, W, C, k, offset in DEPTHWISE_CASES:
         for dtype in (torch.float32, torch.bfloat16):
-            x, w, dout = depthwise_args(g, B, H, W, C, k, dtype)
-            case = dict(kernel="depthwise_conv", B=B, H=H, W=W, C=C, k=k,
-                        dtype=str(dtype).split(".")[-1])
-            err = checks.elementwise(case, "out", dc.depthwise_conv2d_cuda(x, w),
-                                     dc.depthwise_conv2d_plain(x, w))
-            dx, dw = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
-            want_dx, want_dw = dc.depthwise_conv2d_bwd_plain(x, w, dout)
-            torch.cuda.synchronize()
-            err_dx = checks.elementwise(case, "dx", dx, want_dx)
-            err_dw = checks.reduced(case, "dw", dw, want_dw)
-            log(f"[depthwise] B={B} {H}x{W}x{C} k={k} {case['dtype']:8s} {checks.summary(case)}")
-            if (B, H, C, dtype) == (8, 56, 96, torch.bfloat16):
-                main_err["depthwise_conv"], main_err["depthwise_conv_bwd"] = err, err_dx
+            x, w, dout = depthwise_args(g, B, H, W, C, k, dtype, offset)
+            case = dict(kernel="depthwise_conv", B=B, H=H, W=W, C=C, k=k, offset=offset,
+                        dtype=str(dtype).split(".")[-1], route=dc.kernel_route(x, dout))
+            main = (B, H, C, offset, dtype) == (8, 56, 96, 0, torch.bfloat16)
+            errs, err_dw, differ = hold_depthwise(checks, case, x, w, dout, second=main)
+            if main:
+                main_err["depthwise_conv"], main_err["depthwise_conv_bwd"] = errs
                 main_dw = err_dw
+            counts = (f"; bf16 elements differing from plain: out {differ[0]}, dx {differ[1]}"
+                      if differ else "")
+            log(f"[depthwise] B={B} {H}x{W}x{C} k={k} offset={offset} {case['dtype']:8s} "
+                f"route {case['route']}: {checks.summary(case)}{counts}")
     report["compare_depthwise"] = checks.rows
     bad = [r for r in checks.rows if not r["ok"]]
     if bad:
@@ -1595,14 +1648,22 @@ def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, floa
     turns) and cuDNN's grouped conv (``F.conv2d(groups=C)`` on the same
     memory as a channels_last tensor; its backward is forward + backward
     less the forward), the library yardstick that no path of the port
-    calls. Returns (kernel, plain, library) ms of stage 1, the shape of the
-    JSON line's bound; the stages and the 18-call sum go to the report."""
+    calls; each stage with its route and launch geometry, stage 1 beside
+    the first design's times (K9_EARLIER_MS). Then each stage's timed
+    operands, and stage 1's in f32, held against the plain versions
+    (``hold_depthwise``, a second backward bit-equal): at this batch a
+    block walks several regions through the ring (stage 1's geometry must
+    show it: two ring stages and several regions a forward block, several
+    a weight-gradient block), which phase 21's batch 8 leaves to one region
+    a bf16 block. Returns (kernel, plain, library) ms of stage 1, the shape
+    of the JSON line's bound; the stages and the 18-call sums go to the
+    report."""
     import torch.nn.functional as F
 
     from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
 
     g = torch.Generator().manual_seed(22)
-    B, rows, per_step = DEPTHWISE_TIME_BATCH, [], {}
+    B, rows, per_step, checks = DEPTHWISE_TIME_BATCH, [], {}, Checks()
     for H, C, blocks in CONVNEXT_STAGES:
         x, w, dout = depthwise_args(g, B, H, H, C, 7, torch.bfloat16)
         wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)  # (C, 1, k, k)
@@ -1614,7 +1675,11 @@ def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, floa
                 out = conv(xl, wl)
                 torch.autograd.grad(out, (xl, wl), dout.permute(0, 3, 1, 2))
 
-        row = dict(B=B, H=H, C=C, k=7, blocks=blocks)
+        row = dict(B=B, H=H, C=C, k=7, blocks=blocks, route=dc.kernel_route(x, dout),
+                   geometry=dict(forward=dc.kernel_geometry(x, w),
+                                 weight_gradient=dc.kernel_geometry(x, w, bwd=True)))
+        log(f"[depthwise-time] B={B} {H}x{H}x{C}: route {row['route']}, geometry "
+            f"{row['geometry']}")
         for what, plain, kernel, library in (
             ("forward", lambda: dc.depthwise_conv2d_plain(x, w),
              lambda: dc.depthwise_conv2d_cuda(x, w), lambda: conv(x, wc)),
@@ -1629,19 +1694,43 @@ def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, floa
             r = row[what]
             name = "depthwise_conv" + ("_bwd" if what == "backward" else "")
             r["bound_ms"], r["bound_by"] = bound(*depthwise_work(name, B, H, H, C, 7, 2))
+            earlier = (f"; first design (PERF.md §6) {K9_EARLIER_MS[name]:.4f} ms, this / "
+                       f"first = {r['ms'] / K9_EARLIER_MS[name]:.3f}" if H == 56 else "")
             log(f"[depthwise-time] {what:8s} B={B} {H}x{H}x{C} k=7 bf16: kernel {r['ms']:.4f} ms"
-                f"  plain {r['plain_ms']:.4f} ms  cuDNN grouped conv {r['library_ms']:.4f} ms  "
-                f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})  [{name_power}]")
+                f"  plain {r['plain_ms']:.4f} ms  cuDNN grouped conv {r['library_ms']:.4f} ms "
+                f"(kernel / cuDNN = {r['ms'] / r['library_ms']:.3f})  bound {r['bound_ms']:.4f} "
+                f"ms ({r['bound_by']}){earlier}  [{name_power}]")
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 per_step[(what, key)] = per_step.get((what, key), 0.0) + blocks * r[key]
         rows.append(row)
-        del x, w, dout, wc, xl, wl
+        del wc, xl, wl
+        operands = [(x, w, dout)]
+        if H == CONVNEXT_STAGES[0][0]:
+            fwd, wgrad = row["geometry"]["forward"], row["geometry"]["weight_gradient"]
+            if not (fwd["stages"] == 2 and fwd["regions_per_block"] > 1
+                    and wgrad["regions_per_block"] > 1):
+                raise AssertionError(f"K9 at B={B} {H}x{H}x{C}: geometry {row['geometry']} "
+                                     "walks no ring of several regions to check")
+            operands.append(depthwise_args(g, B, H, H, C, 7, torch.float32))
+        for x, w, dout in operands:
+            case = dict(kernel="depthwise_conv", B=B, H=H, W=H, C=C, k=7,
+                        dtype=str(x.dtype).split(".")[-1], route=dc.kernel_route(x, dout))
+            _, _, differ = hold_depthwise(checks, case, x, w, dout, second=True)
+            counts = (f"; bf16 elements differing from plain: out {differ[0]}, dx {differ[1]}"
+                      if differ else "")
+            log(f"[depthwise-time] held B={B} {H}x{H}x{C} k=7 {case['dtype']}: "
+                f"{checks.summary(case)}{counts}")
+        del x, w, dout, operands
     for what in ("forward", "backward"):
         log(f"[depthwise-time] {what} summed over convnext_t's 18 calls at bs{B}: kernel "
             f"{per_step[(what, 'ms')]:.3f} ms, plain {per_step[(what, 'plain_ms')]:.3f}, cuDNN "
             f"{per_step[(what, 'library_ms')]:.3f}, bound {per_step[(what, 'bound_ms')]:.3f}")
     report["depthwise_times"] = dict(stages=rows, per_step={f"{a}/{b}": v
-                                                            for (a, b), v in per_step.items()})
+                                                            for (a, b), v in per_step.items()},
+                                     held=checks.rows)
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K9 comparisons at bs{B} out of bounds: {bad[:8]}")
     f, b = rows[0]["forward"], rows[0]["backward"]
     return {"depthwise_conv": (f["ms"], f["plain_ms"], f["library_ms"]),
             "depthwise_conv_bwd": (b["ms"], b["plain_ms"], b["library_ms"])}

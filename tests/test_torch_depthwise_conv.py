@@ -9,6 +9,9 @@ nn/layers.py ``DepthwiseConv``) vs the JAX package's on CPU.
   tests/torch_parity.py's rule (a flipped final rounding is one bf16 ulp).
   dw sums over batch and space in another order: 1e-4 relative in f32, one
   bf16 ulp (``assert_reduced_close``) in bf16.
+- The CUDA entries' argument checks, on meta tensors: the types, k and
+  batch the kernels refuse (a batch beyond the C interface's int) raise
+  before anything reaches the card.
 - The modules (``DepthwiseConv``, ``ConvNormAct``'s depthwise branch)
   against the JAX modules, both with the JAX default dispatch (lax conv) and
   with ``use_depthwise_kernel`` patched on. f32 to 1e-5 either way. bf16
@@ -103,6 +106,36 @@ def test_cpu_tensors_run_the_plain_versions():
     dc.depthwise_conv2d(x_, w_).backward(torch.from_numpy(g))
     dx, dw = dc.depthwise_conv2d_bwd_plain(tx, tw, torch.from_numpy(g))
     assert torch.equal(x_.grad, dx) and torch.equal(w_.grad, dw)
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("what,x_shape,w_shape,dtype,error", [
+    ("type", (2, 8, 8, 16), (3, 3, 1, 16), torch.float16, TypeError),
+    ("even k", (2, 8, 8, 16), (4, 4, 1, 16), torch.bfloat16, ValueError),
+    ("k above 21", (2, 8, 8, 16), (23, 23, 1, 16), torch.bfloat16, ValueError),
+    ("batch beyond a C int", (2**31, 1, 1, 8), (3, 3, 1, 8), torch.bfloat16, ValueError),
+    ("weights of another C", (2, 8, 8, 16), (3, 3, 1, 8), torch.float32, ValueError),
+    ("x not NHWC", (8, 8, 16), (3, 3, 1, 16), torch.float32, ValueError),
+])
+def test_cuda_entries_check_their_arguments(what, x_shape, w_shape, dtype, error):
+    """``depthwise_conv2d_cuda``, ``depthwise_conv2d_bwd_cuda`` and
+    ``kernel_geometry`` refuse what the kernels do not take before anything
+    reaches the card (meta tensors: no data, no launch); the backward also a
+    cotangent unlike x."""
+    x = torch.empty(x_shape, dtype=dtype, device="meta")
+    w = torch.empty(w_shape, dtype=dtype, device="meta")
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(error):
+        dc.depthwise_conv2d_cuda(x, w)
+    with pytest.raises(error):
+        dc.depthwise_conv2d_bwd_cuda(x, w, x)
+    with pytest.raises(error):
+        dc.kernel_geometry(x, w, bwd=True)
+    if what == "type":
+        ok = torch.empty(x_shape, dtype=torch.bfloat16, device="meta")
+        ok_w = torch.empty(w_shape, dtype=torch.bfloat16, device="meta")
+        with pytest.raises(ValueError, match="must match x"):
+            dc.depthwise_conv2d_bwd_cuda(ok, ok_w, x)
     assert _cuda.LAUNCHES == before
 
 

@@ -25,9 +25,11 @@ exact operands) and are held to the bf16 bound and, in f32, to
 bias is given and not differentiated (its backward is the plain recompute
 on every device). The depthwise-conv kernels (K9) sum the same f32 taps in
 the same order as their plain versions (out and dx within the dtype's
-bound, measured bit-equal in bf16); dw, summed over the batch and space in
-another order, by rel L2. The window-attention kernels (K7) compute in f32
-from the inputs (bf16 windows of up to 64 tokens on the tensor cores with p
+bound, and bf16 out and dx bit-equal, on the wide route and on an offset
+view); dw, summed over the batch and space in another order, by rel L2,
+and without atomics: a second backward bit-equal to the first. The
+window-attention kernels (K7) compute in f32 from the inputs (bf16 windows
+of up to 64 tokens on the tensor cores with p
 and ds as two bf16 planes): out, dq, dk, dv within the dtype's bound, dPE by
 rel L2, and a second backward bit-equal to the first (no atomics). The
 shifted-window relayout kernels (K8) are permutations: bit for bit. The
@@ -620,9 +622,12 @@ def test_cait_with_32_wide_heads_runs_the_kernels(cuda):
 
 
 # K9 (depthwise conv) on NHWC (B, H, W, C) with k: convnext_t stage 1, a C
-# that is no multiple of 8 over ragged tiles, k = 3 and 5, a run-time k (9)
+# that is no multiple of 8 over ragged tiles, k = 3 and 5, a run-time k (9),
+# convnext_t's 7 × 7 and 14 × 14 stages (several images a block), a one-wide
+# map and the gate's top k (21)
 DEPTHWISE_SHAPES = [(2, 56, 56, 96, 7), (3, 13, 17, 20, 7), (2, 9, 9, 32, 3), (2, 10, 7, 24, 5),
-                    (1, 12, 20, 16, 9)]
+                    (1, 12, 20, 16, 9), (4, 7, 7, 768, 7), (3, 14, 14, 384, 7),
+                    (3, 11, 1, 64, 7), (1, 9, 12, 32, 21)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -648,6 +653,104 @@ def test_depthwise_conv_kernels_match_plain(cuda, dtype, B, H, W, C, k):
     _check(dx, want_dx)
     assert dw.dtype == want_dw.dtype
     _check_rel_l2(dw, want_dw, "dw")
+
+
+def _depthwise_args(g, B, H, W, C, k, dtype, cuda, offset=0):
+    """x, w and a cotangent like x; x and the cotangent ``offset`` elements
+    into their buffers (an offset view is contiguous but not 16-byte
+    aligned)."""
+    def view(*shape, scale=1.0, offset=0):
+        buf = torch.empty(torch.Size(shape).numel() + offset, dtype=dtype, device=cuda)
+        t = buf[offset:].view(shape)
+        t.copy_(_rand(g, *shape, scale=scale))
+        return t
+    return view(B, H, W, C, offset=offset), view(k, k, 1, C, scale=0.2), \
+        view(B, H, W, C, offset=offset)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("B,H,W,C,k", DEPTHWISE_SHAPES)
+def test_depthwise_conv_bf16_is_bit_equal_to_plain(cuda, B, H, W, C, k, offset):
+    """In bf16 the kernels sum the plain versions' f32 taps in their order and
+    round once: out and dx equal the plain versions bit for bit, on the wide
+    route and on an offset view (the scalar route)."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(B * H * W + C + k + offset)
+    x, w, dout = _depthwise_args(g, B, H, W, C, k, torch.bfloat16, cuda, offset)
+    out = dc.depthwise_conv2d_cuda(x, w)
+    dx, _ = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, dc.depthwise_conv2d_plain(x, w))
+    assert torch.equal(dx, dc.depthwise_conv2d_bwd_plain(x, w, dout)[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,k", [(8, 56, 56, 96, 7), (3, 13, 17, 20, 7), (1, 12, 20, 16, 9)])
+def test_depthwise_conv_second_backward_is_bit_equal(cuda, dtype, B, H, W, C, k):
+    """dw is summed without atomics in a fixed order: a second backward
+    equals the first bit for bit."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(7)
+    x, w, dout = _depthwise_args(g, B, H, W, C, k, dtype, cuda)
+    first = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    second = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_depthwise_conv_route_follows_alignment(cuda):
+    """The library stages 16-byte copies where C and the pointers allow (the
+    wide route) and one element at a time otherwise: an offset view, a C
+    that is no multiple of 8 bf16 (4 f32) values; both routes give the
+    same result on the same values."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(3)
+    x, w, dout = _depthwise_args(g, 2, 14, 14, 64, 7, torch.bfloat16, cuda)
+    xo, _, go = _depthwise_args(torch.Generator().manual_seed(3), 2, 14, 14, 64, 7,
+                                torch.bfloat16, cuda, offset=1)
+    assert dc.kernel_route(x) == dc.kernel_route(x, dout) == "wide"
+    assert dc.kernel_route(xo) == dc.kernel_route(x, go) == dc.kernel_route(xo, go) == "scalar"
+    assert dc.kernel_route(torch.zeros(1, 4, 4, 20, dtype=torch.bfloat16, device=cuda)) == "scalar"
+    assert dc.kernel_route(torch.zeros(1, 4, 4, 20, device=cuda)) == "wide"
+    assert dc.kernel_route(torch.zeros(1, 4, 4, 6, device=cuda)) == "scalar"
+    assert torch.equal(xo, x) and torch.equal(go, dout)
+    assert torch.equal(dc.depthwise_conv2d_cuda(xo, w), dc.depthwise_conv2d_cuda(x, w))
+    wide, scalar = dc.depthwise_conv2d_bwd_cuda(x, w, dout), dc.depthwise_conv2d_bwd_cuda(xo, w, go)
+    assert all(torch.equal(a, b) for a, b in zip(wide, scalar))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_depthwise_conv_blocks_walking_several_regions_match_plain(cuda, dtype):
+    """At convnext_t stage 1 and batch 32 a persistent block walks several
+    regions (bf16 forward blocks through two ring stages, the next region's
+    halo loading while this one computes) and a weight-gradient block
+    carries its dw sums across them, as the library's geometry shows: bf16
+    out and dx bit-equal to the plain versions, f32 within the bound, dw by
+    rel L2, and a second backward bit-equal to the first."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    g = torch.Generator().manual_seed(32)
+    x, w, dout = _depthwise_args(g, 32, 56, 56, 96, 7, dtype, cuda)
+    fwd, wgrad = dc.kernel_geometry(x, w), dc.kernel_geometry(x, w, bwd=True)
+    assert fwd["regions_per_block"] > 1 and wgrad["regions_per_block"] > 1, (fwd, wgrad)
+    if dtype == torch.bfloat16:
+        assert fwd["stages"] == 2, fwd
+    out = dc.depthwise_conv2d_cuda(x, w)
+    dx, dw = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    dx2, dw2 = dc.depthwise_conv2d_bwd_cuda(x, w, dout)
+    torch.cuda.synchronize()
+    want = dc.depthwise_conv2d_plain(x, w)
+    want_dx, want_dw = dc.depthwise_conv2d_bwd_plain(x, w, dout)
+    if dtype == torch.bfloat16:
+        assert torch.equal(out, want) and torch.equal(dx, want_dx)
+    else:
+        _check(out, want)
+        _check(dx, want_dx)
+    _check_rel_l2(dw, want_dw, "dw")
+    assert torch.equal(dx2, dx) and torch.equal(dw2, dw)
 
 
 def test_depthwise_conv_on_the_card_never_falls_back(cuda):

@@ -6,167 +6,194 @@
 //
 // Replaces vision_toolbox_tpu/ops/depthwise_conv.py `_dw_bwd` (`_bwd_kernel`).
 // The TPU kernel carries dw in a VMEM block along its sequential batch
-// axis. Hopper blocks run in no order, so dw is two launches, with no
-// atomics and the same result on every run:
-//   (i)  each block walks TILES_PER_BLOCK output tiles of one image and one
-//        channel block, stages the x halo and the g tile in shared memory,
-//        and sums xpad·g per tap in f32 (for k ∈ {3, 5, 7} in registers, one
-//        row of the tile per warp, the rows then added in a fixed order);
-//        it writes its (k², CB) partial to device memory, (P, k², C) in all
-//        with P = B · ceil(tiles / TILES_PER_BLOCK);
-//   (ii) one thread per (tap, channel) adds the P partials in order and
-//        rounds once to w's type.
-// What bounds it: the dx pass is the forward's work; the dw pass reads x
-// and g once (2·k² operations per element of g) and writes the partials
-// (4·P·k²·C bytes: 2.4 MB at ConvNeXt-T stage 1, bs128, against 154 MB of
-// bf16 x and g). Both are operation-bound at k = 7, like the forward.
+// axis. Hopper blocks run in no order, so dw is two launches beside dx's,
+// with no atomics and the same result on every run:
+//   (i)  the forward's persistent blocks (depthwise_conv.cuh), each walking
+//        a run of regions through the same ring, stage the x halo and the g
+//        tile of a region; a thread keeps its channel's k² sums of xpad·g in
+//        registers across the whole run (k ∈ {3, 5, 7}), walking the halo's
+//        rows once per region against its 7 × 7 g tile held in registers;
+//        at the end the block adds its warps' sums in warp order and writes
+//        one (k², C) partial, (P, k², C) in all: P = the blocks of a channel
+//        group (the card's resident blocks shared among the groups; 86 at
+//        ConvNeXt-T stage 1, bs128: 1.6 MB of partials);
+//   (ii) a fixed-shape two-level sum: each block takes 32 neighbouring
+//        (tap, channel) columns, its 8 warps add every 8th partial in order,
+//        then warp 0 adds the 8 sums in order and rounds once to w's type.
+// Run-time k keeps one-warp blocks whose threads add each region's per-tap
+// sums into their own slots of the partials. A one-pass form (dx and the
+// partials over one staged region of x and g halos, as the TPU kernel's one
+// body) held 255 registers a thread and ran 12% slower at ConvNeXt-T stage 1
+// on an H100 (scripts/ab_depthwise_conv.py), so dx is the forward's launch.
+// What bounds it: the dx pass is the forward's work; the dw pass reads x and
+// g once (2·k² operations per element of g), operation-bound at k = 7 like
+// the forward.
 #include "depthwise_conv.cuh"
 
 using namespace vtt;
 
 namespace {
 
-using dw::CB;
-using dw::NT;
-using dw::TH;
-using dw::TILES_PER_BLOCK;
-using dw::TW;
+using dw::CG;
+using dw::Geo;
+using dw::TC;
+using dw::TR;
 
-inline size_t wgrad_smem_bytes(int k) {
-  return (dw::halo_floats(k) + TH * TW * CB + k * k * CB) * sizeof(float);
-}
+constexpr int RED_WARPS = 8;  // the sum's warps, each adding every 8th partial
 
-inline int wgrad_blocks_x(int H, int W) {
-  return (dw::tiles_h(H) * dw::tiles_w(W) + TILES_PER_BLOCK - 1) / TILES_PER_BLOCK;
-}
-
-// Block partials of dw. Grid (wgrad_blocks_x, ceil(C / CB), B), NT threads,
-// wgrad_smem_bytes(k) of dynamic shared memory. K = 0 reads k at run time
-// and gives each warp whole taps of the tile instead of a row.
+// Block partials of dw. Grid (g.P, channel groups), 32·g.nw() threads; a
+// ring stage holds the x halo and the g tile of a region.
 template <typename TX, int K>
-__global__ void __launch_bounds__(NT)
-dw_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ g, float* __restrict__ partials,
-                int H, int W, int C, int k_rt, int n_tiles, int tiles_w) {
-  extern __shared__ float smem[];
-  const int k = K > 0 ? K : k_rt, kk = k * k, pw = TW + k - 1;
-  float* xs = smem;
-  float* gs = smem + dw::halo_floats(k);
-  float* part = gs + TH * TW * CB;
-  const int c0 = blockIdx.y * CB, b = blockIdx.z;
-  const int c = threadIdx.x % CB, r = threadIdx.x / CB;
-  const int tile_end = min((static_cast<int>(blockIdx.x) + 1) * TILES_PER_BLOCK, n_tiles);
-
+__global__ void __launch_bounds__(dw::NT_MAX, dw::MIN_BLOCKS)
+dw_wgrad_kernel(const TX* __restrict__ x, const TX* __restrict__ gt, float* __restrict__ partials,
+                Geo g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int k = K > 0 ? K : g.k, kk = k * k;
+  const int c0 = blockIdx.y * CG, c = c0 + threadIdx.x % 32;
+  const int hcols = g.halo_cols(), trows = g.wr * TR, tcols = g.wc * TC;
+  const int halo = g.halo_elems(), stage_elems = halo + g.tile_elems();
+  TX* stages = reinterpret_cast<TX*>(smem_raw);
+  const dw::WarpTile wt_ = dw::warp_tile(g);
+  float* out = partials + static_cast<size_t>(blockIdx.x) * kk * g.C;
   float acc[K > 0 ? K * K : 1];
-  if constexpr (K > 0) {
 #pragma unroll
-    for (int t = 0; t < K * K; ++t) acc[t] = 0.0f;
-  } else {
-    for (int t = r; t < kk; t += TH) part[t * CB + c] = 0.0f;  // tap t is warp (t % TH)'s
-  }
-  for (int tile = blockIdx.x * TILES_PER_BLOCK; tile < tile_end; ++tile) {
-    const int h0 = (tile / tiles_w) * TH, w0 = (tile % tiles_w) * TW;
-    __syncthreads();  // the previous tile's reads are done
-    dw::load_halo(x, b, h0, w0, c0, H, W, C, k, xs);
-    for (int i = r; i < TH * TW; i += TH) {
-      const int h = h0 + i / TW, w = w0 + i % TW;
-      float v = 0.0f;
-      if (c0 + c < C && h < H && w < W) {
-        v = dw::ld(g, ((static_cast<size_t>(b) * H + h) * W + w) * C + c0 + c);
-      }
-      gs[i * CB + c] = v;
-    }
-    __syncthreads();
-    if constexpr (K > 0) {
-      float gr[TW];
+  for (int t = 0; t < (K > 0 ? K * K : 1); ++t) acc[t] = 0.0f;
+
+  const int first = blockIdx.x * g.per_block;
+  dw::ring(
+      g, first, min(first + g.per_block, g.n_regions),
+      [&](int r, int s) {
+        const dw::Origin o = dw::region_origin(g, r);
+        TX* st = stages + static_cast<size_t>(s) * stage_elems;
+        dw::stage_patch(x, st, g, o.b0, o.h0, o.w0, c0, g.halo_rows(), hcols, k / 2);
+        dw::stage_patch(gt, st + halo, g, o.b0, o.h0, o.w0, c0, trows, tcols, 0);
+      },
+      [&](int r, int s) {
+        const TX* st = stages + static_cast<size_t>(s) * stage_elems;
+        const TX* xs = dw::halo_corner(st, g, hcols);
+        const TX* gs = st + halo + (static_cast<size_t>(wt_.img * trows + wt_.tr * TR) * tcols +
+                                    wt_.tc * TC) * CG + threadIdx.x % 32;
+        float gr[TR][TC];
 #pragma unroll
-      for (int j = 0; j < TW; ++j) gr[j] = gs[(r * TW + j) * CB + c];
+        for (int r_ = 0; r_ < TR; ++r_) {
 #pragma unroll
-      for (int dy = 0; dy < K; ++dy) {
-        const float* row = xs + (r + dy) * pw * CB + c;
-        float xr[TW + K - 1];
-#pragma unroll
-        for (int j = 0; j < TW + K - 1; ++j) xr[j] = row[j * CB];
-#pragma unroll
-        for (int dx = 0; dx < K; ++dx) {
-          float s = acc[dy * K + dx];
-#pragma unroll
-          for (int j = 0; j < TW; ++j) s = fmaf(xr[j + dx], gr[j], s);
-          acc[dy * K + dx] = s;
+          for (int j = 0; j < TC; ++j) gr[r_][j] = dw::to_f32(gs[(r_ * tcols + j) * CG]);
         }
-      }
-    } else {
-      for (int t = r; t < kk; t += TH) {
-        const int dy = t / k, dx = t % k;
-        float s = part[t * CB + c];
-        for (int rr = 0; rr < TH; ++rr) {
+        if constexpr (K > 0) {
+          dw::wgrad_tile<K>(xs, hcols, gr, acc);
+        } else {  // one-warp blocks: each thread owns its slots of the partials
+          if (c >= g.C) return;
+          for (int t = 0; t < kk; ++t) {
+            const int dy = t / k, dx = t % k;
+            float sum = r == first ? 0.0f : out[static_cast<size_t>(t) * g.C + c];
 #pragma unroll
-          for (int j = 0; j < TW; ++j) {
-            s = fmaf(xs[((rr + dy) * pw + j + dx) * CB + c], gs[(rr * TW + j) * CB + c], s);
+            for (int r_ = 0; r_ < TR; ++r_) {
+#pragma unroll
+              for (int j = 0; j < TC; ++j) {
+                sum = fmaf(dw::to_f32(xs[((r_ + dy) * hcols + j + dx) * CG]), gr[r_][j], sum);
+              }
+            }
+            out[static_cast<size_t>(t) * g.C + c] = sum;
           }
         }
-        part[t * CB + c] = s;
-      }
-    }
-  }
-  if constexpr (K > 0) {  // the rows' sums, added in row order
-    for (int rr = 0; rr < TH; ++rr) {
-      if (r == rr) {
-#pragma unroll
-        for (int t = 0; t < K * K; ++t) part[t * CB + c] = rr == 0 ? acc[t] : part[t * CB + c] + acc[t];
-      }
-      __syncthreads();
-    }
-  } else {
-    __syncthreads();
-  }
-  if (c0 + c >= C) return;
-  float* out = partials + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * kk * C + c0 + c;
-  for (int t = r; t < kk; t += TH) out[static_cast<size_t>(t) * C] = part[t * CB + c];
+      });
+  if constexpr (K > 0) dw::block_partial<K>(reinterpret_cast<float*>(smem_raw), acc, out, g, c0);
 }
 
-// dw[i] = Σ_p partials[p, i] in order p = 0..P−1, rounded once to w's type;
-// i runs over the k²·C taps and channels.
+// dw[i] = Σ_p partials[p, i], i over the k²·C taps and channels: block
+// (32 columns) × 8 warps; warp w adds p = w, w + 8, … in order, then warp 0
+// adds the eight sums in warp order and rounds once to w's type.
 template <typename TWt>
-__global__ void __launch_bounds__(256)
+__global__ void __launch_bounds__(32 * RED_WARPS)
 dw_reduce_kernel(const float* __restrict__ partials, TWt* __restrict__ dwt, int P, int n) {
-  const int i = blockIdx.x * 256 + threadIdx.x;
-  if (i >= n) return;
-  float s = 0.0f;
-  for (int p = 0; p < P; ++p) s += partials[static_cast<size_t>(p) * n + i];
-  dw::st(dwt, i, s);
+  __shared__ float red[RED_WARPS][32];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const int i = blockIdx.x * 32 + lane;
+  float sum = 0.0f;
+  if (i < n) {
+    for (int p = warp; p < P; p += RED_WARPS) sum += partials[static_cast<size_t>(p) * n + i];
+  }
+  red[warp][lane] = sum;
+  __syncthreads();
+  if (warp == 0 && i < n) {
+    sum = red[0][lane];
+#pragma unroll
+    for (int w = 1; w < RED_WARPS; ++w) sum += red[w][lane];
+    dw::st(dwt, i, sum);
+  }
 }
 
+// The weight-gradient kernel on g's shape: its geometry (into g and *smem;
+// g.P sizes the partials) and, with `launch`, the launch on stream st.
 template <typename TX, int K>
-cudaError_t launch_wgrad_k(const void* x, const void* g, float* partials, int B, int H, int W,
-                           int C, int k, cudaStream_t st) {
-  const size_t smem = wgrad_smem_bytes(k);
-  cudaError_t err = cudaFuncSetAttribute(dw_wgrad_kernel<TX, K>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid(wgrad_blocks_x(H, W), (C + CB - 1) / CB, B);
-  dw_wgrad_kernel<TX, K><<<grid, NT, smem, st>>>(
-      static_cast<const TX*>(x), static_cast<const TX*>(g), partials, H, W, C, k,
-      dw::tiles_h(H) * dw::tiles_w(W), dw::tiles_w(W));
+cudaError_t wgrad_k(const void* x, const void* gt, float* partials, Geo& g, bool launch,
+                    size_t* smem, cudaStream_t st) {
+  const void* kernel = reinterpret_cast<const void*>(dw_wgrad_kernel<TX, K>);
+  const size_t reduce = K > 0 ? static_cast<size_t>(K) * K * CG * sizeof(float) : 0;
+  cudaError_t err = dw::make_geo(g, kernel, sizeof(TX), K > 0, 1, 1, 0, 0, reduce, smem);
+  if (err != cudaSuccess || !launch) return err;
+  dw_wgrad_kernel<TX, K><<<dim3(g.P, (g.C + CG - 1) / CG), 32 * g.nw(), *smem, st>>>(
+      static_cast<const TX*>(x), static_cast<const TX*>(gt), partials, g);
   return cudaGetLastError();
 }
 
+// k ∈ {3, 5, 7} compiled as constants, any other read at run time.
 template <typename TX>
-cudaError_t launch_wgrad(const void* x, const void* g, float* partials, int B, int H, int W,
-                         int C, int k, cudaStream_t st) {
-  switch (k) {
-    case 3: return launch_wgrad_k<TX, 3>(x, g, partials, B, H, W, C, k, st);
-    case 5: return launch_wgrad_k<TX, 5>(x, g, partials, B, H, W, C, k, st);
-    case 7: return launch_wgrad_k<TX, 7>(x, g, partials, B, H, W, C, k, st);
-    default: return launch_wgrad_k<TX, 0>(x, g, partials, B, H, W, C, k, st);
+cudaError_t wgrad_any_k(const void* x, const void* gt, float* partials, Geo& g, bool launch,
+                        size_t* smem, cudaStream_t st) {
+  switch (g.k) {
+    case 3: return wgrad_k<TX, 3>(x, gt, partials, g, launch, smem, st);
+    case 5: return wgrad_k<TX, 5>(x, gt, partials, g, launch, smem, st);
+    case 7: return wgrad_k<TX, 7>(x, gt, partials, g, launch, smem, st);
+    default: return wgrad_k<TX, 0>(x, gt, partials, g, launch, smem, st);
   }
+}
+
+cudaError_t wgrad(const void* x, const void* gt, float* partials, Geo& g, int x_bf16, bool launch,
+                  size_t* smem, cudaStream_t st) {
+  return x_bf16 ? wgrad_any_k<dw::bf16>(x, gt, partials, g, launch, smem, st)
+                : wgrad_any_k<float>(x, gt, partials, g, launch, smem, st);
 }
 
 }  // namespace
 
-// Floats of the dw partials scratch the caller allocates for vtt_dw_bwd.
-extern "C" long long vtt_dw_partial_floats(int B, int H, int W, int C, int k) {
-  return static_cast<long long>(B) * wgrad_blocks_x(H, W) * k * k * C;
+// 1 when a call on these operands takes the wide route (16-byte copies in
+// and, for bf16, out), 0 when the scalar one (one element at a time); g may
+// be null (the forward). The launchers ask the same rule of their tensors,
+// outputs included (the wrappers' own allocations, 16-byte-aligned).
+extern "C" int vtt_dw_route(const void* x, const void* g, int x_bf16, int C) {
+  return dw::wide_route(x_bf16 ? 2 : 4, C, {x, g}) ? 1 : 0;
+}
+
+// Floats of the dw partials scratch the caller allocates for vtt_dw_bwd on
+// the current device; negative on an error.
+extern "C" long long vtt_dw_partial_floats(int B, int H, int W, int C, int k, int x_bf16) {
+  if (!dw::shape_ok(B, H, W, C, k)) return -static_cast<long long>(cudaErrorInvalidValue);
+  Geo g = dw::geo_of(B, H, W, C, k);
+  size_t smem = 0;
+  const cudaError_t err = wgrad(nullptr, nullptr, nullptr, g, x_bf16, false, &smem, nullptr);
+  if (err != cudaSuccess) return -static_cast<long long>(err);
+  return static_cast<long long>(g.P) * k * k * C;
+}
+
+// The launch geometry of the forward kernel (bwd = 0) or of the weight-
+// gradient kernel (bwd = 1) on the current device, into out[8]: wr, wc, ni
+// (a block's region: rows and columns of 7 × 7 tiles, images), ring stages,
+// P (blocks a channel group), regions a block walks, threads a block, bytes
+// of shared memory.
+extern "C" int vtt_dw_geometry(int B, int H, int W, int C, int k, int x_bf16, int w_bf16, int bwd,
+                               long long* out) {
+  if (!dw::shape_ok(B, H, W, C, k)) return static_cast<int>(cudaErrorInvalidValue);
+  Geo g = dw::geo_of(B, H, W, C, k);
+  size_t smem = 0;
+  const cudaError_t err =
+      bwd ? wgrad(nullptr, nullptr, nullptr, g, x_bf16, false, &smem, nullptr)
+          : dw::conv(nullptr, nullptr, nullptr, g, x_bf16, w_bf16, false, &smem, nullptr);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long vals[8] = {g.wr, g.wc, g.ni, g.stages, g.P, g.per_block, 32 * g.nw(),
+                             static_cast<long long>(smem)};
+  for (int i = 0; i < 8; ++i) out[i] = vals[i];
+  return 0;
 }
 
 extern "C" int vtt_dw_bwd(const void* x, const void* g, const void* w, void* dx, void* dwt,
@@ -174,18 +201,21 @@ extern "C" int vtt_dw_bwd(const void* x, const void* g, const void* w, void* dx,
                           int k, void* stream) {
   if (!dw::shape_ok(B, H, W, C, k)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dw::launch_conv_typed(g, w, dx, x_bf16, w_bf16, B, H, W, C, k, 1, st);
+  const bool wide = dw::wide_route(x_bf16 ? 2 : 4, C, {x, g, dx});
+  cudaError_t err = dw::launch_conv(g, w, dx, x_bf16, w_bf16, B, H, W, C, k, 1, wide, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = x_bf16 ? launch_wgrad<dw::bf16>(x, g, partials, B, H, W, C, k, st)
-               : launch_wgrad<float>(x, g, partials, B, H, W, C, k, st);
+  Geo geo = dw::geo_of(B, H, W, C, k);
+  geo.wide = wide;
+  size_t smem = 0;
+  err = wgrad(x, g, partials, geo, x_bf16, true, &smem, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int n = k * k * C, P = B * wgrad_blocks_x(H, W);
+  const int n = k * k * C;
   if (w_bf16) {
-    dw_reduce_kernel<dw::bf16><<<(n + 255) / 256, 256, 0, st>>>(
-        partials, static_cast<dw::bf16*>(dwt), P, n);
+    dw_reduce_kernel<dw::bf16><<<(n + 31) / 32, 32 * RED_WARPS, 0, st>>>(
+        partials, static_cast<dw::bf16*>(dwt), geo.P, n);
   } else {
-    dw_reduce_kernel<float><<<(n + 255) / 256, 256, 0, st>>>(partials, static_cast<float*>(dwt),
-                                                             P, n);
+    dw_reduce_kernel<float><<<(n + 31) / 32, 32 * RED_WARPS, 0, st>>>(
+        partials, static_cast<float*>(dwt), geo.P, n);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -111,7 +111,11 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I, _P),  # B, H, W, C, k, stream
         _I,
     ),
-    "vtt_dw_partial_floats": ((_I, _I, _I, _I, _I), ctypes.c_longlong),  # B, H, W, C, k
+    "vtt_dw_partial_floats": ((_I, _I, _I, _I, _I, _I), ctypes.c_longlong),  # B, H, W, C, k,
+    # x_bf16
+    "vtt_dw_route": ((_P, _P, _I, _I), _I),  # x, g (or null), x_bf16, C
+    "vtt_dw_geometry": ((_I, _I, _I, _I, _I, _I, _I, _I, _LL), _I),  # B, H, W, C, k, x_bf16,
+    # w_bf16, bwd, out[8]
     "vtt_dw_bwd": (
         (_P, _P, _P, _P, _P, _P, _I, _I,  # x, g, w, dx, dw, partials (scratch), x_bf16, w_bf16
          _I, _I, _I, _I, _I, _P),  # B, H, W, C, k, stream
@@ -240,12 +244,13 @@ def lib() -> ctypes.CDLL:
     return _lib
 
 
-def ptr(t: torch.Tensor | None) -> int | None:
-    """Device pointer of a contiguous, 16-byte-aligned CUDA tensor (None → null)."""
+def ptr(t: torch.Tensor | None, align: int = 16) -> int | None:
+    """Device pointer of a contiguous CUDA tensor aligned to ``align`` bytes
+    (None → null)."""
     if t is None:
         return None
-    if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % 16:
-        raise ValueError("kernel operands must be contiguous, 16-byte-aligned CUDA tensors")
+    if not t.is_cuda or not t.is_contiguous() or t.data_ptr() % align:
+        raise ValueError(f"kernel operands must be contiguous, {align}-byte-aligned CUDA tensors")
     return t.data_ptr()
 
 

@@ -22,9 +22,15 @@ sum over batch and space of xpad·g per tap, returned in w's type. The JAX
 package's default dispatch runs ``lax.conv_general_dilated`` instead (its
 ``use_depthwise_kernel`` is off, a v5e measurement), which rounds at other
 points; the port runs this kernel at every stride-1 depthwise conv.
+
+The kernels move their operands with 16-byte copies where C and the
+pointers allow and one element at a time otherwise; ``kernel_route`` asks the
+library which a call takes, and ``kernel_geometry`` how it tiles the map.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 import torch.nn.functional as F
@@ -32,7 +38,10 @@ from torch import Tensor
 
 from . import _cuda
 
-MAX_KERNEL = 21  # csrc/depthwise_conv.cuh MAX_K: the weight-gradient tiles fit 227 KB
+MAX_KERNEL = 21  # csrc/depthwise_conv.cuh MAX_K: one-warp regions of (7 + k − 1)² fit 227 KB
+_INT_MAX = 2**31 - 1  # the C interface takes B, H, W and C as int
+GEOMETRY_KEYS = ("tile_rows", "tile_cols", "images", "stages", "blocks_per_group",
+                 "regions_per_block", "threads", "smem_bytes")
 
 
 def use_depthwise_kernel(k: int, stride: int = 1, dilation: int = 1) -> bool:
@@ -89,9 +98,40 @@ def _check_cuda_args(x: Tensor, w: Tensor) -> tuple[int, int, int, int, int]:
     for name, t in (("x", x), ("w", w)):
         if t.dtype not in (torch.float32, torch.bfloat16):
             raise TypeError(f"depthwise_conv2d: {name} must be float32 or bfloat16, got {t.dtype}")
-    if B > 65535:
-        raise ValueError(f"depthwise_conv2d: batch {B} exceeds the kernels' grid (65535)")
+    if max(B, H, W, C) > _INT_MAX:
+        raise ValueError(f"depthwise_conv2d: x {tuple(x.shape)} has a dimension beyond the "
+                         f"library's int arguments ({_INT_MAX})")
     return B, H, W, C, k
+
+
+def _ptr(t: Tensor) -> int:
+    """An operand's pointer: the kernels take any element-aligned view."""
+    return _cuda.ptr(t, t.element_size())
+
+
+def _is_bf16(t: Tensor) -> int:
+    return int(t.dtype == torch.bfloat16)
+
+
+def kernel_route(x: Tensor, g: Tensor | None = None) -> str:
+    """The route a call on these operands takes (x, and the cotangent g for
+    the backward; the outputs are the wrappers' own, 16-byte-aligned), as
+    the library's launchers choose it: ``"wide"`` (16-byte copies in and,
+    for bf16, out) or ``"scalar"`` (one element at a time)."""
+    wide = _cuda.lib().vtt_dw_route(_ptr(x), None if g is None else _ptr(g), _is_bf16(x),
+                                    x.shape[-1])
+    return "wide" if wide else "scalar"
+
+
+def kernel_geometry(x: Tensor, w: Tensor, bwd: bool = False) -> dict[str, int]:
+    """The launch geometry (GEOMETRY_KEYS) of the forward kernel, or of the
+    weight-gradient kernel with ``bwd``, for these operands on their card."""
+    B, H, W, C, k = _check_cuda_args(x, w)
+    out = (ctypes.c_longlong * len(GEOMETRY_KEYS))()
+    with torch.cuda.device(x.device):
+        _cuda.check(_cuda.lib().vtt_dw_geometry(B, H, W, C, k, _is_bf16(x), _is_bf16(w),
+                                                int(bwd), out), "depthwise_conv2d geometry")
+    return dict(zip(GEOMETRY_KEYS, out))
 
 
 def depthwise_conv2d_cuda(x: Tensor, w: Tensor) -> Tensor:
@@ -102,9 +142,8 @@ def depthwise_conv2d_cuda(x: Tensor, w: Tensor) -> Tensor:
     if x.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        err = _cuda.lib().vtt_dw_fwd(
-            _cuda.ptr(x), _cuda.ptr(w), _cuda.ptr(y), int(x.dtype == torch.bfloat16),
-            int(w.dtype == torch.bfloat16), B, H, W, C, k, _cuda.stream())
+        err = _cuda.lib().vtt_dw_fwd(_ptr(x), _ptr(w), _ptr(y), _is_bf16(x), _is_bf16(w),
+                                     B, H, W, C, k, _cuda.stream())
         _cuda.check(err, "depthwise_conv2d")
     _cuda.LAUNCHES["depthwise_conv"] += 1
     return y
@@ -120,13 +159,14 @@ def depthwise_conv2d_bwd_cuda(x: Tensor, w: Tensor, g: Tensor) -> tuple[Tensor, 
     dx, dw = torch.empty_like(x), torch.empty_like(w)
     if x.numel() == 0:
         return dx, dw.zero_()
-    n = _cuda.lib().vtt_dw_partial_floats(B, H, W, C, k)
-    partials = torch.empty(n, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
-        err = _cuda.lib().vtt_dw_bwd(
-            _cuda.ptr(x), _cuda.ptr(g), _cuda.ptr(w), _cuda.ptr(dx), _cuda.ptr(dw),
-            _cuda.ptr(partials), int(x.dtype == torch.bfloat16), int(w.dtype == torch.bfloat16),
-            B, H, W, C, k, _cuda.stream())
+        n = _cuda.lib().vtt_dw_partial_floats(B, H, W, C, k, _is_bf16(x))
+        if n < 0:
+            _cuda.check(-n, "depthwise_conv2d backward")
+        partials = torch.empty(n, dtype=torch.float32, device=x.device)
+        err = _cuda.lib().vtt_dw_bwd(_ptr(x), _ptr(g), _ptr(w), _ptr(dx), _ptr(dw),
+                                     _ptr(partials), _is_bf16(x), _is_bf16(w), B, H, W, C, k,
+                                     _cuda.stream())
         _cuda.check(err, "depthwise_conv2d backward")
     _cuda.LAUNCHES["depthwise_conv_bwd"] += 1
     return dx, dw
