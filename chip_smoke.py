@@ -111,7 +111,16 @@ sm_90a, one process per source) and drives the port's paths:
   (K9_EARLIER_MS), then holds every stage's timed operands (and stage 1's
   in f32) against the plain versions in the same way, with a second
   backward bit-equal: at batch 128 a block walks several regions through
-  its ring, which stage 1's geometry must show.
+  its ring, which stage 1's geometry must show;
+- the K3/K4 template redesigned for Hopper (slice 13): phases 3 and 9 hold
+  K3 and K4 at the wgmma template's other tiles and M tails too
+  (TILE_MLP_CASES: 384 / 1536 and 160 / 640, the 32-column tile;
+  TILE_ATTN_CASES: the three-product q/k/v launch at D = 192 and 320),
+  phases 10 and 23 hold a second K3 and K4 backward bit-equal to the first
+  at vit_b_16 b128 and convnext_t stage 1 b128 (the column sums leave
+  partial rows for a fixed-order sum), and phase 38 times the fused kernels
+  beside the module chain, their bound and their first design's times
+  (K3K4_EARLIER_MS).
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -280,6 +289,14 @@ CONVNEXT_KW = dict(stochastic_depth=0.1)  # the published ConvNeXt-T recipe's dr
 # batch 8 (9.6 M hidden elements) read 1.02e-3; batch 2 (2.4 M) stays below
 # vit_b_16 at batch 8 (4.8 M), the case the f32 bound was set on
 NARROW_MLP_CASES = ((2, 3136, 96, 384), (8, 197, 288, 1152))
+# K3/K4 at the wgmma template's other tiles and tails: cait_s_24's MLP
+# widths (384 / 1536, 128-column tiles, M = 784 ends 16 rows into a 128-row
+# tile) and 160 / 640, a width only the 32-column tile takes (B_KN at the
+# 64-byte swizzle); K4's three-product q/k/v launch at D = 192 (96-column
+# tiles) and 320 (32-column), 64-wide heads, ragged T. (B, T, D, Dh) and
+# (B, T, D, heads).
+TILE_MLP_CASES = ((4, 196, 384, 1536), (3, 50, 160, 640))
+TILE_ATTN_CASES = ((3, 50, 192, 3), (2, 77, 320, 5))
 # swin_t at 224 px (window 7, T = 49, 32-wide heads): per stage the map side,
 # windows, heads, blocks and shifted blocks (stage 4's 7×7 map never shifts)
 SWIN_STAGES = ((56, 64, 3, 2, 1), (28, 16, 6, 2, 1), (14, 4, 12, 6, 3), (7, 1, 24, 2, 0))
@@ -335,6 +352,14 @@ K7_EARLIER_MS = {"swin_attention": 1.3428, "swin_attention_bwd": 2.4855}
 # K9's first design's times at convnext_t stage 1 b128 bf16 (PERF.md §6),
 # which phase 22 prints beside the redesigned kernels'
 K9_EARLIER_MS = {"depthwise_conv": 0.3935, "depthwise_conv_bwd": 1.2059}
+# K3/K4's first design's times (PERF.md §6), which phase 38 prints beside
+# the redesigned kernels' and the module chain's: (half, batch) → (forward,
+# backward or None); the batch-128 transformer forwards are the save
+# variants, the others serve
+K3K4_EARLIER_MS = {("block_mlp", 8): (0.2905, None), ("block_attention", 8): (0.2536, None),
+                   ("block_mlp", 128): (3.8642, 2.3551),
+                   ("block_attention", 128): (3.0497, 2.7959),
+                   ("block_mlp_convnext", 128): (2.6220, 2.6481)}
 # K7's second-plane control cases (B, nW, T, N, hd, masked), bf16: swin_t stage
 # 1 at batch 8 and window 14 (swin_s3_t stage 3); held as K2's (SECOND_PLANE)
 SWIN_CONTROL_CASES = ((8, 64, 49, 3, 32, True), (8, 1, 196, 12, 32, False))
@@ -499,8 +524,15 @@ def mlp_cases(variants: tuple[str, ...]) -> list[tuple]:
     dtypes = (torch.float32, torch.bfloat16)
     return ([(B, T, VIT_B["D"], VIT_B["Dh"], dt, v) for B, T in ((8, 197), (3, 50))
              for dt in dtypes for v in variants]
-            + [(B, T, D, Dh, dt, v) for B, T, D, Dh in NARROW_MLP_CASES
+            + [(B, T, D, Dh, dt, v) for B, T, D, Dh in NARROW_MLP_CASES + TILE_MLP_CASES
                for dt in dtypes for v in ("plain", "ls+dp+residual")])
+
+
+def attn_tile_cases() -> list[tuple]:
+    """(B, T, D, heads, dtype, variant) of the K4 comparisons at the
+    template's narrower tiles (TILE_ATTN_CASES), f32 and bf16."""
+    return [(B, T, D, H, dt, v) for B, T, D, H in TILE_ATTN_CASES
+            for dt in (torch.float32, torch.bfloat16) for v in ("plain", "ls+dp")]
 
 
 def is_main_case(B: int, T: int, D: int, dtype: torch.dtype, variant: str) -> bool:
@@ -510,19 +542,24 @@ def is_main_case(B: int, T: int, D: int, dtype: torch.dtype, variant: str) -> bo
 
 def compare_kernels(report: dict) -> dict[str, float]:
     """Phase 3: each forward kernel vs its plain version, K3 at every width
-    of ``mlp_cases`` and K4 at vit_b_16's; returns the max abs error at the
-    main path's case."""
+    of ``mlp_cases`` and K4 at vit_b_16's and ``attn_tile_cases``; returns
+    the max abs error at the main path's case."""
     from vision_toolbox_tpu_torch.ops import block_attention as ba
     from vision_toolbox_tpu_torch.ops import block_mlp as bm
 
     g = torch.Generator().manual_seed(0)
     main_err = {}
     rows = []
-    for B, T, D, Dh, dtype, variant in mlp_cases(("plain", "ls+dp", "ls+dp+residual")):
-        a = mlp_args(g, B, T, D, Dh, dtype, variant != "plain", variant.endswith("residual"))
-        cases = [("block_mlp", bm.fused_mlp_block_plain(**a), bm.fused_mlp_block(**a))]
-        if variant != "ls+dp+residual" and D == VIT_B["D"]:
-            a = attn_args(g, B, T, D, VIT_B["H"], dtype, variant != "plain")
+    runs = [(*c, "mlp") for c in mlp_cases(("plain", "ls+dp", "ls+dp+residual"))]
+    runs += [(B, T, D, H, dt, v, "attention") for B, T, D, H, dt, v in attn_tile_cases()]
+    for B, T, D, Dh, dtype, variant, kind in runs:
+        cases = []
+        if kind == "mlp":
+            a = mlp_args(g, B, T, D, Dh, dtype, variant != "plain", variant.endswith("residual"))
+            cases.append(("block_mlp", bm.fused_mlp_block_plain(**a), bm.fused_mlp_block(**a)))
+        if kind == "attention" or variant != "ls+dp+residual" and D == VIT_B["D"]:
+            a = attn_args(g, B, T, D, Dh if kind == "attention" else VIT_B["H"], dtype,
+                          variant != "plain")
             cases.append(("block_attention", ba.fused_attention_block_plain(**a),
                           ba.fused_attention_block(**a)))
         torch.cuda.synchronize()
@@ -723,8 +760,8 @@ class Checks:
     """Kernel-vs-plain comparisons of one phase: elementwise tensors by max
     abs error against BOUND[dtype]·max|plain| (bf16 tensors get the bf16
     bound: one bf16 ulp is 2⁻⁸…2⁻⁷ of a value), reduced and weight gradients
-    by rel L2 ≤ BWD_REL_L2 (their column sums add block partials with atomics
-    in a varying order)."""
+    by rel L2 ≤ BWD_REL_L2 (their column sums add block partials in another
+    order than the plain versions')."""
 
     def __init__(self):
         self.rows: list[dict] = []
@@ -773,10 +810,10 @@ def compare_backward(report: dict) -> dict[str, float]:
     """Phase 9: the backward-save forwards and the backward kernels vs their
     plain versions at the vit_b_16 shapes (B=8, T=197 and B=3, T=50; f32
     and bf16 x; plain, γ_ls + dp and, for the MLP, a separate residual), at
-    T=512 for attention, and the MLP's at the 32-column widths of
-    ``mlp_cases``. One set of saves (the kernel forward's) and one dout feed
-    both backward versions. Returns max|dx − plain| of the main path's case
-    per kernel."""
+    T=512 for attention, the MLP's at the other widths of ``mlp_cases`` and
+    the attention's at ``attn_tile_cases``. One set of saves (the kernel
+    forward's) and one dout feed both backward versions. Returns
+    max|dx − plain| of the main path's case per kernel."""
     from vision_toolbox_tpu_torch.ops import block_attention as ba
     from vision_toolbox_tpu_torch.ops import block_mlp as bm
 
@@ -784,9 +821,11 @@ def compare_backward(report: dict) -> dict[str, float]:
     checks, main_err = Checks(), {}
     cases = mlp_cases(("plain", "ls+dp", "ls+dp+residual"))
     cases.append((2, 512, VIT_B["D"], VIT_B["Dh"], torch.bfloat16, "ls+dp"))
+    heads = {D: H for _, _, D, H in TILE_ATTN_CASES}
+    cases += [(B, T, D, None, dt, v) for B, T, D, _, dt, v in attn_tile_cases()]
     for B, T, D, Dh, dtype, variant in cases:
         extras, res = variant != "plain", variant.endswith("residual")
-        kernels = ["block_attention_bwd"] if T == 512 else (
+        kernels = ["block_attention_bwd"] if T == 512 or Dh is None else (
             ["block_mlp_bwd"] + ([] if res or D != VIT_B["D"] else ["block_attention_bwd"]))
         for kernel in kernels:
             case = dict(kernel=kernel, B=B, T=T, D=D, dtype=str(dtype).split(".")[-1],
@@ -807,7 +846,7 @@ def compare_backward(report: dict) -> dict[str, float]:
                 weights = [("dW1", got.dh, want.dh, y2, a["w1"])]
                 fields = bm.MLPSaves._fields
             else:
-                a = attn_args(g, B, T, D, VIT_B["H"], dtype, extras)
+                a = attn_args(g, B, T, D, heads.get(D, VIT_B["H"]), dtype, extras)
                 wb = [a[k] for n in "qkvo" for k in (f"w{n}", f"b{n}")]
                 fwd = (a["x"], a["ln_scale"], a["ln_bias"], *wb, a["n_heads"], a["ls_gamma"],
                        a["dp_scale"])
@@ -850,9 +889,25 @@ def compare_backward(report: dict) -> dict[str, float]:
     return main_err
 
 
+def second_backward_bit_equal(report: dict, label: str, backward) -> None:
+    """Runs a backward kernel twice on the same operands and fails unless
+    every output (dx, dh or dq/dk/dv and each column sum) is bit-equal: the
+    column sums leave partial rows for a fixed-order sum, no atomics."""
+    first = backward()
+    second = backward()
+    torch.cuda.synchronize()
+    differ = {f: int((a != b).sum().item()) for f, a, b in zip(first._fields, first, second)
+              if a is not None}
+    report.setdefault("second_backward", {})[label] = differ
+    log(f"[bit-equal] {label}: second backward, differing elements {differ}")
+    if any(differ.values()):
+        raise AssertionError(f"{label}: a second backward differs from the first: {differ}")
+
+
 def time_backward(report: dict) -> dict[str, tuple[float, float]]:
     """Each backward kernel against its plain version, in turns, at the main
-    path's shapes (vit_b_16, batch 128, bf16, no γ/dp)."""
+    path's shapes (vit_b_16, batch 128, bf16, no γ/dp), and a second
+    backward of each bit-equal to the first."""
     from vision_toolbox_tpu_torch.ops import block_attention as ba
     from vision_toolbox_tpu_torch.ops import block_mlp as bm
 
@@ -869,6 +924,10 @@ def time_backward(report: dict) -> dict[str, tuple[float, float]]:
                                                  a["n_heads"])
     attn = (dout, attn_saves, a["wq"], a["wk"], a["wv"], a["wo"], a["ln_scale"], None, None,
             a["n_heads"])
+    second_backward_bit_equal(report, f"block_mlp_bwd vit_b_16 b{B}",
+                              lambda: bm.fused_mlp_bwd_cuda(*mlp))
+    second_backward_bit_equal(report, f"block_attention_bwd vit_b_16 b{B}",
+                              lambda: ba.fused_attention_bwd_cuda(*attn))
     for name, plain, kernel in (
         ("block_mlp_bwd", lambda: bm.fused_mlp_bwd_plain(*mlp),
          lambda: bm.fused_mlp_bwd_cuda(*mlp)),
@@ -1737,10 +1796,11 @@ def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, floa
 
 
 def time_narrow_mlp(report: dict, name_power: str) -> None:
-    """Phase 23: K3's inference forward and backward through its 32-column
+    """Phase 23: K3's inference forward and backward through its 96-column
     tiles, timed in turns with their plain versions at convnext_t stage 1
     (T = 56², D = 96), bs128, bf16, in ConvNeXt's form (γ_ls, drop path,
-    residual). Phases 3 and 9 check them at these widths."""
+    residual), and a second backward bit-equal to the first. Phases 3 and
+    9 check them at these widths."""
     from vision_toolbox_tpu_torch.ops import block_mlp as bm
 
     g = torch.Generator().manual_seed(23)
@@ -1751,6 +1811,8 @@ def time_narrow_mlp(report: dict, name_power: str) -> None:
     _, saves = bm.fused_mlp_save_cuda(*fwd)
     dout = torch.randn(m["x"].shape, generator=g).to("cuda", torch.bfloat16)
     bwd = (dout, saves, m["w1"], m["w2"], m["ln_scale"], m["ls_gamma"], m["dp_scale"], True)
+    second_backward_bit_equal(report, f"block_mlp_bwd convnext_t stage 1 b{B}",
+                              lambda: bm.fused_mlp_bwd_cuda(*bwd))
     rows = {}
     for name, plain, kernel in (
         ("block_mlp", lambda: bm.fused_mlp_block_plain(**m), lambda: bm.fused_mlp_block(**m)),
@@ -2508,7 +2570,10 @@ def time_chains(report: dict, name_power: str) -> None:
     (CHAIN_CASES), bf16: the forward, and the backward to x (forward +
     backward less the forward; the weight gradients, which the fused kernels
     leave to torch.matmul, are not asked for). It is the yardstick of a K3/K4
-    redesign: "chain ms", several calls, not one library call."""
+    redesign: "chain ms", several calls, not one library call. Beside each,
+    the fused kernels on the same shapes (the save forward at batch-128
+    transformer shapes, else the inference one; the backward from its
+    saves), their bound and their first design's times (K3K4_EARLIER_MS)."""
     from vision_toolbox_tpu_torch.models.convnext import ConvNeXtBlock
     from vision_toolbox_tpu_torch.nn.attention import ViTBlock
     from vision_toolbox_tpu_torch.nn.layers import _gelu_exact
@@ -2539,11 +2604,57 @@ def time_chains(report: dict, name_power: str) -> None:
 
         f_ms = time_ms(forward, iters=10)
         fb_ms = time_ms(forward_backward, iters=10)
-        rows.append(dict(half=name, B=B, T=T, D=D, chain_ms=f_ms, chain_bwd_ms=fb_ms - f_ms))
-        log(f"[chain-time] {name:18s} B={B:3d} T={T} D={D} bf16: chain forward {f_ms:.4f} ms, "
-            f"chain backward to x {fb_ms - f_ms:.4f} ms  [{name_power}]")
+        kernel_fwd, kernel_bwd, (flops, nbytes) = fused_half_calls(name, B, T, D, dout)
+        k_ms, kb_ms = time_ms(kernel_fwd, iters=10), time_ms(kernel_bwd, iters=10)
+        bound_ms, bound_by = bound(flops, nbytes)
+        first_f, first_b = K3K4_EARLIER_MS[(name, B)]
+        rows.append(dict(half=name, B=B, T=T, D=D, chain_ms=f_ms, chain_bwd_ms=fb_ms - f_ms,
+                         kernel_ms=k_ms, kernel_bwd_ms=kb_ms, bound_ms=bound_ms,
+                         bound_by=bound_by, first_design_ms=first_f, first_design_bwd_ms=first_b))
+        first_b_text = "" if first_b is None else f", first design {first_b:.4f}"
+        log(f"[chain-time] {name:18s} B={B:3d} T={T} D={D} bf16: forward chain {f_ms:.4f} ms, "
+            f"kernels {k_ms:.4f} (first design {first_f:.4f}, bound {bound_ms:.4f} {bound_by}); "
+            f"backward to x chain {fb_ms - f_ms:.4f} ms, kernels {kb_ms:.4f}{first_b_text}  "
+            f"[{name_power}]")
         del x, res, dout, leaf
     report["chain_times"] = rows
+
+
+def fused_half_calls(name: str, B: int, T: int, D: int, dout: torch.Tensor):
+    """(forward, backward, (operations, bytes) of the forward) of the fused
+    kernels on seeded operands of one CHAIN_CASES shape: the save forward at
+    batch-128 transformer shapes, else the inference one; the backward from
+    the save forward's saves."""
+    from vision_toolbox_tpu_torch.ops import block_attention as ba
+    from vision_toolbox_tpu_torch.ops import block_mlp as bm
+
+    g = torch.Generator().manual_seed(B * T)
+    convnext = name == "block_mlp_convnext"
+    if name == "block_attention":
+        a = attn_args(g, B, T, D, VIT_B["H"], torch.bfloat16, False)
+        wb = [a[k] for n in "qkvo" for k in (f"w{n}", f"b{n}")]
+        fwd = (a["x"], a["ln_scale"], a["ln_bias"], *wb, a["n_heads"])
+        _, saves = ba.fused_attention_save_cuda(*fwd)
+        ws = (a["wq"], a["wk"], a["wv"], a["wo"])
+        serve = lambda: ba.fused_attention_block(*fwd)
+        save = lambda: ba.fused_attention_save_cuda(*fwd)
+        bwd = lambda: ba.fused_attention_bwd_cuda(dout, saves, *ws, a["ln_scale"], None, None,
+                                                  a["n_heads"])
+        work = block_work("block_attention", B, T, 2)
+    else:
+        Dh = 4 * D
+        a = mlp_args(g, B, T, D, Dh, torch.bfloat16, convnext, convnext)
+        ops = [a[k] for k in ("ln_scale", "ln_bias", "w1", "b1", "w2", "b2")]
+        fwd = (a["x"], *ops, a["ls_gamma"], a["dp_scale"], a["residual"])
+        _, saves = bm.fused_mlp_save_cuda(*fwd)
+        serve = lambda: bm.fused_mlp_block(*fwd[:9], residual=fwd[9])
+        save = lambda: bm.fused_mlp_save_cuda(*fwd)
+        bwd = lambda: bm.fused_mlp_bwd_cuda(dout, saves, a["w1"], a["w2"], a["ln_scale"],
+                                            a["ls_gamma"], a["dp_scale"], convnext)
+        M = B * T
+        work = ((4 * M * D * Dh, 3 * M * D * 2 + 4 * D * Dh) if convnext
+                else block_work("block_mlp", B, T, 2))
+    return (save if B == 128 and not convnext else serve), bwd, work
 
 
 def main() -> int:

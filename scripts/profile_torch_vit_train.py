@@ -25,11 +25,11 @@ steps with ``torch.profiler`` and sums the device kernels by class:
 - window-attention kernels (Swin): the K7 forward, and the K7 backward with
   its fixed-order dPE sum; the shifted-window relayout kernels (K8, both
   directions);
-- forward kernels: the K3/K4 forward (the GEMM template with the weight
-  read (N, K), the attention kernel);
+- forward kernels: the K3/K4 forward (the LayerNorm row pass, the GEMM
+  template with the weight read (N, K), the attention kernel);
 - backward kernels: the K3/K4 backward (the GEMM template with the weight
   read (K, N), the attention backward kernels, the cotangent and LayerNorm
-  row kernels);
+  row kernels, the fixed-order column sums);
 - library products: cuBLAS/CUTLASS GEMMs, i.e. the weight gradients of the
   blocks (``torch.matmul``), CaiT's q/k/v/out projections (``F.linear``
   around K5) and class attention, the unfused chain's projections and MLPs,
@@ -64,9 +64,9 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PROFILED_STEPS = 3
 
-# gemm_kernel<AMode, Epilogue, TX, BLayout, SAVE>: BLayout 0 reads the weight
+# gemm_kernel<Epilogue, TX, BLayout, SAVE, BN>: BLayout 0 reads the weight
 # (N, K) (the forward products), 1 reads it (K, N) (the backward products)
-_GEMM = re.compile(r"gemm_kernel<\d+, \d+, [^,]+, (\d+)")
+_GEMM = re.compile(r"gemm_kernel<\d+, [^,]+, (\d+),")
 
 
 def _gemm_layout(name: str) -> str | None:
@@ -93,9 +93,9 @@ CLASSES = (
      lambda n: "swin_bwd" in n or "dpe_reduce_kernel" in n),
     ("shifted-window relayout (K8, both directions)", lambda n: "partition_kernel" in n),
     ("forward kernels (K3/K4 fwd)",
-     lambda n: _gemm_layout(n) == "0" or "attn_kernel" in n),
-    ("backward kernels (K3/K4 bwd)", lambda n: _gemm_layout(n) == "1"
-     or any(k in n for k in ("attn_bwd", "douts_kernel", "ln_bwd_kernel"))),
+     lambda n: _gemm_layout(n) == "0" or "attn_kernel" in n or "ln_rows_kernel" in n),
+    ("backward kernels (K3/K4 bwd)", lambda n: _gemm_layout(n) == "1" or any(
+        k in n for k in ("attn_bwd", "douts_kernel", "ln_bwd_kernel", "colsum_kernel"))),
     ("convolutions (cuDNN)", lambda n: any(
         k in n.lower() for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad"))),
     ("library products (weight gradients, head)", lambda n: any(

@@ -13,9 +13,10 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from torch_parity import assert_matches_kernel
+from torch_parity import assert_matches_kernel, csrc_constant, fake_card
 
 import vision_toolbox_tpu.ops.block_attention as ba
+from vision_toolbox_tpu_torch.ops import _cuda
 from vision_toolbox_tpu_torch.ops import block_attention as port
 
 _W = ("wq", "wk", "wv", "wo")
@@ -84,3 +85,66 @@ def test_dispatch_rules():
     assert port._attn_smem_bytes(512, 128) > port.SMEM_LIMIT
     assert not port.use_fused_attention(1024, 8, 512, 0.0, True)
     assert port._attn_smem_bytes(197, 64) == 75520
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("what", ["type", "weights", "heads", "width", "length", "saves"])
+def test_cuda_entries_check_their_arguments(what):
+    """The CUDA wrappers refuse what the kernels do not take before anything
+    reaches the card (meta tensors: no data, no launch): a type other than
+    f32/bf16, weights unlike (D, D), a head width that is no multiple of 16
+    or above 128, d_model no multiple of 64, T past one block's keys, saves
+    unlike the cotangent."""
+    D, H, T = {"heads": (128, 16, 17), "width": (96, 2, 17), "length": (128, 2, 513)}.get(
+        what, (128, 2, 17))
+    x = _meta(2, T, D, dtype=torch.float16 if what == "type" else torch.bfloat16)
+    ws = [_meta(D, D + 32 if what == "weights" and i == 3 else D) for i in range(4)]
+    wb = [t for w in ws for t in (w, _meta(D))]
+    Tp = T - 1 if what == "saves" else T
+    saves = port.AttnSaves(_meta(2, T, D), _meta(2, T, 1, dtype=torch.float32),
+                           *(_meta(2, T, D) for _ in range(4)), _meta(2, H, Tp, Tp), None)
+    error = TypeError if what == "type" else ValueError
+    before = dict(_cuda.LAUNCHES)
+    if what != "saves":
+        with pytest.raises(error):
+            port.fused_attention_save_cuda(x, _meta(D), _meta(D), *wb, H)
+        with pytest.raises(error):
+            port.fused_attention_block_cuda(x, _meta(D), _meta(D), *wb, H, None, None, 1e-6)
+    with pytest.raises(error):
+        port.fused_attention_bwd_cuda(x, saves, *ws, _meta(D), None, None, H)
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("B,T,D,H,ls", [(2, 197, 768, 12, False), (3, 50, 128, 2, True),
+                                        (1, 512, 256, 4, True)])
+def test_wrappers_hand_the_kernels_their_scratch(monkeypatch, B, T, D, H, ls):
+    """What the wrappers allocate for the C entries: the forward's bf16 (B, T,
+    D) y scratch, and the backward's f32 scratch of column-sum partial rows,
+    one row per block of each kernel that writes them (block_bwd.cuh's
+    DOUTS_ROWS and LN_ROWS rows; dbq/dbk/dbv a 3·D-wide row per image and
+    32-row tile of block_attention_bwd.cu), its size passed beside it; the
+    column sums themselves are not pre-zeroed."""
+    lib = fake_card(monkeypatch)
+    g = torch.Generator().manual_seed(D)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float32).to(torch.bfloat16)
+    x = r(B, T, D)
+    wb = [t for _ in range(4) for t in (r(D, D), r(D))]
+    gamma = r(D) if ls else None
+    _, saves = port.fused_attention_save_cuda(x, r(D), r(D), *wb, H, gamma)
+    args = lib.calls["vtt_block_attention_fwd"]
+    y = args[-8]
+    assert y.shape == (B, T, D) and y.dtype == torch.bfloat16 and args[-7:-4] == (B, T, D)
+    monkeypatch.setattr(torch, "zeros", None)  # the column sums are torch.empty
+    port.fused_attention_bwd_cuda(x, saves, *wb[::2], r(D), gamma, None, H)
+    args = lib.calls["vtt_block_attention_bwd"]
+    partials, count = args[-8], args[-7]
+    M = B * T
+    cdiv = lambda a, b: -(-a // b)
+    tile = csrc_constant("BQ", "block_attention_bwd.cu")
+    assert tile == csrc_constant("BK2", "block_attention_bwd.cu")
+    rows = {n: cdiv(M, csrc_constant(n, "block_bwd.cuh")) for n in ("DOUTS_ROWS", "LN_ROWS")}
+    want = 2 * rows["DOUTS_ROWS"] * D + B * cdiv(T, tile) * 3 * D + 2 * rows["LN_ROWS"] * D
+    assert partials.dtype == torch.float32 and partials.numel() == count == want

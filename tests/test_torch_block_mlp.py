@@ -13,9 +13,10 @@ import pytest
 import torch
 
 import jax.numpy as jnp
-from torch_parity import assert_matches_kernel
+from torch_parity import assert_matches_kernel, csrc_constant, fake_card
 
 import vision_toolbox_tpu.ops.block_mlp as bm
+from vision_toolbox_tpu_torch.ops import _cuda
 from vision_toolbox_tpu_torch.ops import block_mlp as port
 
 
@@ -103,3 +104,66 @@ def test_dispatch_rules():
     # its f32 row scratches
     assert not port.use_fused_mlp(2048, 8192, 49, 0.0, has_res=True, has_ls=True)
     assert not port.use_fused_mlp(1280, 5120, 1024, 0.0)
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+@pytest.mark.parametrize("what", ["type", "weights", "width", "hidden", "residual", "saves"])
+def test_cuda_entries_check_their_arguments(what):
+    """The CUDA wrappers refuse what the kernels do not take before anything
+    reaches the card (meta tensors: no data, no launch): a type other than
+    f32/bf16, weights unlike (Dh, D) / (D, Dh), widths that are no multiple
+    of the 32-column tile, a residual unlike x, saves unlike the cotangent."""
+    D, Dh = {"width": (80, 320), "hidden": (64, 200)}.get(what, (64, 256))
+    x = _meta(2, 5, D, dtype=torch.float16 if what == "type" else torch.bfloat16)
+    w1 = _meta(Dh, D + 32) if what == "weights" else _meta(Dh, D)
+    w2 = _meta(D, Dh)
+    res = _meta(2, 5, D, dtype=torch.float32) if what == "residual" else None
+    ops = (_meta(D), _meta(D), w1, _meta(Dh), w2, _meta(D))
+    saves = port.MLPSaves(_meta(2, 5, D), _meta(2, 5, 1, dtype=torch.float32),
+                          _meta(2, 4 if what == "saves" else 5, Dh), _meta(2, 5, Dh), None)
+    error = TypeError if what == "type" else ValueError
+    before = dict(_cuda.LAUNCHES)
+    if what != "saves":
+        with pytest.raises(error):
+            port.fused_mlp_save_cuda(x, *ops, None, None, res)
+        with pytest.raises(error):
+            port.fused_mlp_block_cuda(x, *ops, None, None, res, 1e-6)
+    if what != "residual":
+        with pytest.raises(error):
+            port.fused_mlp_bwd_cuda(x, saves, w1, w2, ops[0], None, None, False)
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("B,T,D,Dh,ls", [(2, 197, 768, 3072, False), (3, 17, 96, 384, True),
+                                         (1, 130, 288, 1152, True)])
+def test_wrappers_hand_the_kernels_their_scratch(monkeypatch, B, T, D, Dh, ls):
+    """What the wrappers allocate for the C entries: the forward's bf16 (B, T,
+    D) y scratch, and the backward's f32 scratch of column-sum partial rows,
+    one row per block of each kernel that writes them (block_bwd.cuh's
+    DOUTS_ROWS and LN_ROWS rows, gemm.cuh's BM-row GEMM tiles), its size
+    passed beside it for the entry to check; the column sums themselves are
+    not pre-zeroed (the kernels' fixed-order sum writes them whole)."""
+    lib = fake_card(monkeypatch)
+    g = torch.Generator().manual_seed(D)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float32).to(torch.bfloat16)
+    x = r(B, T, D)
+    ops = (r(D), r(D), r(Dh, D), r(Dh), r(D, Dh), r(D))
+    gamma = r(D) if ls else None
+    _, saves = port.fused_mlp_save_cuda(x, *ops, gamma)
+    args = lib.calls["vtt_block_mlp_fwd"]
+    y = args[-7]
+    assert y.shape == (B, T, D) and y.dtype == torch.bfloat16 and args[-6] == B * T
+    monkeypatch.setattr(torch, "zeros", None)  # the column sums are torch.empty
+    port.fused_mlp_bwd_cuda(x, saves, ops[2], ops[4], ops[0], gamma, None, False)
+    args = lib.calls["vtt_block_mlp_bwd"]
+    partials, count = args[-8], args[-7]
+    M = B * T
+    cdiv = lambda a, b: -(-a // b)
+    rows = {n: cdiv(M, csrc_constant(n, src))
+            for n, src in (("DOUTS_ROWS", "block_bwd.cuh"), ("LN_ROWS", "block_bwd.cuh"),
+                           ("BM", "gemm.cuh"))}
+    want = 2 * rows["DOUTS_ROWS"] * D + rows["BM"] * Dh + 2 * rows["LN_ROWS"] * D
+    assert partials.dtype == torch.float32 and partials.numel() == count == want

@@ -7,12 +7,14 @@ The test imports no JAX, so on a machine without it run
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py
 
 Tolerances are chip_smoke.py's: kernel and plain version round at the same
-points and differ in f32 summation order (wmma tiles vs cuBLAS), so max abs
+points and differ in f32 summation order (tensor-core tiles vs cuBLAS), so max abs
 error ≤ 1e-3·max|plain| for f32 tensors and ≤ 2e-2·max|plain| for bf16 ones
 (one bf16 ulp is 2⁻⁸…2⁻⁷ of a value, so a rounding flip in a bf16 save or
 gradient is allowed its ulp). Reduced and weight gradients of the backward
-kernels, whose column sums add block partials with atomics in a varying
-order: rel L2 ≤ 1e-2. The backward is compared from one set of saves (the
+kernels, whose column sums add block partials in another order than the
+plain versions': rel L2 ≤ 1e-2; since the K3/K4 redesign they add them in
+a fixed order, so a second backward is bit-equal to the first, and TMA's
+16-byte alignment is held at the entries. The backward is compared from one set of saves (the
 kernel forward's) and one output cotangent. The three-shear warp (K1) forms
 every value with the same f32 operations as its plain version: max abs error
 ≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) compute
@@ -94,7 +96,8 @@ def _check_rel_l2(got, want, what, ref=None):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,Dh,extras", [(2, 50, 128, 512, True), (3, 17, 256, 1024, False),
-                                             (2, 50, 96, 384, True), (3, 17, 288, 1152, False)])
+                                             (2, 50, 96, 384, True), (3, 17, 288, 1152, False),
+                                             (4, 196, 384, 1536, True), (3, 50, 160, 640, False)])
 def test_mlp_kernel_matches_plain(cuda, dtype, B, T, D, Dh, extras):
     g = torch.Generator().manual_seed(T)
     a = [_rand(g, B, T, D), _rand(g, D, scale=0.1, shift=1.0), _rand(g, D, scale=0.1),
@@ -115,7 +118,8 @@ def test_mlp_kernel_matches_plain(cuda, dtype, B, T, D, Dh, extras):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,D,H", [(2, 50, 128, 2), (3, 197, 256, 4), (1, 512, 128, 2)])
+@pytest.mark.parametrize("B,T,D,H", [(2, 50, 128, 2), (3, 197, 256, 4), (1, 512, 128, 2),
+                                     (3, 50, 192, 3), (2, 77, 320, 5)])
 def test_attention_kernel_matches_plain(cuda, dtype, B, T, D, H):
     g = torch.Generator().manual_seed(T)
     x = _rand(g, B, T, D)
@@ -154,7 +158,9 @@ def _drop_path(g, B, device):
                                                  (3, 17, 256, 1024, False, False),
                                                  (2, 197, 768, 3072, True, False),
                                                  (2, 196, 96, 384, True, True),
-                                                 (3, 17, 288, 1152, False, False)])
+                                                 (3, 17, 288, 1152, False, False),
+                                                 (4, 196, 384, 1536, True, False),
+                                                 (3, 50, 160, 640, False, True)])
 def test_mlp_backward_kernels_match_plain(cuda, dtype, B, T, D, Dh, extras, res):
     g = torch.Generator().manual_seed(B * T)
     x, ops, ls, dp = _mlp_operands(g, B, T, D, Dh, dtype, extras, cuda)
@@ -207,6 +213,21 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, B, T, D, H, extras)
     """Every shape class the forward gate admits: ragged T, T = 512, head
     width 128 at T = 480 (the widest head that fits the forward at that
     length), head width 16."""
+    assert ba.use_fused_attention(D, H, T, 0.0, True)
+    _attention_backward_matches_plain(cuda, dtype, B, T, D, H, extras)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,H,extras", [(3, 50, 192, 3, True), (2, 77, 320, 5, False)])
+def test_attention_backward_kernels_at_the_narrower_tiles(cuda, dtype, B, T, D, H, extras):
+    """Widths the kernels take (d_model % 64) outside the JAX gate's
+    d_model % 128: the GEMM template's 96- and 32-column tiles in the
+    three-product q/k/v launch and the backward's (K, N) weight reads."""
+    assert ba._kernel_admits(D, H, T) and not ba.use_fused_attention(D, H, T, 0.0, True)
+    _attention_backward_matches_plain(cuda, dtype, B, T, D, H, extras)
+
+
+def _attention_backward_matches_plain(cuda, dtype, B, T, D, H, extras):
     g = torch.Generator().manual_seed(B * T + H)
     to = lambda t: t.to(cuda, dtype)
     x = to(_rand(g, B, T, D))
@@ -216,7 +237,6 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, B, T, D, H, extras)
         wb += [to(_rand(g, D, D, scale=D**-0.5)), to(_rand(g, D, scale=0.1))]
     ls = to(_rand(g, D, scale=0.2, shift=0.5)) if extras else None
     dp = _drop_path(g, B, cuda) if extras else None
-    assert ba.use_fused_attention(D, H, T, 0.0, True)
     want_out, want_saves = ba.fused_attention_save_plain(x, *ln, *wb, H, ls, dp)
     out, saves = ba.fused_attention_save_cuda(x, *ln, *wb, H, ls, dp)
     dout = to(_rand(g, B, T, D))
@@ -236,6 +256,69 @@ def test_attention_backward_kernels_match_plain(cuda, dtype, B, T, D, H, extras)
     for name in ("dbq", "dbv", "dbo", "dln_scale", "dln_bias") + (("dls",) if extras else ()):
         _check_rel_l2(getattr(got, name), getattr(want, name), name)
     _check_rel_l2(got.dbk, want.dbk, "dbk", ref=want.dbv)
+
+
+@pytest.mark.parametrize("kind,B,T,D,extras", [("mlp", 2, 197, 768, False),
+                                               ("mlp", 2, 196, 96, True),
+                                               ("attention", 3, 197, 768, True)])
+def test_block_backward_is_bit_equal_when_run_again(cuda, kind, B, T, D, extras):
+    """K3's and K4's column sums leave partial rows for a fixed-order sum (no
+    atomics): a second backward on the same operands repeats the first bit
+    for bit, dx, dh or dq/dk/dv and every column sum."""
+    g = torch.Generator().manual_seed(B * T)
+    to = lambda t: t.to(cuda, torch.bfloat16)
+    if kind == "mlp":
+        x, ops, ls, dp = _mlp_operands(g, B, T, D, 4 * D, torch.bfloat16, extras, cuda)
+        res = to(_rand(g, B, T, D)) if extras else None
+        _, saves = bm.fused_mlp_save_cuda(x, *ops, ls, dp, res)
+        run = lambda: bm.fused_mlp_bwd_cuda(to(dout), saves, ops[2], ops[4], ops[0], ls, dp,
+                                            extras)
+    else:
+        x = to(_rand(g, B, T, D))
+        ln = [to(_rand(g, D, scale=0.1, shift=1.0)), to(_rand(g, D, scale=0.1))]
+        wb = [to(_rand(g, *s, scale=D**-0.5 if len(s) > 1 else 0.1))
+              for _ in range(4) for s in ((D, D), (D,))]
+        ls, dp = to(_rand(g, D, scale=0.2, shift=0.5)), _drop_path(g, B, cuda)
+        _, saves = ba.fused_attention_save_cuda(x, *ln, *wb, 12, ls, dp)
+        run = lambda: ba.fused_attention_bwd_cuda(to(dout), saves, *wb[::2], ln[0], ls, dp, 12)
+    dout = _rand(g, B, T, D)
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    for name, a, b in zip(first._fields, first, second):
+        assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+def test_block_entries_refuse_misaligned_operands(cuda):
+    """TMA needs 16-byte-aligned bases and row pitches: a view one element
+    into its buffer is refused by the wrapper (ValueError) and, handed to
+    the C entry directly, by the entry (RuntimeError from its error code);
+    neither falls back to another route, and nothing launches."""
+    g = torch.Generator().manual_seed(7)
+    B, T, D, Dh = 2, 50, 128, 512
+    x, ops, _, _ = _mlp_operands(g, B, T, D, Dh, torch.bfloat16, False, cuda)
+    buf = torch.empty(B * T * D + 1, dtype=torch.bfloat16, device=cuda)
+    xm = buf[1:].view(B, T, D)
+    xm.copy_(x)
+    before = dict(_cuda.LAUNCHES)
+    with pytest.raises(ValueError, match="aligned"):
+        bm.fused_mlp_block(xm, *ops)
+    wb = [t for _ in range(4) for t in (ops[2][:D], ops[1])]
+    with pytest.raises(ValueError, match="aligned"):
+        ba.fused_attention_block(xm, ops[0], ops[1], *wb, 2)
+    out, gbuf, y = torch.empty_like(x), torch.empty(B, T, Dh, dtype=torch.bfloat16, device=cuda), \
+        torch.empty_like(x)
+    vec = lambda t: (t.data_ptr(), 1)
+    err = _cuda.lib().vtt_block_mlp_fwd(
+        xm.data_ptr(), xm.data_ptr(), out.data_ptr(), gbuf.data_ptr(), 1, *vec(ops[0]),
+        *vec(ops[1]), ops[2].data_ptr(), *vec(ops[3]), ops[4].data_ptr(), *vec(ops[5]),
+        None, 0, None, None, None, None, None, y.data_ptr(), B * T, T, D, Dh, 1e-6,
+        _cuda.stream())
+    with pytest.raises(RuntimeError, match="misaligned"):
+        _cuda.check(err, "fused_mlp_block")
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES == before
 
 
 def test_training_step_through_the_ops_launches_the_backward_kernels(cuda):

@@ -66,3 +66,48 @@ def assert_reduced_close(got, want, what: str) -> None:
     got, want = as_f32(got), as_f32(want)
     err = float(np.abs(got - want).max())
     assert err <= REDUCED_TOL * _norm(want), (what, err, _norm(want))
+
+
+class FakeKernelLibrary:
+    """Stands in for the port's compiled library where a CPU test drives a
+    CUDA wrapper up to its C call: records each entry's arguments (tensors,
+    as ``fake_card`` passes them through) and returns success."""
+
+    def __init__(self):
+        self.calls: dict[str, tuple] = {}
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls[name] = args
+            return 0
+
+        return entry
+
+
+def fake_card(monkeypatch) -> FakeKernelLibrary:
+    """Lets a CUDA wrapper run on CPU tensors up to its C call: pointers are
+    the tensors themselves, the library records what it is handed."""
+    import contextlib
+
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    lib = FakeKernelLibrary()
+    monkeypatch.setattr(_cuda, "lib", lambda: lib)
+    monkeypatch.setattr(_cuda, "ptr", lambda t, align=16: t)
+    monkeypatch.setattr(_cuda, "vec", lambda t: (t, 0))
+    monkeypatch.setattr(_cuda, "stream", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    return lib
+
+
+def csrc_constant(name: str, source: str) -> int:
+    """An ``constexpr int NAME = value;`` of a kernel source (the port's
+    ``csrc/``), to hold a Python mirror of it."""
+    import re
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parent.parent / "vision_toolbox_tpu_torch" / "csrc"
+            / source).read_text()
+    m = re.search(rf"\b{name}\s*=\s*(\d+)\s*[;,]", text)
+    assert m, (name, source)
+    return int(m.group(1))

@@ -14,22 +14,27 @@
 // The TPU design runs one grid program per image with Wq/k/v/o (4·D² bf16 =
 // 4.7 MB at D=768) resident in VMEM and y/q/k/v/o never leaving the chip.
 // On Hopper the weights do not fit a block's 227 KB of shared memory, so the
-// half-block is three launches:
-//   (i)   LN and the q/k/v projections: one launch of the shared GEMM
-//         template (gemm.cuh) with the LN prologue, blockIdx.z picking q, k
-//         or v; q/k/v (bf16) go to device memory;
-//   (ii)  attention, this file: one block per (query tile of 32 rows, head,
+// half-block is four launches:
+//   (i)   the LayerNorm row pass, once per row (gemm.cuh ln_rows_kernel):
+//         y = bf16(LN(x)·γ + β) to a scratch the wrapper allocates (and,
+//         saving, xhat and rstd);
+//   (ii)  the q/k/v projections of y: one launch of the GEMM template
+//         (gemm.cuh: wgmma tiles, TMA loads), the three products' column
+//         tiles side by side; q/k/v (bf16) go to device memory;
+//   (iii) attention, this file: one block per (query tile of 32 rows, head,
 //         image); all S keys of the image sit in shared memory, logits and
 //         softmax in f32, p rounded to bf16, o = p·v rounded to bf16 and
-//         written to device memory. Attention never crosses images;
-//   (iii) o·Woᵀ + bo with the dp·γ_ls scale and the residual add in the
+//         written to device memory (wmma tiles; the first design's, not yet
+//         moved to the register tiles). Attention never crosses images;
+//   (iv)  o·Woᵀ + bo with the dp·γ_ls scale and the residual add in the
 //         epilogue (the GEMM template again).
 // What bounds it: the projections are compute-bound; the attention step at
 // T=197, head_dim 64 is small (≈ 2·2·T²·D flop per image) and bound by its
-// shared-memory traffic and the serial softmax. q/k/v/o (4·B·T·D bf16, 9.7 MB
-// at batch 8) make a round trip through device memory that the TPU kernel
-// kept on chip; fusing (i)–(iii) per image is the first target for later work.
+// shared-memory traffic and the serial softmax. y/q/k/v/o (5·B·T·D bf16,
+// 12 MB at batch 8) make a round trip through device memory that the TPU
+// kernel kept on chip.
 #include <math.h>
+#include <mma.h>
 
 #include "gemm.cuh"
 
@@ -159,7 +164,7 @@ extern "C" int vtt_block_attention_fwd(
     const void* wv, const void* bv, int bv_bf16,
     const void* wo, const void* bo, int bo_bf16,
     const void* ls, int ls_bf16, const float* dp,
-    void* xhat, float* rstd, void* p, void* proj_out,
+    void* xhat, float* rstd, void* p, void* proj_out, void* y,
     int B, int T, int D, int H, float scale, float eps, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = D / H;
@@ -168,10 +173,19 @@ extern "C" int vtt_block_attention_fwd(
   if (hd % 16 != 0 || hd > 128 || smem > kMaxSmem || !gemm_shape_ok(M, D, D) || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!aligned16({x, out, q, k, v, o, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, ls, dp,
+                  xhat, rstd, p, proj_out, y})) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool save = xhat != nullptr;  // the caller passes all of xhat, rstd, p or none
+  const Vec lns = vec(ln_scale, ln_scale_bf16), lnb = vec(ln_bias, ln_bias_bf16);
+  cudaError_t err = x_bf16 ? launch_ln_rows<bf16>(x, lns, lnb, eps, y, xhat, rstd, M, D, save, st)
+                           : launch_ln_rows<float>(x, lns, lnb, eps, y, xhat, rstd, M, D, save, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmArgs qkv{};
-  qkv.a = x;
+  qkv.a = y;
   qkv.M = M;
   qkv.N = D;
   qkv.K = D;
@@ -184,11 +198,6 @@ extern "C" int vtt_block_attention_fwd(
   qkv.out[0] = q;
   qkv.out[1] = k;
   qkv.out[2] = v;
-  qkv.ln_scale = vec(ln_scale, ln_scale_bf16);
-  qkv.ln_bias = vec(ln_bias, ln_bias_bf16);
-  qkv.eps = eps;
-  qkv.xhat = static_cast<bf16*>(xhat);
-  qkv.rstd = rstd;
 
   GemmArgs proj{};
   proj.a = o;
@@ -204,21 +213,21 @@ extern "C" int vtt_block_attention_fwd(
   proj.rows_per_image = T;
   proj.aux = proj_out;
 
-  const bool save = xhat != nullptr;  // the caller passes all of xhat, rstd, p or none
-  cudaError_t err = x_bf16 ? launch_forward_gemm<A_LAYERNORM, EPI_BIAS, bf16>(qkv, 3, save, st)
-                           : launch_forward_gemm<A_LAYERNORM, EPI_BIAS, float>(qkv, 3, save, st);
+  err = launch_gemm<EPI_BIAS, bf16>(qkv, 3, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   auto* kernel = save ? attn_kernel<true> : attn_kernel<false>;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const dim3 grid((T + BQ - 1) / BQ, H, B);
   kernel<<<grid, ATTN_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<bf16*>(o), static_cast<bf16*>(p), T, D, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = x_bf16 ? launch_forward_gemm<A_BF16, EPI_RESIDUAL, bf16>(proj, 1, save, st)
-               : launch_forward_gemm<A_BF16, EPI_RESIDUAL, float>(proj, 1, save, st);
+  err = x_bf16 ? launch_forward_gemm<EPI_RESIDUAL, bf16>(proj, 1, save, st)
+               : launch_forward_gemm<EPI_RESIDUAL, float>(proj, 1, save, st);
   return static_cast<int>(err);
 }

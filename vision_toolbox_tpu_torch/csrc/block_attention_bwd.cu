@@ -26,16 +26,20 @@
 //       memory for (b);
 //   (b) dk and dv per (32-key tile, head, image), streaming 64-query tiles of
 //       p, ds, do and bf16(q·scale), accumulating in registers.
-// Around them: a row kernel for douts (block_bwd.cuh), the GEMM template for
-// do = douts·Wo and dy = [dq|dk|dv]·[Wq;Wk;Wv] (weights read (K, N)), and
-// the LayerNorm row backward shared with the MLP backward. Six launches;
-// column sums are per-block partials added with atomics (their f32 order
-// varies from run to run).
+// (a) and (b) are the first design's wmma tiles, not yet moved to the
+// register tiles. Around them: a row kernel for douts (block_bwd.cuh), the
+// GEMM template (gemm.cuh: wgmma tiles, TMA loads) for do = douts·Wo and
+// dy = [dq|dk|dv]·[Wq;Wk;Wv] (weights read (K, N) as wgmma's MN-major B),
+// the LayerNorm row backward shared with the MLP backward, and the seven
+// column sums from their partial rows in a fixed order: seven launches. The
+// partial rows live in one f32 scratch the wrapper allocates
+// (vtt_block_attention_bwd_partial_floats); no atomics, so a second backward is bit-equal.
 // What bounds it: at vit_b_16 batch 128 the products are ≈ 149 GFLOP and
 // the operands ≈ 0.47 GB (p alone is 119 MB), close to balanced on an H100
 // (≈ 0.15 ms at the bf16 peak); ds, douts, do and dy make device-memory round
 // trips the TPU kernel kept on chip.
 #include <math.h>
+#include <mma.h>
 
 #include "block_bwd.cuh"
 
@@ -48,6 +52,7 @@ constexpr int BKV = 64;   // (a): keys per streamed tile
 constexpr int BK2 = 32;   // (b): key rows per block
 constexpr int BQ2 = 64;   // (b): queries per streamed tile
 constexpr int NT = 128;   // four warps
+static_assert(BQ == BK2, "(a) and (b) write dbq/dbk/dbv partial rows of one (image, 32-row tile)");
 constexpr int NW = NT / 32;
 
 __host__ __device__ inline int keys64(int t) { return (t + BKV - 1) / BKV * BKV; }
@@ -74,7 +79,7 @@ using Acc = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 __global__ void __launch_bounds__(NT)
 attn_bwd_dq_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ k,
                    const bf16* __restrict__ v, const bf16* __restrict__ p, bf16* __restrict__ ds,
-                   bf16* __restrict__ dqkv, float* __restrict__ dbqkv, int T, int D, int hd,
+                   bf16* __restrict__ dqkv, float* __restrict__ dbqkv_part, int T, int D, int hd,
                    float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int sp = keys64(T), lw = dp_pitch(sp, hd);
@@ -171,8 +176,10 @@ attn_bwd_dq_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  // dq·scale → bf16 into dqkv[:, h·hd : (h+1)·hd]; dbq from the f32 values
+  // dq·scale → bf16 into dqkv[:, h·hd : (h+1)·hd]; dbq's partial row (b, query
+  // tile) from the f32 values
   const int ldq = 3 * D;
+  float* part = dbqkv_part + static_cast<size_t>(b * gridDim.x + blockIdx.x) * ldq;
   for (int c = threadIdx.x; c < hd; c += NT) {
     float s = 0.0f;
     for (int r = 0; r < BQ && q0 + r < T; ++r) {
@@ -180,14 +187,14 @@ attn_bwd_dq_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ k,
       s += val;
       dqkv[static_cast<size_t>(b * T + q0 + r) * ldq + h * hd + c] = __float2bfloat16(val);
     }
-    atomicAdd(dbqkv + h * hd + c, s);
+    part[h * hd + c] = s;
   }
 }
 
 __global__ void __launch_bounds__(NT)
 attn_bwd_dkv_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ q,
                     const bf16* __restrict__ p, const bf16* __restrict__ ds,
-                    bf16* __restrict__ dqkv, float* __restrict__ dbqkv, int T, int D, int hd,
+                    bf16* __restrict__ dqkv, float* __restrict__ dbqkv_part, int T, int D, int hd,
                     float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldt = BK2 + 8, ldh = hd + 8, lo = hd + 4;
@@ -262,8 +269,10 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ q,
   }
   __syncthreads();
 
-  // dv → dqkv[:, 2D + h·hd ...], dk → dqkv[:, D + h·hd ...]; dbv, dbk from the f32 values
+  // dv → dqkv[:, 2D + h·hd ...], dk → dqkv[:, D + h·hd ...]; dbv's and dbk's
+  // partial row (b, key tile) from the f32 values
   const int ldq = 3 * D;
+  float* part = dbqkv_part + static_cast<size_t>(b * gridDim.x + blockIdx.x) * ldq;
   for (int e = threadIdx.x; e < 2 * hd; e += NT) {
     const int which = e / hd, c = e % hd;
     const int col = (which ? D : 2 * D) + h * hd + c;
@@ -273,11 +282,26 @@ attn_bwd_dkv_kernel(const bf16* __restrict__ dO, const bf16* __restrict__ q,
       s += val;
       dqkv[static_cast<size_t>(b * T + k0 + r) * ldq + col] = __float2bfloat16(val);
     }
-    atomicAdd(dbqkv + col, s);
+    part[col] = s;
   }
 }
 
+// Floats of the partial-row scratch: dbo and dγ_ls (a row per DOUTS_ROWS
+// rows), dbq/dbk/dbv (a row per image and 32-row tile, 3·D wide), dγ_ln and
+// dβ_ln (a row per LN_ROWS rows); ops/block_attention.py
+// `_bwd_partial_floats` mirrors it.
+long long partial_floats(int B, int T, int D) {
+  const long long M = static_cast<long long>(B) * T, pd = (M + DOUTS_ROWS - 1) / DOUTS_ROWS,
+                  pa = static_cast<long long>(B) * ((T + BQ - 1) / BQ),
+                  pl = (M + LN_ROWS - 1) / LN_ROWS;
+  return 2 * pd * D + pa * 3 * D + 2 * pl * D;
+}
+
 }  // namespace
+
+extern "C" long long vtt_block_attention_bwd_partial_floats(int B, int T, int D) {
+  return partial_floats(B, T, D);
+}
 
 extern "C" int vtt_block_attention_bwd(
     const void* dout, int x_bf16, const void* xhat, const float* rstd,
@@ -286,19 +310,33 @@ extern "C" int vtt_block_attention_bwd(
     const void* ln_scale, int ln_scale_bf16, const void* ls, int ls_bf16, const float* dp,
     void* dx, void* dqkv, void* douts, void* dO, void* ds, float* dy,
     float* dbqkv, float* dbo, float* dlns, float* dlnb, float* dls,
+    float* partials, long long partial_count,
     int B, int T, int D, int H, float scale, void* stream) {
   if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = D / H, M = B * T;
   const size_t smem_a = dq_smem_bytes(T, hd), smem_b = dkv_smem_bytes(hd);
   if (hd % 16 != 0 || hd > 128 || smem_a > 227 * 1024 || !gemm_shape_ok(M, D, D) ||
-      !gemm_shape_ok(M, D, 3 * D) || B > 65535 || (M + DOUTS_ROWS - 1) / DOUTS_ROWS > 65535) {
+      !gemm_shape_ok(M, D, 3 * D) || B > 65535 || (M + DOUTS_ROWS - 1) / DOUTS_ROWS > 65535 ||
+      partial_count < partial_floats(B, T, D) || !row_kernels_take(D)) {
     return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!aligned16({dout, xhat, rstd, q, k, v, p, proj, wo, wqkv, ln_scale, ls, dp, dx, dqkv, douts,
+                  dO, ds, dy, partials})) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Vec lns = vec(ln_scale, ln_scale_bf16), lsv = vec(ls, ls_bf16);
+  const int pd = (M + DOUTS_ROWS - 1) / DOUTS_ROWS, pa = B * ((T + BQ - 1) / BQ),
+            pl = (M + LN_ROWS - 1) / LN_ROWS;
+  float* dbo_part = partials;
+  float* dls_part = dbo_part + static_cast<size_t>(pd) * D;
+  float* dbqkv_part = dls_part + static_cast<size_t>(pd) * D;
+  float* dlns_part = dbqkv_part + static_cast<size_t>(pa) * 3 * D;
+  float* dlnb_part = dlns_part + static_cast<size_t>(pl) * D;
 
-  cudaError_t err = x_bf16 ? launch_douts<bf16>(dout, dp, lsv, proj, douts, dbo, dls, M, D, T, st)
-                           : launch_douts<float>(dout, dp, lsv, proj, douts, dbo, dls, M, D, T, st);
+  cudaError_t err =
+      x_bf16 ? launch_douts<bf16>(dout, dp, lsv, proj, douts, dbo_part, dls_part, M, D, T, st)
+             : launch_douts<float>(dout, dp, lsv, proj, douts, dbo_part, dls_part, M, D, T, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmArgs dg{};  // do = bf16(douts·Wo)
@@ -308,25 +346,29 @@ extern "C" int vtt_block_attention_bwd(
   dg.K = D;
   dg.w[0] = static_cast<const bf16*>(wo);  // (D_out, D_in) = (K, N)
   dg.out[0] = dO;
-  err = launch_gemm<A_BF16, EPI_BIAS, bf16, B_KN>(dg, 1, st);
+  err = launch_gemm<EPI_BIAS, bf16, B_KN>(dg, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_a));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem_a > 48 * 1024) {
+    err = cudaFuncSetAttribute(attn_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_a));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   attn_bwd_dq_kernel<<<dim3((T + BQ - 1) / BQ, H, B), NT, smem_a, st>>>(
       static_cast<const bf16*>(dO), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(p), static_cast<bf16*>(ds), static_cast<bf16*>(dqkv), dbqkv, T, D,
-      hd, scale);
+      static_cast<const bf16*>(p), static_cast<bf16*>(ds), static_cast<bf16*>(dqkv), dbqkv_part,
+      T, D, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = cudaFuncSetAttribute(attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem_b));
-  if (err != cudaSuccess) return static_cast<int>(err);
+  if (smem_b > 48 * 1024) {
+    err = cudaFuncSetAttribute(attn_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_b));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   attn_bwd_dkv_kernel<<<dim3((T + BK2 - 1) / BK2, H, B), NT, smem_b, st>>>(
       static_cast<const bf16*>(dO), static_cast<const bf16*>(q), static_cast<const bf16*>(p),
-      static_cast<const bf16*>(ds), static_cast<bf16*>(dqkv), dbqkv, T, D, hd, scale);
+      static_cast<const bf16*>(ds), static_cast<bf16*>(dqkv), dbqkv_part, T, D, hd, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
@@ -337,10 +379,15 @@ extern "C" int vtt_block_attention_bwd(
   dyg.K = 3 * D;
   dyg.w[0] = static_cast<const bf16*>(wqkv);  // (3·D_out, D_in) = (K, N)
   dyg.out[0] = dy;
-  err = launch_gemm<A_BF16, EPI_F32, bf16, B_KN>(dyg, 1, st);
+  err = launch_gemm<EPI_F32, bf16, B_KN>(dyg, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  err = x_bf16 ? launch_ln_bwd<bf16>(dy, xhat, rstd, lns, dout, dx, dlns, dlnb, M, D, st)
-               : launch_ln_bwd<float>(dy, xhat, rstd, lns, dout, dx, dlns, dlnb, M, D, st);
-  return static_cast<int>(err);
+  err = x_bf16 ? launch_ln_bwd<bf16>(dy, xhat, rstd, lns, dout, dx, dlns_part, dlnb_part, M, D, st)
+               : launch_ln_bwd<float>(dy, xhat, rstd, lns, dout, dx, dlns_part, dlnb_part, M, D,
+                                      st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const ColSum sums[] = {{dbo_part, dbo, pd, D}, {dls_part, proj ? dls : nullptr, pd, D},
+                         {dbqkv_part, dbqkv, pa, 3 * D}, {dlns_part, dlns, pl, D},
+                         {dlnb_part, dlnb, pl, D}};
+  return static_cast<int>(launch_colsums(sums, 5, st));
 }

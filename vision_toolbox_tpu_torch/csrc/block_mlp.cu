@@ -11,18 +11,20 @@
 // The TPU design keeps W1ᵀ and W2 resident in VMEM for the whole grid and
 // never writes the hidden activation. On Hopper the weights (2·D·Dh bf16 =
 // 9.4 MB at D=768) cannot sit in one block's 227 KB of shared memory, so
-// they are streamed in tiles and the half-block runs as two launches of the
-// shared GEMM template (gemm.cuh):
-//   (i)  per 64-row tile: LN statistics → y2 = bf16(LN(x)) staged in shared
-//        memory → h = bf16(y2·W1ᵀ + b1) → g = bf16(gelu_AS(h)), written to
-//        device memory;
-//   (ii) g·W2ᵀ + b2 with the dp·γ_ls scale and the residual add in the
-//        epilogue.
-// What bounds it: at vit_b_16 shapes both products are compute-bound; the
-// hidden activation g (B·T·Dh bf16, 9.7 MB at batch 8) makes one round trip
-// through device memory that the TPU kernel kept on chip. Keeping g on chip
-// (a persistent block that walks the hidden dimension, as the TPU grid did)
-// is the first target for later work.
+// they stream in tiles through the GEMM template (gemm.cuh), and the
+// half-block is three launches:
+//   (i)   the LayerNorm row pass, once per row: y = bf16(LN(x)·γ + β) to a
+//         scratch the wrapper allocates (and, saving, xhat and rstd), as the
+//         TPU kernel keeps y in its y2_scr scratch for every hidden tile;
+//   (ii)  h = bf16(y·W1ᵀ + b1) → g = bf16(gelu_AS(h)), written to device
+//         memory (wgmma tiles, TMA loads);
+//   (iii) g·W2ᵀ + b2 with the dp·γ_ls scale and the residual add in the
+//         epilogue.
+// What bounds it: at vit_b_16 shapes both products are compute-bound; y
+// (M·D bf16) and the hidden activation g (M·Dh bf16, 9.7 MB at batch 8)
+// make round trips through device memory that the TPU kernel kept on chip.
+// Keeping g on chip (a persistent block that walks the hidden dimension, as
+// the TPU grid did) is a target for later work.
 #include "gemm.cuh"
 
 using namespace vtt;
@@ -37,27 +39,31 @@ extern "C" int vtt_block_mlp_fwd(
     const void* w1, const void* b1, int b1_bf16,
     const void* w2, const void* b2, int b2_bf16,
     const void* ls, int ls_bf16, const float* dp,
-    void* xhat, float* rstd, void* h, void* mlpout,
+    void* xhat, float* rstd, void* h, void* mlpout, void* y,
     int M, int T, int D, int Dh, float eps, void* stream) {
   if (!gemm_shape_ok(M, Dh, D) || !gemm_shape_ok(M, D, Dh) || T <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  if (!aligned16({x, res, out, g, ln_scale, ln_bias, w1, b1, w2, b2, ls, dp, xhat, rstd, h, mlpout,
+                  y})) {
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool save = xhat != nullptr;  // the caller passes all of xhat, rstd, h or none
+  const Vec lns = vec(ln_scale, ln_scale_bf16), lnb = vec(ln_bias, ln_bias_bf16);
+  cudaError_t err = x_bf16 ? launch_ln_rows<bf16>(x, lns, lnb, eps, y, xhat, rstd, M, D, save, st)
+                           : launch_ln_rows<float>(x, lns, lnb, eps, y, xhat, rstd, M, D, save, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
 
   GemmArgs up{};
-  up.a = x;
+  up.a = y;
   up.M = M;
   up.N = Dh;
   up.K = D;
   up.w[0] = static_cast<const bf16*>(w1);
   up.bias[0] = vec(b1, b1_bf16);
   up.out[0] = g;
-  up.ln_scale = vec(ln_scale, ln_scale_bf16);
-  up.ln_bias = vec(ln_bias, ln_bias_bf16);
-  up.eps = eps;
   up.aux = h;
-  up.xhat = static_cast<bf16*>(xhat);
-  up.rstd = rstd;
 
   GemmArgs down{};
   down.a = g;
@@ -73,12 +79,9 @@ extern "C" int vtt_block_mlp_fwd(
   down.rows_per_image = T;
   down.aux = mlpout;
 
-  const bool save = xhat != nullptr;  // the caller passes all of xhat, rstd, h or none
-  cudaError_t err =
-      x_bf16 ? launch_forward_gemm<A_LAYERNORM, EPI_BIAS_GELU, bf16>(up, 1, save, st)
-             : launch_forward_gemm<A_LAYERNORM, EPI_BIAS_GELU, float>(up, 1, save, st);
+  err = launch_forward_gemm<EPI_BIAS_GELU, bf16>(up, 1, save, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = x_bf16 ? launch_forward_gemm<A_BF16, EPI_RESIDUAL, bf16>(down, 1, save, st)
-               : launch_forward_gemm<A_BF16, EPI_RESIDUAL, float>(down, 1, save, st);
+  err = x_bf16 ? launch_forward_gemm<EPI_RESIDUAL, bf16>(down, 1, save, st)
+               : launch_forward_gemm<EPI_RESIDUAL, float>(down, 1, save, st);
   return static_cast<int>(err);
 }

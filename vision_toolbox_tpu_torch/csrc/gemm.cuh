@@ -1,45 +1,63 @@
-// Tiled bf16 GEMM shared by the fused half-block kernels (block_mlp.cu,
+// The GEMM template shared by the fused half-block kernels (block_mlp.cu,
 // block_attention.cu and their backward files): out = epilogue(A · B + bias),
-// bf16 × bf16 products with f32 accumulation on the tensor cores
-// (nvcuda::wmma m16n16k16).
+// bf16 × bf16 products with f32 accumulation on Hopper's warpgroup tensor
+// cores (wgmma.mma_async, wgmma.cuh), and the LayerNorm row pass that makes
+// the forward products' A operand.
 //
-// A is either a bf16 activation (A_BF16) or the LayerNorm of the f32/bf16
-// block input computed on the fly (A_LAYERNORM: per-row fast-variance
-// statistics at block start, then each A tile is normalised, scaled and
-// rounded to bf16 as it is staged into shared memory, so the normalised
-// activation never goes through device memory; the backward-save variant,
-// SAVE, also writes bf16(xhat) and rstd once, from the blocks of the first
-// column tile). B is a weight W in one of two layouts: B_NK, W (N, K)
-// row-major, the nn.Linear layout read as a column-major K×N operand
-// (out = A·Wᵀ, the forward products); or B_KN, W (K, N) row-major (out = A·W:
-// the backward products dg = douts·W2, dy2 = dh·W1, do = douts·Wo and
+// A is always a bf16 (M, K) activation. The forward's LayerNorm is taken
+// once per row by ln_rows_kernel (a warp a row, two rows interleaved):
+// y = bf16(LN(x)·γ + β) goes through device memory (2·M·K bytes) and, in the
+// backward-save variant, bf16(xhat) and rstd beside it. B is a weight W in
+// one of two layouts: B_NK, W (N, K) row-major, the nn.Linear layout, a
+// K-major wgmma operand (out =
+// A·Wᵀ, the forward products); or B_KN, W (K, N) row-major, read as wgmma's
+// MN-major B (transpose flag 1) with no transposed copy (out = A·W: the
+// backward products dg = douts·W2, dy2 = dh·W1, do = douts·Wo and
 // dy = dqkv·Wqkv contract the weight's out dimension).
 //
 // Rounding points follow the TPU kernels (vision_toolbox_tpu/ops/block_mlp.py
 // _fwd_kernel/_bwd_kernel, block_attention.py _fwd_kernel/_bwd_kernel): LN in
-// f32 with var = mean(x²) − μ², y rounded to bf16, bias added in f32 before
-// any bf16 rounding, residual epilogue (res + dp·γ_ls·proj) in f32, cast once
-// to the output type; in the backward dh = bf16(dg·gelu'(h)) with the bias
-// gradient summed from the f32 values before that rounding.
+// f32 with var = mean(x²) − μ², the statistics summed in the first design's
+// order (lane-strided, then the xor tree), y rounded to bf16, bias added in
+// f32 before any bf16 rounding, residual epilogue (res + dp·γ_ls·proj) in
+// f32, cast once to the output type; in the backward dh = bf16(dg·gelu'(h))
+// with the bias gradient summed from the f32 values before that rounding.
+// Only the order of the products' sums inside the tensor cores differs from
+// the first design's.
 //
 // What bounds it on an H100: at vit_b_16 shapes (M = B·197 rows, K, N ∈
 // {768, 2304, 3072}) the products are compute-bound (≥ 100 flop/byte), so
-// the limit is tensor-core issue rate. This first version uses 64×64×32
-// tiles, four warps of 32×32, register-staged double buffering and
-// mma.sync-class wmma. Measured at vit_b_16 batch 128 on an H100 SXM at
-// 700 W: ~110 TFLOP/s with a bf16 A operand and ~44 TFLOP/s with the LN
-// prologue, whose per-block row statistics (every block re-reads its 64
-// full rows) and per-element LN arithmetic cost more than the products;
-// both far below the card's 989 TFLOP/s bf16 peak. A cheaper LN prologue
-// and wgmma/TMA pipelines are the next steps.
+// the limit is the tensor cores' issue rate, reachable only through wgmma.
+// The design: persistent blocks (two an SM: one block's epilogue runs
+// beside the other's products) of two consumer warpgroups and a producer
+// warp walk the 128 × BN output tiles, column tiles fastest so that a row
+// tile of A is reused from L2 across W's (W stays in L2: ≤ 9.4 MB); a
+// producer thread keeps TMA loads (cp.async.bulk.tensor, 128-byte swizzle, the M and K tails
+// zero-filled) in flight through a ring of GEMM_STAGES stages guarded by
+// mbarrier full/empty pairs; two consumer warpgroups each own 64 rows of the
+// tile and issue four k16 wgmma a 64-deep stage, one stage in flight behind
+// the wait; the epilogue works on the accumulator registers (bias, γ_ls and
+// dp read as pairs, bf16 pairs or f32 pairs stored, no f32 tile in shared
+// memory). EPI_GELU_GRAD's column sums leave each tile as one partial row
+// (a fixed shuffle tree, then a fixed eight-row sum) for a fixed-order sum
+// (block_bwd.cuh colsum_kernel): no atomics, so a backward repeats bit for
+// bit. The column tile BN is 128 where it divides N, else 96 (ConvNeXt and
+// Swin stage 1, D = 96 / 192; cait_xs, 288), else 32: every N % 32 == 0.
+// Tensor maps are encoded on the host per launch (cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint, so the library links without
+// -lcuda) and passed as __grid_constant__ parameters; every base pointer and
+// row pitch TMA reads must be 16-byte aligned, and a launch that gets one
+// that is not returns cudaErrorMisalignedAddress.
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include <initializer_list>
+
+#include "wgmma.cuh"
 
 namespace vtt {
 
@@ -58,6 +76,38 @@ __device__ __forceinline__ float ldv(const Vec& v, int i, float dflt) {
                    : static_cast<const float*>(v.p)[i];
 }
 
+// Elements i and i + 1 (i even): one 4- or 8-byte load.
+__device__ __forceinline__ float2 ldv2(const Vec& v, int i, float dflt) {
+  if (v.p == nullptr) return make_float2(dflt, dflt);
+  if (v.is_bf16) {
+    const bf16* b = static_cast<const bf16*>(v.p) + i;
+    return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b));
+  }
+  return *reinterpret_cast<const float2*>(static_cast<const float*>(v.p) + i);
+}
+
+union Pack8 {
+  uint4 u;
+  bf16 h[8];
+};
+
+// Elements i … i + 7 (i % 8 == 0): 16-byte loads.
+__device__ __forceinline__ void ldv8(const Vec& v, int i, float dflt, float (&o)[8]) {
+  if (v.p == nullptr) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = dflt;
+  } else if (v.is_bf16) {
+    Pack8 p;
+    p.u = *reinterpret_cast<const uint4*>(static_cast<const bf16*>(v.p) + i);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) o[j] = __bfloat162float(p.h[j]);
+  } else {
+    const float4* f = reinterpret_cast<const float4*>(static_cast<const float*>(v.p) + i);
+    const float4 a = f[0], b = f[1];
+    o[0] = a.x, o[1] = a.y, o[2] = a.z, o[3] = a.w, o[4] = b.x, o[5] = b.y, o[6] = b.z, o[7] = b.w;
+  }
+}
+
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
@@ -67,10 +117,6 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16(v); }
-
-__device__ __forceinline__ float round_bf16(float v) {
-  return __bfloat162float(__float2bfloat16(v));
-}
 
 constexpr float kAS1 = 0.254829592f, kAS2 = -0.284496736f, kAS3 = 1.421413741f;
 constexpr float kAS4 = -1.453152027f, kAS5 = 1.061405429f, kASP = 0.3275911f;
@@ -100,350 +146,624 @@ __device__ __forceinline__ float gelu_grad_as(float h) {
   return 0.5f * (1.0f + erf) + h * e * 0.3989422804014327f;
 }
 
-enum AMode { A_BF16 = 0, A_LAYERNORM = 1 };
+// ---------------------------------------------------------------------------
+// The LayerNorm row pass: y = bf16(LN(x)·γ + β), once per row.
+
+constexpr int LN_ROW_WARPS = 8;  // warps a block, a row each at a time
+constexpr int LN_ROW_BLOCKS_PER_SM = 8;
+
+inline int sm_count() {
+  static int n = 0;
+  if (n == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
+
+// One warp two rows at a time, interleaved (each row's loads and xor tree
+// overlap the other's latency; at D = 96 a row is three values a lane), rows
+// gridDim.x · LN_ROW_WARPS apart (a few resident blocks an SM walk all rows):
+// the statistics from lane-strided reads in the first design's order (its
+// per-tile row_stats: each lane's sequential sum, then the xor tree, all
+// lanes ending with the same bits), then y (and, with SAVE, bf16(xhat) and
+// rstd) eight elements a lane at a time with 16-byte loads and stores.
+// Requires D % 8 == 0 and 16-byte-aligned rows.
+template <typename TX, bool SAVE>
+__global__ void __launch_bounds__(LN_ROW_WARPS * 32)
+ln_rows_kernel(const TX* __restrict__ x, Vec lns, Vec lnb, float eps, bf16* __restrict__ y,
+               bf16* __restrict__ xhat, float* __restrict__ rstd, int M, int D) {
+  constexpr int R = 2;  // rows a warp takes at a time
+  const int lane = threadIdx.x & 31;
+  const int stride = gridDim.x * LN_ROW_WARPS;
+  for (int m0 = blockIdx.x * LN_ROW_WARPS + (threadIdx.x >> 5); m0 < M; m0 += R * stride) {
+    bool ok[R];
+    const TX* row[R];
+    float s[R], ss[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      ok[r] = m0 + r * stride < M;
+      row[r] = x + static_cast<size_t>(ok[r] ? m0 + r * stride : m0) * D;
+      s[r] = ss[r] = 0.0f;
+    }
+    for (int k = lane; k < D; k += 32) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const float v = to_f32(row[r][k]);
+        s[r] += v;
+        ss[r] = __fadd_rn(ss[r], __fmul_rn(v, v));
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        s[r] += __shfl_xor_sync(0xffffffffu, s[r], off);
+        ss[r] += __shfl_xor_sync(0xffffffffu, ss[r], off);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (!ok[r]) continue;
+      const int m = m0 + r * stride;
+      const float mu = s[r] / D;
+      const float var = __fsub_rn(ss[r] / D, __fmul_rn(mu, mu));
+      const float rs = rsqrtf(var + eps);
+      if constexpr (SAVE) {
+        if (lane == 0) rstd[m] = rs;
+      }
+      for (int k0 = lane * 8; k0 < D; k0 += 256) {
+        float v[8], gm[8], bt[8];
+        if constexpr (sizeof(TX) == 4) {
+          const float4* f = reinterpret_cast<const float4*>(row[r] + k0);
+          const float4 a = f[0], b = f[1];
+          v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+          v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+        } else {
+          Pack8 in;
+          in.u = *reinterpret_cast<const uint4*>(row[r] + k0);
+#pragma unroll
+          for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(in.h[j]);
+        }
+        ldv8(lns, k0, 1.0f, gm);
+        ldv8(lnb, k0, 0.0f, bt);
+        Pack8 yo, xo;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float xh = __fmul_rn(__fsub_rn(v[j], mu), rs);
+          xo.h[j] = __float2bfloat16(xh);
+          yo.h[j] = __float2bfloat16(__fadd_rn(__fmul_rn(xh, gm[j]), bt[j]));
+        }
+        const size_t o = static_cast<size_t>(m) * D + k0;
+        *reinterpret_cast<uint4*>(y + o) = yo.u;
+        if constexpr (SAVE) *reinterpret_cast<uint4*>(xhat + o) = xo.u;
+      }
+    }
+  }
+}
+
+template <typename TX, bool SAVE>
+inline cudaError_t launch_ln_rows(const void* x, Vec lns, Vec lnb, float eps, void* y, void* xhat,
+                                  float* rstd, int M, int D, cudaStream_t st) {
+  const int blocks = (M + 2 * LN_ROW_WARPS - 1) / (2 * LN_ROW_WARPS);  // two rows a warp
+  const int resident = LN_ROW_BLOCKS_PER_SM * sm_count();
+  ln_rows_kernel<TX, SAVE><<<blocks < resident ? blocks : resident, LN_ROW_WARPS * 32, 0, st>>>(
+      static_cast<const TX*>(x), lns, lnb, eps, static_cast<bf16*>(y), static_cast<bf16*>(xhat),
+      rstd, M, D);
+  return cudaGetLastError();
+}
+
+// The backward-save or the inference variant of the row pass.
+template <typename TX>
+inline cudaError_t launch_ln_rows(const void* x, Vec lns, Vec lnb, float eps, void* y, void* xhat,
+                                  float* rstd, int M, int D, bool save, cudaStream_t st) {
+  return save ? launch_ln_rows<TX, true>(x, lns, lnb, eps, y, xhat, rstd, M, D, st)
+              : launch_ln_rows<TX, false>(x, lns, lnb, eps, y, xhat, rstd, M, D, st);
+}
+
+// ---------------------------------------------------------------------------
+// The GEMM.
+
 enum BLayout { B_NK = 0, B_KN = 1 };
 enum Epilogue {
   EPI_BIAS = 0,       // out (bf16) = bf16(acc + bias)
   EPI_BIAS_GELU = 1,  // out (bf16) = bf16(gelu_as(h)), h = bf16(acc + bias); aux ← h
   EPI_RESIDUAL = 2,   // out (TX)   = TX(res + dp[row / T]·ls·(acc + bias)); aux ← bf16(acc + bias)
   EPI_F32 = 3,        // out (f32)  = acc + bias
-  EPI_GELU_GRAD = 4,  // out (bf16) = bf16(acc·gelu'(aux_in)); colsum += acc·gelu'(aux_in) in f32
+  EPI_GELU_GRAD = 4,  // out (bf16) = bf16(acc·gelu'(aux_in)); a partial row of the f32 column sums
 };
 
-// The column tile BN is a template parameter: 64 for widths that are
-// multiples of 64 (every ViT, CaiT-S and SigLIP product), 32 for the other
-// multiples of 32 (ConvNeXt and Swin stage 1, D = 96 / 192; cait_xs, 288).
-// Four warps tile a BM × BN block as 2 × 2 sub-tiles of 32 × BN/2.
-constexpr int BM = 64, BK = 32, NTHREADS = 128;
-constexpr int SA = BK + 8;  // smem pitch of A and B_NK tiles in bf16 (80 B: 16-B rows, 32-B fragments)
-template <int BN>
-__host__ __device__ constexpr int sb_pitch() { return BN + 8; }  // B_KN tiles' smem pitch, bf16
-template <int BN>
-__host__ __device__ constexpr int sc_pitch() { return BN + 4; }  // the f32 output tile's pitch
+constexpr int BM = 128;  // rows a tile: two consumer warpgroups of 64
+constexpr int BK = 64;   // depth a stage: one 128-byte swizzle row of bf16
+constexpr int GEMM_STAGES = 3;
+constexpr int GEMM_THREADS = 288;  // two consumer warpgroups, then a producer warp
+constexpr int GEMM_BLOCKS_PER_SM = 2;  // one block's epilogue runs beside the other's products
 
-// Up to three products that share A and the shape run in one launch,
-// selected by blockIdx.z (the q/k/v projections).
+// Shared memory of one block: GEMM_STAGES stages of an A tile (BM × BK,
+// K-major) and a B tile (BN × BK K-major for B_NK; for B_KN BN / CW chunks
+// of BK × CW, MN-major, CW = 64 with the 128-byte swizzle or 32 with the
+// 64-byte one), the column-sum exchange and the barriers.
+template <int BN, int BL>
+struct Tile {
+  static constexpr int CW = BN % 64 == 0 ? 64 : 32;
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int STAGE = (A_BYTES + B_BYTES + 1023) / 1024 * 1024;
+  static constexpr int RED = 8 * BN * 4;
+  static constexpr int SMEM = 1024 + GEMM_STAGES * STAGE + RED + 2 * GEMM_STAGES * 8;
+};
+
+// Up to three products that share A and the shape run in one launch, their
+// column tiles side by side (the q/k/v projections).
 struct GemmArgs {
-  const void* a;  // A_BF16: (M, K) bf16; A_LAYERNORM: block input (M, K) of type TX
+  const void* a;  // (M, K) bf16
   int M, N, K;
   const bf16* w[3];  // B_NK: (N, K) row-major; B_KN: (K, N) row-major
   Vec bias[3];
   void* out[3];  // (M, N): f32 for EPI_F32, TX for EPI_RESIDUAL, else bf16
-  Vec ln_scale, ln_bias;
-  float eps;
   const void* res;  // EPI_RESIDUAL: (M, N) of type TX
   Vec ls;           // EPI_RESIDUAL: layer-scale gamma (N,) or null
   const float* dp;  // EPI_RESIDUAL: drop-path scale per image or null
   int rows_per_image;
   void* aux;           // SAVE, EPI_BIAS_GELU / EPI_RESIDUAL: bf16 (M, N) acc + bias, or null
   const bf16* aux_in;  // EPI_GELU_GRAD: the saved h (M, N)
-  float* colsum;       // EPI_GELU_GRAD: (N,) f32 column sums, accumulated with atomics
-  bf16* xhat;          // SAVE, A_LAYERNORM: bf16 (M, K) normalised input
-  float* rstd;         // SAVE, A_LAYERNORM: (M,) 1/σ
+  float* colsum_part;  // EPI_GELU_GRAD: (ceil(M / BM), N) f32 partial column sums
 };
 
-union Pack8 {
-  uint4 u;
-  bf16 h[8];
+struct GemmParams {
+  CUtensorMap a;
+  CUtensorMap b[3];
+  GemmArgs g;
+  int col_tiles;  // of one product: N / BN
+  int row_cols;   // column tiles of a row tile: col_tiles × products
+  int n_tiles;    // row tiles × row_cols
 };
 
-// The blocks that write the LN saves: one column tile of the first product
-// covers every (row, k) of its rows exactly once.
-__device__ __forceinline__ bool writes_ln_saves() { return blockIdx.x == 0 && blockIdx.z == 0; }
-
-// Per-row LN statistics of the BM rows of this tile, one warp per row.
-template <typename TX, bool SAVE>
-__device__ void row_stats(const GemmArgs& g, int m0, float* s_mu, float* s_rs) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  for (int r = warp; r < BM; r += NTHREADS / 32) {
-    const int m = m0 + r;
-    float s = 0.0f, ss = 0.0f;
-    if (m < g.M) {
-      const TX* row = static_cast<const TX*>(g.a) + static_cast<size_t>(m) * g.K;
-      for (int k = lane; k < g.K; k += 32) {
-        const float v = to_f32(row[k]);
-        s += v;
-        ss = __fadd_rn(ss, __fmul_rn(v, v));
-      }
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      s += __shfl_xor_sync(0xffffffffu, s, off);
-      ss += __shfl_xor_sync(0xffffffffu, ss, off);
-    }
-    if (lane == 0) {
-      const float mu = s / g.K;
-      const float var = __fsub_rn(ss / g.K, __fmul_rn(mu, mu));
-      const float rs = rsqrtf(var + g.eps);
-      s_mu[r] = m < g.M ? mu : 0.0f;
-      s_rs[r] = m < g.M ? rs : 0.0f;
-      if constexpr (SAVE) {
-        if (m < g.M && writes_ln_saves()) g.rstd[m] = rs;
-      }
-    }
-  }
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// Global → registers: each thread owns two 8-element groups of the BM×BK
-// A tile (raw bytes; f32 input needs two uint4 per group).
-template <int AM, typename TX>
-__device__ __forceinline__ void load_a(const GemmArgs& g, int m0, int k0, uint4 (&raw)[2][2]) {
-  constexpr bool kWide = AM == A_LAYERNORM && sizeof(TX) == 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    const int m = m0 + r;
-    raw[i][0] = raw[i][1] = make_uint4(0, 0, 0, 0);
-    if (m < g.M) {
-      const size_t off = static_cast<size_t>(m) * g.K + k0 + c;
-      if constexpr (kWide) {
-        const uint4* src = reinterpret_cast<const uint4*>(static_cast<const float*>(g.a) + off);
-        raw[i][0] = __ldg(src);
-        raw[i][1] = __ldg(src + 1);
-      } else {
-        raw[i][0] = __ldg(reinterpret_cast<const uint4*>(static_cast<const bf16*>(g.a) + off));
-      }
-    }
-  }
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
-// Registers → shared memory, applying the LN prologue in A_LAYERNORM mode.
-template <int AM, typename TX, bool SAVE>
-__device__ __forceinline__ void store_a(const GemmArgs& g, int m0, int k0, const uint4 (&raw)[2][2],
-                                        bf16* as, const float* s_mu, const float* s_rs) {
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A 2-D box of a tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
+                                         int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator reads across a wgmma wait.
+__device__ __forceinline__ void fence_operand(float& r) { asm volatile("" : "+f"(r)::"memory"); }
+
+__device__ __forceinline__ void consumer_sync() {  // the two consumer warpgroups
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// A wgmma shared-memory matrix descriptor: start address, leading and
+// stride byte offsets (16-byte units) and the swizzle (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t gmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint32_t swizzle) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
+         (static_cast<uint64_t>(swizzle) << 62);
+}
+
+// Within each quad of lanes (lanes 4q … 4q + 3), a 4 × 4 transpose of
+// 32-bit words: lane t's word c goes to lane c's word t. wgmma leaves lane t
+// of a quad the column pair 2t, 2t + 1 of every 8-column chunk of a row; the
+// transpose gives each lane all eight columns of one chunk (of four) for
+// one 16-byte store, and turns 16-byte loads the other way. Two xor
+// exchanges and lane-bit selects; every lane of the warp takes part.
+__device__ __forceinline__ void quad_transpose(uint32_t (&w)[4]) {
+  const bool b0 = threadIdx.x & 1, b1 = threadIdx.x & 2;
+  // with lane t ^ 1: the two chunks whose bit 0 is not t's
+  const uint32_t r0 = __shfl_xor_sync(0xffffffffu, b0 ? w[0] : w[1], 1);
+  const uint32_t r1 = __shfl_xor_sync(0xffffffffu, b0 ? w[2] : w[3], 1);
+  const uint32_t a0 = b0 ? w[1] : w[0], a1 = b0 ? w[3] : w[2];
+  // with lane t ^ 2: the chunk whose bit 1 is not t's
+  const uint32_t q0 = __shfl_xor_sync(0xffffffffu, b1 ? a0 : a1, 2);
+  const uint32_t q1 = __shfl_xor_sync(0xffffffffu, b1 ? r0 : r1, 2);
+  const uint32_t k0 = b1 ? a1 : a0, k1 = b1 ? r1 : r0;
+  // chunk t from lanes t, t ^ 1, t ^ 2, t ^ 3: word p is lane p's
+  const uint32_t x0 = b0 ? k1 : k0, x1 = b0 ? k0 : k1, x2 = b0 ? q1 : q0, x3 = b0 ? q0 : q1;
+  w[0] = b1 ? x2 : x0;
+  w[1] = b1 ? x3 : x1;
+  w[2] = b1 ? x0 : x2;
+  w[3] = b1 ? x1 : x3;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float2 unpack_bf16(uint32_t w) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w));
+}
+
+__device__ __forceinline__ void store16(void* p, const uint32_t (&w)[4]) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ void load16(const void* p, bool ok, uint32_t (&w)[4]) {
+  const uint4 v = ok ? *reinterpret_cast<const uint4*>(p) : make_uint4(0, 0, 0, 0);
+  w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+}
+
+// The epilogue of one consumer thread: rows r0 and r0 + 8, columns
+// n0 + 8j + 2·(lane % 4) + {0, 1} (wgmma's accumulator layout), taken four
+// chunks (32 columns) at a time; bf16 tensors move 16 bytes a lane through
+// quad_transpose, f32 ones as 8-byte pairs (a quad's four pairs fill a
+// 32-byte sector).
+template <int EPI, typename TX, bool SAVE, int BN>
+__device__ __forceinline__ void epilogue(const GemmArgs& g, float (&acc)[BN / 2], int m_tile,
+                                         int n0, int z, float* red) {
+  const int tw = threadIdx.x & 127, w = tw >> 5, l = tw & 31, t = l & 3, cw = threadIdx.x >> 7;
+  const int r0 = m_tile * BM + cw * 64 + w * 16 + (l >> 2);
+  const Vec bias = g.bias[z];
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    const int r = idx >> 2, c = (idx & 3) * 8;
-    Pack8 out;
-    if constexpr (AM == A_BF16) {
-      out.u = raw[i][0];
-    } else {
-      float v[8];
-      if constexpr (sizeof(TX) == 4) {
-        const float* f0 = reinterpret_cast<const float*>(&raw[i][0]);
-        const float* f1 = reinterpret_cast<const float*>(&raw[i][1]);
+  for (int jj = 0; jj < BN / 32; ++jj) {
+    float cs[4][2] = {};  // EPI_GELU_GRAD: this lane's column pairs over its two rows
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          v[j] = f0[j];
-          v[j + 4] = f1[j];
+    for (int i = 0; i < 2; ++i) {
+      const int row = r0 + 8 * i;
+      const bool ok = row < g.M;
+      const size_t rbase = static_cast<size_t>(row) * g.N + n0;
+      const size_t o16 = rbase + (jj * 4 + t) * 8;  // this lane's 16-byte chunk
+      float v[4][2];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = jj * 4 + c;
+        const float2 b = ldv2(bias, n0 + j * 8 + 2 * t, 0.0f);
+        v[c][0] = acc[j * 4 + i * 2] + b.x;
+        v[c][1] = acc[j * 4 + i * 2 + 1] + b.y;
+      }
+      uint32_t ow[4];
+      if constexpr (EPI == EPI_BIAS) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) ow[c] = pack_bf16(v[c][0], v[c][1]);
+      } else if constexpr (EPI == EPI_BIAS_GELU) {
+        uint32_t hw[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          hw[c] = pack_bf16(v[c][0], v[c][1]);
+          const float2 hf = unpack_bf16(hw[c]);
+          ow[c] = pack_bf16(gelu_as(hf.x), gelu_as(hf.y));
+        }
+        if constexpr (SAVE) {
+          quad_transpose(hw);
+          if (ok) store16(static_cast<bf16*>(g.aux) + o16, hw);
+        }
+      } else if constexpr (EPI == EPI_RESIDUAL) {
+        if constexpr (SAVE) {
+          if (g.aux != nullptr) {
+            uint32_t aw[4];
+#pragma unroll
+            for (int c = 0; c < 4; ++c) aw[c] = pack_bf16(v[c][0], v[c][1]);
+            quad_transpose(aw);
+            if (ok) store16(static_cast<bf16*>(g.aux) + o16, aw);
+          }
+        }
+        const float dp = g.dp != nullptr && ok ? g.dp[row / g.rows_per_image] : 1.0f;
+        float2 rv[4];
+        if constexpr (sizeof(TX) == 4) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const float* res = static_cast<const float*>(g.res) + rbase + (jj * 4 + c) * 8 + 2 * t;
+            rv[c] = ok ? *reinterpret_cast<const float2*>(res) : make_float2(0.0f, 0.0f);
+          }
+        } else {
+          uint32_t rw[4];
+          load16(static_cast<const bf16*>(g.res) + o16, ok, rw);
+          quad_transpose(rw);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) rv[c] = unpack_bf16(rw[c]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 ls = ldv2(g.ls, n0 + (jj * 4 + c) * 8 + 2 * t, 1.0f);
+          v[c][0] = __fadd_rn(rv[c].x, __fmul_rn(__fmul_rn(dp, ls.x), v[c][0]));
+          v[c][1] = __fadd_rn(rv[c].y, __fmul_rn(__fmul_rn(dp, ls.y), v[c][1]));
+          ow[c] = pack_bf16(v[c][0], v[c][1]);
+        }
+      } else if constexpr (EPI == EPI_GELU_GRAD) {
+        uint32_t hw[4];
+        load16(g.aux_in + o16, ok, hw);
+        quad_transpose(hw);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float2 h = unpack_bf16(hw[c]);
+          v[c][0] = __fmul_rn(v[c][0], gelu_grad_as(h.x));
+          v[c][1] = __fmul_rn(v[c][1], gelu_grad_as(h.y));
+          ow[c] = pack_bf16(v[c][0], v[c][1]);
+          if (ok) {
+            cs[c][0] += v[c][0];
+            cs[c][1] += v[c][1];
+          }
+        }
+      }
+      constexpr bool kF32Out = EPI == EPI_F32 || (EPI == EPI_RESIDUAL && sizeof(TX) == 4);
+      if constexpr (kF32Out) {
+        if (ok) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            float* out = static_cast<float*>(g.out[z]) + rbase + (jj * 4 + c) * 8 + 2 * t;
+            *reinterpret_cast<float2*>(out) = make_float2(v[c][0], v[c][1]);
+          }
         }
       } else {
-        Pack8 in;
-        in.u = raw[i][0];
-#pragma unroll
-        for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(in.h[j]);
+        quad_transpose(ow);
+        if (ok) store16(static_cast<bf16*>(g.out[z]) + o16, ow);
       }
-      const float mu = s_mu[r], rs = s_rs[r];
-      Pack8 xh;
+    }
+    if constexpr (EPI == EPI_GELU_GRAD) {  // 16 rows of this warp, a fixed tree
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int k = k0 + c + j;
-        const float xhat = __fmul_rn(__fsub_rn(v[j], mu), rs);
-        xh.h[j] = __float2bfloat16(xhat);
-        out.h[j] = __float2bfloat16(
-            __fadd_rn(__fmul_rn(xhat, ldv(g.ln_scale, k, 1.0f)), ldv(g.ln_bias, k, 0.0f)));
-      }
-      if constexpr (SAVE) {
-        if (m0 + r < g.M && writes_ln_saves()) {
-          *reinterpret_cast<uint4*>(g.xhat + static_cast<size_t>(m0 + r) * g.K + k0 + c) = xh.u;
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          cs[c][0] += __shfl_xor_sync(0xffffffffu, cs[c][0], off);
+          cs[c][1] += __shfl_xor_sync(0xffffffffu, cs[c][1], off);
+        }
+        if (l < 4) {
+          red[(cw * 4 + w) * BN + (jj * 4 + c) * 8 + l * 2] = cs[c][0];
+          red[(cw * 4 + w) * BN + (jj * 4 + c) * 8 + l * 2 + 1] = cs[c][1];
         }
       }
     }
-    *reinterpret_cast<uint4*>(as + r * SA + c) = out.u;
   }
-}
-
-// A BN × BK (B_NK) or BK × BN (B_KN) tile of W is BN·BK/8 groups of eight
-// bf16: BN/32 per thread.
-template <int BL, int BN>
-__device__ __forceinline__ void load_b(const GemmArgs& g, const bf16* w, int n0, int k0,
-                                       uint4 (&rb)[BN / 32]) {
-#pragma unroll
-  for (int i = 0; i < BN / 32; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    if constexpr (BL == B_NK) {  // BN rows of W, BK columns each
-      const int r = idx >> 2, c = (idx & 3) * 8;
-      rb[i] = __ldg(reinterpret_cast<const uint4*>(w + static_cast<size_t>(n0 + r) * g.K + k0 + c));
-    } else {  // BK rows of W, BN columns each
-      const int r = idx / (BN / 8), c = (idx % (BN / 8)) * 8;
-      rb[i] = __ldg(reinterpret_cast<const uint4*>(w + static_cast<size_t>(k0 + r) * g.N + n0 + c));
-    }
-  }
-}
-
-template <int BL, int BN>
-__device__ __forceinline__ void store_b(const uint4 (&rb)[BN / 32], bf16* bs) {
-#pragma unroll
-  for (int i = 0; i < BN / 32; ++i) {
-    const int idx = threadIdx.x + i * NTHREADS;
-    if constexpr (BL == B_NK) {
-      *reinterpret_cast<uint4*>(bs + (idx >> 2) * SA + (idx & 3) * 8) = rb[i];
-    } else {
-      *reinterpret_cast<uint4*>(bs + (idx / (BN / 8)) * sb_pitch<BN>() + (idx % (BN / 8)) * 8) =
-          rb[i];
-    }
-  }
-}
-
-// One BK-deep step of this warp's 32 × BN/2 sub-tile (FN = BN/32 fragments
-// of 16 columns).
-template <int BL, int BN>
-__device__ __forceinline__ void mma_step(
-    nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float> (&acc)[2][BN / 32],
-    const bf16* as, const bf16* bs, int wm, int wn) {
-  using namespace nvcuda;
-  using BLay = typename std::conditional<BL == B_NK, wmma::col_major, wmma::row_major>::type;
-  constexpr int FN = BN / 32, SB = sb_pitch<BN>();
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> fb[FN];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) wmma::load_matrix_sync(fa[i], as + (wm + i * 16) * SA + kk, SA);
-#pragma unroll
-    for (int j = 0; j < FN; ++j) {
-      if constexpr (BL == B_NK) {
-        wmma::load_matrix_sync(fb[j], bs + (wn + j * 16) * SA + kk, SA);
-      } else {
-        wmma::load_matrix_sync(fb[j], bs + kk * SB + wn + j * 16, SB);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < FN; ++j) wmma::mma_sync(acc[i][j], fa[i], fb[j], acc[i][j]);
-  }
-}
-
-// Grid (N / BN, ceil(M / BM), number of products). Requires N % BN == 0 and
-// K % BK == 0 (the wrappers check); rows past M are masked. SAVE compiles in
-// the backward saves (xhat, rstd, aux): the inference kernels write none.
-template <int AM, int EPI, typename TX, int BL, bool SAVE, int BN>
-__global__ void __launch_bounds__(NTHREADS) gemm_kernel(const GemmArgs g) {
-  using namespace nvcuda;
-  constexpr int FN = BN / 32, SC = sc_pitch<BN>();
-  static_assert(BN == 32 || BN == 64, "column tiles of 32 or 64");
-  static_assert(BK * sb_pitch<BN>() <= BN * SA, "a B_KN tile fits the B_NK tile's buffer");
-  __shared__ __align__(128) bf16 as[2][BM * SA];
-  __shared__ __align__(128) bf16 bs[2][BN * SA];
-  __shared__ __align__(128) float cs[BM * SC];
-  __shared__ float s_mu[BM], s_rs[BM];
-
-  const int z = blockIdx.z;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const bf16* w = g.w[z];
-
-  if constexpr (AM == A_LAYERNORM) {
-    row_stats<TX, SAVE>(g, m0, s_mu, s_rs);
-    __syncthreads();
-  }
-
-  uint4 ra[2][2], rb[FN];
-  load_a<AM, TX>(g, m0, 0, ra);
-  load_b<BL, BN>(g, w, n0, 0, rb);
-  store_a<AM, TX, SAVE>(g, m0, 0, ra, as[0], s_mu, s_rs);
-  store_b<BL, BN>(rb, bs[0]);
-  __syncthreads();
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][FN];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
-  const int warp = threadIdx.x >> 5;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * (BN / 2);
-  const int kt_end = g.K / BK;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int s = kt & 1;
-    const bool more = kt + 1 < kt_end;
-    if (more) {  // next tile's loads are in flight while this one computes
-      load_a<AM, TX>(g, m0, (kt + 1) * BK, ra);
-      load_b<BL, BN>(g, w, n0, (kt + 1) * BK, rb);
-    }
-    mma_step<BL, BN>(acc, as[s], bs[s], wm, wn);
-    if (more) {
-      store_a<AM, TX, SAVE>(g, m0, (kt + 1) * BK, ra, as[s ^ 1], s_mu, s_rs);
-      store_b<BL, BN>(rb, bs[s ^ 1]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < FN; ++j)
-      wmma::store_matrix_sync(cs + (wm + i * 16) * SC + wn + j * 16, acc[i][j], SC,
-                              wmma::mem_row_major);
-  __syncthreads();
-
-  for (int e = threadIdx.x; e < BM * BN; e += NTHREADS) {
-    const int r = e / BN, c = e % BN;
-    const int m = m0 + r;
-    if (m >= g.M) {
-      if constexpr (EPI == EPI_GELU_GRAD) cs[r * SC + c] = 0.0f;
-      continue;
-    }
-    const int n = n0 + c;
-    const float v = cs[r * SC + c] + ldv(g.bias[z], n, 0.0f);
-    const size_t o = static_cast<size_t>(m) * g.N + n;
-    if constexpr (EPI == EPI_BIAS) {
-      static_cast<bf16*>(g.out[z])[o] = __float2bfloat16(v);
-    } else if constexpr (EPI == EPI_BIAS_GELU) {
-      if constexpr (SAVE) static_cast<bf16*>(g.aux)[o] = __float2bfloat16(v);
-      static_cast<bf16*>(g.out[z])[o] = __float2bfloat16(gelu_as(round_bf16(v)));
-    } else if constexpr (EPI == EPI_RESIDUAL) {
-      if constexpr (SAVE) {
-        if (g.aux != nullptr) static_cast<bf16*>(g.aux)[o] = __float2bfloat16(v);
-      }
-      const float dp = g.dp != nullptr ? g.dp[m / g.rows_per_image] : 1.0f;
-      const float scale = __fmul_rn(dp, ldv(g.ls, n, 1.0f));
-      const float res = to_f32(static_cast<const TX*>(g.res)[o]);
-      static_cast<TX*>(g.out[z])[o] = from_f32<TX>(__fadd_rn(res, __fmul_rn(scale, v)));
-    } else if constexpr (EPI == EPI_F32) {
-      static_cast<float*>(g.out[z])[o] = v;
-    } else {
-      const float d = __fmul_rn(v, gelu_grad_as(__bfloat162float(g.aux_in[o])));
-      static_cast<bf16*>(g.out[z])[o] = __float2bfloat16(d);
-      cs[r * SC + c] = d;
-    }
-  }
-  if constexpr (EPI == EPI_GELU_GRAD) {  // column sums of the f32 values of this tile
-    __syncthreads();
-    for (int c = threadIdx.x; c < BN; c += NTHREADS) {
+  if constexpr (EPI == EPI_GELU_GRAD) {  // the tile's partial row: eight warps' sums in order
+    consumer_sync();
+    const int c = threadIdx.x;
+    if (c < BN) {
       float s = 0.0f;
-      for (int r = 0; r < BM; ++r) s += cs[r * SC + c];
-      atomicAdd(g.colsum + n0 + c, s);
+#pragma unroll
+      for (int r = 0; r < 8; ++r) s += red[r * BN + c];
+      g.colsum_part[static_cast<size_t>(m_tile) * g.N + n0 + c] = s;
     }
+    consumer_sync();
   }
 }
 
-// Launches and returns the launch's error (cudaGetLastError): 64-column
-// tiles where N allows them, else 32-column ones.
-template <int AM, int EPI, typename TX, int BL = B_NK, bool SAVE = false>
-inline cudaError_t launch_gemm(const GemmArgs& g, int n_products, cudaStream_t stream) {
-  if (g.N % 64 == 0) {
-    const dim3 grid(g.N / 64, (g.M + BM - 1) / BM, n_products);
-    gemm_kernel<AM, EPI, TX, BL, SAVE, 64><<<grid, NTHREADS, 0, stream>>>(g);
-  } else {
-    const dim3 grid(g.N / 32, (g.M + BM - 1) / BM, n_products);
-    gemm_kernel<AM, EPI, TX, BL, SAVE, 32><<<grid, NTHREADS, 0, stream>>>(g);
+// Persistent: gridDim.x ≤ two blocks an SM, each block walks tiles
+// blockIdx.x, blockIdx.x + gridDim.x, …; tile t is row tile t / (col_tiles ·
+// products) and, within it, column tile t % (col_tiles · products) (the
+// products' column tiles side by side). SAVE compiles in the backward
+// saves (aux): the inference kernels write none.
+template <int EPI, typename TX, int BL, bool SAVE, int BN>
+__global__ void __launch_bounds__(GEMM_THREADS, GEMM_BLOCKS_PER_SM)
+gemm_kernel(const __grid_constant__ GemmParams p) {
+  using TL = Tile<BN, BL>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);  // 1024-aligned
+  float* red = reinterpret_cast<float*>(smem + GEMM_STAGES * TL::STAGE);
+  const uint32_t base = smem_u32(smem);
+  const uint32_t full0 = smem_u32(red + 8 * BN), empty0 = full0 + 8 * GEMM_STAGES;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < GEMM_STAGES; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's arrival and the stage's bytes
+      mbar_init(empty0 + 8 * s, 2);  // one arrival from each consumer warpgroup
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
+
+  const GemmArgs& g = p.g;
+  const int nk = (g.K + BK - 1) / BK;
+  const int row_cols = p.row_cols;
+  if (threadIdx.x >= 256) {  // the producer warp: one thread issues every load
+    if (threadIdx.x == 256) {
+      int s = 0;
+      uint32_t ph = 0;
+      for (int t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+        const int m0 = t / row_cols * BM, ct = t % row_cols;
+        const int z = ct / p.col_tiles, n0 = ct % p.col_tiles * BN;
+        for (int kb = 0; kb < nk; ++kb) {
+          mbar_wait(empty0 + 8 * s, ph ^ 1);
+          const uint32_t full = full0 + 8 * s, a_dst = base + s * TL::STAGE;
+          const uint32_t b_dst = a_dst + TL::A_BYTES;
+          mbar_expect_tx(full, TL::A_BYTES + TL::B_BYTES);
+          tma_load(a_dst, &p.a, full, kb * BK, m0);
+          if constexpr (BL == B_NK) {
+            tma_load(b_dst, &p.b[z], full, kb * BK, n0);
+          } else {
+#pragma unroll
+            for (int c = 0; c < BN / TL::CW; ++c) {
+              tma_load(b_dst + c * BK * TL::CW * 2, &p.b[z], full, n0 + c * TL::CW, kb * BK);
+            }
+          }
+          if (++s == GEMM_STAGES) s = 0, ph ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  const int cw = threadIdx.x >> 7;  // this warpgroup's 64 rows of the tile
+  const bool signals = (threadIdx.x & 127) == 0;
+  int s = 0;
+  uint32_t ph = 0;
+  for (int t = blockIdx.x; t < p.n_tiles; t += gridDim.x) {
+    const int m_tile = t / row_cols, ct = t % row_cols;
+    const int z = ct / p.col_tiles, n0 = ct % p.col_tiles * BN;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+    int prev = -1;
+    for (int kb = 0; kb < nk; ++kb) {
+      mbar_wait(full0 + 8 * s, ph);
+      const uint32_t a_tile = base + s * TL::STAGE + cw * 64 * BK * 2;
+      const uint32_t b_tile = base + s * TL::STAGE + TL::A_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t da = gmma_desc(a_tile + kk * 32, 16, 1024, 1);
+        uint64_t db;
+        if constexpr (BL == B_NK) {
+          db = gmma_desc(b_tile + kk * 32, 16, 1024, 1);
+        } else if constexpr (TL::CW == 64) {  // 16 rows of 128 bytes a step; chunks 64 rows apart
+          db = gmma_desc(b_tile + kk * 16 * 128, BK * 128, 1024, 1);
+        } else {  // 64-byte rows, the 64-byte swizzle
+          db = gmma_desc(b_tile + kk * 16 * 64, BK * 64, 512, 2);
+        }
+        wgmma<BN, BL == B_KN ? 1 : 0>(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done: release it
+      if (prev >= 0 && signals) mbar_arrive(empty0 + 8 * prev);
+      prev = s;
+      if (++s == GEMM_STAGES) s = 0, ph ^= 1;
+    }
+    wgmma_wait<0>();
+    if (signals) mbar_arrive(empty0 + 8 * prev);
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) fence_operand(acc[i]);
+    epilogue<EPI, TX, SAVE, BN>(g, acc, m_tile, n0, z, red);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side.
+
+inline bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+// Every pointer an entry hands to TMA or to 16-byte loads (null passes).
+inline bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps) {
+    if (!aligned16(p)) return false;
+  }
+  return true;
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiledFn encode_tiled() {
+  static EncodeTiledFn fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &q) !=
+            cudaSuccess ||
+        q != cudaDriverEntryPointSuccess) {
+      return static_cast<EncodeTiledFn>(nullptr);
+    }
+    return reinterpret_cast<EncodeTiledFn>(f);
+  }();
+  return fn;
+}
+
+// A 2-D bf16 tensor map: `inner` contiguous elements a row, `outer` rows
+// `pitch` elements apart, boxes of box_inner × box_outer; elements outside
+// the tensor read as zero.
+inline cudaError_t make_map(CUtensorMap* map, const void* base, int inner, int outer, int pitch,
+                            int box_inner, int box_outer, CUtensorMapSwizzle swizzle) {
+  if (!aligned16(base) || (static_cast<size_t>(pitch) * 2) % 16) return cudaErrorMisalignedAddress;
+  const EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(inner), static_cast<cuuint64_t>(outer)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(pitch) * 2};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(box_inner),
+                             static_cast<cuuint32_t>(box_outer)};
+  const cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Static: its per-kernel flag must stay this library's (a function-local
+// static of an inline function is one object across every library loaded
+// into the process, as the A/B scripts load several builds).
+template <int EPI, typename TX, int BL, bool SAVE, int BN>
+static cudaError_t launch_tiles(const GemmArgs& g, int n_products, cudaStream_t stream) {
+  using TL = Tile<BN, BL>;
+  GemmParams p;
+  p.g = g;
+  cudaError_t err = make_map(&p.a, g.a, g.K, g.M, g.K, BK, BM, CU_TENSOR_MAP_SWIZZLE_128B);
+  for (int z = 0; z < n_products && err == cudaSuccess; ++z) {
+    err = BL == B_NK
+              ? make_map(&p.b[z], g.w[z], g.K, g.N, g.K, BK, BN, CU_TENSOR_MAP_SWIZZLE_128B)
+              : make_map(&p.b[z], g.w[z], g.N, g.K, g.N, TL::CW, BK,
+                         TL::CW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
+  }
+  if (err != cudaSuccess) return err;
+  p.col_tiles = g.N / BN;
+  p.row_cols = p.col_tiles * n_products;
+  p.n_tiles = (g.M + BM - 1) / BM * p.row_cols;
+  auto* kernel = gemm_kernel<EPI, TX, BL, SAVE, BN>;
+  static unsigned attr_set = 0;  // a bit per device
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (!(attr_set >> dev & 1u)) {
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, TL::SMEM);
+    if (err != cudaSuccess) return err;
+    attr_set |= 1u << dev;
+  }
+  const int slots = GEMM_BLOCKS_PER_SM * sm_count();
+  const int grid = p.n_tiles < slots ? p.n_tiles : slots;
+  kernel<<<grid, GEMM_THREADS, TL::SMEM, stream>>>(p);
   return cudaGetLastError();
 }
 
+// Launches one GEMM and returns the launch's error: 128-column tiles where
+// N allows them, else 96, else 32.
+template <int EPI, typename TX, int BL = B_NK, bool SAVE = false>
+inline cudaError_t launch_gemm(const GemmArgs& g, int n_products, cudaStream_t stream) {
+  if (g.N % 128 == 0) return launch_tiles<EPI, TX, BL, SAVE, 128>(g, n_products, stream);
+  if (g.N % 96 == 0) return launch_tiles<EPI, TX, BL, SAVE, 96>(g, n_products, stream);
+  return launch_tiles<EPI, TX, BL, SAVE, 32>(g, n_products, stream);
+}
+
 // The inference or the backward-save variant of a forward product.
-template <int AM, int EPI, typename TX>
+template <int EPI, typename TX>
 inline cudaError_t launch_forward_gemm(const GemmArgs& g, int n_products, bool save,
                                        cudaStream_t stream) {
-  return save ? launch_gemm<AM, EPI, TX, B_NK, true>(g, n_products, stream)
-              : launch_gemm<AM, EPI, TX, B_NK, false>(g, n_products, stream);
+  return save ? launch_gemm<EPI, TX, B_NK, true>(g, n_products, stream)
+              : launch_gemm<EPI, TX, B_NK, false>(g, n_products, stream);
 }
 
 inline bool gemm_shape_ok(int M, int N, int K) {
-  return M > 0 && N > 0 && K > 0 && N % 32 == 0 && K % BK == 0 && (M + BM - 1) / BM <= 65535;
+  // tile indices are ints: row tiles × the narrowest column tiles × 3 products
+  return M > 0 && N > 0 && K > 0 && N % 32 == 0 && K % 32 == 0 &&
+         (static_cast<long long>(M) + BM - 1) / BM * (N / 32) * 3 < (1LL << 31);
 }
 
 inline Vec vec(const void* p, int is_bf16) { return Vec{p, is_bf16}; }

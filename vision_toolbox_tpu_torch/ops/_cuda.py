@@ -48,12 +48,15 @@ _LL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "vtt_error_string": ((_I,), ctypes.c_char_p),
     "vtt_attn_smem_bytes": ((_I, _I), ctypes.c_longlong),
+    "vtt_block_mlp_bwd_partial_floats": ((_I, _I, _I), ctypes.c_longlong),  # M, D, Dh
+    "vtt_block_attention_bwd_partial_floats": ((_I, _I, _I), ctypes.c_longlong),  # B, T, D
     "vtt_block_mlp_fwd": (
         (_P, _P, _P, _P, _I,  # x, res, out, g, x_bf16
          _P, _I, _P, _I,  # ln scale, ln bias
          _P, _P, _I, _P, _P, _I,  # w1, b1, w2, b2
          _P, _I, _P,  # ls, dp
          _P, _P, _P, _P,  # saves (null for inference): xhat, rstd, h, mlpout
+         _P,  # y = LN(x)·γ + β (scratch)
          _I, _I, _I, _I, _F, _P),  # M, T, D, Dh, eps, stream
         _I,
     ),
@@ -62,6 +65,7 @@ _SIGNATURES = {
          _P, _P, _P, _I, _P, _I, _P,  # w1, w2, ln scale, ls, dp
          _P, _P, _P, _P,  # dx, dh, douts (scratch), dy2 (scratch)
          _P, _P, _P, _P, _P,  # db1, db2, dln scale, dln bias, dls
+         _P, ctypes.c_longlong,  # column-sum partial rows (scratch), its floats
          _I, _I, _I, _I, _I, _P),  # has_res, M, T, D, Dh, stream
         _I,
     ),
@@ -71,6 +75,7 @@ _SIGNATURES = {
          _P, _P, _I, _P, _P, _I, _P, _P, _I, _P, _P, _I,  # wq bq wk bk wv bv wo bo
          _P, _I, _P,  # ls, dp
          _P, _P, _P, _P,  # saves (null for inference): xhat, rstd, p, proj
+         _P,  # y = LN(x)·γ + β (scratch)
          _I, _I, _I, _I, _F, _F, _P),  # B, T, D, H, scale, eps, stream
         _I,
     ),
@@ -80,6 +85,7 @@ _SIGNATURES = {
          _P, _P, _P, _I, _P, _I, _P,  # wo, wqkv, ln scale, ls, dp
          _P, _P, _P, _P, _P, _P,  # dx, dqkv, douts, do, ds, dy (the last four scratch)
          _P, _P, _P, _P, _P,  # dbqkv, dbo, dln scale, dln bias, dls
+         _P, ctypes.c_longlong,  # column-sum partial rows (scratch), its floats
          _I, _I, _I, _I, _F, _P),  # B, T, D, H, scale, stream
         _I,
     ),

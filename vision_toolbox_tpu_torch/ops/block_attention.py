@@ -7,8 +7,9 @@ self-attention per image with q/k/v projected from the LayerNorm output.
 ``fused_attention_block`` is the entry point. Without gradients (serving,
 ``torch.export``) it runs the custom op ``vtt::fused_attention_block``: on
 CPU tensors ``fused_attention_block_plain``, on CUDA tensors the hand-written
-kernels in ``csrc/block_attention.cu`` (LN+q/k/v projection, attention,
-out-projection+epilogue; see the note there). Under autograd it runs
+kernels in ``csrc/block_attention.cu`` (the LayerNorm row pass, the q/k/v
+projections on the shared wgmma GEMM template, attention, the
+out-projection and its epilogue; see the note there). Under autograd it runs
 ``FusedAttentionFunction``: the backward-save forward and the backward
 kernels ``csrc/block_attention_bwd.cu`` on CUDA tensors, their plain versions
 on CPU tensors, or on any device with ``plain=True``. A CUDA tensor launches
@@ -38,6 +39,9 @@ from torch import Tensor
 
 from . import _cuda
 from .block_mlp import (
+    _DOUTS_ROWS,
+    _LN_ROWS,
+    _cdiv,
     bf16_linear,
     bf16_matmul,
     layer_norm_bwd,
@@ -50,7 +54,17 @@ from .block_mlp import (
 
 MAX_SEQ = 512  # whole key rows of one image sit in one block's shared memory
 SMEM_LIMIT = 227 * 1024  # H100 shared memory a block can use
-_QUERY_TILE = 32  # csrc/block_attention.cu BQ
+_QUERY_TILE = 32  # csrc/block_attention.cu BQ; block_attention_bwd.cu BQ and BK2
+
+
+def _bwd_partial_floats(b: int, t: int, d: int) -> int:
+    """Floats of the backward's f32 scratch of column-sum partial rows
+    (``csrc/block_attention_bwd.cu`` ``partial_floats``): dbo and dγ_ls a row
+    per 64 rows, dbq/dbk/dbv (3·D wide) a row per image and 32-row tile, dγ_ln
+    and dβ_ln a row per 32 rows."""
+    m = b * t
+    return (2 * _cdiv(m, _DOUTS_ROWS) * d + b * _cdiv(t, _QUERY_TILE) * 3 * d
+            + 2 * _cdiv(m, _LN_ROWS) * d)
 
 
 def _attn_smem_bytes(t: int, head_dim: int) -> int:
@@ -244,6 +258,7 @@ def _attn_fwd_cuda(
     out = torch.empty_like(x)
     # q, k, v, o: the intermediates that go through device memory
     qkvo = torch.empty(4, B, T, D, dtype=torch.bfloat16, device=x.device)
+    y = torch.empty(B, T, D, dtype=torch.bfloat16, device=x.device)  # LN(x)·γ + β, scratch
     saves = None
     if save:
         bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=x.device)
@@ -261,7 +276,8 @@ def _attn_fwd_cuda(
             _cuda.ptr(ws[2]), *vec(bv), _cuda.ptr(ws[3]), *vec(bo),
             *vec(ls_gamma), _cuda.ptr(dp),
             *(ptr(getattr(saves, n, None)) for n in ("xhat", "rstd", "p", "proj")),
-            B, T, D, n_heads, float((D // n_heads) ** -0.5), float(eps), _cuda.stream(),
+            _cuda.ptr(y), B, T, D, n_heads, float((D // n_heads) ** -0.5), float(eps),
+            _cuda.stream(),
         )
         _cuda.check(err, "fused_attention_block")
     _cuda.LAUNCHES["block_attention"] += 1
@@ -306,7 +322,8 @@ def fused_attention_bwd_cuda(
     wqkv = torch.cat([w.to(torch.bfloat16) for w in (wq, wk, wv)])  # (3D, D): dy in one product
     dp = None if dp_scale is None else dp_scale.float().contiguous()
     dqkv = torch.empty(B, T, 3 * D, dtype=torch.bfloat16, device=dev)
-    f32 = lambda n: torch.zeros(n, device=dev)  # atomically accumulated column sums
+    # column sums, written whole by the kernels' fixed-order sum (zero over no rows)
+    f32 = lambda n: (torch.empty if dout.numel() else torch.zeros)(n, device=dev)
     dbqkv, dbo, dlns, dlnb = f32(3 * D), f32(D), f32(D), f32(D)
     dls = None if ls_gamma is None else f32(D)
     dx = torch.empty_like(dout)
@@ -314,6 +331,7 @@ def fused_attention_bwd_cuda(
         bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=dev)
         douts, do, ds = bf(B, T, D), bf(B, T, D), bf(B, n_heads, T, T)
         dy = torch.empty(B, T, D, device=dev)
+        partials = torch.empty(_bwd_partial_floats(B, T, D), device=dev)
         vec = lambda t: _cuda.vec(None if t is None else t.contiguous())
         with torch.cuda.device(dev):
             err = _cuda.lib().vtt_block_attention_bwd(
@@ -323,7 +341,7 @@ def fused_attention_bwd_cuda(
                 *vec(ln_scale), *vec(ls_gamma), _cuda.ptr(dp),
                 _cuda.ptr(dx), _cuda.ptr(dqkv), _cuda.ptr(douts), _cuda.ptr(do), _cuda.ptr(ds),
                 _cuda.ptr(dy), _cuda.ptr(dbqkv), _cuda.ptr(dbo), _cuda.ptr(dlns),
-                _cuda.ptr(dlnb), _cuda.ptr(dls),
+                _cuda.ptr(dlnb), _cuda.ptr(dls), _cuda.ptr(partials), partials.numel(),
                 B, T, D, n_heads, float((D // n_heads) ** -0.5), _cuda.stream(),
             )
             _cuda.check(err, "fused_attention_block backward")

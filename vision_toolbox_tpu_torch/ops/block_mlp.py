@@ -6,10 +6,11 @@ separate ``residual`` if given, else ``x``.
 
 ``fused_mlp_block`` is the entry point. Without gradients (serving,
 ``torch.export``) it runs the custom op ``vtt::fused_mlp_block``: on CPU
-tensors ``fused_mlp_block_plain``, on CUDA tensors the hand-written kernel in
-``csrc/block_mlp.cu`` (two launches of the shared GEMM template; see the note
-there). Under autograd it runs ``FusedMLPFunction``: the backward-save
-forward and the backward kernel ``csrc/block_mlp_bwd.cu`` on CUDA tensors,
+tensors ``fused_mlp_block_plain``, on CUDA tensors the hand-written kernels in
+``csrc/block_mlp.cu`` (the LayerNorm row pass and two launches of the shared
+wgmma GEMM template; see the note there). Under autograd it runs
+``FusedMLPFunction``: the backward-save forward and the backward kernels
+``csrc/block_mlp_bwd.cu`` on CUDA tensors,
 their plain versions (``fused_mlp_save_plain``, ``fused_mlp_bwd_plain``) on
 CPU tensors, or on any device with ``plain=True``. A CUDA tensor launches
 the kernels or raises; nothing falls back to the plain versions.
@@ -44,7 +45,23 @@ from . import _cuda
 _SQRT_2 = math.sqrt(2.0)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
 _AS = (0.254829592, -0.284496736, 1.421413741, -1.453152027, 1.061405429, 0.3275911)
-_GEMM_WIDTH_STEP = 32  # csrc/gemm.cuh: the narrower column tile, and the depth tile BK
+_GEMM_WIDTH_STEP = 32  # csrc/gemm.cuh: the narrowest column tile; widths and depths % 32
+# rows a partial row of column sums covers: csrc/block_bwd.cuh DOUTS_ROWS and
+# LN_ROWS, csrc/gemm.cuh BM (a GEMM row tile)
+_DOUTS_ROWS, _LN_ROWS, _GEMM_ROWS = 64, 32, 128
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bwd_partial_floats(m: int, d: int, dh: int) -> int:
+    """Floats of the backward's f32 scratch of column-sum partial rows
+    (``csrc/block_mlp_bwd.cu`` ``partial_floats``, the C entry
+    ``vtt_block_mlp_bwd_partial_floats``): db2 and dγ_ls a row per
+    64 rows, db1 a row per 128-row GEMM tile, dγ_ln and dβ_ln a row per 32."""
+    return (2 * _cdiv(m, _DOUTS_ROWS) * d + _cdiv(m, _GEMM_ROWS) * dh
+            + 2 * _cdiv(m, _LN_ROWS) * d)
 
 
 def _erf_as(x: Tensor) -> tuple[Tensor, Tensor]:
@@ -312,6 +329,7 @@ def _mlp_fwd_cuda(
     dp = None if dp_scale is None else dp_scale.float().contiguous()
     out = torch.empty_like(x)
     g = torch.empty(B, T, Dh, dtype=torch.bfloat16, device=x.device)  # hidden activation
+    y = torch.empty(B, T, D, dtype=torch.bfloat16, device=x.device)  # LN(x)·γ + β, scratch
     saves = None
     if save:
         bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=x.device)
@@ -327,7 +345,7 @@ def _mlp_fwd_cuda(
             int(x.dtype == torch.bfloat16), *vec(ln_scale), *vec(ln_bias),
             _cuda.ptr(w1b), *vec(b1), _cuda.ptr(w2b), *vec(b2), *vec(ls_gamma), _cuda.ptr(dp),
             *(ptr(getattr(saves, n, None)) for n in ("xhat", "rstd", "h", "mlpout")),
-            B * T, T, D, Dh, float(eps), _cuda.stream(),
+            _cuda.ptr(y), B * T, T, D, Dh, float(eps), _cuda.stream(),
         )
         _cuda.check(err, "fused_mlp_block")
     _cuda.LAUNCHES["block_mlp"] += 1
@@ -372,7 +390,8 @@ def fused_mlp_bwd_cuda(
     w2b = w2.to(torch.bfloat16).contiguous()
     dp = None if dp_scale is None else dp_scale.float().contiguous()
     dev = dout.device
-    f32 = lambda n: torch.zeros(n, device=dev)  # atomically accumulated column sums
+    # column sums, written whole by the kernels' fixed-order sum (zero over no rows)
+    f32 = lambda n: (torch.empty if dout.numel() else torch.zeros)(n, device=dev)
     dh = torch.empty(B, T, Dh, dtype=torch.bfloat16, device=dev)
     grads = MLPGrads(torch.empty_like(dout), dh, f32(Dh), f32(D), f32(D), f32(D),
                      None if ls_gamma is None else f32(D))
@@ -380,6 +399,7 @@ def fused_mlp_bwd_cuda(
         return grads
     douts = torch.empty(B, T, D, dtype=torch.bfloat16, device=dev)
     dy2 = torch.empty(B, T, D, device=dev)
+    partials = torch.empty(_bwd_partial_floats(B * T, D, Dh), device=dev)
     vec = lambda t: _cuda.vec(None if t is None else t.contiguous())
     with torch.cuda.device(dev):
         err = _cuda.lib().vtt_block_mlp_bwd(
@@ -387,7 +407,7 @@ def fused_mlp_bwd_cuda(
             _cuda.ptr(saves.rstd), _cuda.ptr(saves.h), _cuda.ptr(saves.mlpout),
             _cuda.ptr(w1b), _cuda.ptr(w2b), *vec(ln_scale), *vec(ls_gamma), _cuda.ptr(dp),
             _cuda.ptr(grads.dx), _cuda.ptr(grads.dh), _cuda.ptr(douts), _cuda.ptr(dy2),
-            *(_cuda.ptr(t) for t in grads[2:]),
+            *(_cuda.ptr(t) for t in grads[2:]), _cuda.ptr(partials), partials.numel(),
             int(has_residual), B * T, T, D, Dh, _cuda.stream(),
         )
         _cuda.check(err, "fused_mlp_block backward")
