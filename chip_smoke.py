@@ -25,8 +25,9 @@ sm_90a, one process per source) and drives the port's paths:
   stochastic depth 0.1 (the LayerScale and drop-path branches);
 - CaiT (slice 4): holds the talking-head attention kernels (K5 forward and
   backward) against their plain versions at the cait_s_24 shapes and
-  others, f32 and bf16, times both against their plain versions at batch
-  128, serves a seeded bf16 cait_s_24 (eager vs plain path, then export →
+  others, f32 and bf16 (at cait_s_24 b128 also the bf16 rel L2 within
+  twice the first design's and a second backward bit-equal), times both
+  against their plain versions at batch 128, serves a seeded bf16 cait_s_24 (eager vs plain path, then export →
   load → requests at batch 1, 8 and 32), and runs the cait_s_24 train step
   at bs128@224 with ViT's recipe for 3 warm-up and 10 timed steps, then
   one step through the kernels against one through the plain versions and
@@ -146,6 +147,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -246,6 +248,10 @@ CAIT_S = dict(D=384, H=8, T=196)  # cait_s_24 at 224 px: 8 heads of 48, 196 patc
 TALKING_HEAD_CASES = ((8, 196, 196, 8, 48), (128, 196, 196, 8, 48), (4, 196, 196, 4, 48),
                       (2, 196, 196, 16, 48), (3, 50, 50, 8, 48), (2, 24, 72, 4, 48),
                       (2, 40, 40, 4, 64))
+# bf16 rel L2 to the plain versions of K5's first design (CUDA cores, f32
+# throughout) at cait_s_24 b128 (scripts/ab_talking_head.py, PERF.md §6,
+# NVIDIA H100 80GB HBM3): phase 13 holds the kernels to twice these
+K5_FIRST_DESIGN_REL_L2 = {"out": 2.866e-5, "dq": 3.101e-5, "dk": 3.264e-5, "dv": 2.457e-5}
 # CaiT's LayerScale init (1e-6) rounds every residual branch away in bf16;
 # its paths run with γ drawn around this value, as a trained CaiT has them
 CAIT_LAYER_SCALE = 0.1
@@ -1190,14 +1196,30 @@ def talking_head_args(g, B, T, S, H, hd, dtype):
     return a, r(B, T, D).to("cuda", dtype)
 
 
+class TalkingHeadGrads(NamedTuple):
+    """K5's backward outputs as one tuple of tensors (for the bit-equality
+    check)."""
+
+    dq: torch.Tensor
+    dk: torch.Tensor
+    dv: torch.Tensor
+    dml: torch.Tensor
+    dmlb: torch.Tensor
+    dmw: torch.Tensor
+    dmwb: torch.Tensor
+
+
 def compare_talking_head(report: dict) -> dict[str, float]:
     """Phase 13: K5 forward and backward vs their plain versions at
     TALKING_HEAD_CASES, f32 and bf16 inputs. Tensors by max abs error
     against BOUND·max|plain|, the four mix-parameter gradients by rel L2
     ≤ BWD_REL_L2 (the pre-softmax bias's, zero in exact arithmetic,
-    relative to the pre-softmax mix's). Returns the max abs error of the forward and of the
-    backward (worst of dq, dk, dv) at cait_s_24's training shapes (batch
-    128, bf16), where they are also timed."""
+    relative to the pre-softmax mix's). At cait_s_24's training shapes
+    (batch 128, bf16) also: out, dq, dk and dv within twice the first
+    design's rel L2 to the plain versions (K5_FIRST_DESIGN_REL_L2), and a
+    second backward bit-equal to the first (dq, dk, dv and the four mix
+    gradients: no atomics). Returns the max abs error of the forward and of
+    the backward (worst of dq, dk, dv) there, where they are also timed."""
     from vision_toolbox_tpu_torch.ops import cait_attention as ca
 
     g = torch.Generator().manual_seed(13)
@@ -1221,6 +1243,20 @@ def compare_talking_head(report: dict) -> dict[str, float]:
                 f"{checks.summary(case)}")
             if (B, T, H, dtype) == (CAIT_TRAIN["batch"], 196, 8, torch.bfloat16):
                 main_err["talking_head"], main_err["talking_head_bwd"] = err, max(errs)
+                out = ca.talking_head_cuda(*args)
+                for n, g_, w_ in zip(("out", "dq", "dk", "dv"), (out, *got[:3]),
+                                     (ca.talking_head_plain(*args), *want[:3])):
+                    l2, bound_ = rel_l2(g_, w_), 2 * K5_FIRST_DESIGN_REL_L2[n]
+                    checks.rows.append(dict(**case, tensor=f"{n} rel L2", rel_l2=l2, bound=bound_,
+                                            ok=l2 <= bound_))
+                log(f"[talking-head] B={B} bf16 rel L2 to plain: " + ", ".join(
+                    f"{r['tensor']} {r['rel_l2']:.3e} (≤ {r['bound']:.3e})"
+                    for r in checks.rows[-4:]))
+                def k5_backward(args=args, dout=dout):
+                    dq, dk, dv, mix_grads = ca.talking_head_bwd_cuda(*args, dout)
+                    return TalkingHeadGrads(dq, dk, dv, *mix_grads)
+
+                second_backward_bit_equal(report, "talking_head_bwd", k5_backward)
     report["compare_talking_head"] = checks.rows
     bad = [r for r in checks.rows if not r["ok"]]
     if bad:

@@ -128,3 +128,63 @@ def test_custom_op_runs_the_plain_version_on_cpu():
 ])
 def test_gate_is_the_kernels_shape_rule(t, s, heads, hd, admitted):
     assert ca.use_talking_head_kernel(t, s, heads, hd) is admitted
+
+
+def _meta(*shape, dtype=torch.bfloat16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _refused(case: str):
+    """(q, k, v, ml, mlb, mw, mwb, dout) for one thing the CUDA kernels do not
+    take, on meta tensors (no data, no card): the checks run before any
+    launch."""
+    B, T, S, H, hd = 2, 40, 56, 4, 48
+    if case == "17 heads":
+        H = 17
+    if case == "T above 512":
+        T = 513
+    q, k, v, dout = _meta(B, T, H * hd), _meta(B, S, H * hd), _meta(B, S, H * hd), _meta(B, T, H * hd)
+    mixes = [_meta(H, H, dtype=torch.float32), _meta(H, dtype=torch.float32)] * 2
+    if case == "float16":
+        q, k, v, dout = (t.half() for t in (q, k, v, dout))
+    elif case == "mixed types":
+        k = k.float()
+    elif case == "k and v differ":
+        v = _meta(B, S + 1, H * hd)
+    elif case == "batch differs":
+        k, v = _meta(B + 1, S, H * hd), _meta(B + 1, S, H * hd)
+    elif case == "width not a multiple of the heads":
+        q, k, v, dout = (t[..., :-1] for t in (q, k, v, dout))
+    elif case == "dout differs":
+        dout = _meta(B, T + 1, H * hd)
+    return (q, k, v, *mixes), dout
+
+
+@pytest.mark.parametrize("case,error", [
+    ("float16", TypeError), ("mixed types", TypeError), ("k and v differ", ValueError),
+    ("batch differs", ValueError), ("width not a multiple of the heads", ValueError),
+    ("17 heads", ValueError), ("T above 512", ValueError), ("dout differs", ValueError),
+])
+def test_cuda_entries_refuse_what_the_kernels_do_not_take(case, error):
+    """``talking_head_cuda`` and ``talking_head_bwd_cuda`` raise on a type
+    other than f32/bf16 or mixed types, mismatched shapes, a width the
+    heads do not divide, a shape outside the gate (more than 16 heads,
+    T > 512) and, in the backward, a cotangent unlike q; nothing reaches the
+    library and no launch is counted."""
+    args, dout = _refused(case)
+    before = dict(_cuda.LAUNCHES)
+    if case != "dout differs":
+        with pytest.raises(error):
+            ca.talking_head_cuda(*args)
+    with pytest.raises(error):
+        ca.talking_head_bwd_cuda(*args, dout)
+    assert _cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("s,heads,hd,kb", [(196, 16, 48, 161.1), (512, 8, 64, 200.6),
+                                          (72, 4, 160, 14.7)])
+def test_shape_term_counts_the_first_designs_four_row_block(s, heads, hd, kb):
+    """The gate's shape term (the first design's backward block of four
+    query rows: three f32 score planes, four rows of a head chunk, the
+    mixes) in KB, which keeps the admitted set as it was."""
+    assert round(ca._shape_term_bytes(s, heads, hd) / 1024, 1) == kb

@@ -17,10 +17,11 @@ a fixed order, so a second backward is bit-equal to the first, and TMA's
 16-byte alignment is held at the entries. The backward is compared from one set of saves (the
 kernel forward's) and one output cotangent. The three-shear warp (K1) forms
 every value with the same f32 operations as its plain version: max abs error
-≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) compute
-in f32 like their plain versions and are held to the same bounds; their
-pre-softmax bias gradient, zero in exact arithmetic, against the
-pre-softmax mix's. The flash-attention kernels (K6) compute in f32 from the
+≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) hold
+every intermediate in f32 like their plain versions (their products on
+the tensor cores with exact bf16 planes) and are held to the same bounds;
+their pre-softmax bias gradient, zero in exact arithmetic, against the
+pre-softmax mix's; a second backward bit-equal (fixed-order sums). The flash-attention kernels (K6) compute in f32 from the
 inputs like their plain versions (their products on the tensor cores with
 exact operands) and are held to the bf16 bound and, in f32, to
 1e-4·max|plain|, which a kernel that rounds p or ds to bf16 once fails; the
@@ -434,6 +435,69 @@ def test_talking_head_refuses_what_its_gate_refuses(cuda):
                                  torch.bfloat16, cuda)
     with pytest.raises(ValueError, match="use_talking_head_kernel"):
         ca.talking_head_attention(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,H,hd", [(2, 196, 196, 16, 48), (2, 64, 512, 16, 48),
+                                        (8, 196, 196, 8, 48)])
+def test_talking_head_second_backward_is_bit_equal(cuda, dtype, B, T, S, H, hd):
+    """Sixteen heads at cait_m's T = 196, the JAX rule's S = 512 corner and
+    cait_s_24: both kernels within the dtype's bound of the plain versions,
+    and a second backward bit-equal to the first, the mix gradients
+    included (partial rows summed in a fixed order, no atomics)."""
+    args, dout = _talking_head_args(torch.Generator().manual_seed(S + H), B, T, S, H, hd, dtype,
+                                    cuda)
+    _check(ca.talking_head_cuda(*args), ca.talking_head_plain(*args))
+    first = ca.talking_head_bwd_cuda(*args, dout)
+    second = ca.talking_head_bwd_cuda(*args, dout)
+    torch.cuda.synchronize()
+    want = ca.talking_head_bwd_plain(*args, dout)
+    for g, w in zip(first[:3], want[:3]):
+        _check(g, w)
+    for a, b in zip((*first[:3], *first[3]), (*second[:3], *second[3])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_talking_head_row_tiles_share_one_ring(cuda, dtype):
+    """At four heads (cait_xxs) and a batch whose grid fills the card twice,
+    a forward block holds several 16-row query tiles and a keys-pass block
+    several 16-key tiles, fed by one K/V (or q/dout) ring: the library says
+    so, and the kernels match the plain versions there, the ragged last
+    tile of T = S = 196 included."""
+    B, T, S, H, hd = 64, 196, 196, 4, 48
+    assert ca.kernel_geometry(B, T, S, H, hd, dtype, "fwd")["tiles_per_block"] >= 2
+    assert ca.kernel_geometry(B, T, S, H, hd, dtype, "bwd_keys")["tiles_per_block"] >= 2
+    args, dout = _talking_head_args(torch.Generator().manual_seed(4), B, T, S, H, hd, dtype, cuda)
+    _check(ca.talking_head_cuda(*args), ca.talking_head_plain(*args))
+    got, want = ca.talking_head_bwd_cuda(*args, dout), ca.talking_head_bwd_plain(*args, dout)
+    for g, w in zip(got[:3], want[:3]):
+        _check(g, w)
+    for name in ("ml", "mw", "mwb"):
+        _check_rel_l2(getattr(got[3], name), getattr(want[3], name), name)
+
+
+def test_talking_head_keeps_scores_off_the_device(cuda):
+    """At cait_s_24 b32 the forward allocates its output (and the padded
+    mix buffer) and the backward dq, dk, dv, the rows' statistics and the
+    partial sums: less than one (B, H, T, S) tensor of one byte an
+    element."""
+    B, T, H, hd = 32, 196, 8, 48
+    args, dout = _talking_head_args(torch.Generator().manual_seed(6), B, T, T, H, hd,
+                                    torch.bfloat16, cuda)
+    q = args[0]
+    scores = B * H * T * T
+    for what, run, made in (("forward", lambda: ca.talking_head_cuda(*args), q.nbytes),
+                            ("backward", lambda: ca.talking_head_bwd_cuda(*args, dout),
+                             3 * q.nbytes)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+        result = run()
+        torch.cuda.synchronize()
+        extra = torch.cuda.memory_stats()["allocated_bytes.all.peak"] - base
+        assert extra - made < scores, (what, extra, made, scores)
+        del result
 
 
 @pytest.mark.parametrize("name", ["cait_xxs_24", "cait_xxs_36", "cait_xs_24", "cait_s_24",

@@ -94,7 +94,12 @@ _SIGNATURES = {
          _I, _I, _I, _I, _I, _I, _P),  # B, H, W, C, S, P, stream
         _I,
     ),
-    "vtt_talking_head_rows": ((_I, _I, _I, _I), _I),  # S, H, hd, bwd → query rows per block
+    "vtt_talking_head_fwd_geometry": ((_I, _I, _I, _I, _I, _LL), _I),  # B, T, H, hd, is_bf16,
+    # out[6]
+    "vtt_talking_head_bwd_geometry": ((_I, _I, _I, _I, _I, _I, _I, _LL), _I),  # B, T, S, H,
+    # hd, is_bf16, which (0 rows pass, 1 keys pass), out[5]
+    "vtt_talking_head_bwd_floats": ((_I, _I, _I, _I, _I, _I), ctypes.c_longlong),  # B, T, S,
+    # H, hd, is_bf16
     "vtt_talking_head_fwd": (
         (_P, _P, _P, _I, _P, _P,  # q, k, v, is_bf16, mix, out
          _I, _I, _I, _I, _I, _F, _P),  # B, T, S, H, hd, scale, stream
@@ -102,7 +107,7 @@ _SIGNATURES = {
     ),
     "vtt_talking_head_bwd": (
         (_P, _P, _P, _P, _I, _P,  # q, k, v, dout, is_bf16, mix
-         _P, _P, _P, _P, _P, _P, _P,  # dq, dk, dv, pw, draw, partials (scratch), dmix
+         _P, _P, _P, _P, _P,  # dq, dk, dv, the rows' statistics and partial sums (scratch), dmix
          _I, _I, _I, _I, _I, _F, _P),  # B, T, S, H, hd, scale, stream
         _I,
     ),

@@ -25,11 +25,17 @@ the logits of a bf16 model to bf16 (``models/cait.py:58-70``).
 
 The kernels take any head width: on CUDA tensors the wrappers zero-pad each
 head to a multiple of 16 (zero columns add nothing to q·kᵀ and give zero
-output columns, which are dropped) and pass the true width's scale.
+output columns, which are dropped) and pass the true width's scale. They
+run their products on the tensor cores and keep every (B, H, T, S)
+intermediate on the chip (``csrc/talking_head.cuh``); the logits are
+(q·kᵀ)·scale, dk is (drawᵀ·q)·scale, and the softmax's Σe is taken under a
+running max over key tiles: each an f32 rounding apart from the TPU
+kernel's order.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import torch
@@ -40,7 +46,9 @@ from . import _cuda
 MAX_SEQ = 512
 MAX_HEADS = 16
 HEAD_STEP = 16  # csrc/talking_head.cuh: head widths run padded to a multiple of 16
-CHUNKS = (64, 48, 16)  # csrc/talking_head.cuh CHUNKS: the compiled logit-chunk widths
+# the rule's shape term (``_shape_term_bytes``) counts the logit chunks of
+# the kernels' first design: 64, 48 or 16 columns, the widest dividing the head
+CHUNKS = (64, 48, 16)
 SMEM_LIMIT = 227 * 1024
 
 
@@ -50,17 +58,18 @@ def padded_head(hd: int) -> int:
 
 
 def _head_chunk(hd: int) -> int:
-    """csrc/talking_head.cuh ``head_chunk``: the columns of a logit chunk."""
+    """The first design's logit-chunk width for a head of ``hd``."""
     return next(c for c in CHUNKS if padded_head(hd) % c == 0)
 
 
-def _bwd_smem_bytes(s: int, n_heads: int, head_dim: int, rows: int) -> int:
-    """Shared memory of a backward row block of ``rows`` query rows
-    (csrc/talking_head.cuh ``row_tile_smem``): three (H, rows, S padded to
-    4) f32 planes, one row tile of a head chunk in f32 and the mix
-    parameters."""
+def _shape_term_bytes(s: int, n_heads: int, head_dim: int) -> int:
+    """The rule's shape term: the shared memory the kernels' first design
+    gave a backward block of four query rows (three (H, 4, S padded to 4)
+    f32 planes, four rows of a head chunk and the mix parameters). The
+    tensor-core kernels need no score rows on chip; the term keeps the
+    admitted set as it was, so every shape it admits still runs."""
     sp = -(-s // 4) * 4
-    return (3 * n_heads * rows * sp + rows * n_heads * _head_chunk(head_dim)
+    return (3 * n_heads * 4 * sp + 4 * n_heads * _head_chunk(head_dim)
             + 2 * n_heads * n_heads + 2 * n_heads) * 4
 
 
@@ -76,16 +85,36 @@ def tpu_rule_admits(t: int, s: int, n_heads: int) -> bool:
 def use_talking_head_kernel(t: int, s: int, n_heads: int, head_dim: int) -> bool:
     """Shape rule of the CUDA kernels: every shape of the JAX package's K5
     rule (``tpu_rule_admits``), any head width, and besides it the shapes
-    whose backward row block of four query rows fits one block's shared
+    whose shape term (``_shape_term_bytes``) is within one block's shared
     memory: cait_m_* at 224 px (16 heads at T = 196, 161 KB), beyond the
-    TPU's VMEM budget. The kernels run them all, a shape of the JAX rule
-    whose four-row block does not fit (S = 512 at 16 heads) with two or one
-    query rows a block."""
+    TPU's VMEM budget. The kernels run every shape it admits."""
     return (
         1 <= t <= MAX_SEQ and 1 <= s <= MAX_SEQ and 1 <= n_heads <= MAX_HEADS
         and head_dim >= 1 and (tpu_rule_admits(t, s, n_heads)
-                               or _bwd_smem_bytes(s, n_heads, head_dim, 4) <= SMEM_LIMIT)
+                               or _shape_term_bytes(s, n_heads, head_dim) <= SMEM_LIMIT)
     )
+
+
+def kernel_geometry(b: int, t: int, s: int, n_heads: int, head_dim: int, dtype: torch.dtype,
+                    launch: str) -> dict[str, int]:
+    """How the library lays out one launch over ``b`` images (``launch``:
+    "fwd", "bwd_rows" or "bwd_keys"): 16-row tiles a block, blocks an
+    image, ring stages, shared-memory bytes and threads a block (and, for
+    the forward, the head chunks). Asks the CUDA library, so needs it built
+    and the card it runs on."""
+    hdp, bf = padded_head(head_dim), int(dtype == torch.bfloat16)
+    lib = _cuda.lib()
+    if launch == "fwd":
+        out = (ctypes.c_longlong * 6)()
+        err = lib.vtt_talking_head_fwd_geometry(b, t, n_heads, hdp, bf, out)
+        keys = ("tiles_per_block", "blocks_per_image", "stages", "smem", "head_chunks", "threads")
+    else:
+        out = (ctypes.c_longlong * 5)()
+        err = lib.vtt_talking_head_bwd_geometry(b, t, s, n_heads, hdp, bf,
+                                                ("bwd_rows", "bwd_keys").index(launch), out)
+        keys = ("tiles_per_block", "blocks_per_image", "stages", "smem", "threads")
+    _cuda.check(err, "talking_head kernel_geometry")
+    return dict(zip(keys, out))
 
 
 class MixGrads(NamedTuple):
@@ -231,16 +260,16 @@ def talking_head_bwd_cuda(q: Tensor, k: Tensor, v: Tensor, ml: Tensor, mlb: Tens
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dmix = torch.zeros(2 * n * n + 2 * n, device=dev)
     if q.numel() > 0:
-        rows = _cuda.lib().vtt_talking_head_rows(S, n, padded_head(hd), 1)
-        pw = torch.empty(B, n, T, S, device=dev)  # mixed probabilities and logit gradients,
-        draw = torch.empty(B, n, T, S, device=dev)  # summed over query rows by the key pass
-        partials = torch.empty(B * -(-T // rows), dmix.numel(), device=dev)
+        bf = int(q.dtype == torch.bfloat16)
         with torch.cuda.device(dev):
+            # the rows' max, 1/Σe and delta, (B, T, 3, heads) f32, and the row
+            # blocks' partial mix-parameter sums: no (B, H, T, S) tensor
+            floats = _cuda.lib().vtt_talking_head_bwd_floats(B, T, S, n, padded_head(hd), bf)
+            scratch = torch.empty(floats, device=dev)
             err = _cuda.lib().vtt_talking_head_bwd(
-                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(dout),
-                int(q.dtype == torch.bfloat16), _cuda.ptr(mix), _cuda.ptr(dq), _cuda.ptr(dk),
-                _cuda.ptr(dv), _cuda.ptr(pw), _cuda.ptr(draw), _cuda.ptr(partials),
-                _cuda.ptr(dmix), B, T, S, n, padded_head(hd), float(hd**-0.5), _cuda.stream(),
+                _cuda.ptr(q), _cuda.ptr(k), _cuda.ptr(v), _cuda.ptr(dout), bf, _cuda.ptr(mix),
+                _cuda.ptr(dq), _cuda.ptr(dk), _cuda.ptr(dv), _cuda.ptr(scratch), _cuda.ptr(dmix),
+                B, T, S, n, padded_head(hd), float(hd**-0.5), _cuda.stream(),
             )
             _cuda.check(err, "talking_head_attention backward")
         _cuda.LAUNCHES["talking_head_bwd"] += 1
