@@ -121,7 +121,15 @@ sm_90a, one process per source) and drives the port's paths:
   at vit_b_16 b128 and convnext_t stage 1 b128 (the column sums leave
   partial rows for a fixed-order sum), and phase 38 times the fused kernels
   beside the module chain, their bound and their first design's times
-  (K3K4_EARLIER_MS).
+  (K3K4_EARLIER_MS);
+- K4's attention core redesigned for Hopper (slice 15): phase 2 holds the
+  wrapper's partial-row count to the library's; phase 39 prints the core
+  kernels' registers and spills, holds the core at K4_CORE_CASES (T = 2,
+  vit_b_16, T = 512, head 128 at T = 480) and at vit_b_16 b128 against the
+  plain versions (the saved p too) with a second backward bit-equal, holds
+  the bf16 rel L2 at b128 to twice the first design's
+  (K4_FIRST_CORE_REL_L2), and times the core's launches apart beside the
+  first design's (K4_FIRST_CORE_MS), its bound and phase 38's chain.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -366,6 +374,20 @@ K3K4_EARLIER_MS = {("block_mlp", 8): (0.2905, None), ("block_attention", 8): (0.
                    ("block_mlp", 128): (3.8642, 2.3551),
                    ("block_attention", 128): (3.0497, 2.7959),
                    ("block_mlp_convnext", 128): (2.6220, 2.6481)}
+# K4's attention core in its first design (wmma tiles; PERF.md §6, measured
+# with scripts/ab_block_kernels.py --core on an NVIDIA H100 80GB HBM3, 700 W):
+# the bf16 rel L2 to the plain versions at vit_b_16 b128, which phase 39
+# holds the register-tile core to twice of, and its device ms a call there
+# (the served and the save forward's core, the backward's rows and keys
+# passes), printed beside this run's
+K4_FIRST_CORE_REL_L2 = {"out": 5.093e-4, "p": 2.889e-4, "dx": 3.772e-4, "dq": 2.103e-4,
+                        "dk": 3.406e-4, "dv": 1.527e-4}
+K4_FIRST_CORE_MS = {"forward": 0.6875, "save_forward": 0.7217, "rows": 0.9760, "keys": 0.6181}
+# the core's corners (B, T, D, heads), bf16, held against the plain versions
+# in phase 39: one mostly masked 16-row tile, vit_b_16 (two warps share a row
+# tile's keys), T = 512 (four) and head 128 at T = 480 (eight, V following K
+# into one buffer)
+K4_CORE_CASES = ((4, 2, 128, 2), (2, 197, 768, 12), (2, 512, 768, 12), (1, 480, 256, 2))
 # K7's second-plane control cases (B, nW, T, N, hd, masked), bf16: swin_t stage
 # 1 at batch 8 and window 14 (swin_s3_t stage 3); held as K2's (SECOND_PLANE)
 SWIN_CONTROL_CASES = ((8, 64, 49, 3, 32, True), (8, 1, 196, 12, 32, False))
@@ -2693,6 +2715,149 @@ def fused_half_calls(name: str, B: int, T: int, D: int, dout: torch.Tensor):
     return (save if B == 128 and not convnext else serve), bwd, work
 
 
+def core_ptxas(build_log: str) -> list[dict]:
+    """ptxas's registers and spill bytes of each K4 attention-core kernel."""
+    rows, entry = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(attn_kernel|attn_bwd_rows_kernel|attn_bwd_keys_kernel)I(.*?)E(?:E|v)",
+                          m.group(1))
+            entry = None if k is None else dict(kernel=k.group(1), template=k.group(2))
+            if entry:
+                rows.append(entry)
+        elif entry and "registers" in line:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+        elif entry and "spill" in line:
+            entry["spill_bytes"] = sum(map(int, re.findall(r"(\d+) bytes spill", line)))
+    return rows
+
+
+def core_parts(fn, calls: int = 5) -> dict[str, float]:
+    """Device ms a call of K4's attention-core launches among those ``fn``
+    makes (torch.profiler): "forward", "rows", "keys"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys(("forward", "rows", "keys"), 0.0)
+    names = {"attn_kernel": "forward", "attn_bwd_rows_kernel": "rows",
+             "attn_bwd_keys_kernel": "keys"}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        m = re.search(r"(attn_kernel|attn_bwd_rows_kernel|attn_bwd_keys_kernel)\b", e.name)
+        if m:
+            parts[names[m.group(1)]] += e.time_range.elapsed_us() / 1e3 / calls
+    return parts
+
+
+def hold_attention_core(report: dict, name_power: str, build_log: str) -> dict[str, float]:
+    """Phase 39: K4's attention core (register tiles since slice 15). At
+    K4_CORE_CASES (γ_ls and drop path) and vit_b_16 b128, bf16: the saved p
+    against the plain version's, out and the backward's dx, dq, dk, dv
+    against the plain versions, and a second backward bit-equal to the
+    first. At vit_b_16 b128, on the operands K4_FIRST_CORE_REL_L2 was
+    measured on: the bf16 rel L2 to the plain versions of out, p, dx, dq,
+    dk and dv within twice the first design's; each core launch timed apart by
+    torch.profiler (the served and the save forward's core, the backward's
+    rows and keys passes) beside the first design's (K4_FIRST_CORE_MS),
+    phase 38's chain and the core's bound (bytes: q, k, v in and o out, the
+    save forward also p; the backward do, q, k, v, p in and dq, dk, dv
+    out); the core kernels' registers and spills (ptxas). Returns the core's
+    device ms at vit_b_16 b128 by part."""
+    from vision_toolbox_tpu_torch.ops import block_attention as ba
+
+    g = torch.Generator().manual_seed(39)
+    checks = Checks()
+    regs = core_ptxas(build_log)
+    report["core_ptxas"] = regs
+    for r in regs:
+        log(f"[core] {r['kernel']}<{r['template']}>: {r.get('registers')} registers, "
+            f"{r.get('spill_bytes', 0)} bytes of spills")
+    if not regs:
+        raise AssertionError("no K4 attention-core kernel in the build log")
+    main = (VIT_TRAIN["batch"], 197, VIT_B["D"], VIT_B["H"])
+    for B, T, D, H in K4_CORE_CASES + (main,):
+        case = dict(kernel="block_attention core", B=B, T=T, D=D, H=H)
+        if (B, T, D, H) == main:  # K4_FIRST_CORE_REL_L2's operands (ab_block_kernels.py --core)
+            g_main = torch.Generator().manual_seed(13)
+            a = attn_args(g_main, B, T, D, H, torch.bfloat16, False)
+            dout = torch.randn(a["x"].shape, generator=g_main).to("cuda", torch.bfloat16)
+        else:
+            a = attn_args(g, B, T, D, H, torch.bfloat16, True)
+            dout = torch.randn(a["x"].shape, generator=g).to("cuda", torch.bfloat16)
+        wb = [a[k] for n in "qkvo" for k in (f"w{n}", f"b{n}")]
+        fwd = (a["x"], a["ln_scale"], a["ln_bias"], *wb, H, a["ls_gamma"], a["dp_scale"])
+        want_out, want_saves = ba.fused_attention_save_plain(*fwd)
+        out, saves = ba.fused_attention_save_cuda(*fwd)
+        bwd = (dout, saves, a["wq"], a["wk"], a["wv"], a["wo"], a["ln_scale"], a["ls_gamma"],
+               a["dp_scale"], H)
+        got, want = ba.fused_attention_bwd_cuda(*bwd), ba.fused_attention_bwd_plain(*bwd)
+        torch.cuda.synchronize()
+        checks.elementwise(case, "out", out, want_out)
+        checks.elementwise(case, "p", saves.p, want_saves.p)
+        for n in ("dx", "dq", "dk", "dv"):
+            checks.elementwise(case, n, getattr(got, n).contiguous(), getattr(want, n))
+        again = ba.fused_attention_bwd_cuda(*bwd)
+        torch.cuda.synchronize()
+        for n in ("dx", "dq", "dk", "dv", "dbq", "dbk", "dbv"):
+            checks.exact(case, f"{n} again", getattr(again, n), getattr(got, n))
+        if (B, T, D, H) == main:
+            pairs = dict(out=(out, want_out), p=(saves.p, want_saves.p))
+            pairs |= {n: (getattr(got, n), getattr(want, n)) for n in ("dx", "dq", "dk", "dv")}
+            for n, (x, y) in pairs.items():
+                l2, bound_ = rel_l2(x, y), 2 * K4_FIRST_CORE_REL_L2[n]
+                checks.rows.append(dict(**case, tensor=f"{n} rel L2", rel_l2=l2, bound=bound_,
+                                        ok=l2 <= bound_))
+            log(f"[core] B={B} bf16 rel L2 to plain: " + ", ".join(
+                f"{r['tensor']} {r['rel_l2']:.3e} (≤ {r['bound']:.3e}; first design "
+                f"{K4_FIRST_CORE_REL_L2[r['tensor'].split()[0]]:.3e})" for r in checks.rows[-6:]))
+        log(f"[core] B={B} T={T} D={D} H={H} bf16: {checks.summary(case)}")
+        del a, want_out, want_saves, out, saves, dout, got, want, again
+
+    B, T, D, H = VIT_TRAIN["batch"], 197, VIT_B["D"], VIT_B["H"]
+    a = attn_args(g, B, T, D, H, torch.bfloat16, False)
+    wb = [a[k] for n in "qkvo" for k in (f"w{n}", f"b{n}")]
+    fwd = (a["x"], a["ln_scale"], a["ln_bias"], *wb, H)
+    _, saves = ba.fused_attention_save_cuda(*fwd)
+    dout = torch.randn(a["x"].shape, generator=g).to("cuda", torch.bfloat16)
+    parts = {"forward": core_parts(lambda: ba.fused_attention_block_cuda(*fwd, None, None,
+                                                                         1e-6))["forward"],
+             "save_forward": core_parts(lambda: ba.fused_attention_save_cuda(*fwd))["forward"]}
+    parts |= {k: v for k, v in core_parts(lambda: ba.fused_attention_bwd_cuda(
+        dout, saves, a["wq"], a["wk"], a["wv"], a["wo"], a["ln_scale"], None, None, H)).items()
+        if k != "forward"}
+    qkv, p_bytes = B * T * D * 2, B * H * T * T * 2
+    bounds = {"forward": 4 * qkv, "save_forward": 4 * qkv + p_bytes,
+              "backward": 7 * qkv + p_bytes}
+    bounds = {k: v / PEAK_BYTES_PER_S * 1e3 for k, v in bounds.items()}
+    chain = {r["half"]: r for r in report.get("chain_times", []) if r["B"] == B}
+    chain_row = chain.get("block_attention", {})
+    for k in ("forward", "save_forward", "rows", "keys"):
+        log(f"[core-time] {k:12s} vit_b_16 b{B} bf16: {parts[k]:.4f} ms (first design "
+            f"{K4_FIRST_CORE_MS[k]:.4f}, this / first = {parts[k] / K4_FIRST_CORE_MS[k]:.3f})  "
+            f"[{name_power}]")
+    bwd_ms = parts["rows"] + parts["keys"]
+    log(f"[core-time] bounds (bytes) forward {bounds['forward']:.4f} / save "
+        f"{bounds['save_forward']:.4f} / backward {bounds['backward']:.4f} ms; backward core "
+        f"{bwd_ms:.4f} ms (first design {K4_FIRST_CORE_MS['rows'] + K4_FIRST_CORE_MS['keys']:.4f});"
+        f" phase 38's chain: forward {chain_row.get('chain_ms', float('nan')):.4f} / backward "
+        f"{chain_row.get('chain_bwd_ms', float('nan')):.4f} ms, K4 "
+        f"{chain_row.get('kernel_ms', float('nan')):.4f} / "
+        f"{chain_row.get('kernel_bwd_ms', float('nan')):.4f}  [{name_power}]")
+    report["attention_core"] = dict(ms=parts, first_design_ms=K4_FIRST_CORE_MS,
+                                    bound_ms=bounds, checks=checks.rows)
+    bad = [r for r in checks.rows if not r["ok"]]
+    if bad:
+        raise AssertionError(f"{len(bad)} K4 core comparisons out of bounds: {bad[:8]}")
+    return parts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2700,7 +2865,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.ops import _cuda
-    from vision_toolbox_tpu_torch.ops.block_attention import _attn_smem_bytes
+    from vision_toolbox_tpu_torch.ops.block_attention import _bwd_partial_floats
     from vision_toolbox_tpu_torch.utils.export import export_model, load_exported
 
     report: dict = {}
@@ -2722,10 +2887,11 @@ def main() -> int:
     for line in build_log.splitlines():
         if "registers" in line or "spill" in line or line.startswith("[") and ".cu: " in line:
             log(f"[build] {line.strip()}")
-    for t, hd in ((197, 64), (50, 64), (512, 64), (257, 80)):  # the gate's mirror of the C formula
-        c_bytes = _cuda.lib().vtt_attn_smem_bytes(t, hd)
-        if c_bytes != _attn_smem_bytes(t, hd):
-            raise AssertionError(f"attention smem formula differs at T={t}, hd={hd}")
+    for b, t, d in ((8, 197, 768), (3, 50, 128), (2, 512, 1024), (1, 2, 256)):
+        # the wrapper's mirror of K4's partial-row layout
+        if _cuda.lib().vtt_block_attention_bwd_partial_floats(b, t, d) != _bwd_partial_floats(
+                b, t, d):
+            raise AssertionError(f"K4's partial-row count differs at B={b}, T={t}, D={d}")
 
     # phase 3: kernels vs plain versions
     with torch.inference_mode():
@@ -2850,6 +3016,10 @@ def main() -> int:
     # phase 38: the K3/K4 half-blocks through the module chain, their yardstick
     time_chains(report, name_power)
 
+    # phase 39: K4's attention core, held and timed apart
+    with torch.no_grad():
+        core = hold_attention_core(report, name_power, build_log)
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
@@ -2876,7 +3046,11 @@ def main() -> int:
     # K9's dw and K7's dPE sum in their own order: their rel L2 beside the
     # elementwise tensors' max abs error
     extra = {"depthwise_conv_bwd": dict(dw_rel_l2=main_dw_rel_l2),
-             "swin_attention_bwd": dict(dpe_rel_l2=main_dpe_rel_l2)}
+             "swin_attention_bwd": dict(dpe_rel_l2=main_dpe_rel_l2),
+             "block_attention": dict(core_save_ms=core["save_forward"],
+                                     core_served_ms=core["forward"]),
+             "block_attention_bwd": dict(core_rows_ms=core["rows"],
+                                         core_keys_ms=core["keys"])}
     kernels = []
     for k in KERNELS:
         bound_ms, bound_by = bound(*work[k])

@@ -1,40 +1,49 @@
 """A/B of the fused half-block kernels (K3, K4) against other builds of them, on one card.
 
-    python3 scripts/ab_block_kernels.py [--parent DIR] [--variant NAME=DIR ...] [--quick]
+    python3 scripts/ab_block_kernels.py [--parent DIR] [--variant NAME=DIR ...] [--quick | --core]
 
-``DIR`` holds another build's ``gemm.cuh``, ``block_bwd.cuh`` and the four
-``block_{mlp,attention}{,_bwd}.cu`` sources. ``--parent`` is the first
-design (``git show <rev>:vision_toolbox_tpu_torch/csrc/<file>`` of those six
-at a revision before the wgmma redesign), called through its own C
-interface (no scratch pointers; column sums accumulated with atomics into
-zeroed outputs, which its calls zero first, as its wrappers did). A
-``--variant`` is a copy of this checkout's sources (the six above, plus any
-header they include) with a tile, stage or loader choice edited (e.g.
-``sed`` on a constant of ``gemm.cuh``), run through this checkout's wrappers
-with the library swapped. Every build is compiled with nvcc into a
-temporary directory (all at once), its namespace renamed (``-Dvtt=...``:
-in two loaded libraries, symbols of one mangled name can resolve to one
-definition) and loaded beside this checkout's kernels, so all run in one
-process on one card; ptxas's registers and spills of each build's K3/K4
-kernels are printed.
+``DIR`` holds another build's ``gemm.cuh``, ``wgmma.cuh``, ``block_bwd.cuh``,
+``attention_mma.cuh``, any other header they include and the four
+``block_{mlp,attention}{,_bwd}.cu`` sources. ``--parent`` is an earlier
+revision (``git show <rev>:vision_toolbox_tpu_torch/csrc/<file>``) whose K4
+saves p, and uses its ds scratch, as (B, H, T, T) with rows of T elements:
+its K4 is called through its own C interface with buffers made here (the
+partial-row scratch sized by its own ``vtt_block_attention_bwd_partial_floats``),
+its K3 through this checkout's wrappers with the library swapped. A
+``--variant`` is a copy of this checkout's sources with a tile, stage or
+loader choice edited (e.g. ``sed`` on a constant), run through this
+checkout's wrappers with the library swapped. Every build is compiled with
+nvcc into a temporary directory (all at once), its namespaces renamed
+(``-Dvtt=... -Dvtt_mma=...``: in two loaded libraries, symbols of one
+mangled name can resolve to one definition) and loaded beside this
+checkout's kernels, so all run in one process on one card; ptxas's
+registers and spills of each build's K3/K4 kernels are printed, the
+attention core's (``attn_*``) apart.
 
 Cases, bf16 unless named: vit_b_16 (T = 197, D = 768, 12 heads, Dh = 3072)
 at batch 8 and 128 and at batch 8 in f32; convnext_t's four stages at batch
 128 (T = 56², 28², 14², 7²; D = 96, 192, 384, 768; Dh = 4·D; MLP half only,
-with γ_ls, drop path and a separate residual, as ConvNeXt calls it); and
+with γ_ls, drop path and a separate residual, as ConvNeXt calls it);
 cait_s_24's MLP half (T = 196, D = 384, Dh = 1536, γ_ls and drop path) at
-batch 128. For each: K3's and K4's inference forward, backward-save
-forward and backward, each other build and this checkout's in turns (other,
-this, this, other; CUDA events, mean of each pair), on the same tensors;
-each launch apart (torch.profiler, device ms per call by kernel name) and
-the template's TFLOP/s (the products' operations over the GEMM launches'
-time); outputs against the plain versions (max abs over max|plain|;
-reduced gradients by rel L2) and against the other builds; xhat and rstd
-bit-equal to the parent's; a second backward bit-equal to the first. At
-``CHAIN_CASES`` the same half-block through the port's module chain
-(``chip_smoke.time_chains``'s functions), the yardstick; the port never
-calls it. ``--quick`` runs vit_b_16 at batch 128 and convnext_t stage 1
-only. Prints one line per timing and one JSON line; writes
+batch 128; and, attention half only, vit_l_16 (D = 1024, 16 heads, T = 197)
+at batch 32 and vit_b_16's widths at T = 512, batch 8. For each: K3's and
+K4's inference forward, backward-save forward and backward, each other
+build and this checkout's in turns (other, this, this, other; CUDA events,
+mean of each pair), on the same tensors; each launch apart (torch.profiler,
+device ms per call by kernel name) and the template's TFLOP/s (the
+products' operations over the GEMM launches' time); for K4 its attention
+core apart (the served and the save forward's core, the backward's rows
+and keys passes), its bound, and torch's scaled_dot_product_attention on
+the same q, k, v (forward, and backward as forward + backward less the
+forward; device ms), the yardstick, used nowhere in the port; outputs
+against the plain versions (max abs over max|plain|; reduced gradients,
+and for K4 out, p, dx, dq, dk, dv, by rel L2) and against the other
+builds; xhat and rstd bit-equal to the parent's; a second backward
+bit-equal to the first. At ``CHAIN_CASES`` the same half-block through the
+port's module chain (``chip_smoke.time_chains``'s functions), the
+yardstick; the port never calls it. ``--quick`` runs vit_b_16 at batch 128
+and convnext_t stage 1 only; ``--core`` K4 alone at the four core shapes
+(``CORE``). Prints one line per timing and one JSON line; writes
 ``chiprun_out/ab_block_kernels.json``. Needs a CUDA card.
 """
 
@@ -64,8 +73,12 @@ CASES = {
                                          "ls+dp+residual")
        for i, (h, d) in enumerate(((56, 96), (28, 192), (14, 384), (7, 768)))},
     "cait_s_24_b128": (128, 196, 384, 1536, None, torch.bfloat16, "ls+dp"),
+    # the attention half alone (Dh None): vit_l_16 and vit_b_16's widths at T = 512
+    "vit_l_16_b32": (32, 197, 1024, None, 16, torch.bfloat16, ""),
+    "vit_b_16_t512_b8": (8, 512, 768, None, 12, torch.bfloat16, ""),
 }
 QUICK = ("vit_b_16_b128", "convnext_t_stage1_b128")
+CORE = ("vit_b_16_b128", "vit_b_16_b8", "vit_l_16_b32", "vit_b_16_t512_b8")
 PROFILED = 5
 
 
@@ -137,38 +150,23 @@ def start_build(name: str, src: Path) -> tuple[Path, subprocess.Popen]:
     out = work / "libk34.so"
     # a namespace of its own: kernels of one name in two loaded libraries
     # would otherwise resolve to one definition
-    cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-Dvtt=vtt_{re.sub(r'\W', '_', name)}", "-shared",
-           "-o", str(out), *(str(work / s) for s in SOURCES)]
+    tag = re.sub(r"\W", "_", name)
+    cmd = [_cuda._nvcc(), *_cuda.NVCC_FLAGS, f"-Dvtt=vtt_{tag}", f"-Dvtt_mma=vtt_mma_{tag}",
+           "-shared", "-o", str(out), *(str(work / s) for s in SOURCES)]
     return out, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the first design's C interface (no scratch pointers)
-PARENT_SIGNATURES = {
-    "vtt_error_string": ((I,), ctypes.c_char_p),
-    "vtt_block_mlp_fwd": ((P, P, P, P, I, P, I, P, I, P, P, I, P, P, I, P, I, P, P, P, P, P,
-                           I, I, I, I, F, P), I),
-    "vtt_block_mlp_bwd": ((P, I, P, P, P, P, P, P, P, I, P, I, P, P, P, P, P, P, P, P, P, P,
-                           I, I, I, I, I, P), I),
-    "vtt_block_attention_fwd": ((P, P, P, P, P, P, I, P, I, P, I, P, P, I, P, P, I, P, P, I,
-                                 P, P, I, P, I, P, P, P, P, P, I, I, I, I, F, F, P), I),
-    "vtt_block_attention_bwd": ((P, I, P, P, P, P, P, P, P, P, P, P, I, P, I, P, P, P, P, P,
-                                 P, P, P, P, P, P, P, I, I, I, I, F, P), I),
-}
-
-
-def load_build(name: str, out: Path, proc: subprocess.Popen, parent: bool):
+def load_build(name: str, out: Path, proc: subprocess.Popen):
     from vision_toolbox_tpu_torch.ops import _cuda
 
     log = proc.communicate()[0]
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed on {name}:\n{log[-4000:]}")
     lib = ctypes.CDLL(str(out))
-    sigs = PARENT_SIGNATURES if parent else {
-        k: v for k, v in _cuda._SIGNATURES.items() if hasattr(lib, k)}
-    for fn, (argtypes, restype) in sigs.items():
-        getattr(lib, fn).argtypes = list(argtypes)
-        getattr(lib, fn).restype = restype
+    for fn, (argtypes, restype) in _cuda._SIGNATURES.items():
+        if hasattr(lib, fn):
+            getattr(lib, fn).argtypes = list(argtypes)
+            getattr(lib, fn).restype = restype
     return lib, ptxas(log)
 
 
@@ -184,89 +182,53 @@ def stream():
     return torch.cuda.current_stream().cuda_stream
 
 
-def parent_calls(lib, kind: str, a: dict, dout: torch.Tensor):
-    """(inference, save-forward, backward, results) of the first design on
-    the operands ``a``: its C interface, buffers made here. ``results()``
+def parent_attention_calls(lib, a: dict, dout: torch.Tensor):
+    """(inference, save-forward, backward, results) of an earlier K4 whose p
+    and ds scratch are (B, H, T, T) with rows of T elements, through its C
+    interface on the operands ``a``, buffers made here; ``results()``
     returns the last outputs: out, the saves, the backward's tensors."""
     x = a["x"]
     B, T, D = x.shape
+    H = a["n_heads"]
     dev, bf = x.device, lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=x.device)
     xb = int(x.dtype == torch.bfloat16)
-    wb = lambda k: a[k].to(torch.bfloat16).contiguous()
+    ws = [a[f"w{n}"].to(torch.bfloat16).contiguous() for n in "qkvo"]
+    wqkv = torch.cat(ws[:3])
     dp = None if a.get("dp_scale") is None else a["dp_scale"].float().contiguous()
-    out = torch.empty_like(x)
-    rstd = torch.empty(B, T, 1, device=dev)
-    f32 = lambda n: torch.zeros(n, device=dev)
-    if kind == "mlp":
-        Dh = a["w1"].shape[0]
-        w1, w2 = wb("w1"), wb("w2")
-        res = x if a.get("residual") is None else a["residual"]
-        g, xhat, h = bf(B, T, Dh), bf(B, T, D), bf(B, T, Dh)
-        mlpout = None if a.get("ls_gamma") is None else bf(B, T, D)
-        dx, dh, douts, dy2 = torch.empty_like(x), bf(B, T, Dh), bf(B, T, D), \
-            torch.empty(B, T, D, device=dev)
-        sums = [f32(Dh), f32(D), f32(D), f32(D), f32(D)]
+    out, y, qkvo = torch.empty_like(x), bf(B, T, D), bf(4, B, T, D)
+    xhat, rstd, p = bf(B, T, D), torch.empty(B, T, 1, device=dev), bf(B, H, T, T)
+    proj = None if a.get("ls_gamma") is None else bf(B, T, D)
+    dx, dqkv = torch.empty_like(x), bf(B, T, 3 * D)
+    douts, do, ds, dy = bf(B, T, D), bf(B, T, D), bf(B, H, T, T), \
+        torch.empty(B, T, D, device=dev)
+    f32 = lambda n: torch.empty(n, device=dev)
+    sums = [f32(3 * D), f32(D), f32(D), f32(D), None if proj is None else f32(D)]
+    partials = f32(lib.vtt_block_attention_bwd_partial_floats(B, T, D))
+    scale = float((D // H) ** -0.5)
 
-        def fwd(save):
-            s = (xhat, rstd, h, mlpout) if save else (None,) * 4
-            err = lib.vtt_block_mlp_fwd(
-                ptr(x), ptr(res), ptr(out), ptr(g), xb, *vec(a["ln_scale"]), *vec(a["ln_bias"]),
-                ptr(w1), *vec(a["b1"]), ptr(w2), *vec(a["b2"]), *vec(a.get("ls_gamma")), ptr(dp),
-                *map(ptr, s), B * T, T, D, Dh, 1e-6, stream())
-            assert err == 0, err
+    def fwd(save):
+        s = (xhat, rstd, p, proj) if save else (None,) * 4
+        err = lib.vtt_block_attention_fwd(
+            ptr(x), ptr(out), *map(ptr, qkvo), xb, *vec(a["ln_scale"]), *vec(a["ln_bias"]),
+            ptr(ws[0]), *vec(a["bq"]), ptr(ws[1]), *vec(a["bk"]), ptr(ws[2]), *vec(a["bv"]),
+            ptr(ws[3]), *vec(a["bo"]), *vec(a.get("ls_gamma")), ptr(dp), *map(ptr, s), ptr(y),
+            B, T, D, H, scale, 1e-6, stream())
+        assert err == 0, err
 
-        def bwd():
-            for t in sums:
-                t.zero_()
-            err = lib.vtt_block_mlp_bwd(
-                ptr(dout), xb, ptr(xhat), ptr(rstd), ptr(h), ptr(mlpout), ptr(w1), ptr(w2),
-                *vec(a["ln_scale"]), *vec(a.get("ls_gamma")), ptr(dp), ptr(dx), ptr(dh),
-                ptr(douts), ptr(dy2), *map(ptr, sums), int(a.get("residual") is not None),
-                B * T, T, D, Dh, stream())
-            assert err == 0, err
+    def bwd():
+        err = lib.vtt_block_attention_bwd(
+            ptr(dout), xb, ptr(xhat), ptr(rstd), *map(ptr, qkvo[:3]), ptr(p), ptr(proj),
+            ptr(ws[3]), ptr(wqkv), *vec(a["ln_scale"]), *vec(a.get("ls_gamma")), ptr(dp),
+            ptr(dx), ptr(dqkv), ptr(douts), ptr(do), ptr(ds), ptr(dy), *map(ptr, sums),
+            ptr(partials), partials.numel(), B, T, D, H, scale, stream())
+        assert err == 0, err
 
-        def results():
-            return dict(out=out, xhat=xhat, rstd=rstd, h=h, g=g, dx=dx, dh=dh, db1=sums[0],
-                        db2=sums[1], dln_scale=sums[2], dln_bias=sums[3])
-    else:
-        H = a["n_heads"]
-        ws = [wb(f"w{n}") for n in "qkvo"]
-        wqkv = torch.cat(ws[:3])
-        qkvo = torch.empty(4, B, T, D, dtype=torch.bfloat16, device=dev)
-        xhat, p = bf(B, T, D), bf(B, H, T, T)
-        proj = None if a.get("ls_gamma") is None else bf(B, T, D)
-        dx, dqkv = torch.empty_like(x), bf(B, T, 3 * D)
-        douts, do, ds, dy = bf(B, T, D), bf(B, T, D), bf(B, H, T, T), \
-            torch.empty(B, T, D, device=dev)
-        sums = [f32(3 * D), f32(D), f32(D), f32(D), None if proj is None else f32(D)]
-        scale = float((D // H) ** -0.5)
-
-        def fwd(save):
-            s = (xhat, rstd, p, proj) if save else (None,) * 4
-            err = lib.vtt_block_attention_fwd(
-                ptr(x), ptr(out), *map(ptr, qkvo), xb, *vec(a["ln_scale"]), *vec(a["ln_bias"]),
-                ptr(ws[0]), *vec(a["bq"]), ptr(ws[1]), *vec(a["bk"]), ptr(ws[2]), *vec(a["bv"]),
-                ptr(ws[3]), *vec(a["bo"]), *vec(a.get("ls_gamma")), ptr(dp), *map(ptr, s),
-                B, T, D, H, scale, 1e-6, stream())
-            assert err == 0, err
-
-        def bwd():
-            for t in sums:
-                if t is not None:
-                    t.zero_()
-            err = lib.vtt_block_attention_bwd(
-                ptr(dout), xb, ptr(xhat), ptr(rstd), *map(ptr, qkvo[:3]), ptr(p), ptr(proj),
-                ptr(ws[3]), ptr(wqkv), *vec(a["ln_scale"]), *vec(a.get("ls_gamma")), ptr(dp),
-                ptr(dx), ptr(dqkv), ptr(douts), ptr(do), ptr(ds), ptr(dy), *map(ptr, sums),
-                B, T, D, H, scale, stream())
-            assert err == 0, err
-
-        def results():
-            dq, dk, dv = dqkv.split(D, dim=-1)
-            dbq, dbk, dbv = sums[0].split(D)
-            return dict(out=out, xhat=xhat, rstd=rstd, q=qkvo[0], k=qkvo[1], v=qkvo[2],
-                        p=p, dx=dx, dq=dq, dk=dk, dv=dv, dbq=dbq, dbk=dbk, dbv=dbv,
-                        dbo=sums[1], dln_scale=sums[2], dln_bias=sums[3])
+    def results():
+        dq, dk, dv = dqkv.split(D, dim=-1)
+        dbq, dbk, dbv = sums[0].split(D)
+        return dict(out=out, xhat=xhat, rstd=rstd, q=qkvo[0], k=qkvo[1], v=qkvo[2],
+                    o=qkvo[3], p=p, proj=proj, dx=dx, dq=dq, dk=dk, dv=dv, dbq=dbq, dbk=dbk,
+                    dbv=dbv, dbo=sums[1], dln_scale=sums[2], dln_bias=sums[3], dls=sums[4])
     return (lambda: fwd(False)), (lambda: fwd(True)), bwd, results
 
 
@@ -381,7 +343,62 @@ def second_run(backward, results) -> tuple[dict, dict]:
 BIT_EQUAL = ("dx", "dh", "dq", "dk", "dv", *REDUCED)
 
 
-def run_case(label, case, builds, report, name_power, chain):
+CORE_PARTS = {"forward": ("attn_kernel",), "rows": ("attn_bwd_dq", "attn_bwd_rows"),
+              "keys": ("attn_bwd_dkv", "attn_bwd_keys")}
+CORE_RELS = ("out", "p", "dx", "dq", "dk", "dv")
+
+
+def core_ms(parts: dict[str, float]) -> dict[str, float]:
+    """K4's attention-core launches among ``parts``: device ms of each part."""
+    return {k: sum(ms for n, ms in parts.items() if n.startswith(pre))
+            for k, pre in CORE_PARTS.items() if any(n.startswith(pre) for n in parts)}
+
+
+def core_bound(B: int, T: int, D: int, H: int) -> dict[str, float]:
+    """The core's least ms (bytes over 3.35 TB/s; its products over 989
+    TFLOP/s are below them at every shape here): the served forward reads
+    q, k, v and writes o; the save forward also writes p; the backward reads
+    do, q, k, v and p and writes dq, dk and dv (the ds round trip, which the
+    split into two passes adds, not counted)."""
+    qkv, p = B * T * D * 2, B * H * T * T * 2
+    return {"forward": 4 * qkv / 3.35e9, "save_forward": (4 * qkv + p) / 3.35e9,
+            "backward": (7 * qkv + p) / 3.35e9}
+
+
+def device_ms(fn, calls: int = PROFILED) -> float:
+    """Device ms per call of every kernel ``fn`` launches."""
+    return sum(kernel_parts(fn, calls).values())
+
+
+def sdpa_ms(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, H: int) -> dict[str, float]:
+    """torch's scaled_dot_product_attention on the (B, T, D) q, k, v as
+    (B, H, T, D / H) views: the forward's and the backward's device ms (the
+    backward as forward + backward less the forward), the yardstick."""
+    import torch.nn.functional as F
+
+    B, T, D = q.shape
+    heads = lambda t: t.view(B, T, H, D // H).transpose(1, 2)
+    q, k, v = map(heads, (q, k, v))
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    go = torch.randn_like(q)
+    fwd = lambda: F.scaled_dot_product_attention(q, k, v)
+    both = lambda: torch.autograd.grad(F.scaled_dot_product_attention(*leaves), leaves, go)
+    f_ms = device_ms(fwd)
+    return {"forward": f_ms, "backward": device_ms(both) - f_ms}
+
+
+def rel_l2s(got: dict, want: dict, names=CORE_RELS) -> dict[str, float]:
+    """rel L2 to the plain versions of K4's elementwise outputs."""
+    out = {}
+    for n in names:
+        if got.get(n) is None or want.get(n) is None:
+            continue
+        a, b = got[n].float(), want[n].float()
+        out[n] = ((a - b).norm() / b.norm().clamp_min(1e-30)).item()
+    return out
+
+
+def run_case(label, case, builds, report, name_power, chain, kinds_wanted):
     """One shape: the timings in turns first (other, this, this, other), then
     each launch apart, then the outputs against each other and the plain
     versions."""
@@ -392,7 +409,8 @@ def run_case(label, case, builds, report, name_power, chain):
 
     B, T, D, Dh, H, dtype, extras = case
     g = torch.Generator().manual_seed(13)
-    kinds = ["mlp"] + (["attention"] if H else [])
+    kinds = [k for k in (["mlp"] if Dh else []) + (["attention"] if H else [])
+             if k in kinds_wanted]
     iters = 5 if B * T > 100_000 else 10 if B >= 32 else 20
     row = {"shape": dict(B=B, T=T, D=D, Dh=Dh, heads=H, dtype=str(dtype).split(".")[-1],
                          extras=extras), "kinds": {}}
@@ -408,8 +426,8 @@ def run_case(label, case, builds, report, name_power, chain):
         this_fns = this_calls(kind, a, dout)
         others = {}
         for bname, lib, parent in builds:
-            if parent:
-                others[bname] = parent_calls(lib, kind, a, dout)
+            if parent and kind == "attention":
+                others[bname] = parent_attention_calls(lib, a, dout)
                 continue
 
             def on(fn, lib=lib):  # this checkout's wrappers, the other build's library
@@ -446,23 +464,49 @@ def run_case(label, case, builds, report, name_power, chain):
         fl = flops(kind, B, T, D, Dh)
         for who, fns in (("this", this_fns), *others.items()):
             dest = krow["this"] if who == "this" else krow["others"][who]
+            core = {}
             for k, what in enumerate(("forward", "save_forward", "backward")):
                 parts = kernel_parts(fns[k])
                 dest[f"{what}_parts_ms"] = parts
                 dest[f"{what}_template_tflops"] = template_tflops(parts, fl)
+                if kind == "attention":
+                    core |= {("save_forward" if what == "save_forward" and p == "forward" else p):
+                             ms for p, ms in core_ms(parts).items()}
+            if kind == "attention":
+                dest["core_ms"] = core
+                print(f"[core] {label} {who}: served forward {core.get('forward', 0):.4f} ms, "
+                      f"save forward {core.get('save_forward', 0):.4f}, rows pass "
+                      f"{core.get('rows', 0):.4f}, keys pass {core.get('keys', 0):.4f}  "
+                      f"[{name_power}]", flush=True)
         first, second = second_run(this_fns[2], this_fns[3])
         this = krow["this"]
         this["second_backward_bit_equal"] = {
             n: bool(torch.equal(first[n], second[n])) for n in BIT_EQUAL if n in first}
+        if kind == "attention":
+            krow["core_bound_ms"] = core_bound(B, T, D, H)
+            krow["sdpa_ms"] = sdpa_ms(first["q"], first["k"], first["v"], H)
+            print(f"[core] {label} bound {krow['core_bound_ms']}, SDPA on the same q, k, v "
+                  f"{krow['sdpa_ms']}  [{name_power}]", flush=True)
         saves_t = bm.MLPSaves if kind == "mlp" else ba.AttnSaves
         want = plain_results(kind, a, dout, saves_t(*(first.get(f) for f in saves_t._fields)))
         this["vs_plain"] = compare(first, want)
+        if kind == "attention":
+            this["rel_l2_vs_plain"] = rel_l2s(first, want)
+            print(f"[rel-l2] {label} this: {this['rel_l2_vs_plain']}", flush=True)
         for bname, ofns in others.items():
             ofirst, osecond = second_run(ofns[2], ofns[3])
             orow = krow["others"][bname]
             orow["second_backward_bit_equal"] = all(
                 torch.equal(ofirst[n], osecond[n]) for n in ofirst if n in BIT_EQUAL)
-            orow["vs_plain"] = compare(ofirst, want)
+            if kind == "attention":  # the plain backward from this build's saves, p its own
+                owant = plain_results(kind, a, dout,
+                                      saves_t(*(ofirst.get(f) for f in saves_t._fields)))
+                orow["vs_plain"] = compare(ofirst, owant)
+                orow["rel_l2_vs_plain"] = rel_l2s(ofirst, owant)
+                print(f"[rel-l2] {label} {bname}: {orow['rel_l2_vs_plain']}", flush=True)
+                del owant
+            else:
+                orow["vs_plain"] = compare(ofirst, want)
             orow["this_vs_other"] = compare(first, ofirst)
             orow["xhat_rstd_bit_equal"] = bool(torch.equal(first["xhat"], ofirst["xhat"])
                                                and torch.equal(first["rstd"], ofirst["rstd"]))
@@ -484,7 +528,9 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--parent", type=Path, default=None)
     parser.add_argument("--variant", action="append", default=[], metavar="NAME=DIR")
-    parser.add_argument("--quick", action="store_true")
+    mode = parser.add_mutually_exclusive_group()
+    mode.add_argument("--quick", action="store_true")
+    mode.add_argument("--core", action="store_true")
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
     import chip_smoke
@@ -500,10 +546,12 @@ def main() -> int:
     this_ptxas = ptxas((_cuda.library_path().parent / "build.log").read_text())
     report = {"card": name_power, "this": {"ptxas": this_ptxas}, "others": {}, "cases": {}}
     print(f"[ptxas] this: {'; '.join(this_ptxas)}", flush=True)
+    print(f"[ptxas-core] this: {'; '.join(r for r in this_ptxas if 'attn' in r)}",
+          flush=True)
     builds = []
     for name, parent, out, proc in started:
         try:
-            lib, regs = load_build(name, out, proc, parent)
+            lib, regs = load_build(name, out, proc)
         except RuntimeError as e:  # a variant that does not build is reported, not timed
             if parent:
                 raise
@@ -512,15 +560,19 @@ def main() -> int:
             continue
         report["others"][name] = {"ptxas": regs}
         print(f"[ptxas] {name}: {'; '.join(regs)}", flush=True)
+        print(f"[ptxas-core] {name}: {'; '.join(r for r in regs if 'attn' in r)}", flush=True)
         builds.append((name, lib, parent))
     chain_report: dict = {}
     chip_smoke.time_chains(chain_report, name_power)
     chain = {(r["half"], r["B"], r["T"], r["D"]): r for r in chain_report["chain_times"]}
     report["chain"] = chain_report["chain_times"]
+    kinds = ("attention",) if args.core else ("mlp", "attention")
     for label, case in CASES.items():
-        if args.quick and label not in QUICK:
+        if args.quick and label not in QUICK or args.core and label not in CORE:
             continue
-        run_case(label, case, builds, report, name_power, chain)
+        if not args.core and case[3] is None:  # the attention-only core shapes
+            continue
+        run_case(label, case, builds, report, name_power, chain, kinds)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "ab_block_kernels.json").write_text(json.dumps(report, indent=1))

@@ -81,10 +81,11 @@ def test_dispatch_rules():
     assert not port.use_fused_attention(768, 12, 197, 0.0, False)  # no bias
     assert not port.use_fused_attention(768, 32, 197, 0.0, True)  # head_dim 24: not 16-wide
     assert not port.use_fused_attention(768, 3, 197, 0.0, True)  # head_dim 256 > 128
-    # head_dim 128 at T=512: K/V, logits and probs need 241.5 KB of shared memory
-    assert port._attn_smem_bytes(512, 128) > port.SMEM_LIMIT
+    # head_dim 128 at T=512: the shape term (the first design's K/V, logits
+    # and probs) counts 241.5 KB of shared memory
+    assert port._shape_term_bytes(512, 128) > port.SMEM_LIMIT
     assert not port.use_fused_attention(1024, 8, 512, 0.0, True)
-    assert port._attn_smem_bytes(197, 64) == 75520
+    assert port._shape_term_bytes(197, 64) == 75520
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -125,8 +126,8 @@ def test_wrappers_hand_the_kernels_their_scratch(monkeypatch, B, T, D, H, ls):
     D) y scratch, and the backward's f32 scratch of column-sum partial rows,
     one row per block of each kernel that writes them (block_bwd.cuh's
     DOUTS_ROWS and LN_ROWS rows; dbq/dbk/dbv a 3·D-wide row per image and
-    32-row tile of block_attention_bwd.cu), its size passed beside it; the
-    column sums themselves are not pre-zeroed."""
+    PARTIAL_ROWS-row tile of block_attention_bwd.cu), its size passed beside
+    it; the column sums themselves are not pre-zeroed."""
     lib = fake_card(monkeypatch)
     g = torch.Generator().manual_seed(D)
     r = lambda *s: torch.randn(s, generator=g, dtype=torch.float32).to(torch.bfloat16)
@@ -143,8 +144,81 @@ def test_wrappers_hand_the_kernels_their_scratch(monkeypatch, B, T, D, H, ls):
     partials, count = args[-8], args[-7]
     M = B * T
     cdiv = lambda a, b: -(-a // b)
-    tile = csrc_constant("BQ", "block_attention_bwd.cu")
-    assert tile == csrc_constant("BK2", "block_attention_bwd.cu")
+    tile = csrc_constant("PARTIAL_ROWS", "block_attention_bwd.cu")
     rows = {n: cdiv(M, csrc_constant(n, "block_bwd.cuh")) for n in ("DOUTS_ROWS", "LN_ROWS")}
     want = 2 * rows["DOUTS_ROWS"] * D + B * cdiv(T, tile) * 3 * D + 2 * rows["LN_ROWS"] * D
     assert partials.dtype == torch.float32 and partials.numel() == count == want
+
+
+def _first_design_admits(d_model: int, n_heads: int, t: int) -> bool:
+    """The kernel gate as the first design defined it: its shared memory
+    (K then V, a 32-row query tile, f32 logits, bf16 probabilities) within
+    227 KB, a copy of the formula kept to hold the admitted set."""
+    hd = d_model // n_heads
+    sp = -(-t // 16) * 16
+    smem = (sp * (hd + 8) * 2 + 32 * (hd + 8) * 2 + 32 * (max(sp, hd) + 4) * 4
+            + 32 * (sp + 8) * 2)
+    return (d_model % 64 == 0 and hd % 16 == 0 and hd <= 128 and 1 <= t <= 512
+            and smem <= 227 * 1024)
+
+
+@pytest.mark.parametrize("t", [2, 16, 197, 480, 481, 512, 513])
+@pytest.mark.parametrize("d_model", [384, 768, 1024])
+def test_gate_admits_the_set_it_admitted(d_model, t):
+    """The register-tile core keeps no score block in shared memory, yet the
+    gate admits exactly the shapes it admitted before: every head width 16 …
+    128 that divides d_model, at each T."""
+    for hd in range(16, 129, 16):
+        if d_model % hd:
+            continue
+        h = d_model // hd
+        want = _first_design_admits(d_model, h, t)
+        assert port._kernel_admits(d_model, h, t) == want, (hd, t)
+        rule = d_model % 128 == 0 and 2 <= t <= 512 and port._head_splits(d_model, h, t) > 0
+        assert port.use_fused_attention(d_model, h, t, 0.0, True) == (want and rule), (hd, t)
+
+
+@pytest.mark.parametrize("B,T,D", [(1, 2, 128), (2, 197, 768), (3, 50, 256), (4, 512, 1024)])
+def test_bwd_partial_floats_follow_the_c_layout(B, T, D):
+    """``_bwd_partial_floats`` is block_attention_bwd.cu's ``partial_floats``:
+    dbo and dγ_ls a row per DOUTS_ROWS rows, dbq/dbk/dbv a 3·D-wide row per
+    image and PARTIAL_ROWS-row tile (the core's warps of 16 rows, query rows
+    in the rows pass and key rows in the keys pass), dγ_ln and dβ_ln a row
+    per LN_ROWS rows."""
+    rows = {n: csrc_constant(n, "block_bwd.cuh") for n in ("DOUTS_ROWS", "LN_ROWS")}
+    tile = csrc_constant("PARTIAL_ROWS", "block_attention_bwd.cu")
+    assert tile == 16
+    cdiv = lambda a, b: -(-a // b)
+    M = B * T
+    want = (2 * cdiv(M, rows["DOUTS_ROWS"]) * D + B * cdiv(T, tile) * 3 * D
+            + 2 * cdiv(M, rows["LN_ROWS"]) * D)
+    assert port._bwd_partial_floats(B, T, D) == want
+
+
+@pytest.mark.parametrize("T", [50, 64])
+def test_saved_p_rows_are_padded_to_16_bytes(monkeypatch, T):
+    """The save forward hands the kernel a (B, H, T, Tp) p, Tp = T rounded
+    up to 8, and keeps its [..., :T] view as the save; the backward reads that
+    tensor in place, pads a p made elsewhere (the plain save forward's) with
+    zeros, and gives its ds scratch the same rows."""
+    lib = fake_card(monkeypatch)
+    B, D, H = 2, 128, 2
+    tp = -(-T // 8) * 8
+    g = torch.Generator().manual_seed(T)
+    r = lambda *s: torch.randn(s, generator=g, dtype=torch.float32).to(torch.bfloat16)
+    x = r(B, T, D)
+    wb = [t for _ in range(4) for t in (r(D, D), r(D))]
+    _, saves = port.fused_attention_save_cuda(x, r(D), r(D), *wb, H)
+    p_arg = lib.calls["vtt_block_attention_fwd"][-10]
+    assert p_arg.shape == (B, H, T, tp) and p_arg.is_contiguous()
+    assert saves.p.shape == (B, H, T, T) and saves.p.stride() == (H * T * tp, T * tp, tp, 1)
+    assert saves.p.data_ptr() == p_arg.data_ptr()
+    port.fused_attention_bwd_cuda(x, saves, *wb[::2], r(D), None, None, H)
+    args = lib.calls["vtt_block_attention_bwd"]
+    assert args[7].data_ptr() == p_arg.data_ptr() and args[7].shape == (B, H, T, tp)
+    assert args[20].shape == (B, H, T, tp)
+    plain = r(B, H, T, T)
+    port.fused_attention_bwd_cuda(x, saves._replace(p=plain), *wb[::2], r(D), None, None, H)
+    padded = lib.calls["vtt_block_attention_bwd"][7]
+    assert padded.shape == (B, H, T, tp) and torch.equal(padded[..., :T], plain)
+    assert not padded[..., T:].any()

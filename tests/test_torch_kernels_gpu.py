@@ -14,8 +14,11 @@ gradient is allowed its ulp). Reduced and weight gradients of the backward
 kernels, whose column sums add block partials in another order than the
 plain versions': rel L2 ≤ 1e-2; since the K3/K4 redesign they add them in
 a fixed order, so a second backward is bit-equal to the first, and TMA's
-16-byte alignment is held at the entries. The backward is compared from one set of saves (the
-kernel forward's) and one output cotangent. The three-shear warp (K1) forms
+16-byte alignment is held at the entries; K4's attention core (register
+tiles, p and ds one bf16 plane) is held at T = 2, 197, 512 and head 128 at
+T = 480 and at every head width over lengths across its geometry, its
+saved p against the plain version's. The backward is compared from one set
+of saves (the kernel forward's) and one output cotangent. The three-shear warp (K1) forms
 every value with the same f32 operations as its plain version: max abs error
 ≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) hold
 every intermediate in f32 like their plain versions (their products on
@@ -287,6 +290,89 @@ def test_block_backward_is_bit_equal_when_run_again(cuda, kind, B, T, D, extras)
     torch.cuda.synchronize()
     for name, a, b in zip(first._fields, first, second):
         assert (a is None) == (b is None), name
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("B,T,D,H", [(4, 2, 128, 2), (3, 197, 768, 12), (1, 512, 128, 2),
+                                     (1, 480, 256, 2)])
+def test_attention_core_matches_plain_and_repeats(cuda, B, T, D, H):
+    """K4's register-tile core at its corners, bf16: T = 2 (one mostly masked
+    16-row tile), 197 (two warps share each row tile's keys), 512 (four),
+    and head 128 at T = 480 (eight warps a row tile, V following K into one
+    buffer): the save forward and the backward against their plain versions,
+    the saved p and the plain version's p, and a second backward bit-equal
+    to the first."""
+    assert ba.use_fused_attention(D, H, T, 0.0, True)
+    _attention_backward_matches_plain(cuda, torch.bfloat16, B, T, D, H, True)
+    g = torch.Generator().manual_seed(T)
+    to = lambda t: t.to(cuda, torch.bfloat16)
+    x = to(_rand(g, B, T, D))
+    ln = [to(_rand(g, D, scale=0.1, shift=1.0)), to(_rand(g, D, scale=0.1))]
+    wb = [to(_rand(g, *s, scale=D**-0.5 if len(s) > 1 else 0.1))
+          for _ in range(4) for s in ((D, D), (D,))]
+    _, saves = ba.fused_attention_save_cuda(x, *ln, *wb, H)
+    _, want = ba.fused_attention_save_plain(x, *ln, *wb, H)
+    _check(saves.p, want.p)
+    dout = to(_rand(g, B, T, D))
+    first = ba.fused_attention_bwd_cuda(dout, saves, *wb[::2], ln[0], None, None, H)
+    second = ba.fused_attention_bwd_cuda(dout, saves, *wb[::2], ln[0], None, None, H)
+    torch.cuda.synchronize()
+    for name, a, b in zip(first._fields, first, second):
+        if a is not None:
+            assert torch.equal(a, b), name
+
+
+def test_attention_core_runs_every_admitted_shape(cuda):
+    """Every head width 16 … 128 at lengths across the core's geometry
+    (one to eight warps a row tile, K and V side by side or in one buffer):
+    each shape the kernel gate admits runs its save forward and backward,
+    within the bf16 bound of the plain versions (out, p, dx, dq, dk, dv)."""
+    g = torch.Generator().manual_seed(5)
+    to = lambda t: t.to(cuda, torch.bfloat16)
+    heads = {16: 4, 32: 2, 48: 4, 64: 1, 80: 4, 96: 2, 112: 4, 128: 1}
+    ran = 0
+    for hd, H in heads.items():
+        D = hd * H
+        for T in (2, 17, 100, 128, 129, 255, 257, 385, 448, 480, 481, 497, 512):
+            if not ba._kernel_admits(D, H, T):
+                continue
+            x = to(_rand(g, 1, T, D))
+            ln = [to(_rand(g, D, scale=0.1, shift=1.0)), to(_rand(g, D, scale=0.1))]
+            wb = [to(_rand(g, *s, scale=D**-0.5 if len(s) > 1 else 0.1))
+                  for _ in range(4) for s in ((D, D), (D,))]
+            out, saves = ba.fused_attention_save_cuda(x, *ln, *wb, H)
+            want_out, want_saves = ba.fused_attention_save_plain(x, *ln, *wb, H)
+            dout = to(_rand(g, 1, T, D))
+            got = ba.fused_attention_bwd_cuda(dout, saves, *wb[::2], ln[0], None, None, H)
+            want = ba.fused_attention_bwd_plain(dout, saves, *wb[::2], ln[0], None, None, H)
+            torch.cuda.synchronize()
+            _check(out, want_out)
+            _check(saves.p, want_saves.p)
+            for n in ("dx", "dq", "dk", "dv"):
+                _check(getattr(got, n).contiguous(), getattr(want, n))
+            ran += 1
+    assert ran >= 90, ran
+
+
+def test_attention_backward_reads_a_contiguous_p(cuda):
+    """A p saved elsewhere, (B, H, T, T) contiguous, is padded for the
+    kernels and gives the backward the kernel forward's own saves give."""
+    g = torch.Generator().manual_seed(11)
+    B, T, D, H = 2, 77, 256, 4
+    to = lambda t: t.to(cuda, torch.bfloat16)
+    x = to(_rand(g, B, T, D))
+    ln = [to(_rand(g, D, scale=0.1, shift=1.0)), to(_rand(g, D, scale=0.1))]
+    wb = [to(_rand(g, *s, scale=D**-0.5 if len(s) > 1 else 0.1))
+          for _ in range(4) for s in ((D, D), (D,))]
+    _, saves = ba.fused_attention_save_cuda(x, *ln, *wb, H)
+    assert not saves.p.is_contiguous()
+    dout = to(_rand(g, B, T, D))
+    got = ba.fused_attention_bwd_cuda(dout, saves._replace(p=saves.p.contiguous()), *wb[::2],
+                                      ln[0], None, None, H)
+    want = ba.fused_attention_bwd_cuda(dout, saves, *wb[::2], ln[0], None, None, H)
+    torch.cuda.synchronize()
+    for name, a, b in zip(got._fields, got, want):
         if a is not None:
             assert torch.equal(a, b), name
 

@@ -7,7 +7,8 @@
 // `_run_attn` (`_fwd_kernel`), reached through `fused_attention_block`:
 // inference (save=False) when the caller passes null save pointers, and the
 // backward-save variant (save=True), which also writes xhat (bf16), rstd
-// (f32), the softmax probabilities p (B, H, T, T) bf16 and, with γ_ls, the
+// (f32), the softmax probabilities p (B, H, T, Tp) bf16 (rows of Tp = T
+// rounded up to 8 elements, the last Tp − T zero) and, with γ_ls, the
 // pre-scale projection (bf16) for block_attention_bwd.cu; q/k/v/o, the
 // other saves, go through device memory in both variants.
 //
@@ -21,140 +22,50 @@
 //   (ii)  the q/k/v projections of y: one launch of the GEMM template
 //         (gemm.cuh: wgmma tiles, TMA loads), the three products' column
 //         tiles side by side; q/k/v (bf16) go to device memory;
-//   (iii) attention, this file: one block per (query tile of 32 rows, head,
-//         image); all S keys of the image sit in shared memory, logits and
-//         softmax in f32, p rounded to bf16, o = p·v rounded to bf16 and
-//         written to device memory (wmma tiles; the first design's, not yet
-//         moved to the register tiles). Attention never crosses images;
+//   (iii) the attention core (block_attention.cuh: mma.sync register tiles,
+//         p and o out with 16-byte stores): per (image, head) all T keys,
+//         logits and softmax in f32, p rounded to bf16 (saved, save
+//         variant), o = p·v rounded to bf16 to device memory. Attention
+//         never crosses images;
 //   (iv)  o·Woᵀ + bo with the dp·γ_ls scale and the residual add in the
 //         epilogue (the GEMM template again).
-// What bounds it: the projections are compute-bound; the attention step at
-// T=197, head_dim 64 is small (≈ 2·2·T²·D flop per image) and bound by its
-// shared-memory traffic and the serial softmax. y/q/k/v/o (5·B·T·D bf16,
-// 12 MB at batch 8) make a round trip through device memory that the TPU
-// kernel kept on chip.
-#include <math.h>
-#include <mma.h>
-
+// What bounds it: the projections are compute-bound; the attention core at
+// vit_b_16 b128 moves q, k, v in and o and the saved p (B·H·T² bf16, 119 MB)
+// out: 274 MB, 0.082 ms at 3.35 TB/s, against 15.3 GFLOP of products
+// (0.015 ms), so its bytes bound it (block_attention.cuh says how it keeps
+// the scores in registers). y/q/k/v/o (5·B·T·D bf16, 12 MB at batch 8)
+// make a round trip through device memory that the TPU kernel kept on chip.
+#include "block_attention.cuh"
 #include "gemm.cuh"
 
 using namespace vtt;
 
 namespace {
 
-constexpr int BQ = 32;            // query rows per block
-constexpr int ATTN_THREADS = 128;  // four warps
+constexpr int MAX_SEQ = 512;
 
-__host__ __device__ inline int padded_keys(int t) { return (t + 15) / 16 * 16; }
-__host__ __device__ inline int logit_pitch(int sp, int hd) { return (sp > hd ? sp : hd) + 4; }
-
-// Shared memory of one attention block; ops/block_attention.py
-// `_attn_smem_bytes` mirrors this formula for the dispatch gate.
-size_t attn_smem_bytes(int t, int hd) {
-  const int sp = padded_keys(t);
-  return static_cast<size_t>(sp) * (hd + 8) * 2       // K, then V
-         + static_cast<size_t>(BQ) * (hd + 8) * 2      // Q tile
-         + static_cast<size_t>(BQ) * logit_pitch(sp, hd) * 4  // f32 logits, then o
-         + static_cast<size_t>(BQ) * (sp + 8) * 2;     // bf16 probabilities
-}
-
-constexpr size_t kMaxSmem = 227 * 1024;
-
-// SAVE also writes the probabilities p (B, H, T, T) for the backward.
-template <bool SAVE>
-__global__ void __launch_bounds__(ATTN_THREADS)
-attn_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-            bf16* __restrict__ o, bf16* __restrict__ p_out, int T, int D, int hd, float scale) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int sp = padded_keys(T), lw = logit_pitch(sp, hd);
-  const int ldh = hd + 8, ldp = sp + 8;
-  bf16* kv = reinterpret_cast<bf16*>(smem);
-  bf16* qs = kv + sp * ldh;
-  float* ls = reinterpret_cast<float*>(qs + BQ * ldh);
-  bf16* ps = reinterpret_cast<bf16*>(ls + BQ * lw);
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const size_t base = static_cast<size_t>(b) * T * D + static_cast<size_t>(h) * hd;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-
-  load_head_rows<ATTN_THREADS>(q + base, q0, BQ, T, D, hd, qs, ldh);
-  load_head_rows<ATTN_THREADS>(k + base, 0, sp, T, D, hd, kv, ldh);
-  __syncthreads();
-
-  // logits = q·kᵀ (f32), tiles of 16×16 spread over the warps
-  const int row_tiles = BQ / 16;
-  for (int t = warp; t < row_tiles * (sp / 16); t += ATTN_THREADS / 32) {
-    const int i = t % row_tiles, j = t / row_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < hd; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, qs + i * 16 * ldh + kk, ldh);
-      wmma::load_matrix_sync(fb, kv + j * 16 * ldh + kk, ldh);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(ls + i * 16 * lw + j * 16, acc, lw, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  load_head_rows<ATTN_THREADS>(v + base, 0, sp, T, D, hd, kv, ldh);  // V replaces K
-
-  // softmax over the T valid keys, one warp per query row; p rounded to bf16
-  // (and saved, (B, H, T, T), in the backward-save variant)
-  for (int r = warp; r < BQ; r += ATTN_THREADS / 32) {
-    float* row = ls + r * lw;
-    float mx = -INFINITY;
-    for (int c = lane; c < T; c += 32) mx = fmaxf(mx, __fmul_rn(row[c], scale));
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    float sum = 0.0f;
-    for (int c = lane; c < T; c += 32) {
-      const float e = expf(__fsub_rn(__fmul_rn(row[c], scale), mx));
-      row[c] = e;
-      sum += e;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    bf16* prow = ps + r * ldp;
-    for (int c = lane; c < sp; c += 32) prow[c] = __float2bfloat16(c < T ? row[c] / sum : 0.0f);
-    if constexpr (SAVE) {
-      if (q0 + r < T) {
-        bf16* psave = p_out + ((static_cast<size_t>(b) * gridDim.y + h) * T + q0 + r) * T;
-        for (int c = lane; c < T; c += 32) psave[c] = prow[c];
-      }
-    }
-  }
-  __syncthreads();
-
-  // o = p·v (f32 accumulation), staged in the logits buffer
-  for (int t = warp; t < row_tiles * (hd / 16); t += ATTN_THREADS / 32) {
-    const int i = t % row_tiles, j = t / row_tiles;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < sp; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, ps + i * 16 * ldp + kk, ldp);
-      wmma::load_matrix_sync(fb, kv + kk * ldh + j * 16, ldh);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(ls + i * 16 * lw + j * 16, acc, lw, wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < BQ * hd; i += ATTN_THREADS) {
-    const int r = i / hd, c = i % hd;
-    if (q0 + r < T) o[base + static_cast<size_t>(q0 + r) * D + c] = __float2bfloat16(ls[r * lw + c]);
-  }
+// The core on the current stream: heads ≤ 64 or ≤ 128 wide, p written
+// (B, H, T, Tp) where `p` is not null.
+template <int HD>
+cudaError_t launch_core(const void* q, const void* k, const void* v, void* o, void* p, int B,
+                        int T, int D, int H, float scale, cudaStream_t st) {
+  constexpr int KG = vtt_k4::Groups<HD>::KG;
+  const vtt_k4::Geometry geo = vtt_k4::rows_geometry(T, KG);
+  const bool save = p != nullptr;
+  const vtt_k4::RowsSmem L(geo, D / H, KG, true, save);
+  auto* kernel = save ? vtt_k4::attn_kernel<true, HD> : vtt_k4::attn_kernel<false, HD>;
+  const long long blocks = static_cast<long long>(B) * H * geo.row_blocks;
+  if (L.total > vtt_k4::kMaxSmem || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
+  if (err != cudaSuccess) return err;
+  kernel<<<static_cast<unsigned>(blocks), geo.rows * geo.splits * 32, L.total, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), static_cast<bf16*>(p), T, D, H, D / H, scale, geo);
+  return cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" long long vtt_attn_smem_bytes(int t, int hd) {
-  return static_cast<long long>(attn_smem_bytes(t, hd));
-}
 
 extern "C" int vtt_block_attention_fwd(
     const void* x, void* out, void* q, void* k, void* v, void* o, int x_bf16,
@@ -169,8 +80,7 @@ extern "C" int vtt_block_attention_fwd(
   if (B <= 0 || T <= 0 || H <= 0 || D % H != 0) return static_cast<int>(cudaErrorInvalidValue);
   const int hd = D / H;
   const int M = B * T;
-  const size_t smem = attn_smem_bytes(T, hd);
-  if (hd % 16 != 0 || hd > 128 || smem > kMaxSmem || !gemm_shape_ok(M, D, D) || B > 65535) {
+  if (hd % 16 != 0 || hd > 128 || T > MAX_SEQ || !gemm_shape_ok(M, D, D) || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (!aligned16({x, out, q, k, v, o, ln_scale, ln_bias, wq, bq, wk, bk, wv, bv, wo, bo, ls, dp,
@@ -215,17 +125,8 @@ extern "C" int vtt_block_attention_fwd(
 
   err = launch_gemm<EPI_BIAS, bf16>(qkv, 3, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  auto* kernel = save ? attn_kernel<true> : attn_kernel<false>;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid((T + BQ - 1) / BQ, H, B);
-  kernel<<<grid, ATTN_THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), static_cast<bf16*>(p), T, D, hd, scale);
-  err = cudaGetLastError();
+  err = hd <= 64 ? launch_core<64>(q, k, v, o, p, B, T, D, H, scale, st)
+                 : launch_core<128>(q, k, v, o, p, B, T, D, H, scale, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = x_bf16 ? launch_forward_gemm<EPI_RESIDUAL, bf16>(proj, 1, save, st)
                : launch_forward_gemm<EPI_RESIDUAL, float>(proj, 1, save, st);

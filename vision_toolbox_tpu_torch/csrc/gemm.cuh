@@ -768,21 +768,4 @@ inline bool gemm_shape_ok(int M, int N, int K) {
 
 inline Vec vec(const void* p, int is_bf16) { return Vec{p, is_bf16}; }
 
-// Rows [row0, row0 + n_rows) of one head of a (rows, ld_src) bf16 buffer →
-// shared memory with pitch ld; rows at or past `valid` are zero-filled. The
-// attention kernels load q/k/v/o head tiles with it (hd % 8 == 0).
-template <int NT>
-__device__ __forceinline__ void load_head_rows(const bf16* src, int row0, int n_rows, int valid,
-                                               int ld_src, int hd, bf16* dst, int ld) {
-  const int vecs = hd / 8;
-  for (int i = threadIdx.x; i < n_rows * vecs; i += NT) {
-    const int r = i / vecs, c = (i % vecs) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < valid) {
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * ld_src + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
 }  // namespace vtt

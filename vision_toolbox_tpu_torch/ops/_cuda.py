@@ -47,7 +47,6 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _LL = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "vtt_error_string": ((_I,), ctypes.c_char_p),
-    "vtt_attn_smem_bytes": ((_I, _I), ctypes.c_longlong),
     "vtt_block_mlp_bwd_partial_floats": ((_I, _I, _I), ctypes.c_longlong),  # M, D, Dh
     "vtt_block_attention_bwd_partial_floats": ((_I, _I, _I), ctypes.c_longlong),  # B, T, D
     "vtt_block_mlp_fwd": (

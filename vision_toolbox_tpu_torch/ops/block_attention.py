@@ -8,8 +8,9 @@ self-attention per image with q/k/v projected from the LayerNorm output.
 ``torch.export``) it runs the custom op ``vtt::fused_attention_block``: on
 CPU tensors ``fused_attention_block_plain``, on CUDA tensors the hand-written
 kernels in ``csrc/block_attention.cu`` (the LayerNorm row pass, the q/k/v
-projections on the shared wgmma GEMM template, attention, the
-out-projection and its epilogue; see the note there). Under autograd it runs
+projections on the shared wgmma GEMM template, the attention core on
+register tiles (``csrc/block_attention.cuh``), the out-projection and its
+epilogue; see the note there). Under autograd it runs
 ``FusedAttentionFunction``: the backward-save forward and the backward
 kernels ``csrc/block_attention_bwd.cu`` on CUDA tensors, their plain versions
 on CPU tensors, or on any device with ``plain=True``. A CUDA tensor launches
@@ -52,45 +53,54 @@ from .block_mlp import (
     xla_douts,
 )
 
-MAX_SEQ = 512  # whole key rows of one image sit in one block's shared memory
+MAX_SEQ = 512  # the kernels' longest sequence; the gate's shape term refuses some below it
 SMEM_LIMIT = 227 * 1024  # H100 shared memory a block can use
-_QUERY_TILE = 32  # csrc/block_attention.cu BQ; block_attention_bwd.cu BQ and BK2
+_FIRST_TILE = 32  # the first design's query tile, which the gate's shape term counts
+_PARTIAL_ROWS = 16  # csrc/block_attention_bwd.cu PARTIAL_ROWS: dbq/dbk/dbv rows a partial
+
+
+def _p_pitch(t: int) -> int:
+    """Elements a row of the saved p and of the ds scratch (csrc/
+    block_attention.cuh ``p_pitch``): T rounded up to 8, so every row starts
+    16-byte aligned."""
+    return -(-t // 8) * 8
 
 
 def _bwd_partial_floats(b: int, t: int, d: int) -> int:
     """Floats of the backward's f32 scratch of column-sum partial rows
     (``csrc/block_attention_bwd.cu`` ``partial_floats``): dbo and dγ_ls a row
-    per 64 rows, dbq/dbk/dbv (3·D wide) a row per image and 32-row tile, dγ_ln
+    per 64 rows, dbq/dbk/dbv (3·D wide) a row per image and 16-row tile, dγ_ln
     and dβ_ln a row per 32 rows."""
     m = b * t
-    return (2 * _cdiv(m, _DOUTS_ROWS) * d + b * _cdiv(t, _QUERY_TILE) * 3 * d
+    return (2 * _cdiv(m, _DOUTS_ROWS) * d + b * _cdiv(t, _PARTIAL_ROWS) * 3 * d
             + 2 * _cdiv(m, _LN_ROWS) * d)
 
 
-def _attn_smem_bytes(t: int, head_dim: int) -> int:
-    """Shared memory of one attention block (csrc/block_attention.cu
-    ``attn_smem_bytes``): K then V, the query tile, f32 logits, bf16 probs."""
+def _shape_term_bytes(t: int, head_dim: int) -> int:
+    """The gate's shape term: the shared memory of the first design's
+    attention block (K then V, a 32-row query tile, f32 logits, bf16
+    probabilities). The register-tile core keeps no score block in shared
+    memory and runs every T ≤ 512 at heads ≤ 128; the term keeps the
+    admitted set as it was (it refuses head 128 above T = 480)."""
     sp = -(-t // 16) * 16
     return (
         sp * (head_dim + 8) * 2
-        + _QUERY_TILE * (head_dim + 8) * 2
-        + _QUERY_TILE * (max(sp, head_dim) + 4) * 4
-        + _QUERY_TILE * (sp + 8) * 2
+        + _FIRST_TILE * (head_dim + 8) * 2
+        + _FIRST_TILE * (max(sp, head_dim) + 4) * 4
+        + _FIRST_TILE * (sp + 8) * 2
     )
 
 
 def _kernel_admits(d_model: int, n_heads: int, t: int) -> bool:
     """The CUDA kernels' own shape terms: the projections fill whole
     64-column tiles, a head is a whole number of 16-wide tensor-core steps
-    (≤ 128), and all T keys of an image fit one block's shared memory
-    (T ≤ 512). vit_b_16 at 224 px (T=197, head_dim 64) takes 75.5 KB. The
-    backward kernels cover every shape this admits (they stream keys and
-    queries in tiles)."""
+    (≤ 128), 1 ≤ T ≤ 512, and the shape term (``_shape_term_bytes``) within
+    one block's shared memory. The kernels run every shape this admits."""
     if n_heads <= 0 or d_model % n_heads:
         return False
     hd = d_model // n_heads
     return (d_model % 64 == 0 and hd % 16 == 0 and hd <= 128 and 1 <= t <= MAX_SEQ
-            and _attn_smem_bytes(t, hd) <= SMEM_LIMIT)
+            and _shape_term_bytes(t, hd) <= SMEM_LIMIT)
 
 
 # The JAX rule's admission terms, copied from
@@ -138,7 +148,9 @@ class AttnSaves(NamedTuple):
     """What the backward needs from the forward (JAX ``_run_attn(save=True)``):
     xhat (B, T, D) bf16, rstd (B, T, 1) f32, q, k, v, o (B, T, D) bf16, the
     softmax probabilities p (B, H, T, T) bf16, and proj (B, T, D) bf16 with
-    γ_ls, else None."""
+    γ_ls, else None. The CUDA save forward's p is the [..., :T] view of a
+    (B, H, T, ``_p_pitch(T)``) tensor, whose 16-byte rows the backward
+    kernels read in place."""
 
     xhat: Tensor
     rstd: Tensor
@@ -259,15 +271,16 @@ def _attn_fwd_cuda(
     # q, k, v, o: the intermediates that go through device memory
     qkvo = torch.empty(4, B, T, D, dtype=torch.bfloat16, device=x.device)
     y = torch.empty(B, T, D, dtype=torch.bfloat16, device=x.device)  # LN(x)·γ + β, scratch
-    saves = None
+    saves, save_ptrs = None, (None,) * 4
     if save:
         bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=x.device)
+        p = bf(B, n_heads, T, _p_pitch(T))  # 16-byte rows; handed on as the [..., :T] view
         saves = AttnSaves(bf(B, T, D), torch.empty(B, T, 1, device=x.device), *qkvo,
-                          bf(B, n_heads, T, T), None if ls_gamma is None else bf(B, T, D))
+                          p[..., :T], None if ls_gamma is None else bf(B, T, D))
+        save_ptrs = (saves.xhat, saves.rstd, p, saves.proj)
     if x.numel() == 0:
         return out, saves
     vec = lambda t: _cuda.vec(None if t is None else t.contiguous())
-    ptr = lambda t: None if saves is None else _cuda.ptr(t)
     with torch.cuda.device(x.device):
         err = _cuda.lib().vtt_block_attention_fwd(
             _cuda.ptr(x), _cuda.ptr(out), *(_cuda.ptr(t) for t in qkvo),
@@ -275,7 +288,7 @@ def _attn_fwd_cuda(
             _cuda.ptr(ws[0]), *vec(bq), _cuda.ptr(ws[1]), *vec(bk),
             _cuda.ptr(ws[2]), *vec(bv), _cuda.ptr(ws[3]), *vec(bo),
             *vec(ls_gamma), _cuda.ptr(dp),
-            *(ptr(getattr(saves, n, None)) for n in ("xhat", "rstd", "p", "proj")),
+            *map(_cuda.ptr, save_ptrs),
             _cuda.ptr(y), B, T, D, n_heads, float((D // n_heads) ** -0.5), float(eps),
             _cuda.stream(),
         )
@@ -304,11 +317,28 @@ def fused_attention_save_cuda(
                           ls_gamma, dp_scale, eps, save=True)
 
 
+def _padded_p(p: Tensor) -> Tensor:
+    """The saved p as the backward kernels read it, (B, H, T, Tp) with rows of
+    ``_p_pitch(T)`` elements: the padded tensor under the forward kernel's
+    [..., :T] view, else a zero-padded copy (a p made elsewhere, such as the
+    plain save forward's)."""
+    B, H, T, _ = p.shape
+    tp = _p_pitch(T)
+    strides = (H * T * tp, T * tp, tp, 1)
+    end = (p.storage_offset() + B * H * T * tp) * p.element_size()
+    if p.stride() == strides and end <= p.untyped_storage().nbytes():
+        return p.as_strided((B, H, T, tp), strides)
+    out = p.new_zeros(B, H, T, tp)
+    out[..., :T] = p
+    return out
+
+
 def fused_attention_bwd_cuda(
     dout: Tensor, saves: AttnSaves, wq: Tensor, wk: Tensor, wv: Tensor, wo: Tensor,
     ln_scale: Tensor, ls_gamma: Tensor | None, dp_scale: Tensor | None, n_heads: int,
 ) -> AttnGrads:
-    """Launch ``csrc/block_attention_bwd.cu`` on the current stream."""
+    """Launch ``csrc/block_attention_bwd.cu`` on the current stream; its ds
+    scratch has p's padded rows."""
     B, T, D = dout.shape
     if dout.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"fused_attention_block backward: dout must be float32 or bfloat16, "
@@ -329,7 +359,7 @@ def fused_attention_bwd_cuda(
     dx = torch.empty_like(dout)
     if dout.numel() > 0:
         bf = lambda *s: torch.empty(*s, dtype=torch.bfloat16, device=dev)
-        douts, do, ds = bf(B, T, D), bf(B, T, D), bf(B, n_heads, T, T)
+        douts, do, ds = bf(B, T, D), bf(B, T, D), bf(B, n_heads, T, _p_pitch(T))
         dy = torch.empty(B, T, D, device=dev)
         partials = torch.empty(_bwd_partial_floats(B, T, D), device=dev)
         vec = lambda t: _cuda.vec(None if t is None else t.contiguous())
@@ -337,7 +367,8 @@ def fused_attention_bwd_cuda(
             err = _cuda.lib().vtt_block_attention_bwd(
                 _cuda.ptr(dout), int(dout.dtype == torch.bfloat16), _cuda.ptr(saves.xhat),
                 _cuda.ptr(saves.rstd), *(_cuda.ptr(t) for t in saves[2:5]),
-                _cuda.ptr(saves.p), _cuda.ptr(saves.proj), _cuda.ptr(wob), _cuda.ptr(wqkv),
+                _cuda.ptr(_padded_p(saves.p)), _cuda.ptr(saves.proj), _cuda.ptr(wob),
+                _cuda.ptr(wqkv),
                 *vec(ln_scale), *vec(ls_gamma), _cuda.ptr(dp),
                 _cuda.ptr(dx), _cuda.ptr(dqkv), _cuda.ptr(douts), _cuda.ptr(do), _cuda.ptr(ds),
                 _cuda.ptr(dy), _cuda.ptr(dbqkv), _cuda.ptr(dbo), _cuda.ptr(dlns),
