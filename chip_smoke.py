@@ -122,6 +122,12 @@ sm_90a, one process per source) and drives the port's paths:
   partial rows for a fixed-order sum), and phase 38 times the fused kernels
   beside the module chain, their bound and their first design's times
   (K3K4_EARLIER_MS);
+- K1 redesigned for Hopper: phase 6 holds K1 bit for bit (0
+  differing elements) against its plain version on the mixed program, an
+  all-rotation batch (k90 = ±1) and an all-identity batch at bs256@176, and
+  times each; the K4 gate admits what the kernels run (head 128 above
+  T = 480 too), and phase 39 holds and times the core at head 128, T = 512
+  (K4_HEAD128).
 - K4's attention core redesigned for Hopper (slice 15): phase 2 holds the
   wrapper's partial-row count to the library's; phase 39 prints the core
   kernels' registers and spills, holds the core at K4_CORE_CASES (T = 2,
@@ -388,6 +394,10 @@ K4_FIRST_CORE_MS = {"forward": 0.6875, "save_forward": 0.7217, "rows": 0.9760, "
 # tile's keys), T = 512 (four) and head 128 at T = 480 (eight, V following K
 # into one buffer)
 K4_CORE_CASES = ((4, 2, 128, 2), (2, 197, 768, 12), (2, 512, 768, 12), (1, 480, 256, 2))
+# head 128 at T = 512 (d_model 768, 6 heads, batch 8): the gate admits it
+# (its shape term is the core's own shared memory); phase 39 holds it as the
+# b128 case (rel L2 within twice K4_FIRST_CORE_REL_L2) and times its core
+K4_HEAD128 = (8, 512, 768, 6)
 # K7's second-plane control cases (B, nW, T, N, hd, masked), bf16: swin_t stage
 # 1 at batch 8 and window 14 (swin_s3_t stage 3); held as K2's (SECOND_PLANE)
 SWIN_CONTROL_CASES = ((8, 64, 49, 3, 32, True), (8, 1, 196, 12, 32, False))
@@ -653,33 +663,74 @@ def warp_case(g, B, S):
     return torch.rand(B, S, S, 3, generator=g).cuda(), op.cuda(), mag.cuda()
 
 
+# K1's one-kind batches (scripts/ab_warp.py times each): the op and the
+# magnitudes, signs alternating image by image; a pixel op is an identity warp
+WARP_KINDS = {"identity": ("OP_SOLARIZE", 0.5), "shear_x": ("OP_SHEAR_X", 0.9),
+              "shear_y": ("OP_SHEAR_Y", 0.9), "translate": ("OP_TRANSLATE_X", 0.8),
+              "rotate_45": ("OP_ROTATE", 1 / 3), "rotate_135": ("OP_ROTATE", 1.0)}
+
+
+def warp_kind_case(g, B, S, kind):
+    """[0, 1] images under one kind of program (WARP_KINDS): rotate_45 turns
+    by ±45° (k90 = 0), rotate_135 by ±135° (k90 = ±1: the footprint read
+    transposed), translate moves along x and y in turn."""
+    from vision_toolbox_tpu_torch.ops import trivial_augment as ta
+
+    name, m = WARP_KINDS[kind]
+    op = torch.full((B,), getattr(ta, name))
+    if kind == "translate":
+        op[1::2] = ta.OP_TRANSLATE_Y
+    mag = torch.where(torch.arange(B) % 2 == 0, m, -m)
+    return torch.rand(B, S, S, 3, generator=g).cuda(), op.cuda(), mag.cuda()
+
+
 def compare_warp(report: dict) -> tuple[float, float, float]:
-    """Phase 6: K1 vs its plain version (same program) at bs256@176 and
-    B=5 at 32 px; time both at bs256@176. Returns (err, ms, plain_ms)."""
-    from vision_toolbox_tpu_torch.ops import warp
+    """Phase 6: K1 vs its plain version (same program), bit for bit, at
+    bs256@176 on the mixed program (warp_case), an all-rotation batch
+    (k90 = ±1) and an all-identity batch, and B=5 at 32 px; time both at
+    bs256@176, each batch: the kernel's launch on operands made once, and
+    beside it the wrapper, which builds the program's operands each call
+    (a dozen small launches, host-bound). Returns (err, ms, plain_ms) of the
+    mixed one."""
+    from vision_toolbox_tpu_torch.ops import _cuda, warp
 
     g = torch.Generator().manual_seed(6)
     rows, main = [], None
-    for B, S in ((256, 176), (5, 32)):
-        x, op, mag = warp_case(g, B, S)
+    for B, S, kind in ((256, 176, "mixed"), (5, 32, "mixed"), (256, 176, "rotate_135"),
+                       (256, 176, "identity")):
+        x, op, mag = warp_case(g, B, S) if kind == "mixed" else warp_kind_case(g, B, S, kind)
         program = warp.shear3_params(op, mag)
         want = warp.shear3_warp_plain(x, program)
         got = warp.shear3_warp_cuda(x, program)
         torch.cuda.synchronize()
         err = (got - want).abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and got.shape == x.shape and err <= WARP_BOUND
-        rows.append(dict(B=B, S=S, max_abs_err=err, bound=WARP_BOUND, ok=ok,
+        differ = int((got != want).sum().item())
+        ok = bool(torch.isfinite(got).all()) and got.shape == x.shape and differ == 0
+        rows.append(dict(B=B, S=S, kind=kind, max_abs_err=err, differing=differ, ok=ok,
                          k90=sorted(set(program[0].tolist()))))
-        log(f"[warp] K1 vs plain B={B} {S}px: max|err|={err:.3e} (bound {WARP_BOUND}) "
-            f"k90 {rows[-1]['k90']} {'ok' if ok else 'FAIL'}")
+        log(f"[warp] K1 vs plain B={B} {S}px {kind}: {differ} differing elements, "
+            f"max|err|={err:.3e} k90 {rows[-1]['k90']} {'ok' if ok else 'FAIL'}")
         if B == 256:
-            plain_ms, ms = alternate(lambda: warp.shear3_warp_plain(x, program),
-                                     lambda: warp.shear3_warp_cuda(x, program), iters=10)
-            main = (err, ms, plain_ms)
-            log(f"[warp] bs256@176 f32: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms")
-    report["warp"] = dict(compare=rows, ms=main[1], plain_ms=main[2])
+            flags, coef = warp.program_operands(program)
+            out = torch.empty_like(x)
+            canvas = warp.canvas_size(S)
+
+            def kernel():
+                _cuda.check(_cuda.lib().vtt_warp_shear3(
+                    _cuda.ptr(x), _cuda.ptr(out), _cuda.ptr(flags), _cuda.ptr(coef), B, S, S, 3,
+                    canvas, (canvas - S) // 2, _cuda.stream()), "shear3_warp")
+
+            plain_ms, ms = alternate(lambda: warp.shear3_warp_plain(x, program), kernel, iters=10)
+            wrapper_ms = time_ms(lambda: warp.shear3_warp_cuda(x, program), iters=10)
+            rows[-1] |= dict(ms=ms, plain_ms=plain_ms, wrapper_ms=wrapper_ms)
+            if kind == "mixed":
+                main = (err, ms, plain_ms)
+            log(f"[warp] bs256@176 f32 {kind}: kernel {ms:.4f} ms (through the wrapper "
+                f"{wrapper_ms:.4f})  plain {plain_ms:.4f} ms")
+    report["warp"] = dict(compare=rows, ms=main[1], plain_ms=main[2],
+                          wrapper_ms=rows[0]["wrapper_ms"])
     if not all(r["ok"] for r in rows):
-        raise AssertionError(f"K1 disagrees with its plain version: {rows}")
+        raise AssertionError(f"K1 differs from its plain version: {rows}")
     return main
 
 
@@ -2782,7 +2833,9 @@ def hold_attention_core(report: dict, name_power: str, build_log: str) -> dict[s
     if not regs:
         raise AssertionError("no K4 attention-core kernel in the build log")
     main = (VIT_TRAIN["batch"], 197, VIT_B["D"], VIT_B["H"])
-    for B, T, D, H in K4_CORE_CASES + (main,):
+    if not ba.use_fused_attention(K4_HEAD128[2], K4_HEAD128[3], K4_HEAD128[1], 0.0, True):
+        raise AssertionError(f"the gate refuses head 128 at {K4_HEAD128}")
+    for B, T, D, H in K4_CORE_CASES + (main, K4_HEAD128):
         case = dict(kernel="block_attention core", B=B, T=T, D=D, H=H)
         if (B, T, D, H) == main:  # K4_FIRST_CORE_REL_L2's operands (ab_block_kernels.py --core)
             g_main = torch.Generator().manual_seed(13)
@@ -2807,7 +2860,7 @@ def hold_attention_core(report: dict, name_power: str, build_log: str) -> dict[s
         torch.cuda.synchronize()
         for n in ("dx", "dq", "dk", "dv", "dbq", "dbk", "dbv"):
             checks.exact(case, f"{n} again", getattr(again, n), getattr(got, n))
-        if (B, T, D, H) == main:
+        if (B, T, D, H) in (main, K4_HEAD128):
             pairs = dict(out=(out, want_out), p=(saves.p, want_saves.p))
             pairs |= {n: (getattr(got, n), getattr(want, n)) for n in ("dx", "dq", "dk", "dv")}
             for n, (x, y) in pairs.items():
@@ -2850,8 +2903,29 @@ def hold_attention_core(report: dict, name_power: str, build_log: str) -> dict[s
         f"{chain_row.get('chain_bwd_ms', float('nan')):.4f} ms, K4 "
         f"{chain_row.get('kernel_ms', float('nan')):.4f} / "
         f"{chain_row.get('kernel_bwd_ms', float('nan')):.4f}  [{name_power}]")
+    B, T, D, H = K4_HEAD128
+    a = attn_args(g, B, T, D, H, torch.bfloat16, False)
+    wb = [a[k] for n in "qkvo" for k in (f"w{n}", f"b{n}")]
+    fwd = (a["x"], a["ln_scale"], a["ln_bias"], *wb, H)
+    _, saves = ba.fused_attention_save_cuda(*fwd)
+    dout = torch.randn(a["x"].shape, generator=g).to("cuda", torch.bfloat16)
+    wide = {"forward": core_parts(lambda: ba.fused_attention_block_cuda(*fwd, None, None,
+                                                                        1e-6))["forward"],
+            "save_forward": core_parts(lambda: ba.fused_attention_save_cuda(*fwd))["forward"]}
+    wide |= {k: v for k, v in core_parts(lambda: ba.fused_attention_bwd_cuda(
+        dout, saves, a["wq"], a["wk"], a["wv"], a["wo"], a["ln_scale"], None, None, H)).items()
+        if k != "forward"}
+    qkv, p_bytes = B * T * D * 2, B * H * T * T * 2
+    wide_bounds = {k: v / PEAK_BYTES_PER_S * 1e3 for k, v in
+                   {"forward": 4 * qkv, "save_forward": 4 * qkv + p_bytes,
+                    "backward": 7 * qkv + p_bytes}.items()}
+    log(f"[core-time] head 128 T={T} b{B} bf16: forward {wide['forward']:.4f} / save "
+        f"{wide['save_forward']:.4f} / rows {wide['rows']:.4f} / keys {wide['keys']:.4f} ms; "
+        f"bounds (bytes) {wide_bounds['forward']:.4f} / {wide_bounds['save_forward']:.4f} / "
+        f"backward {wide_bounds['backward']:.4f} ms  [{name_power}]")
     report["attention_core"] = dict(ms=parts, first_design_ms=K4_FIRST_CORE_MS,
-                                    bound_ms=bounds, checks=checks.rows)
+                                    bound_ms=bounds, head128_ms=wide, head128_bound_ms=wide_bounds,
+                                    checks=checks.rows)
     bad = [r for r in checks.rows if not r["ok"]]
     if bad:
         raise AssertionError(f"{len(bad)} K4 core comparisons out of bounds: {bad[:8]}")
@@ -3050,7 +3124,8 @@ def main() -> int:
              "block_attention": dict(core_save_ms=core["save_forward"],
                                      core_served_ms=core["forward"]),
              "block_attention_bwd": dict(core_rows_ms=core["rows"],
-                                         core_keys_ms=core["keys"])}
+                                         core_keys_ms=core["keys"]),
+             "warp_shear3": dict(wrapper_ms=report["warp"]["wrapper_ms"])}
     kernels = []
     for k in KERNELS:
         bound_ms, bound_by = bound(*work[k])

@@ -8,6 +8,9 @@ summation order differs: tolerance as in tests/torch_parity.py (most
 elements within 1e-4, all within 1e-2).
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -81,11 +84,11 @@ def test_dispatch_rules():
     assert not port.use_fused_attention(768, 12, 197, 0.0, False)  # no bias
     assert not port.use_fused_attention(768, 32, 197, 0.0, True)  # head_dim 24: not 16-wide
     assert not port.use_fused_attention(768, 3, 197, 0.0, True)  # head_dim 256 > 128
-    # head_dim 128 at T=512: the shape term (the first design's K/V, logits
-    # and probs) counts 241.5 KB of shared memory
-    assert port._shape_term_bytes(512, 128) > port.SMEM_LIMIT
-    assert not port.use_fused_attention(1024, 8, 512, 0.0, True)
-    assert port._shape_term_bytes(197, 64) == 75520
+    # head_dim 128 at T=512: the core's largest layout (the save forward's,
+    # V following K into one buffer) takes 159.25 KB of shared memory
+    assert port._core_smem_bytes(512, 128) == 163072 <= port.SMEM_LIMIT
+    assert port.use_fused_attention(1024, 8, 512, 0.0, True)  # JAX's 4-slice plan
+    assert port._core_smem_bytes(197, 64) == 98304
 
 
 def _meta(*shape, dtype=torch.bfloat16):
@@ -150,32 +153,62 @@ def test_wrappers_hand_the_kernels_their_scratch(monkeypatch, B, T, D, H, ls):
     assert partials.dtype == torch.float32 and partials.numel() == count == want
 
 
-def _first_design_admits(d_model: int, n_heads: int, t: int) -> bool:
-    """The kernel gate as the first design defined it: its shared memory
-    (K then V, a 32-row query tile, f32 logits, bf16 probabilities) within
-    227 KB, a copy of the formula kept to hold the admitted set."""
-    hd = d_model // n_heads
-    sp = -(-t // 16) * 16
-    smem = (sp * (hd + 8) * 2 + 32 * (hd + 8) * 2 + 32 * (max(sp, hd) + 4) * 4
-            + 32 * (sp + 8) * 2)
-    return (d_model % 64 == 0 and hd % 16 == 0 and hd <= 128 and 1 <= t <= 512
-            and smem <= 227 * 1024)
+def _jax_rule(d_model: int, n_heads: int, t: int) -> bool:
+    """The JAX package's ``use_fused_attention`` without its TPU test (and
+    without dropout, with a bias): d_model % 128, 2 ≤ T ≤ 512 and a
+    head-split plan from ``_head_splits``, which traces nothing."""
+    return (d_model % 128 == 0 and d_model % n_heads == 0 and 2 <= t <= ba.MAX_SEQ
+            and ba._head_splits(d_model, n_heads, t) > 0)
 
 
-@pytest.mark.parametrize("t", [2, 16, 197, 480, 481, 512, 513])
-@pytest.mark.parametrize("d_model", [384, 768, 1024])
+@pytest.mark.parametrize("t", [2, 16, 197, 480, 481, 497, 512, 513])
+@pytest.mark.parametrize("d_model", [384, 512, 768, 1024])
 def test_gate_admits_the_set_it_admitted(d_model, t):
-    """The register-tile core keeps no score block in shared memory, yet the
-    gate admits exactly the shapes it admitted before: every head width 16 …
-    128 that divides d_model, at each T."""
+    """The gate is the JAX rule without its TPU test: at every head width
+    16 … 128 that divides d_model, each T, it admits what the reference sends
+    through K4 (head 128 above T = 480 too, which the first design's shape
+    term refused), since the kernels' own terms hold there; the port's plan
+    copy is the JAX package's."""
     for hd in range(16, 129, 16):
         if d_model % hd:
             continue
         h = d_model // hd
-        want = _first_design_admits(d_model, h, t)
-        assert port._kernel_admits(d_model, h, t) == want, (hd, t)
-        rule = d_model % 128 == 0 and 2 <= t <= 512 and port._head_splits(d_model, h, t) > 0
-        assert port.use_fused_attention(d_model, h, t, 0.0, True) == (want and rule), (hd, t)
+        want = _jax_rule(d_model, h, t)
+        assert port._head_splits(d_model, h, t) == ba._head_splits(d_model, h, t), (hd, t)
+        for ns in (1, 2, 4):
+            if h % ns == 0:
+                assert (port._program_vmem_bytes(d_model, h, t, ns)
+                        == ba._program_vmem_bytes(d_model, h, t, ns=ns)), (hd, t, ns)
+        assert port.use_fused_attention(d_model, h, t, 0.0, True) == want, (hd, t)
+        if 1 <= t <= 512:
+            assert port._kernel_admits(d_model, h, t), (hd, t)
+
+
+def test_core_smem_term_follows_the_c_layout():
+    """``_core_smem_bytes`` mirrors block_attention.cuh ``core_smem_bytes``,
+    the one term both CUDA entries refuse a shape by: its constants are the
+    header's, and every head width 16 … 128 at every T ≤ 512 fits the
+    block's shared memory, so the gate refuses nothing for it."""
+    for name, value in (("WMAX", port._WMAX), ("KEY_WARPS", port._KEY_WARPS),
+                        ("KEY_BQ", port._KEY_BQ), ("KEY_STAGES", port._KEY_STAGES)):
+        assert csrc_constant(name, "block_attention.cuh") == value, name
+    text = (Path(port.__file__).resolve().parent.parent / "csrc" / "block_attention.cuh").read_text()
+    kg = dict((int(h), int(k)) for h, k in re.findall(
+        r"struct Groups<(\d+)> \{\s*static constexpr int KG = (\d+);", text))
+    assert kg == port._KG
+    m = re.search(r"constexpr size_t kMaxSmem = (\d+) \* (\d+);", text)
+    assert int(m.group(1)) * int(m.group(2)) == port.SMEM_LIMIT
+    for src in ("block_attention.cu", "block_attention_bwd.cu"):
+        body = (Path(port.__file__).resolve().parent.parent / "csrc" / src).read_text()
+        assert "vtt_k4::core_smem_bytes(T, " in body, src
+    sizes = {hd: [port._core_smem_bytes(t, hd) for t in range(1, 513)] for hd in range(16, 129, 16)}
+    assert max(max(v) for v in sizes.values()) <= port.SMEM_LIMIT
+    # head 128: K and V in one buffer from T = 385, which keeps T = 512 at
+    # 159.25 KB; the largest term is head 96 at T = 496 (K and V apart)
+    assert [port._core_smem_bytes(t, 128) for t in (384, 385, 480, 481, 497, 512)] == [
+        226560, 131072, 154368, 158720, 163072, 163072]
+    assert max((v, t + 1, hd) for hd, row in sizes.items() for t, v in enumerate(row)) == (
+        226816, 496, 96)
 
 
 @pytest.mark.parametrize("B,T,D", [(1, 2, 128), (2, 197, 768), (3, 50, 256), (4, 512, 1024)])

@@ -16,11 +16,11 @@ plain versions': rel L2 ≤ 1e-2; since the K3/K4 redesign they add them in
 a fixed order, so a second backward is bit-equal to the first, and TMA's
 16-byte alignment is held at the entries; K4's attention core (register
 tiles, p and ds one bf16 plane) is held at T = 2, 197, 512 and head 128 at
-T = 480 and at every head width over lengths across its geometry, its
-saved p against the plain version's. The backward is compared from one set
+T = 480, 481, 497 and 512 and at every head width over lengths across its
+geometry, its saved p against the plain version's. The backward is compared from one set
 of saves (the kernel forward's) and one output cotangent. The three-shear warp (K1) forms
-every value with the same f32 operations as its plain version: max abs error
-≤ 1e-5 on [0, 1] images (measured 0). The talking-head kernels (K5) hold
+every value with the same f32 operations as its plain version: bit-equal,
+0 differing elements. The talking-head kernels (K5) hold
 every intermediate in f32 like their plain versions (their products on
 the tensor cores with exact bf16 planes) and are held to the same bounds;
 their pre-softmax bias gradient, zero in exact arithmetic, against the
@@ -212,11 +212,13 @@ def test_weight_grad_rounds_once_from_f32(cuda, M, N):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,T,D,H,extras", [(2, 50, 128, 2, True), (3, 197, 768, 12, False),
                                             (1, 512, 128, 2, True), (1, 480, 256, 2, False),
-                                            (2, 17, 128, 8, True)])
+                                            (1, 481, 256, 2, True), (1, 497, 512, 4, False),
+                                            (2, 512, 768, 6, True), (2, 17, 128, 8, True)])
 def test_attention_backward_kernels_match_plain(cuda, dtype, B, T, D, H, extras):
     """Every shape class the forward gate admits: ragged T, T = 512, head
-    width 128 at T = 480 (the widest head that fits the forward at that
-    length), head width 16."""
+    width 128 at T = 480, 481, 497 and 512 (eight warps a row tile, V
+    following K into one buffer), head width 16; a second backward
+    bit-equal to the first."""
     assert ba.use_fused_attention(D, H, T, 0.0, True)
     _attention_backward_matches_plain(cuda, dtype, B, T, D, H, extras)
 
@@ -248,8 +250,12 @@ def _attention_backward_matches_plain(cuda, dtype, B, T, D, H, extras):
     before = _cuda.LAUNCHES["block_attention_bwd"]
     got = ba.fused_attention_bwd_cuda(dout, saves, *ws, ln[0], ls, dp, H)
     want = ba.fused_attention_bwd_plain(dout, saves, *ws, ln[0], ls, dp, H)
+    again = ba.fused_attention_bwd_cuda(dout, saves, *ws, ln[0], ls, dp, H)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["block_attention_bwd"] == before + 1
+    assert _cuda.LAUNCHES["block_attention_bwd"] == before + 2
+    for name, a, b in zip(got._fields, got, again):
+        if a is not None:
+            assert torch.equal(a, b), name
     _check(out, want_out)
     for name, a, b in zip(ba.AttnSaves._fields, saves, want_saves):
         assert (a is None) == (b is None), name
@@ -326,8 +332,9 @@ def test_attention_core_matches_plain_and_repeats(cuda, B, T, D, H):
 def test_attention_core_runs_every_admitted_shape(cuda):
     """Every head width 16 … 128 at lengths across the core's geometry
     (one to eight warps a row tile, K and V side by side or in one buffer):
-    each shape the kernel gate admits runs its save forward and backward,
-    within the bf16 bound of the plain versions (out, p, dx, dq, dk, dv)."""
+    the kernel gate admits each, head 128 at T = 481, 497 and 512 too, and
+    each runs its save forward and backward within the bf16 bound of the
+    plain versions (out, p, dx, dq, dk, dv), a second backward bit-equal."""
     g = torch.Generator().manual_seed(5)
     to = lambda t: t.to(cuda, torch.bfloat16)
     heads = {16: 4, 32: 2, 48: 4, 64: 1, 80: 4, 96: 2, 112: 4, 128: 1}
@@ -335,8 +342,7 @@ def test_attention_core_runs_every_admitted_shape(cuda):
     for hd, H in heads.items():
         D = hd * H
         for T in (2, 17, 100, 128, 129, 255, 257, 385, 448, 480, 481, 497, 512):
-            if not ba._kernel_admits(D, H, T):
-                continue
+            assert ba._kernel_admits(D, H, T), (hd, T)
             x = to(_rand(g, 1, T, D))
             ln = [to(_rand(g, D, scale=0.1, shift=1.0)), to(_rand(g, D, scale=0.1))]
             wb = [to(_rand(g, *s, scale=D**-0.5 if len(s) > 1 else 0.1))
@@ -346,13 +352,17 @@ def test_attention_core_runs_every_admitted_shape(cuda):
             dout = to(_rand(g, 1, T, D))
             got = ba.fused_attention_bwd_cuda(dout, saves, *wb[::2], ln[0], None, None, H)
             want = ba.fused_attention_bwd_plain(dout, saves, *wb[::2], ln[0], None, None, H)
+            again = ba.fused_attention_bwd_cuda(dout, saves, *wb[::2], ln[0], None, None, H)
             torch.cuda.synchronize()
             _check(out, want_out)
             _check(saves.p, want_saves.p)
             for n in ("dx", "dq", "dk", "dv"):
                 _check(getattr(got, n).contiguous(), getattr(want, n))
+            for n, a, b in zip(got._fields, got, again):
+                if a is not None:
+                    assert torch.equal(a, b), (hd, T, n)
             ran += 1
-    assert ran >= 90, ran
+    assert ran == 104, ran
 
 
 def test_attention_backward_reads_a_contiguous_p(cuda):
@@ -448,17 +458,68 @@ def warp_batch(g, B, S, device):
     return x.to(device), op.to(device), mag.to(device)
 
 
-@pytest.mark.parametrize("B,S", [(5, 32), (14, 64), (256, 176)])
-def test_warp_kernel_matches_plain(cuda, B, S):
-    x, op, mag = warp_batch(torch.Generator().manual_seed(S), B, S, cuda)
+def warp_batch_of(g, B, S, kind, device):
+    """[0, 1] images under one kind of program: every image a pixel op
+    (identity warp), or a rotation by ±135° (k90 = ±1, alternating)."""
+    if kind == "identity":
+        op = torch.full((B,), ta.OP_SOLARIZE)
+        mag = torch.rand(B, generator=g) * 2 - 1
+    else:
+        op = torch.full((B,), ta.OP_ROTATE)
+        mag = torch.where(torch.arange(B) % 2 == 0, 1.0, -1.0)
+    x = torch.rand(B, S, S, 3, generator=g)
+    return x.to(device), op.to(device), mag.to(device)
+
+
+@pytest.mark.parametrize("B,S,kind", [(5, 32, "mixed"), (14, 64, "mixed"), (256, 176, "mixed"),
+                                      (256, 176, "rotation"), (256, 176, "identity"),
+                                      (7, 37, "mixed")])
+def test_warp_kernel_matches_plain(cuda, B, S, kind):
+    """K1 forms every value with the plain version's f32 operations: bit-equal
+    on the mixed program, an all-rotation batch (k90 = ±1, the footprint read
+    transposed) and an all-identity one (the copy), and at an odd side (37:
+    rows of 111 floats, the scalar copies)."""
+    g = torch.Generator().manual_seed(S)
+    x, op, mag = (warp_batch(g, B, S, cuda) if kind == "mixed"
+                  else warp_batch_of(g, B, S, kind, cuda))
     program = warp.shear3_params(op, mag)
+    if kind == "rotation":
+        assert set(program[0].tolist()) == {-1, 1}
     want = warp.shear3_warp_plain(x, program)
     before = _cuda.LAUNCHES["warp_shear3"]
     got = warp.shear3_warp(x, op, mag)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["warp_shear3"] == before + 1
     assert got.shape == x.shape and got.dtype == torch.float32
-    assert (got - want).abs().max().item() <= 1e-5
+    assert int((got != want).sum().item()) == 0
+
+
+@pytest.mark.parametrize("route", ["one_channel", "four_channels", "beyond_the_draw_set"])
+def test_warp_kernel_takes_every_route(cuda, route):
+    """K1's other routes, bit-equal to the plain version: a channel count
+    other than 3 (the run-time C kernel, 1 and 4), a program outside the
+    draw set whose footprints exceed the shared memory sized for it (the
+    tile gathers from device memory); rows of a width that is no multiple of
+    16 bytes (4-byte copies and stores) are test_warp_kernel_matches_plain's
+    37 px case."""
+    g = torch.Generator().manual_seed(17)
+    x, op, mag = warp_batch(g, 32, 64, cuda)
+    program = warp.shear3_params(op, mag)
+    if route in ("one_channel", "four_channels"):
+        x = torch.rand(32, 64, 64, 1 if route == "one_channel" else 4, generator=g).to(cuda)
+    elif route == "beyond_the_draw_set":
+        # three shears of ±0.9 with a quarter turn: a tile's footprint spans
+        # ≈ 89 × 143 pixels at 176 px, past the 76 × 76 shared memory holds
+        x = torch.rand(8, 176, 176, 3, generator=g).to(cuda)
+        sign = torch.tensor([1.0, -1.0] * 4, device=cuda)
+        k90 = torch.tensor([0, 1, -1, 0] * 2, dtype=torch.int32, device=cuda)
+        program = (k90, 0.9 * sign, 3.0 * sign, -0.9 * sign, -2.0 * sign, 0.9 * sign)
+        fp = warp.stage_footprint((0, 0.9, 3.0, -0.9, -2.0, 0.9), 64, 64, 176, 176)
+        assert fp.floats > warp.STAGE_FLOATS, fp
+    want = warp.shear3_warp_plain(x, program)
+    got = warp.shear3_warp_cuda(x, program)
+    torch.cuda.synchronize()
+    assert int((got != want).sum().item()) == 0
 
 
 def test_warp_kernel_checks_its_operands(cuda):

@@ -21,6 +21,7 @@ from vision_toolbox_tpu.ops.warp import shear3_warp_xla
 from vision_toolbox_tpu.ops.warp_pallas import shear3_warp_pallas
 from vision_toolbox_tpu_torch.ops import trivial_augment as ta
 from vision_toolbox_tpu_torch.ops import warp
+from torch_parity import csrc_constant
 
 ATOL = 1e-6
 
@@ -120,3 +121,66 @@ def test_canvas_size_matches_pallas():
     for h in (16, 32, 64, 176, 224, 256):
         assert warp.canvas_size(h) == canvas_size(h)
     assert warp.canvas_size(176) == 512
+
+
+GEOMETRIC = (ta.OP_SHEAR_X, ta.OP_SHEAR_Y, ta.OP_TRANSLATE_X, ta.OP_TRANSLATE_Y, ta.OP_ROTATE)
+FOOTPRINT_MAGS = sorted({s * m for m in (0.0, 1 / 30, 1 / 3, 0.5, 29 / 30, 1.0) for s in (1, -1)})
+
+
+def _program_rows(op, mags):
+    program = warp.shear3_params(torch.full((len(mags),), op), torch.tensor(mags))
+    return [(int(program[0][n]), *(float(t[n]) for t in program[1:])) for n in range(len(mags))]
+
+
+@pytest.mark.parametrize("size", [32, 64, 176])
+@pytest.mark.parametrize("op", GEOMETRIC)
+def test_footprint_holds_every_tap_the_plain_warp_reads(op, size):
+    """K1 stages each output tile's footprint (``stage_footprint``, the
+    kernel's rule mirrored) and reads every tap from it; a tap it missed
+    would read stale shared memory on the card. Here the input outside a
+    tile's footprint is NaN and the plain three-pass warp runs on it: every
+    tap the passes read for that tile, even at weight 0, must lie in the
+    footprint (or off the image, in the zero padding), so the tile comes out
+    bit-equal to the warp of the whole image. Each footprint also fits the
+    shared memory the kernel sizes."""
+    x = torch.from_numpy(_images(1, s=size, seed=size)[..., :1])
+    tiles = [(i0, j0) for i0 in range(0, size, warp.TILE) for j0 in range(0, size, warp.TILE)]
+    for prog in _program_rows(op, FOOTPRINT_MAGS):
+        k90, *coef = prog
+        program = tuple(torch.tensor([v]) for v in (k90, *coef))
+        program = (program[0].int(), *program[1:])
+        whole = warp.shear3_warp_plain(x, program)
+        masked = x.repeat(len(tiles), 1, 1, 1).fill_(float("nan"))
+        for n, (i0, j0) in enumerate(tiles):
+            fp = warp.stage_footprint(prog, i0, j0, size, size)
+            if fp is not None:
+                assert fp.floats <= warp.STAGE_FLOATS, (prog, i0, j0, fp)
+                (r0, r1), (c0, c1) = fp.rows, fp.cols
+                r0, c0 = max(r0, 0), max(c0, 0)  # the image's part of it
+                masked[n, r0:r1 + 1, c0:c1 + 1] = x[0, r0:r1 + 1, c0:c1 + 1]
+        got = warp.shear3_warp_plain(masked, tuple(t.repeat(len(tiles)) for t in program))
+        for n, (i0, j0) in enumerate(tiles):
+            tile = (slice(i0, i0 + warp.TILE), slice(j0, j0 + warp.TILE))
+            assert torch.equal(got[n][tile], whole[0][tile]), (prog, i0, j0)
+
+
+def test_stage_sizes_cover_the_draw_set():
+    """The kernel sizes shared memory at the draw set's worst footprint:
+    every geometric op at 401 magnitudes over [−1, 1], every tile at 176 px,
+    stages at most STAGE_EDGE − 2 rows and columns (2 spare for a device
+    program an ulp off the host's) within ``STAGE_FLOATS``; the
+    constants are warp_shear3.cu's."""
+    for name in ("TILE", "STAGE_EDGE", "ROW_PAD"):
+        assert getattr(warp, name) == csrc_constant(name, "warp_shear3.cu"), name
+    mags = np.linspace(-1, 1, 401, dtype=np.float32).tolist()
+    side, floats = 0, 0
+    for op in GEOMETRIC:
+        for prog in _program_rows(op, mags):
+            for i0 in range(0, 176, warp.TILE):
+                for j0 in range(0, 176, warp.TILE):
+                    fp = warp.stage_footprint(prog, i0, j0, 176, 176)
+                    if fp is not None:
+                        side = max(side, fp.rows[1] - fp.rows[0] + 1, fp.cols[1] - fp.cols[0] + 1)
+                        floats = max(floats, fp.floats)
+    assert side <= warp.STAGE_EDGE - 2 and floats <= warp.STAGE_FLOATS, (side, floats)
+    assert side == 74  # a rotation by 45°: the footprint the .cu's note sizes

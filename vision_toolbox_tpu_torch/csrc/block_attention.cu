@@ -55,7 +55,9 @@ cudaError_t launch_core(const void* q, const void* k, const void* v, void* o, vo
   const vtt_k4::RowsSmem L(geo, D / H, KG, true, save);
   auto* kernel = save ? vtt_k4::attn_kernel<true, HD> : vtt_k4::attn_kernel<false, HD>;
   const long long blocks = static_cast<long long>(B) * H * geo.row_blocks;
-  if (L.total > vtt_k4::kMaxSmem || blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  if (vtt_k4::core_smem_bytes(T, D / H) > vtt_k4::kMaxSmem || blocks > 0x7fffffffLL) {
+    return cudaErrorInvalidValue;
+  }
   const cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(L.total));
   if (err != cudaSuccess) return err;

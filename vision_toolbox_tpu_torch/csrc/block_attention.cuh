@@ -160,6 +160,33 @@ struct KeysSmem {
   }
 };
 
+// The keys pass's blocks: the fewest of at most KEY_WARPS warps (16 keys
+// each) that cover T's key groups, and the warps of each.
+struct KeyGeometry {
+  int blocks, warps;
+};
+
+inline KeyGeometry key_geometry(int T) {
+  const int ng = (T + 15) / 16;
+  const int blocks = (ng + KEY_WARPS - 1) / KEY_WARPS;
+  return {blocks, (ng + blocks - 1) / blocks};
+}
+
+// The core's shared memory at (T, hd): the largest of its three layouts,
+// the save forward's (the inference forward's is no larger), the rows
+// pass's and the keys pass's. Both entries refuse a shape by this one term
+// against kMaxSmem, and ops/block_attention.py `_core_smem_bytes` mirrors it
+// for the gate, so the gate admits what the kernels run. Within hd ≤ 128 and
+// T ≤ 512 it stays below kMaxSmem (163,072 bytes at head 128, T = 512).
+inline size_t core_smem_bytes(int T, int hd) {
+  const int kg = hd <= 64 ? Groups<64>::KG : Groups<128>::KG;
+  const Geometry g = rows_geometry(T, kg);
+  const size_t fwd = RowsSmem(g, hd, kg, true, true).total;
+  const size_t rows = RowsSmem(g, hd, kg, false, false).total;
+  const size_t keys = KeysSmem(key_geometry(T).warps, hd).total;
+  return fwd > rows ? (fwd > keys ? fwd : keys) : (rows > keys ? rows : keys);
+}
+
 __device__ __forceinline__ float2 unpack(uint32_t u) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u));
 }

@@ -59,13 +59,12 @@ cudaError_t launch_core(const void* dO, const void* q, const void* k, const void
   const vtt_k4::Geometry geo = vtt_k4::rows_geometry(T, KG);
   const vtt_k4::RowsSmem rows(geo, hd, KG, false, false);
   const long long row_blocks = static_cast<long long>(B) * H * geo.row_blocks;
-  const int ng = (T + 15) / 16;
-  const int key_blocks = (ng + vtt_k4::KEY_WARPS - 1) / vtt_k4::KEY_WARPS;
-  const int key_warps = (ng + key_blocks - 1) / key_blocks;
+  const vtt_k4::KeyGeometry kgeo = vtt_k4::key_geometry(T);
+  const int key_blocks = kgeo.blocks, key_warps = kgeo.warps;
   const vtt_k4::KeysSmem keys(key_warps, hd);
   const long long key_grid = static_cast<long long>(B) * H * key_blocks;
-  if (rows.total > vtt_k4::kMaxSmem || keys.total > vtt_k4::kMaxSmem ||
-      row_blocks > 0x7fffffffLL || key_grid > 0x7fffffffLL) {
+  if (vtt_k4::core_smem_bytes(T, hd) > vtt_k4::kMaxSmem || row_blocks > 0x7fffffffLL ||
+      key_grid > 0x7fffffffLL) {
     return cudaErrorInvalidValue;
   }
   auto* rows_kernel = vtt_k4::attn_bwd_rows_kernel<HD>;

@@ -53,10 +53,14 @@ from .block_mlp import (
     xla_douts,
 )
 
-MAX_SEQ = 512  # the kernels' longest sequence; the gate's shape term refuses some below it
-SMEM_LIMIT = 227 * 1024  # H100 shared memory a block can use
-_FIRST_TILE = 32  # the first design's query tile, which the gate's shape term counts
+MAX_SEQ = 512  # the kernels' longest sequence
+SMEM_LIMIT = 227 * 1024  # H100 shared memory a block can use (block_attention.cuh kMaxSmem)
 _PARTIAL_ROWS = 16  # csrc/block_attention_bwd.cu PARTIAL_ROWS: dbq/dbk/dbv rows a partial
+# csrc/block_attention.cuh: warps a forward or rows-pass block, warps a
+# keys-pass block, queries a keys-pass tile, the keys pass's ring stages,
+# and the 16-key groups a warp holds by head width (≤ 64, ≤ 128)
+_WMAX, _KEY_WARPS, _KEY_BQ, _KEY_STAGES = 8, 8, 64, 2
+_KG = {64: 8, 128: 4}
 
 
 def _p_pitch(t: int) -> int:
@@ -76,31 +80,70 @@ def _bwd_partial_floats(b: int, t: int, d: int) -> int:
             + 2 * _cdiv(m, _LN_ROWS) * d)
 
 
-def _shape_term_bytes(t: int, head_dim: int) -> int:
-    """The gate's shape term: the shared memory of the first design's
-    attention block (K then V, a 32-row query tile, f32 logits, bf16
-    probabilities). The register-tile core keeps no score block in shared
-    memory and runs every T ≤ 512 at heads ≤ 128; the term keeps the
-    admitted set as it was (it refuses head 128 above T = 480)."""
-    sp = -(-t // 16) * 16
-    return (
-        sp * (head_dim + 8) * 2
-        + _FIRST_TILE * (head_dim + 8) * 2
-        + _FIRST_TILE * (max(sp, head_dim) + 4) * 4
-        + _FIRST_TILE * (sp + 8) * 2
-    )
+def _align128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+def _rows_geometry(t: int, kg: int) -> tuple[int, int, int]:
+    """block_attention.cuh ``rows_geometry``: (16-row groups, splits, row
+    tiles a block)."""
+    ng = -(-t // 16)
+    fewest = -(-ng // kg)
+    kgs = -(-ng // fewest)
+    splits = -(-ng // kgs)
+    row_blocks = -(-ng // (_WMAX // splits))
+    return ng, splits, -(-ng // row_blocks)
+
+
+def _rows_smem(t: int, hd: int, fwd: bool, save: bool) -> int:
+    """block_attention.cuh ``RowsSmem(...).total``: the forward's (``fwd``)
+    or the rows pass's bytes, K and V (V and K) apart where both fit beside
+    the rest, else in one buffer."""
+    kg = _KG[64 if hd <= 64 else 128]
+    ng, splits, rows = _rows_geometry(t, kg)
+    warps, sp, ld = rows * splits, ng * 16, hd + 8
+    pld = kg * 16 + 8 if fwd else sp + 8
+    rows_bytes = _align128(rows * 16 * ld * 2)
+    head_bytes = _align128(sp * ld * 2)
+    stat_bytes = _align128(2 * warps * 16 * 4)
+    p_bytes = ((_align128(warps * 16 * pld * 2) if save else 0) if fwd
+               else _align128(rows * 16 * pld * 2))
+    apart = rows_bytes + head_bytes + stat_bytes + p_bytes + head_bytes <= SMEM_LIMIT
+    stats = rows_bytes + (2 * head_bytes if apart else head_bytes)
+    alias = fwd and apart and p_bytes <= rows_bytes + head_bytes
+    return max(stats + stat_bytes + (0 if alias else p_bytes), warps * 16 * (hd + 4) * 4)
+
+
+def _keys_smem(t: int, hd: int) -> int:
+    """block_attention.cuh ``KeysSmem(key_geometry(T).warps, hd).total``."""
+    ng = -(-t // 16)
+    blocks = -(-ng // _KEY_WARPS)
+    warps = -(-ng // blocks)
+    ptile = _align128(_KEY_BQ * (warps * 16 + 8) * 2)
+    htile = _align128(_KEY_BQ * (hd + 8) * 2)
+    return _KEY_STAGES * (2 * ptile + 2 * htile)
+
+
+def _core_smem_bytes(t: int, hd: int) -> int:
+    """The attention core's shared memory (block_attention.cuh
+    ``core_smem_bytes``): the largest of the save forward's, the rows
+    pass's and the keys pass's layouts, the term both CUDA entries refuse a
+    shape by. Below ``SMEM_LIMIT`` at every head ≤ 128 and T ≤ 512."""
+    return max(_rows_smem(t, hd, True, True), _rows_smem(t, hd, False, False),
+               _keys_smem(t, hd))
 
 
 def _kernel_admits(d_model: int, n_heads: int, t: int) -> bool:
     """The CUDA kernels' own shape terms: the projections fill whole
     64-column tiles, a head is a whole number of 16-wide tensor-core steps
-    (≤ 128), 1 ≤ T ≤ 512, and the shape term (``_shape_term_bytes``) within
-    one block's shared memory. The kernels run every shape this admits."""
+    (≤ 128), 1 ≤ T ≤ 512, and the core's three layouts within one block's
+    shared memory (``_core_smem_bytes``, the entries' own test). The
+    kernels run every shape this admits."""
     if n_heads <= 0 or d_model % n_heads:
         return False
     hd = d_model // n_heads
     return (d_model % 64 == 0 and hd % 16 == 0 and hd <= 128 and 1 <= t <= MAX_SEQ
-            and _shape_term_bytes(t, hd) <= SMEM_LIMIT)
+            and _core_smem_bytes(t, hd) <= SMEM_LIMIT)
 
 
 # The JAX rule's admission terms, copied from

@@ -11,9 +11,14 @@ reduced to |θ'| ≤ 45° first, so every shear factor is at most tan 22.5°.
 - ``shear3_warp_plain``: the three passes in plain PyTorch on a zero-padded
   ``canvas_size(H)`` canvas, the counterpart of ``shear3_warp_xla``.
 - ``shear3_warp``: K1. On a CUDA tensor it launches ``csrc/warp_shear3.cu``
-  (one thread per output pixel recomposes the passes; see the note there);
-  on a CPU tensor it runs ``shear3_warp_plain``. Both take the same program,
-  computed once here on the tensor's device.
+  (a block per image and 32 × 32 output tile: a vectorised copy for an
+  identity program, else the tile's source footprint staged in shared
+  memory and every output pixel recomposing the passes from it; see the
+  note there); on a CPU tensor it runs ``shear3_warp_plain``. Both take the
+  same program, computed once here on the tensor's device.
+- ``stage_footprint``: the kernel's footprint rule, mirrored, for the CPU
+  tests: which input rectangle a tile stages and how many floats that
+  takes beside the shared memory the kernel sizes (``STAGE_FLOATS``).
 - ``affine_warp``: the dispatch. Square images take ``shear3_warp`` on every
   device; non-square ones the 2-D bilinear gather
   (``trivial_augment._affine_warp``). The JAX package takes the gather on
@@ -26,7 +31,9 @@ Images are NHWC, H == W for the shear warp, float32 inside.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -117,6 +124,83 @@ def shear3_warp_plain(images: Tensor, program: Program) -> Tensor:
     return canvas[:, P:P + H, P:P + W].contiguous()
 
 
+# csrc/warp_shear3.cu's output tile side, the worst staged footprint side
+# over the draw set it sizes shared memory for, the floats a staged row may
+# add (16-byte ends and the bank pad), and the floats a block stages into
+# at C = 3 (``launch``)
+TILE = 32
+STAGE_EDGE = 76
+ROW_PAD = 12
+STAGE_FLOATS = STAGE_EDGE * (STAGE_EDGE * 3 + ROW_PAD)
+
+
+class Footprint(NamedTuple):
+    """What a K1 tile stages: image rows and columns (inclusive; parts off
+    the image are staged as zeros), and the floats they take as rows of
+    ``pitch`` floats."""
+
+    rows: tuple[int, int]
+    cols: tuple[int, int]
+    floats: int
+
+
+def _shift_floor(p: float, t: float, idx: int, c: np.float32) -> int:
+    """``shear_at``'s k: floor(p·(idx − c) + t), each step rounded to f32."""
+    f = np.float32
+    return int(np.floor(f(f(f(p) * f(f(idx) - c)) + f(t))))
+
+
+def _reads(r: tuple[int, int], idx: tuple[int, int], p: float, t: float,
+           c: np.float32) -> tuple[int, int]:
+    if r[0] > r[1] or idx[0] > idx[1]:
+        return 1, 0
+    ka, kb = _shift_floor(p, t, idx[0], c), _shift_floor(p, t, idx[1], c)
+    return r[0] + min(ka, kb), r[1] + max(ka, kb) + 1
+
+
+def stage_footprint(prog: tuple, i0: int, j0: int, h: int, w: int) -> Footprint | None:
+    """The input rectangle K1 stages for the output tile at (i0, j0) of an
+    RGB image with 16-byte rows and program ``prog`` = (k90, p1, t1, p2, t2,
+    p3) (floats as the f32 tensors hold them), or None where every column
+    pass 3 reads lies off the canvas (``warp_shear3_kernel``'s footprint,
+    step by step: pass 3's columns from the tile's rows, clipped to the
+    canvas, pass 2's rows from those columns, pass 1's columns from those
+    rows, then the rectangle of the quarter-turned canvas as image rows and
+    columns)."""
+    k90, p1, t1, p2, t2, p3 = prog
+    s = canvas_size(h)
+    pad = (s - h) // 2
+    on1, on2, on3 = p1 != 0 or t1 != 0, p2 != 0 or t2 != 0, p3 != 0
+    cen = np.float32(0.5) * np.float32(s - 1)
+    rows = (pad + i0, pad + min(i0 + TILE, h) - 1)
+    cols = (pad + j0, pad + min(j0 + TILE, w) - 1)
+    x3 = _reads(cols, rows, p3 if on3 else 0.0, 0.0, cen)
+    x3 = (max(x3[0], 0), min(x3[1], s - 1))
+    if x3[0] > x3[1]:
+        return None
+    y2 = _reads(rows, x3, p2 if on2 else 0.0, t2 if on2 else 0.0, cen)
+    x1 = _reads(x3, y2, p1 if on1 else 0.0, t1 if on1 else 0.0, cen)
+    ir, ic = (y2[0] - pad, y2[1] - pad), (x1[0] - pad, x1[1] - pad)
+    if k90 == 1:
+        ir, ic = (s - 1 - x1[1] - pad, s - 1 - x1[0] - pad), (y2[0] - pad, y2[1] - pad)
+    elif k90 == -1:
+        ir, ic = (x1[0] - pad, x1[1] - pad), (s - 1 - y2[1] - pad, s - 1 - y2[0] - pad)
+    nf = (((ic[1] + 1) * 3 + 3) & ~3) - ((ic[0] * 3) & ~3)  # whole 16-byte chunks
+    pitch = nf + (4 if (nf // 4) % 2 == 0 else 0)
+    return Footprint(ir, ic, (ir[1] - ir[0] + 1) * pitch)
+
+
+def program_operands(program: Program) -> tuple[Tensor, Tensor]:
+    """The kernel's operands of a program: (B, 4) int32 flags [k90, pass 1,
+    pass 2, pass 3 on] and (B, 5) f32 coefficients [p1, t1, p2, t2, p3]."""
+    k90, p1, t1, p2, t2, p3 = program
+    flags = torch.stack(
+        [k90.int(), ((p1 != 0) | (t1 != 0)).int(), ((p2 != 0) | (t2 != 0)).int(), (p3 != 0).int()],
+        dim=1,
+    ).contiguous()
+    return flags, torch.stack([p1, t1, p2, t2, p3], dim=1).float().contiguous()
+
+
 def shear3_warp_cuda(images: Tensor, program: Program) -> Tensor:
     """Launch ``csrc/warp_shear3.cu`` on the current stream."""
     if images.dtype != torch.float32:
@@ -127,12 +211,7 @@ def shear3_warp_cuda(images: Tensor, program: Program) -> Tensor:
         raise ValueError("shear3_warp: images must be contiguous NHWC")
     B, H, W, C = images.shape
     S = canvas_size(H)
-    k90, p1, t1, p2, t2, p3 = program
-    flags = torch.stack(
-        [k90.int(), ((p1 != 0) | (t1 != 0)).int(), ((p2 != 0) | (t2 != 0)).int(), (p3 != 0).int()],
-        dim=1,
-    ).contiguous()
-    coef = torch.stack([p1, t1, p2, t2, p3], dim=1).float().contiguous()
+    flags, coef = program_operands(program)
     out = torch.empty_like(images)
     if images.numel() == 0:
         return out
