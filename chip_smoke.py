@@ -135,7 +135,19 @@ sm_90a, one process per source) and drives the port's paths:
   plain versions (the saved p too) with a second backward bit-equal, holds
   the bf16 rel L2 at b128 to twice the first design's
   (K4_FIRST_CORE_REL_L2), and times the core's launches apart beside the
-  first design's (K4_FIRST_CORE_MS), its bound and phase 38's chain.
+  first design's (K4_FIRST_CORE_MS), its bound and phase 38's chain;
+- MLP-Mixer, PatchConvNet and VoVNet (slice 17): phase 40 serves
+  mixer_b_16 (12 K3 a request), runs its bs128@224 step with ViT's recipe
+  (12 + 12 K3 a step) and one step at bs8 against the plain versions and an
+  f32 reference, holds mixer_s_8 (N = 784 tokens) against its plain path
+  and times K3 at its channel half, b128; phase 41 times K9 at k = 3 on
+  patchconvnet_s's trunk (b128) beside cuDNN's grouped conv and its bound,
+  serves patchconvnet_s (60 K9 a request) and runs its bs128@224 step with
+  drop-path 0.3 (60 + 60 K9 a step) and one step at bs8 against the plain
+  versions and an f32 reference; phase 42 runs vovnet57 on
+  configs/base.yaml's recipe at bs512@176 (K1 once a step, its peak
+  memory) and serves it. Each of the three prints its wall seconds, and
+  the script its total.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -154,6 +166,7 @@ from __future__ import annotations
 import copy
 import contextlib
 import functools
+import inspect
 import json
 import math
 import re
@@ -408,6 +421,25 @@ SWIN_WINDOW14 = (SWIN_TIME_BATCH, 1, 196, 12, 32, False)
 CHAIN_CASES = (("block_mlp", 8, 197, 768), ("block_attention", 8, 197, 768),
                ("block_mlp", 128, 197, 768), ("block_attention", 128, 197, 768),
                ("block_mlp_convnext", 128, 56 * 56, 96))
+# MLP-Mixer (slice 17): mixer_b_16 at 224 px, 12 blocks of d 768 on N = 196
+# tokens, each channel half K3 (3072 hidden), the token halves torch.matmul;
+# mixer_s_8 (8 blocks, d 512) has N = 784; K3 is timed at its channel half
+# at batch 128, (B, T, D, Dh)
+MIXER_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                   compare_batch=8)
+MIXER_S8 = dict(name="mixer_s_8", batch=8, blocks=8)
+MIXER_S8_MLP = (128, 784, 512, 2048)
+# PatchConvNet (slice 17): patchconvnet_s, 60 blocks on a 14 × 14 × 384 map,
+# each K9 at k = 3; drop-path 0.3 in every block (the published recipe's);
+# LayerScale γs spread around 0.1 as convnext_t's (1e-6 rounds away in bf16);
+# K9 timed at its trunk at batch 128, (B, H = W, C, k)
+PATCHCONV_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                       compare_batch=8, layer_scale=0.1)
+PATCHCONV_DEPTHWISE = (128, 14, 384, 3)
+# VoVNet (slice 17): vovnet57, the backbone of configs/base.yaml, on its recipe
+# at its batch, 512 at 176 px (14.2 GiB at cell (b)'s 256 on an H100 80 GB:
+# 512 fits)
+VOVNET_TRAIN = dict(model="vovnet57", batch=512, img=176, classes=1000, warmup=3, steps=10)
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -417,7 +449,7 @@ VIT_B = dict(D=768, H=12, Dh=3072)
 SERVE_BATCHES = (1, 8, 32)
 REL_L2_BOUND = 1e-2
 WARP_BOUND = 1e-5  # max abs, [0, 1] images: same f32 operations on both sides
-TRAIN = dict(batch=256, img=176, classes=1000, warmup=3, steps=10)
+TRAIN = dict(model="cspdarknet53", batch=256, img=176, classes=1000, warmup=3, steps=10)
 LOSS_REL_BOUND = 1e-3  # kernel-path vs plain-path step: bf16 rounding flips only
 BWD_REL_L2 = 1e-2  # reduced and weight gradients of a backward kernel vs its plain version
 GRAD_REL_L2 = 2e-2  # every parameter gradient, kernel-path step vs plain-path step
@@ -505,11 +537,13 @@ def talking_head_work(name: str, B: int, T: int, S: int, H: int, D: int,
             12 * B * H * H * T * S)
 
 
-def block_work(name: str, B: int, T: int, x_bytes: int, ls: bool = False) -> tuple[float, float]:
-    """(operations, bytes) of one call of a half-block kernel at vit_b_16
-    widths: the products the kernel runs and the tensors it must read and
-    write (x/dout/dx in ``x_bytes`` per element, saves and weights bf16)."""
-    D, Dh, H = VIT_B["D"], VIT_B["Dh"], VIT_B["H"]
+def block_work(name: str, B: int, T: int, x_bytes: int, ls: bool = False,
+               widths: dict = VIT_B) -> tuple[float, float]:
+    """(operations, bytes) of one call of a half-block kernel at ``widths``
+    (vit_b_16's by default): the products the kernel runs and the tensors it
+    must read and write (x/dout/dx in ``x_bytes`` per element, saves and
+    weights bf16)."""
+    D, Dh, H = widths["D"], widths["Dh"], widths.get("H", 1)
     M, vec = B * T, 4 * D
     if name == "block_mlp":  # x, out; W1, W2; biases, LN
         return 4 * M * D * Dh, 2 * M * D * x_bytes + 4 * D * Dh + 4 * vec + 4 * Dh
@@ -747,26 +781,25 @@ def plain_warp():
         warp.shear3_warp_cuda = kernel
 
 
-def train(report: dict, name_power: str) -> int:
-    """Phase 7 (the training path): the full-recipe cspdarknet53 step at
-    bs256@176, 3 warm-up + 10 timed steps; then phase 8, one step through K1
-    against one through its plain version from one state and one set of
-    draws. Returns K1's launches in the training run."""
+def recipe_step_parts(cfg: dict):
+    """A seeded bf16 classifier on ``cfg["model"]`` (built on the card),
+    its SGD state (three groups, warmup-cosine at lr 0.5·B/1024) and the
+    full-recipe train step (TrivialAugment through K1, RandomErasing 0.1,
+    CutMix⊕MixUp, label smoothing 0.1), uint8 images and labels made on the
+    card, and the step's generator."""
     import vision_toolbox_tpu_torch as vtt
-    from vision_toolbox_tpu_torch.ops import _cuda
     from vision_toolbox_tpu_torch.train import (
         ImageClassifier, TrainState, make_train_step, sgd_with_param_groups,
         warmup_cosine_schedule,
     )
 
-    B, S, classes = TRAIN["batch"], TRAIN["img"], TRAIN["classes"]
+    B, S, classes = cfg["batch"], cfg["img"], cfg["classes"]
     gen = torch.Generator().manual_seed(0)
-    backbone = vtt.create_backbone("cspdarknet53", dtype=torch.bfloat16, device="cuda",
+    backbone = vtt.create_backbone(cfg["model"], dtype=torch.bfloat16, device="cuda",
                                    generator=gen)
     model = ImageClassifier(backbone, classes, dtype=torch.bfloat16, generator=gen)
     schedule = warmup_cosine_schedule(0.5 * B / 1024, 100, 1_281_167 // B)
     opt = sgd_with_param_groups(model, schedule, momentum=0.9, weight_decay=2e-5)
-    state = TrainState(model, opt)
     step = make_train_step(classes, label_smoothing=0.1, mixup_alpha=0.2, cutmix_alpha=1.0,
                            trivial_augment=True, random_erasing_p=0.1,
                            compute_dtype=torch.bfloat16)
@@ -774,46 +807,70 @@ def train(report: dict, name_power: str) -> int:
     images = torch.randint(0, 256, (B, S, S, 3), dtype=torch.uint8, device="cuda", generator=data)
     labels = torch.randint(0, classes, (B,), device="cuda", generator=data)
     g = torch.Generator(device="cuda").manual_seed(2)
-    n_params = sum(p.numel() for p in model.parameters())
-    log(f"[train] cspdarknet53 + head {classes}: {n_params / 1e6:.2f} M f32 params, bf16 compute, "
-        f"bs{B}@{S}, TA + RE 0.1 + CutMix⊕MixUp, SGD 0.9, wd 2e-5 (3 groups), cudnn TF32 off")
+    return TrainState(model, opt), step, images, labels, g
+
+
+def train(report: dict, name_power: str) -> int:
+    """Phase 7 (the training path): the full-recipe cspdarknet53 step at
+    bs256@176, 3 warm-up + 10 timed steps; then phase 8, one step through K1
+    against one through its plain version from one state and one set of
+    draws. Returns K1's launches in the training run."""
     watched = ("head.weight", "backbone.stem.conv.weight", "backbone.stem.norm.running_mean",
                "backbone.stage_4.out_conv.norm.running_var")
+    return train_recipe(report, "train", TRAIN, watched, name_power)
+
+
+def train_recipe(report: dict, key: str, cfg: dict, watched: tuple[str, ...],
+                 name_power: str) -> int:
+    """The full-recipe step of ``cfg["model"]`` (``recipe_step_parts``) at
+    ``cfg``'s batch and size, warm-up and timed steps, K1 launched once a
+    step, peak memory from the first step; then one step through K1 against
+    one through its plain version from one state and one set of draws.
+    Returns K1's launches in the timed run."""
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    state, step, images, labels, g = recipe_step_parts(cfg)
+    model, B, S, classes, tag = state.model, cfg["batch"], cfg["img"], cfg["classes"], key
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[{tag}] {cfg['model']} + head {classes}: {n_params / 1e6:.2f} M f32 params, bf16 "
+        f"compute, bs{B}@{S}, TA + RE 0.1 + CutMix⊕MixUp, SGD 0.9, wd 2e-5 (3 groups), cudnn "
+        "TF32 off")
     before = {k: model.state_dict()[k].detach().clone() for k in watched}
 
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     # the main path: counts from 0 just before, read just after
     _cuda.reset_launch_counts()
     losses = []
-    for _ in range(TRAIN["warmup"]):
+    for _ in range(cfg["warmup"]):
         losses.append(step(state, images, labels, g)["loss"])
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
     start.record()
-    for _ in range(TRAIN["steps"]):
+    for _ in range(cfg["steps"]):
         losses.append(step(state, images, labels, g)["loss"])
     end.record()
     end.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / TRAIN["steps"]
+    wall_ms = (time.perf_counter() - t0) * 1e3 / cfg["steps"]
     launches = dict(_cuda.LAUNCHES)
-    ms = start.elapsed_time(end) / TRAIN["steps"]
+    ms = start.elapsed_time(end) / cfg["steps"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
     losses = [float(v) for v in losses]
-    n_steps = TRAIN["warmup"] + TRAIN["steps"]
-    log(f"[train] losses {['%.4f' % v for v in losses]}")
-    log(f"[train] {ms:.2f} ms/step, {B / ms * 1e3:.1f} img/s (CUDA events over {TRAIN['steps']} "
-        f"steps; host clock {wall_ms:.2f} ms/step); peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB  [{name_power}]")
-    log(f"[train] launches in {n_steps} steps: {launches}")
+    n_steps = cfg["warmup"] + cfg["steps"]
+    log(f"[{tag}] losses {['%.4f' % v for v in losses]}")
+    log(f"[{tag}] {ms:.2f} ms/step, {B / ms * 1e3:.1f} img/s (CUDA events over {cfg['steps']} "
+        f"steps; host clock {wall_ms:.2f} ms/step); peak memory {peak:.1f} GiB  [{name_power}]")
+    log(f"[{tag}] launches in {n_steps} steps: {launches}")
     changed = {k: not torch.equal(v, model.state_dict()[k]) for k, v in before.items()}
-    report["train"] = dict(ms_per_step=ms, img_per_s=B / ms * 1e3, host_ms_per_step=wall_ms,
-                           losses=losses, launches=launches, changed=changed,
-                           peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    report[key] = dict(ms_per_step=ms, img_per_s=B / ms * 1e3, host_ms_per_step=wall_ms,
+                       losses=losses, launches=launches, changed=changed, peak_gib=peak)
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite loss: {losses}")
     if not all(changed.values()):
         raise AssertionError(f"parameters or BN statistics did not change: {changed}")
-    if launches["warp_shear3"] != n_steps:
-        raise AssertionError(f"K1 launched {launches['warp_shear3']} times in {n_steps} steps")
+    if launches != NO_LAUNCHES | {"warp_shear3": n_steps}:
+        raise AssertionError(f"expected {n_steps} K1 launches and no other kernel: {launches}")
 
     # phase 8: one step through K1 vs one through its plain version
     draws = step.sample_draws(g, (B, S, S, 3))
@@ -826,14 +883,15 @@ def train(report: dict, name_power: str) -> int:
         loss_plain = float(step(states[1], images, labels, draws=draws)["loss"])
     batch_err = (x_kernel.float() - x_plain.float()).abs().max().item()
     loss_rel = abs(loss_kernel - loss_plain) / abs(loss_plain)
-    report["train_vs_plain"] = dict(batch_max_abs_err=batch_err, loss_kernel=loss_kernel,
-                                    loss_plain=loss_plain, loss_rel=loss_rel)
-    log(f"[train] kernel vs plain path, one step from one state and draws: augmented batch "
+    report[f"{key}_vs_plain"] = dict(batch_max_abs_err=batch_err, loss_kernel=loss_kernel,
+                                     loss_plain=loss_plain, loss_rel=loss_rel)
+    log(f"[{tag}] kernel vs plain path, one step from one state and draws: augmented batch "
         f"max|err| {batch_err:.3e} (bound {WARP_BOUND}), loss {loss_kernel:.6f} vs "
         f"{loss_plain:.6f}, rel {loss_rel:.3e} (bound {LOSS_REL_BOUND})")
     if not batch_err <= WARP_BOUND or not loss_rel <= LOSS_REL_BOUND:
         raise AssertionError("the kernel path and the plain path disagree")
     return launches["warp_shear3"]
+
 
 class Checks:
     """Kernel-vs-plain comparisons of one phase: elementwise tensors by max
@@ -1022,7 +1080,8 @@ def time_backward(report: dict) -> dict[str, tuple[float, float]]:
 
 
 def spread_layer_scale(model: torch.nn.Module, center: float, seed: int = 3) -> None:
-    """Every LayerScale γ of ``model`` ← center·(1 + U(0, 1)), seeded."""
+    """Every LayerScale γ of ``model``, then every parameter named
+    ``layer_scale*`` (PatchConvNet's), ← center·(1 + U(0, 1)), seeded."""
     from vision_toolbox_tpu_torch.nn.layers import LayerScale
 
     g = torch.Generator().manual_seed(seed)
@@ -1030,6 +1089,9 @@ def spread_layer_scale(model: torch.nn.Module, center: float, seed: int = 3) -> 
         for m in model.modules():
             if isinstance(m, LayerScale):
                 m.gamma.copy_(center * (1 + torch.rand(m.gamma.shape, generator=g)))
+        for name, p in model.named_parameters():
+            if name.rsplit(".", 1)[-1].startswith("layer_scale"):
+                p.copy_(center * (1 + torch.rand(p.shape, generator=g)))
 
 
 def vit_step_parts(name: str, cfg: dict, forward_kw: dict | None = None, **model_kw):
@@ -1176,12 +1238,24 @@ def zero_gradient_ref(name: str) -> str | None:
     held against, else None: a key-projection bias shifts each query's
     logits by a constant, and CaiT's pre-softmax mix bias shifts whole
     logit rows, both removed by the softmax; they are held against the
-    value bias and the pre-softmax mix."""
+    value bias and the pre-softmax mix. The Mixer's token-mixing output
+    bias adds one value to all channels of a token, which every LayerNorm
+    after it removes; it is held against the channel-mixing output bias."""
     if name.endswith("k_proj.bias"):
         return name.replace("k_proj", "v_proj")
     if name.endswith("proj_l_bias"):
         return name.replace("proj_l_bias", "proj_l_kernel")
+    if name.endswith("token_mixing.linear2.bias"):
+        return name.replace("token_mixing", "channel_mixing")
     return None
+
+
+def reference_kw(model) -> dict[str, bool]:
+    """The forward options that put ``model`` on its f32 reference route:
+    ``plain`` (the kernels' plain versions) and, where the model has fused
+    half-blocks, ``force_unfused`` (the unfused module chain)."""
+    params = inspect.signature(model.forward).parameters
+    return {k: True for k in ("force_unfused", "plain") if k in params}
 
 
 def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draws,
@@ -1211,7 +1285,7 @@ def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draw
     ref_model = ImageClassifier(ref_backbone, cfg["classes"])
     ref_model.load_state_dict(state.model.state_dict())
     ref_backbone.forward = functools.partial(type(ref_backbone).forward, ref_backbone,
-                                             force_unfused=True, plain=True)
+                                             **reference_kw(ref_backbone))
     states.append(TrainState(ref_model, sgd_with_param_groups(ref_model, 0.0)))
     drop = lambda: torch.Generator(device="cuda").manual_seed(5)  # the model's own draws
     losses = [float(step(st, images, labels, drop(), draws=draws)["loss"]) for st in states]
@@ -1810,6 +1884,56 @@ def compare_depthwise(report: dict) -> tuple[dict[str, float], float]:
     return main_err, main_dw
 
 
+def time_depthwise_case(g, B: int, H: int, C: int, k: int, name_power: str,
+                        earlier: bool = False, tag: str = "depthwise-time"):
+    """K9 forward and backward on a (B, H, H, C) bf16 map with a k × k
+    filter: the kernels, their plain versions (in turns) and cuDNN's grouped
+    conv (``F.conv2d(groups=C)`` on the same memory as a channels_last
+    tensor; its backward is forward + backward less the forward), each with
+    its bound, the route and launch geometry; with ``earlier``, beside the
+    first design's times (K9_EARLIER_MS, convnext_t stage 1). Returns the
+    row and the timed operands (x, w, dout)."""
+    import torch.nn.functional as F
+
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    x, w, dout = depthwise_args(g, B, H, H, C, k, torch.bfloat16)
+    wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)  # (C, 1, k, k)
+    conv = lambda t, wt: F.conv2d(t.permute(0, 3, 1, 2), wt, padding=k // 2, groups=C)
+    xl, wl = x.detach().clone().requires_grad_(), wc.detach().clone().requires_grad_()
+
+    def library_fb():
+        with torch.enable_grad():
+            out = conv(xl, wl)
+            torch.autograd.grad(out, (xl, wl), dout.permute(0, 3, 1, 2))
+
+    row = dict(B=B, H=H, C=C, k=k, route=dc.kernel_route(x, dout),
+               geometry=dict(forward=dc.kernel_geometry(x, w),
+                             weight_gradient=dc.kernel_geometry(x, w, bwd=True)))
+    log(f"[{tag}] B={B} {H}x{H}x{C} k={k}: route {row['route']}, geometry {row['geometry']}")
+    for what, plain, kernel, library in (
+        ("forward", lambda: dc.depthwise_conv2d_plain(x, w),
+         lambda: dc.depthwise_conv2d_cuda(x, w), lambda: conv(x, wc)),
+        ("backward", lambda: dc.depthwise_conv2d_bwd_plain(x, w, dout),
+         lambda: dc.depthwise_conv2d_bwd_cuda(x, w, dout), library_fb),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=5)
+        library_ms = time_ms(library, iters=10)
+        row[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
+    row["backward"]["library_ms"] -= row["forward"]["library_ms"]
+    for what in ("forward", "backward"):
+        r = row[what]
+        name = "depthwise_conv" + ("_bwd" if what == "backward" else "")
+        r["bound_ms"], r["bound_by"] = bound(*depthwise_work(name, B, H, H, C, k, 2))
+        first = (f"; first design (PERF.md §6) {K9_EARLIER_MS[name]:.4f} ms, this / "
+                 f"first = {r['ms'] / K9_EARLIER_MS[name]:.3f}" if earlier else "")
+        log(f"[{tag}] {what:8s} B={B} {H}x{H}x{C} k={k} bf16: kernel {r['ms']:.4f} ms"
+            f"  plain {r['plain_ms']:.4f} ms  cuDNN grouped conv {r['library_ms']:.4f} ms "
+            f"(kernel / cuDNN = {r['ms'] / r['library_ms']:.3f})  bound {r['bound_ms']:.4f} "
+            f"ms ({r['bound_by']}){first}  [{name_power}]")
+    return row, (x, w, dout)
+
+
 def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, float, float]]:
     """Phase 22: K9 forward and backward at convnext_t's four stage shapes,
     batch DEPTHWISE_TIME_BATCH, bf16: the kernels, their plain versions (in
@@ -1826,52 +1950,18 @@ def time_depthwise(report: dict, name_power: str) -> dict[str, tuple[float, floa
     a bf16 block. Returns (kernel, plain, library) ms of stage 1, the shape
     of the JSON line's bound; the stages and the 18-call sums go to the
     report."""
-    import torch.nn.functional as F
-
     from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
 
     g = torch.Generator().manual_seed(22)
     B, rows, per_step, checks = DEPTHWISE_TIME_BATCH, [], {}, Checks()
     for H, C, blocks in CONVNEXT_STAGES:
-        x, w, dout = depthwise_args(g, B, H, H, C, 7, torch.bfloat16)
-        wc = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)  # (C, 1, k, k)
-        conv = lambda t, wt: F.conv2d(t.permute(0, 3, 1, 2), wt, padding=3, groups=C)
-        xl, wl = x.detach().clone().requires_grad_(), wc.detach().clone().requires_grad_()
-
-        def library_fb():
-            with torch.enable_grad():
-                out = conv(xl, wl)
-                torch.autograd.grad(out, (xl, wl), dout.permute(0, 3, 1, 2))
-
-        row = dict(B=B, H=H, C=C, k=7, blocks=blocks, route=dc.kernel_route(x, dout),
-                   geometry=dict(forward=dc.kernel_geometry(x, w),
-                                 weight_gradient=dc.kernel_geometry(x, w, bwd=True)))
-        log(f"[depthwise-time] B={B} {H}x{H}x{C}: route {row['route']}, geometry "
-            f"{row['geometry']}")
-        for what, plain, kernel, library in (
-            ("forward", lambda: dc.depthwise_conv2d_plain(x, w),
-             lambda: dc.depthwise_conv2d_cuda(x, w), lambda: conv(x, wc)),
-            ("backward", lambda: dc.depthwise_conv2d_bwd_plain(x, w, dout),
-             lambda: dc.depthwise_conv2d_bwd_cuda(x, w, dout), library_fb),
-        ):
-            plain_ms, ms = alternate(plain, kernel, iters=5)
-            library_ms = time_ms(library, iters=10)
-            row[what] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms)
-        row["backward"]["library_ms"] -= row["forward"]["library_ms"]
+        row, (x, w, dout) = time_depthwise_case(g, B, H, C, 7, name_power,
+                                                earlier=H == CONVNEXT_STAGES[0][0])
+        row["blocks"] = blocks
         for what in ("forward", "backward"):
-            r = row[what]
-            name = "depthwise_conv" + ("_bwd" if what == "backward" else "")
-            r["bound_ms"], r["bound_by"] = bound(*depthwise_work(name, B, H, H, C, 7, 2))
-            earlier = (f"; first design (PERF.md §6) {K9_EARLIER_MS[name]:.4f} ms, this / "
-                       f"first = {r['ms'] / K9_EARLIER_MS[name]:.3f}" if H == 56 else "")
-            log(f"[depthwise-time] {what:8s} B={B} {H}x{H}x{C} k=7 bf16: kernel {r['ms']:.4f} ms"
-                f"  plain {r['plain_ms']:.4f} ms  cuDNN grouped conv {r['library_ms']:.4f} ms "
-                f"(kernel / cuDNN = {r['ms'] / r['library_ms']:.3f})  bound {r['bound_ms']:.4f} "
-                f"ms ({r['bound_by']}){earlier}  [{name_power}]")
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
-                per_step[(what, key)] = per_step.get((what, key), 0.0) + blocks * r[key]
+                per_step[(what, key)] = per_step.get((what, key), 0.0) + blocks * row[what][key]
         rows.append(row)
-        del wc, xl, wl
         operands = [(x, w, dout)]
         if H == CONVNEXT_STAGES[0][0]:
             fwd, wgrad = row["geometry"]["forward"], row["geometry"]["weight_gradient"]
@@ -1944,10 +2034,12 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
                    layer_scale: float | None = None, model_kw: dict | None = None,
                    per_batch: dict[int, dict[str, int]] | None = None) -> dict[str, int]:
     """A seeded bf16 ``name`` (224 px, built with ``model_kw``; LayerScale
-    γs spread around ``layer_scale`` where given), eager at batch 8 through
-    the kernels (``per_forward`` launches a forward, nothing else) against
-    its plain versions (logits rel L2 ≤ REL_L2_BOUND or twice the plain bf16
-    path's own distance from an f32 forward of the same weights), then
+    γs spread around ``layer_scale`` where given; its output (B, width) or,
+    for a convnet's feature map, (B, h, w, width)), eager at batch 8 through
+    the kernels (``per_forward`` launches a forward, nothing else) and, where
+    it runs one, against its plain versions (logits rel L2 ≤ REL_L2_BOUND or
+    twice the plain bf16 path's own distance from an f32 forward of the same
+    weights), then
     served: export (the program calls each custom op of ``program_ops`` that
     many times, no backward op) → load → three requests at each of
     ``batches``, each against eager, a request at batch b launching
@@ -1971,22 +2063,28 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
                         generator=torch.Generator().manual_seed(1)).cuda()
     ref = vtt.create_backbone(name, **model_kw)  # f32 compute, the same weights
     ref.load_state_dict(model.state_dict())
+    runs_kernels = any(per_forward.values())
     with torch.inference_mode():
         _cuda.reset_launch_counts()
         logits = model(images[:8])
         torch.cuda.synchronize()
         counts = dict(_cuda.LAUNCHES)
-        plain_logits = model(images[:8], plain=True)
-        f32_logits = ref(images[:8], force_unfused=True, plain=True)
-    err, own = rel_l2(logits, plain_logits), rel_l2(plain_logits, f32_logits)
-    bound_l2 = max(REL_L2_BOUND, 2 * own)
-    log(f"[{tag}] {name} bf16 bs8 forward: launches {counts}; logits kernel vs plain path "
-        f"rel L2 {err:.3e} (bound {bound_l2:.3e}: the plain bf16 path is {own:.3e} from the f32 "
-        f"reference; the kernel path {rel_l2(logits, f32_logits):.3e})")
+        plain_logits = model(images[:8], plain=True) if runs_kernels else None
+        f32_logits = ref(images[:8], **reference_kw(ref))
+    if runs_kernels:
+        err, own = rel_l2(logits, plain_logits), rel_l2(plain_logits, f32_logits)
+        bound_l2 = max(REL_L2_BOUND, 2 * own)
+        log(f"[{tag}] {name} bf16 bs8 forward: launches {counts}; logits kernel vs plain path "
+            f"rel L2 {err:.3e} (bound {bound_l2:.3e}: the plain bf16 path is {own:.3e} from the "
+            f"f32 reference; the kernel path {rel_l2(logits, f32_logits):.3e})")
+    else:  # no kernel in the model: nothing to hold against a plain path
+        err = own = bound_l2 = None
+        log(f"[{tag}] {name} bf16 bs8 forward: launches {counts}; no kernel in the model; "
+            f"the bf16 forward is {rel_l2(logits, f32_logits):.3e} from the f32 reference")
     if counts != per_forward:
         raise AssertionError(f"expected {per_forward}, got {counts}")
-    if logits.shape != (8, width) or not torch.isfinite(logits.float()).all() \
-            or not err <= bound_l2:
+    if (logits.shape[0], logits.shape[-1]) != (8, width) \
+            or not torch.isfinite(logits.float()).all() or (runs_kernels and not err <= bound_l2):
         raise AssertionError(f"{name} logits: shape {tuple(logits.shape)}, rel L2 {err}")
     del ref
 
@@ -2017,7 +2115,8 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
     for b in batches:
         for out in answers[b]:
             e = rel_l2(out, eager[b])
-            if out.shape != (b, width) or not torch.isfinite(out.float()).all() or e > 1e-3:
+            if out.shape != eager[b].shape or (out.shape[0], out.shape[-1]) != (b, width) \
+                    or not torch.isfinite(out.float()).all() or e > 1e-3:
                 raise AssertionError(f"served batch {b} disagrees with eager: rel L2 {e}")
         with torch.inference_mode():
             ms = time_ms(lambda: served(images[:b]), iters=10)
@@ -2932,6 +3031,163 @@ def hold_attention_core(report: dict, name_power: str, build_log: str) -> dict[s
     return parts
 
 
+def hold_mixer_s8(report: dict) -> None:
+    """Phase 40, second part: one seeded bf16 mixer_s_8 forward at batch 8
+    (N = 784 tokens, the gate's largest Mixer T): 8 K3 launches and nothing
+    else, logits against the plain path (rel L2 ≤ REL_L2_BOUND or twice the
+    plain bf16 path's own distance from an f32 forward)."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    cfg = MIXER_S8
+    model = vtt.create_backbone(cfg["name"], dtype=torch.bfloat16,
+                                generator=torch.Generator().manual_seed(0))
+    ref = vtt.create_backbone(cfg["name"])  # f32 compute, the same weights
+    ref.load_state_dict(model.state_dict())
+    images = torch.rand(cfg["batch"], 224, 224, 3,
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    with torch.inference_mode():
+        _cuda.reset_launch_counts()
+        logits = model(images)
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+        plain = model(images, plain=True)
+        f32 = ref(images, force_unfused=True, plain=True)
+    err, own = rel_l2(logits, plain), rel_l2(plain, f32)
+    bound_l2 = max(REL_L2_BOUND, 2 * own)
+    report["mixer_s8"] = dict(launches=counts, rel_l2_vs_plain=err, plain_vs_f32=own)
+    log(f"[mixer-s8] {cfg['name']} bf16 bs{cfg['batch']} forward (T = 784): launches {counts}; "
+        f"logits kernel vs plain path rel L2 {err:.3e} (bound {bound_l2:.3e}; plain vs f32 "
+        f"{own:.3e})")
+    if counts != NO_LAUNCHES | {"block_mlp": cfg["blocks"]}:
+        raise AssertionError(f"mixer_s_8: expected {cfg['blocks']} K3 launches, got {counts}")
+    if not torch.isfinite(logits.float()).all() or not err <= bound_l2:
+        raise AssertionError(f"mixer_s_8 logits disagree with the plain path: {err}")
+
+
+def time_mixer_mlp(report: dict, name_power: str) -> None:
+    """Phase 40, last part: K3's inference forward, save forward and
+    backward at mixer_s_8's channel half (MIXER_S8_MLP: T = 784, 512 /
+    2048, batch 128, bf16, no γ, drop-path or separate residual), in turns
+    with their plain versions, each beside its bound; the timed operands
+    held against the plain versions (Checks' bounds) and a second backward
+    bit-equal to the first."""
+    from vision_toolbox_tpu_torch.ops import block_mlp as bm
+
+    g = torch.Generator().manual_seed(40)
+    B, T, D, Dh = MIXER_S8_MLP
+    widths = dict(D=D, Dh=Dh)
+    m = mlp_args(g, B, T, D, Dh, torch.bfloat16, False, False)
+    ops = [m[k] for k in ("ln_scale", "ln_bias", "w1", "b1", "w2", "b2")]
+    fwd = (m["x"], *ops, None, None, None)
+    out, saves = bm.fused_mlp_save_cuda(*fwd)
+    dout = torch.randn(m["x"].shape, generator=g).to("cuda", torch.bfloat16)
+    bwd = (dout, saves, m["w1"], m["w2"], m["ln_scale"], None, None, False)
+    checks, case = Checks(), dict(kernel="block_mlp", B=B, T=T, D=D, Dh=Dh)
+    checks.elementwise(case, "out", bm.fused_mlp_block(**m), bm.fused_mlp_block_plain(**m))
+    got, want = bm.fused_mlp_bwd_cuda(*bwd), bm.fused_mlp_bwd_plain(*bwd)
+    checks.elementwise(case, "dx", got.dx, want.dx)
+    for name in ("db1", "db2", "dln_scale", "dln_bias"):
+        checks.reduced(case, name, getattr(got, name), getattr(want, name))
+    log(f"[mixer-mlp] held mixer_s_8's channel half bs{B} bf16: {checks.summary(case)}")
+    second_backward_bit_equal(report, f"block_mlp_bwd mixer_s_8 b{B}",
+                              lambda: bm.fused_mlp_bwd_cuda(*bwd))
+    rows = {}
+    for name, work, plain, kernel in (
+        ("block_mlp", "block_mlp", lambda: bm.fused_mlp_block_plain(**m),
+         lambda: bm.fused_mlp_block(**m)),
+        ("block_mlp save", "block_mlp", lambda: bm.fused_mlp_save_plain(*fwd),
+         lambda: bm.fused_mlp_save_cuda(*fwd)),
+        ("block_mlp_bwd", "block_mlp_bwd", lambda: bm.fused_mlp_bwd_plain(*bwd),
+         lambda: bm.fused_mlp_bwd_cuda(*bwd)),
+    ):
+        plain_ms, ms = alternate(plain, kernel, iters=5)
+        bound_ms, bound_by = bound(*block_work(work, B, T, 2, widths=widths))
+        rows[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by)
+        log(f"[mixer-mlp] {name:14s} mixer_s_8 bs{B} (M={B * T}, D={D}, Dh={Dh}) bf16: kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  bound {bound_ms:.4f} ms ({bound_by}), "
+            f"{4 * B * T * D * Dh / ms / 1e9:.0f} TFLOP/s  [{name_power}]")
+    report["mixer_mlp_times"] = dict(rows=rows, held=checks.rows)
+    if not all(r["ok"] for r in checks.rows):
+        raise AssertionError(f"K3 at mixer_s_8's shape out of bounds: {checks.rows}")
+
+
+def mixer(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 40 (cell (o)): mixer_b_16 served (``serve_backbone``: 12 K3
+    forward launches a forward, 12 ``vtt::fused_mlp_block`` calls in the
+    program, batches SERVE_BATCHES), its bs128@224 step with ViT's recipe
+    (3 warm-up + 10 timed steps, 12 + 12 K3 a step) and one step at bs8
+    through the kernels against the plain versions and an f32 reference;
+    then mixer_s_8 at T = 784 held (``hold_mixer_s8``) and K3 timed at its
+    channel half (``time_mixer_mlp``). Returns the step's launches."""
+    serve_backbone(report, "mixer_serve", "mixer_b_16", {"block_mlp": 12},
+                   {"fused_mlp_block": 12}, SERVE_BATCHES, name_power)
+    watched = ("head.weight", "backbone.patch_embed.weight",
+               "backbone.blocks.0.token_mixing.linear1.weight", "backbone.blocks.5.norm2.weight",
+               "backbone.blocks.11.channel_mixing.linear2.bias", "backbone.norm.bias")
+    per_step = NO_LAUNCHES | dict.fromkeys(("block_mlp", "block_mlp_bwd"), 12)
+    launches = train_transformer(report, "mixer_train", "mixer_b_16", MIXER_TRAIN, per_step,
+                                 watched, name_power)
+    hold_mixer_s8(report)
+    with torch.no_grad():
+        time_mixer_mlp(report, name_power)
+    return launches
+
+
+def patchconvnet(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 41 (cell (p)): K9 at k = 3 on patchconvnet_s's trunk at batch
+    128 (PATCHCONV_DEPTHWISE) timed beside its plain versions, cuDNN's
+    grouped conv and its bound (``time_depthwise_case``), the timed operands
+    held (bf16 out and dx bit-equal, a second backward bit-equal); then
+    patchconvnet_s (depth 60, LayerScale γs around 0.1) served: 60 K9
+    forward launches a forward, 60 ``vtt::depthwise_conv2d`` calls in the
+    program; its bs128@224 step with drop-path 0.3 (60 + 60 K9 a step) and
+    one step at bs8 through the kernels against the plain versions and an
+    f32 reference, one set of drop-path draws for all three. Returns the
+    step's launches."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    B, H, C, k = PATCHCONV_DEPTHWISE
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(41)
+        row, (x, w, dout) = time_depthwise_case(g, B, H, C, k, name_power, tag="pcn-depthwise")
+        checks = Checks()
+        case = dict(kernel="depthwise_conv", B=B, H=H, W=H, C=C, k=k, dtype="bfloat16",
+                    route=dc.kernel_route(x, dout))
+        _, _, differ = hold_depthwise(checks, case, x, w, dout, second=True)
+        log(f"[pcn-depthwise] held B={B} {H}x{H}x{C} k={k} bf16: {checks.summary(case)}; bf16 "
+            f"elements differing from plain: out {differ[0]}, dx {differ[1]}")
+        report["patchconvnet_depthwise"] = dict(row=row, held=checks.rows)
+        if not all(r["ok"] for r in checks.rows):
+            raise AssertionError(f"K9 at patchconvnet_s's trunk out of bounds: {checks.rows}")
+        del x, w, dout
+    blocks = {"depthwise_conv": 60}
+    serve_backbone(report, "patchconvnet_serve", "patchconvnet_s", blocks,
+                   {"depthwise_conv2d": 60}, SERVE_BATCHES, name_power,
+                   PATCHCONV_TRAIN["layer_scale"])
+    watched = ("head.weight", "backbone.stem_0.weight", "backbone.blocks.0.dwconv.weight",
+               "backbone.blocks.30.layer_scale", "backbone.blocks.59.se.fc2.bias",
+               "backbone.pool.cls_token", "backbone.pool.mlp.linear2.weight")
+    per_step = NO_LAUNCHES | dict.fromkeys(("depthwise_conv", "depthwise_conv_bwd"), 60)
+    return train_transformer(report, "patchconvnet_train", "patchconvnet_s", PATCHCONV_TRAIN,
+                             per_step, watched, name_power)
+
+
+def vovnet(report: dict, name_power: str) -> int:
+    """Phase 42 (cell (q)): vovnet57 on configs/base.yaml's recipe at
+    bs512@176 (``train_recipe``: TrivialAugment through K1 once a step,
+    RandomErasing 0.1, CutMix⊕MixUp, label smoothing 0.1, SGD in three
+    groups; peak memory printed), one step through K1 against its plain
+    version; then vovnet57 served at 224 px (``serve_backbone``: its last
+    feature map, no kernel in the model). Returns K1's launches."""
+    watched = ("head.weight", "backbone.stem_0.conv.weight", "backbone.stem_2.norm.running_var",
+               "backbone.stages.2.3.out_conv.norm.running_mean",
+               "backbone.stages.3.2.conv_4.conv.weight")
+    launches = train_recipe(report, "vovnet_train", VOVNET_TRAIN, watched, name_power)
+    serve_backbone(report, "vovnet_serve", "vovnet57", {}, {}, SERVE_BATCHES, name_power)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2943,6 +3199,7 @@ def main() -> int:
     from vision_toolbox_tpu_torch.utils.export import export_model, load_exported
 
     report: dict = {}
+    script_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     name_power = card()
@@ -3094,6 +3351,19 @@ def main() -> int:
     with torch.no_grad():
         core = hold_attention_core(report, name_power, build_log)
 
+    # phases 40-42: MLP-Mixer (K3 on its channel half), PatchConvNet (K9 at
+    # 3 × 3), VoVNet (the default recipe's backbone, K1 in its step)
+    phase_s = {}
+    for key, phase in (("mixer", mixer), ("patchconvnet", patchconvnet), ("vovnet", vovnet)):
+        t0 = time.perf_counter()
+        phase(report, name_power)
+        torch.cuda.synchronize()
+        phase_s[key] = time.perf_counter() - t0
+        log(f"[{key}] phase wall {phase_s[key]:.1f} s")
+    report["phase_s"] = phase_s
+    log(f"[phases 40-42] {sum(phase_s.values()):.1f} s together; the script so far "
+        f"{time.perf_counter() - script_start:.1f} s")
+
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
     work = {
@@ -3135,6 +3405,8 @@ def main() -> int:
     report["kernels"] = kernels
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
+    report["total_s"] = time.perf_counter() - script_start
+    log(f"[total] {report['total_s']:.1f} s, the build included")
     (out_dir / "chip_smoke.json").write_text(json.dumps(report, indent=1))
 
     print(json.dumps({"kernels": kernels}))

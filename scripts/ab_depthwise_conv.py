@@ -1,6 +1,6 @@
 """A/B of the depthwise-conv kernels (K9) against other builds of them, on one NVIDIA card.
 
-    python3 scripts/ab_depthwise_conv.py [--parent DIR] [--variant NAME=DIR ...]
+    python3 scripts/ab_depthwise_conv.py [--parent DIR] [--variant NAME=DIR ...] [--case NAME ...]
 
 ``DIR`` holds another build's ``depthwise_conv.cu``, ``depthwise_conv_bwd.cu``
 and ``depthwise_conv.cuh``. ``--parent`` is the first design (``git show
@@ -17,9 +17,10 @@ builds at once) and loaded beside this checkout's kernels, so all run in one
 process on one card; the registers and spills ptxas reports for each build's
 K9 kernels are printed.
 
-Cases: convnext_t's four stage shapes at batch 128 in bf16 ((H = W, C) =
-(56, 96), (28, 192), (14, 384), (7, 768), k = 7) and stage 1 in f32. For
-each: the forward and the forward + backward of each other build and of this
+Cases (all, or those named by ``--case``): convnext_t's four stage shapes
+at batch 128 in bf16 ((H = W, C) = (56, 96), (28, 192), (14, 384), (7,
+768), k = 7), stage 1 in f32, and patchconvnet_s's trunk (14 × 14 × 384,
+k = 3, batch 128, bf16). For each: the forward and the forward + backward of each other build and of this
 checkout's, in turns (other, this, this, other; CUDA events, mean of each
 pair), on the same tensors; the backward's kernels apart (torch.profiler,
 device time per call of each kernel by name: the dx pass, the dw partials,
@@ -28,7 +29,9 @@ differing elements; 0 in bf16, where both round the same f32 sum once) and
 its dw by rel L2; each build's second backward bit-equal to its first; and
 cuDNN's grouped conv on the same memory (``F.conv2d(groups=C)`` on the
 channels_last view; its backward = forward + backward less the forward), the
-library yardstick that the port never calls. Prints one line per timing and
+library yardstick that the port never calls, each timed with CUDA events and,
+apart from the host's launch cost, as device time per call (torch.profiler,
+every kernel the call runs). Prints one line per timing and
 one JSON line; writes ``chiprun_out/ab_depthwise_conv.json``. Needs a CUDA
 card.
 """
@@ -53,6 +56,7 @@ BATCH = 128
 CASES = {f"stage{i + 1}": (BATCH, h, h, c, 7, torch.bfloat16)
          for i, (h, c) in enumerate(((56, 96), (28, 192), (14, 384), (7, 768)))}
 CASES["stage1_f32"] = (BATCH, 56, 56, 96, 7, torch.float32)
+CASES["patchconvnet_s"] = (BATCH, 14, 14, 384, 3, torch.bfloat16)
 ITERS = 20
 PROFILED = 10
 
@@ -92,6 +96,21 @@ def kernel_parts(fn, calls: int = PROFILED) -> dict[str, float]:
         if m and e.device_type == torch.autograd.DeviceType.CUDA:
             parts[m.group(1)] += e.time_range.elapsed_us() / 1e3 / calls
     return dict(parts)
+
+
+def device_ms(fn, calls: int = PROFILED) -> float:
+    """Device ms per call of all the kernels ``fn`` launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not getattr(e, "is_user_annotation", False)) / 1e3 / calls
 
 
 def ptxas(log: str) -> list[str]:
@@ -230,12 +249,15 @@ def run_case(label, case, builds, report, name_power):
             out = conv(xl, wl)
             torch.autograd.grad(out, (xl, wl), dout.permute(0, 3, 1, 2))
 
-    ms = {"forward": time_ms(this_fwd), "forward+backward": time_ms(this_fb)}
-    lib_ms = {"forward": time_ms(lambda: conv(x, wc)), "forward+backward": time_ms(library_fb)}
-    for what in ms:
-        row["this"][what] = dict(ms=ms[what], library_ms=lib_ms[what])
-        print(f"[ab] {label} this {what:16s}: {ms[what]:.4f} ms, cuDNN grouped conv "
-              f"{lib_ms[what]:.4f} ms  [{name_power}]", flush=True)
+    calls = {"forward": (this_fwd, lambda: conv(x, wc)), "forward+backward": (this_fb, library_fb)}
+    for what, (kernel, library) in calls.items():
+        r = dict(ms=time_ms(kernel), library_ms=time_ms(library), device_ms=device_ms(kernel),
+                 library_device_ms=device_ms(library))
+        row["this"][what] = r
+        print(f"[ab] {label} this {what:16s}: {r['ms']:.4f} ms, cuDNN grouped conv "
+              f"{r['library_ms']:.4f} ms (CUDA events); device time {r['device_ms']:.4f} ms, "
+              f"cuDNN {r['library_device_ms']:.4f} ms (torch.profiler)  [{name_power}]",
+              flush=True)
     report["cases"][label] = row
 
 
@@ -246,6 +268,7 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--parent", type=Path, default=None)
     parser.add_argument("--variant", action="append", default=[], metavar="NAME=DIR")
+    parser.add_argument("--case", action="append", default=[], choices=sorted(CASES))
     args = parser.parse_args()
     sys.path.insert(0, str(ROOT))
     from vision_toolbox_tpu_torch.ops import _cuda
@@ -266,8 +289,8 @@ def main() -> int:
         report["others"][name] = {"ptxas": regs}
         print(f"[ptxas] {name}: {'; '.join(regs)}", flush=True)
         builds.append((name, lib, parent))
-    for label, case in CASES.items():
-        run_case(label, case, builds, report, name_power)
+    for label in args.case or CASES:
+        run_case(label, CASES[label], builds, report, name_power)
         torch.cuda.empty_cache()
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -1,14 +1,16 @@
 """Where the time of a served request goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_serve.py [cait_s_24 | vit_b_16 | vit_b_16_dropout | convnext_t]
-        [--root DIR]
+    python3 scripts/profile_torch_serve.py [cait_s_24 | vit_b_16 | vit_b_16_dropout | convnext_t
+                                            | mixer_b_16 | patchconvnet_s | vovnet57] [--root DIR]
 
 Builds the seeded bf16 model of one of ``chip_smoke.py``'s serving phases
 (cait_s_24 by default, its LayerScale γs spread as there; vit_b_16, 12 K3
 and 12 K4 forwards a request; vit_b_16 built with dropout 0.1, whose blocks
 run the module chain and K2; or convnext_t,
 18 K9 and 18 K3 forwards a request, its γs spread around
-``CONVNEXT_TRAIN["layer_scale"]``), exports it with
+``CONVNEXT_TRAIN["layer_scale"]``; mixer_b_16, 12 K3 forwards a request;
+patchconvnet_s, 60 K9 forwards a request, its γs spread around
+``PATCHCONV_TRAIN["layer_scale"]``; or vovnet57, no kernel), exports it with
 ``utils/export.py`` and loads it back, then for each of ``SERVE_BATCHES``
 times 10 requests to the loaded program and to the eager model with CUDA
 events, measures the host's enqueue time of a request (host clock around
@@ -42,7 +44,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
-    configs = ("cait_s_24", "vit_b_16", "vit_b_16_dropout", "convnext_t")
+    configs = ("cait_s_24", "vit_b_16", "vit_b_16_dropout", "convnext_t", "mixer_b_16",
+               "patchconvnet_s", "vovnet57")
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="cait_s_24", choices=configs)
     parser.add_argument("--root", type=Path, default=None,
@@ -60,6 +63,9 @@ def main() -> int:
         "vit_b_16": ("vit_b_16", {}, None),
         "vit_b_16_dropout": ("vit_b_16", chip_smoke.VIT_DROPOUT, None),
         "convnext_t": ("convnext_t", {}, chip_smoke.CONVNEXT_TRAIN["layer_scale"]),
+        "mixer_b_16": ("mixer_b_16", {}, None),
+        "patchconvnet_s": ("patchconvnet_s", {}, chip_smoke.PATCHCONV_TRAIN["layer_scale"]),
+        "vovnet57": ("vovnet57", {}, None),
     }[tag]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

@@ -1,17 +1,21 @@
-"""Where the time of the port's transformer train step goes, on one NVIDIA card.
+"""Where the time of the port's train step goes, on one NVIDIA card.
 
     python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512 | convnext_t
-                                                | swin_t | vit_b_16_unfused]
+                                                | swin_t | vit_b_16_unfused | mixer_b_16
+                                                | patchconvnet_s | vovnet57]
 
-Builds the step of one of ``chip_smoke.py``'s transformer-training phases
-(vit_b_16 by default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px
-with its MAP head and no cls token, bs64@512; or convnext_t with stochastic
-depth 0.1, or swin_t with stochastic depth 0.2, bs128@224; or vit_b_16 on
-the unfused block chain, bs128@224; bf16 compute, f32 parameters,
-CutMix⊕MixUp, label smoothing 0.1, SGD momentum 0.9 with weight decay 2e-5
-in three groups) and its warm-up and timed step counts, times it unprofiled
-with CUDA events and the host clock, then traces ``PROFILED_STEPS`` more
-steps with ``torch.profiler`` and sums the device kernels by class:
+Builds the step of one of ``chip_smoke.py``'s training phases (vit_b_16 by
+default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px with its MAP
+head and no cls token, bs64@512; or convnext_t with stochastic depth 0.1,
+or swin_t with stochastic depth 0.2, bs128@224; or vit_b_16 on the unfused
+block chain, mixer_b_16, or patchconvnet_s with drop-path 0.3, bs128@224;
+bf16 compute, f32 parameters, CutMix⊕MixUp, label smoothing 0.1, SGD
+momentum 0.9 with weight decay 2e-5 in three groups; or vovnet57 on the
+full recipe of configs/base.yaml at its bs512@176, as cell (b) runs
+cspdarknet53: TrivialAugment through K1, RandomErasing 0.1, warmup-cosine)
+and its warm-up and timed step counts, times it unprofiled with CUDA events
+and the host clock, then traces ``PROFILED_STEPS`` more steps with
+``torch.profiler`` and sums the device kernels by class:
 
 - flash-attention kernels (SigLIP at 512 px): the K6 forward, and the K6
   backward's dK/dV, dQ and delta kernels, each a class of its own;
@@ -34,12 +38,16 @@ steps with ``torch.profiler`` and sums the device kernels by class:
   blocks (``torch.matmul``), CaiT's q/k/v/out projections (``F.linear``
   around K5) and class attention, the unfused chain's projections and MLPs,
   and the head's three small products;
+- the three-shear warp (K1, TrivialAugment's geometric ops) and max
+  pooling (VoVNet's stages);
 - convolutions (cuDNN: the patch embedding; ConvNeXt's stem and
-  downsampling), optimizer (SGD's foreach kernels), and the rest (casts of
+  downsampling; PatchConvNet's stem and SE; VoVNet's), optimizer (SGD's
+  foreach kernels), and the rest (casts of
   the f32 parameters to bf16, the loss, the unfused LayerNorms (ConvNeXt's
   stem, downsampling and final ones, Swin's attention-half and patch-merging
   ones) and GRN, the relative-position gathers, the unshifted blocks'
-  window reshapes, CutMix⊕MixUp, copies).
+  window reshapes, the BatchNorms' statistics and affine (VoVNet,
+  PatchConvNet), GELUs, CutMix⊕MixUp, copies).
 
 The input pipeline alone is traced the same way over the same number of
 steps. The idle share is 1 − kernel time / step time, against the unprofiled
@@ -52,6 +60,7 @@ step of many short kernels (swin_t), so the first is the card's. Prints the tabl
 from __future__ import annotations
 
 import collections
+import functools
 import json
 import re
 import subprocess
@@ -96,6 +105,8 @@ CLASSES = (
      lambda n: _gemm_layout(n) == "0" or "attn_kernel" in n or "ln_rows_kernel" in n),
     ("backward kernels (K3/K4 bwd)", lambda n: _gemm_layout(n) == "1" or any(
         k in n for k in ("attn_bwd", "douts_kernel", "ln_bwd_kernel", "colsum_kernel"))),
+    ("three-shear warp (K1)", lambda n: "warp_shear3_kernel" in n),
+    ("max pooling (PyTorch)", lambda n: "max_pool" in n.lower()),
     ("convolutions (cuDNN)", lambda n: any(
         k in n.lower() for k in ("conv", "cudnn", "fprop", "dgrad", "wgrad"))),
     ("library products (weight gradients, head)", lambda n: any(
@@ -108,7 +119,7 @@ def classify(name: str) -> str:
     for label, match in CLASSES:
         if match(name):
             return label
-    return "rest (casts, loss, unfused norms, GRN, CutMix⊕MixUp, copies)"
+    return "rest (casts, loss, unfused norms, BatchNorms, GRN, CutMix⊕MixUp, copies)"
 
 
 def device_kernels(prof) -> list[tuple[str, float]]:
@@ -146,19 +157,28 @@ def main() -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     tag = sys.argv[1] if len(sys.argv) > 1 else "vit_b_16"
-    # name → (backbone, phase config, backbone options, forward options)
+    # name → (phase config, the builder of its step's parts)
     cs = chip_smoke
-    configs = {"vit_b_16": ("vit_b_16", cs.VIT_TRAIN, {}, None),
-               "cait_s_24": ("cait_s_24", cs.CAIT_TRAIN, {}, None),
-               "vit_b_16_siglip512": ("vit_b_16", cs.SIGLIP_TRAIN, cs.SIGLIP, None),
-               "convnext_t": ("convnext_t", cs.CONVNEXT_TRAIN, cs.CONVNEXT_KW, None),
-               "swin_t": ("swin_t", cs.SWIN_TRAIN, cs.SWIN_KW, None),
-               "vit_b_16_unfused": ("vit_b_16", cs.VIT_UNFUSED_TRAIN, {}, cs.UNFUSED)}
+
+    def vit(name, cfg, forward_kw=None, **model_kw):
+        return cfg, functools.partial(cs.vit_step_parts, name, cfg, forward_kw, **model_kw)
+
+    configs = {"vit_b_16": vit("vit_b_16", cs.VIT_TRAIN),
+               "cait_s_24": vit("cait_s_24", cs.CAIT_TRAIN),
+               "vit_b_16_siglip512": vit("vit_b_16", cs.SIGLIP_TRAIN, **cs.SIGLIP),
+               "convnext_t": vit("convnext_t", cs.CONVNEXT_TRAIN, **cs.CONVNEXT_KW),
+               "swin_t": vit("swin_t", cs.SWIN_TRAIN, **cs.SWIN_KW),
+               "vit_b_16_unfused": vit("vit_b_16", cs.VIT_UNFUSED_TRAIN, cs.UNFUSED),
+               "mixer_b_16": vit("mixer_b_16", cs.MIXER_TRAIN),
+               "patchconvnet_s": vit("patchconvnet_s", cs.PATCHCONV_TRAIN),
+               # the full recipe, cell (b)'s step
+               "vovnet57": (cs.VOVNET_TRAIN,
+                            functools.partial(cs.recipe_step_parts, cs.VOVNET_TRAIN))}
     if tag not in configs:
         print(f"profile_torch_vit_train: model must be one of {sorted(configs)}", file=sys.stderr)
         return 2
-    model, cfg, model_kw, forward_kw = configs[tag]
-    state, step, images, labels, g = chip_smoke.vit_step_parts(model, cfg, forward_kw, **model_kw)
+    cfg, step_parts = configs[tag]
+    state, step, images, labels, g = step_parts()
     for _ in range(cfg["warmup"]):
         step(state, images, labels, g)
     torch.cuda.synchronize()
@@ -190,6 +210,7 @@ def main() -> int:
         card=card, model=tag, batch=cfg["batch"], img=cfg["img"],
         ms_per_step_events=ms_events, ms_per_step_host=ms_host,
         img_per_s=cfg["batch"] / ms_events * 1e3,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
         profiled_window_ms=window, kernel_ms=total, idle_share=1 - total / ms_events,
         idle_share_of_window=1 - total / window,
         classes_ms=dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
@@ -203,7 +224,7 @@ def main() -> int:
           "window)")
     for label, ms in result["classes_ms"].items():
         print(f"  {label:55s} {ms:9.3f} ms  {ms / total:6.1%}")
-    print(f"  {'input pipeline alone (CutMix⊕MixUp, one-hot, casts)':55s} {pipeline:9.3f} ms")
+    print(f"  {'input pipeline alone (augmentations, one-hot, casts)':55s} {pipeline:9.3f} ms")
     for name, ms in list(result["top_kernels_ms"].items())[:12]:
         print(f"    {ms:8.3f} ms  {name[:110]}")
     out = ROOT / "chiprun_out"

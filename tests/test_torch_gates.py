@@ -90,9 +90,9 @@ def gate_calls(monkeypatch):
 def test_gates_are_the_jax_rules_at_every_registered_shape(gate_calls, monkeypatch, name):
     """A meta-device forward of ``name`` at 224 px (``IMG_SIZE``) records each
     block's gate calls; each answer equals the JAX rule's on the same
-    shape with ``_FORCE_ON`` patched (its TPU test lifted). Darknets and
-    ConvNeXt v2 (GRN sits inside the MLP) have no fused blocks and record
-    none."""
+    shape with ``_FORCE_ON`` patched (its TPU test lifted). Darknets,
+    ConvNeXt v2 (GRN sits inside the MLP), PatchConvNet and VoVNet have no
+    fused blocks and record none."""
     monkeypatch.setattr(jba, "_FORCE_ON", True)
     monkeypatch.setattr(jbm, "_FORCE_ON", True)
     with torch.device("meta"), torch.no_grad():
@@ -105,7 +105,7 @@ def test_gates_are_the_jax_rules_at_every_registered_shape(gate_calls, monkeypat
     differ = {call: got for call, got in seen.items()
               if got != jax_rule[call[0]](*call[1], **dict(call[2]))}
     assert not differ, f"{name}: the port's gate differs from the JAX rule at {differ}"
-    if "darknet" in name or name.startswith("convnextv2"):
+    if "darknet" in name or name.startswith(("convnextv2", "patchconvnet", "vovnet")):
         assert not seen
     else:
         assert any(gate == "use_fused_mlp" for gate, *_ in seen), name

@@ -1445,3 +1445,93 @@ def test_exported_dropout_vit_runs_at_batch_1_and_8(cuda):
             torch.cuda.synchronize()
         assert _cuda.LAUNCHES["short_attention"] == n, b
         _check_rel_l2(got, want, f"batch {b}")
+
+
+# PatchConvNet's depthwise conv: k = 3 on its trunk's 14 × 14 maps at 224 px,
+# patchconvnet_s (384 channels) and _b (768), batch 8
+PATCHCONV_DEPTHWISE_SHAPES = [(8, 14, 14, 384, 3), (8, 14, 14, 768, 3)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,k", PATCHCONV_DEPTHWISE_SHAPES)
+def test_depthwise_conv_at_patchconvnet_shapes(cuda, dtype, B, H, W, C, k):
+    """K9 at k = 3 on PatchConvNet's trunk: out and dx within the dtype's
+    bound (bf16 bit-equal), dw by rel L2, a second backward bit-equal."""
+    test_depthwise_conv_kernels_match_plain(cuda, dtype, B, H, W, C, k)
+    if dtype == torch.bfloat16:
+        test_depthwise_conv_bf16_is_bit_equal_to_plain(cuda, B, H, W, C, k, 0)
+    test_depthwise_conv_second_backward_is_bit_equal(cuda, dtype, B, H, W, C, k)
+
+
+# the Mixer's channel halves: mixer_s_8 (T = 784 tokens, 512 / 2048) and
+# mixer_l_16 (T = 196, 1024 / 4096), batch 8, no LayerScale, drop-path or
+# separate residual
+MIXER_MLP_SHAPES = [(8, 784, 512, 2048), (8, 196, 1024, 4096)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D,Dh", MIXER_MLP_SHAPES)
+def test_mlp_kernels_at_mixer_shapes(cuda, dtype, B, T, D, Dh):
+    """K3 forward and backward at the Mixer's widths against their plain
+    versions; the gate admits both shapes."""
+    assert bm.use_fused_mlp(D, Dh, T, 0.0)
+    test_mlp_kernel_matches_plain(cuda, dtype, B, T, D, Dh, False)
+    test_mlp_backward_kernels_match_plain(cuda, dtype, B, T, D, Dh, False, False)
+
+
+@pytest.mark.parametrize("name,per_forward", [
+    ("mixer_s_8", {"block_mlp": 8}), ("mixer_b_16", {"block_mlp": 12}),
+    ("patchconvnet_s", {"depthwise_conv": 60}), ("vovnet57", {}),
+])
+def test_new_families_build_on_the_card_and_run_their_kernels(cuda, name, per_forward):
+    """bf16, 224 px: a served forward launches exactly ``per_forward`` (each
+    Mixer block's channel half runs K3, each PatchConvNet block K9 at k = 3,
+    VoVNet none), and a train-mode forward and backward the same again
+    forward and as many backward; where a kernel runs, the kernel path
+    against the plain path."""
+    import vision_toolbox_tpu_torch as vtt
+
+    m = vtt.create_backbone(name, dtype=torch.bfloat16)
+    assert next(m.parameters()).is_cuda
+    x = torch.rand(2, 224, 224, 3, device=cuda)
+    expected = dict.fromkeys(_cuda.LAUNCHES, 0) | per_forward
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        out = m(x)
+        torch.cuda.synchronize()
+        assert dict(_cuda.LAUNCHES) == expected
+        plain = m(x, plain=True) if per_forward else None
+    assert torch.isfinite(out.float()).all()
+    if per_forward:
+        err = ((out.float() - plain.float()).norm() / plain.float().norm()).item()
+        assert err <= REL_L2, err
+    _cuda.reset_launch_counts()
+    m(x, train=True, generator=torch.Generator(device=cuda)).float().sum().backward()
+    torch.cuda.synchronize()
+    assert dict(_cuda.LAUNCHES) == expected | {f"{k}_bwd": n for k, n in per_forward.items()}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_max_pool_ties_on_the_card_match_the_cpu(cuda, dtype):
+    """VoVNet's 3 × 3 / 2 max pool on post-ReLU NHWC maps (an all-zero map
+    and a map mostly zero): the card's output equals the CPU's bit for bit,
+    and its gradient reaches the same taps (the first maximum of a tied
+    window, as the CPU's and XLA's) with the same values up to the order in
+    which overlapping windows add theirs."""
+    from vision_toolbox_tpu_torch.nn.layers import max_pool_torch
+
+    g = torch.Generator().manual_seed(42)
+    maps = [torch.zeros(2, 12, 12, 8),
+            torch.relu(torch.randn(4, 22, 22, 32, generator=g) - 1.0)]
+    for x in maps:
+        ct = torch.rand(max_pool_torch(x, 3, 2, 1).shape, generator=g)
+        grads = []
+        for device in ("cpu", cuda):
+            xd = x.to(device, dtype).detach().requires_grad_()
+            out = max_pool_torch(xd, 3, 2, 1)
+            out.backward(ct.to(device, dtype))
+            grads.append((out.detach().cpu(), xd.grad.cpu()))
+        (out_cpu, dx_cpu), (out_card, dx_card) = grads
+        assert torch.equal(out_card, out_cpu)
+        assert torch.equal(dx_card != 0, dx_cpu != 0)
+        torch.testing.assert_close(dx_card.float(), dx_cpu.float(), rtol=1e-2, atol=1e-6)

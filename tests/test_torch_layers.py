@@ -1,10 +1,15 @@
 """The port's conv primitives (vision_toolbox_tpu_torch/nn/layers.py,
 nn/norm.py, nn/initializers.py) vs the JAX package's: ``ConvNormAct`` over
 kernel sizes, strides, groups (incl. the depthwise branch), norms and every
-activation, in train and eval mode; ``torch_pad``; the Kaiming-normal init.
+activation, in train and eval mode; ``torch_pad``; the Kaiming-normal init;
+the hard-sigmoid gate and drop-path bit-equal to the JAX package's in f32
+and bf16; ``SqueezeExcitation``, ``ESEBlock``, ``max_pool_torch`` (its
+gradient at tied windows bit-equal) and flax's own BatchNorm
+(``LinenBatchNorm``).
 
-Bridged variables, f32, NHWC numpy inputs. Tolerance rtol = atol = 1e-5
-(f32 summation order of the convolution and the batch statistics).
+Bridged variables, f32 unless stated, NHWC numpy inputs. Tolerance rtol =
+atol = 1e-5 (f32 summation order of the convolution and the batch
+statistics); input gradients 1e-4; ``LinenBatchNorm`` in bf16 1e-2.
 """
 
 import numpy as np
@@ -70,3 +75,128 @@ def test_kaiming_normal_fan_out(act):
     gain = np.sqrt(2.0) if act == "relu" else np.sqrt(2.0 / 1.04)
     assert abs(w.std().item() / (gain / np.sqrt(256 * 9)) - 1) < 0.02
     assert abs(w.mean().item()) < 2e-3
+
+
+# --- the gates, pooling and norms of the Mixer/PatchConvNet/VoVNet slice ---
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hard_sigmoid_is_bit_equal_to_jax(dtype):
+    """``hard_sigmoid`` (ESE's gate, ``ACTIVATIONS["hardsigmoid"]``) equals
+    ``jax.nn.hard_sigmoid`` bit for bit on 200,000 normal·4 samples, jitted
+    as a model runs it; ``F.hardsigmoid`` rounds elsewhere in f32."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    x = (np.random.default_rng(0).standard_normal(200_000) * 4).astype(np.float32)
+    want = np.asarray(jax.jit(jax.nn.hard_sigmoid)(jnp.asarray(x, jdt)).astype(jnp.float32))
+    t = torch.from_numpy(x).to(tdt)
+    for fn in (layers.hard_sigmoid, layers.ACTIVATIONS["hardsigmoid"]):
+        assert np.array_equal(fn(t).float().numpy(), want)
+    if dtype == "float32":
+        assert not np.array_equal(torch.nn.functional.hardsigmoid(t).numpy(), want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_stochastic_depth_rounds_like_jax(monkeypatch, dtype):
+    """``StochasticDepth`` in training: x·mask/keep_p bit-equal to the JAX
+    module's on one mask (fed to both sides)."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    rng = np.random.default_rng(1)
+    x = (rng.standard_normal((64, 3, 5, 7)) * 4).astype(np.float32)
+    keep = rng.random(64) >= 0.3
+    monkeypatch.setattr(jax.random, "bernoulli",
+                        lambda key, p, shape: jnp.asarray(keep.reshape(shape)))
+    jm = jlayers.StochasticDepth(0.3)
+    want = jax.jit(lambda x: jm.apply({}, x, train=True, rngs={"dropout": jax.random.PRNGKey(0)})
+                   )(jnp.asarray(x, jdt))
+    sd = layers.StochasticDepth(0.3)
+    monkeypatch.setattr(sd, "sample_scale", lambda b, train, g, device=None: torch.from_numpy(
+        keep.reshape(b, 1) / np.float32(0.7)).float())
+    got = sd(torch.from_numpy(x).to(tdt), train=True)
+    assert got.dtype == tdt
+    assert np.array_equal(got.float().numpy(), np.asarray(want.astype(jnp.float32)))
+
+
+def _bridged(jm, pm, x):
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x)))
+    pm.load_state_dict(flax_to_state_dict(variables["params"], variables.get("batch_stats")),
+                       strict=True)
+    return variables
+
+
+@pytest.mark.parametrize("block", ["se", "ese"])
+def test_squeeze_excitation_and_ese_match_jax(block):
+    """SE (``fc1`` → relu → ``fc2`` → sigmoid) and ESE (``linear`` → hard
+    sigmoid), bridged, f32, values and input gradients."""
+    x = np.random.default_rng(2).standard_normal((2, 5, 6, 16)).astype(np.float32)
+    g = torch.Generator().manual_seed(0)
+    pairs = {"se": (jlayers.SqueezeExcitation(4), layers.SqueezeExcitation(16, 4, generator=g)),
+             "ese": (jlayers.ESEBlock(), layers.ESEBlock(16, generator=g))}
+    jm, pm = pairs[block]
+    variables = _bridged(jm, pm, x)
+    want, vjp = jax.vjp(lambda x: jm.apply(variables, x), jnp.asarray(x))
+    (want_dx,) = vjp(jnp.ones_like(want))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = pm(tx)
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), rtol=1e-4, atol=1e-4)
+
+
+def test_max_pool_ties_send_the_gradient_to_the_same_tap():
+    """``max_pool_torch(x, 3, 2, 1)`` on NHWC maps: -inf padding, and at tied
+    windows (an all-zero map, the post-ReLU case, and a ReLU'd map with
+    many zeros) the gradient lands on the same element as JAX's
+    reduce_window's, bit for bit."""
+    rng = np.random.default_rng(3)
+    maps = [np.zeros((1, 6, 6, 2), np.float32),
+            np.maximum(rng.standard_normal((2, 9, 8, 3)), 0).astype(np.float32),
+            -np.abs(rng.standard_normal((1, 5, 5, 1))).astype(np.float32)]
+    for x in maps:
+        ct = rng.random(jlayers.max_pool_torch(jnp.asarray(x), 3, 2, 1).shape).astype(np.float32)
+        want, vjp = jax.vjp(lambda x: jlayers.max_pool_torch(x, 3, 2, 1), jnp.asarray(x))
+        (want_dx,) = vjp(jnp.asarray(ct))
+        tx = torch.from_numpy(x).requires_grad_()
+        got = layers.max_pool_torch(tx, 3, 2, 1)
+        got.backward(torch.from_numpy(ct))
+        assert np.array_equal(got.detach().numpy(), np.asarray(want))
+        assert np.array_equal(tx.grad.numpy(), np.asarray(want_dx))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_linen_batch_norm_matches_flax(dtype):
+    """``LinenBatchNorm`` vs flax's ``nn.BatchNorm`` (PatchConvNet's), in
+    train mode (output, biased running statistics) and eval mode."""
+    from flax import linen as fnn
+
+    from vision_toolbox_tpu_torch.nn.norm import LinenBatchNorm
+
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    x = (np.random.default_rng(4).standard_normal((4, 3, 5, 8)) * 2 + 1).astype(np.float32)
+    jm = fnn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=jdt)
+    variables = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(0), jnp.asarray(x),
+                                                 use_running_average=True))
+    rng = np.random.default_rng(5)
+    variables["params"] = jax.tree.map(lambda a: rng.random(a.shape, np.float32),
+                                       variables["params"])
+    pm = LinenBatchNorm(8, dtype=tdt)
+    pm.load_state_dict(flax_to_state_dict(variables["params"], variables["batch_stats"]),
+                       strict=True)
+    xj = jnp.asarray(x, jdt)
+    want, mutated = jm.apply(variables, xj, use_running_average=False, mutable=["batch_stats"])
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x).to(tdt), train=True)
+    tol = TOL if dtype == "float32" else 1e-2
+    assert got.dtype == tdt
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)
+    stats = flax_to_state_dict({}, jax.tree.map(np.asarray, mutated["batch_stats"]))
+    for k, v in stats.items():
+        np.testing.assert_allclose(pm.state_dict()[k].numpy(), v.numpy(), rtol=1e-5, atol=1e-6)
+    want = jm.apply({"params": variables["params"], **mutated}, xj, use_running_average=True)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(x).to(tdt))
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
+                               rtol=tol, atol=tol)

@@ -10,9 +10,12 @@ its MLP halves the fused MLP kernels), serves and trains SigLIP ViTs at 512 px
 ``ops/flash_attention.py``), serves and trains ConvNeXt (hand-written
 depthwise-conv kernels, ``ops/depthwise_conv.py``) and Swin (hand-written
 window-attention and shifted-window relayout kernels,
-``ops/swin_attention.py``, ``ops/swin_relayout.py``) and trains the Darknet family with the full recipe
-(``train/``; TrivialAugment's geometric ops run the hand-written three-shear
-warp kernel, ``ops/warp.py``). Kernel sources are in ``csrc/``, built with
+``ops/swin_attention.py``, ``ops/swin_relayout.py``), serves and trains
+MLP-Mixer (its channel halves the fused MLP kernels) and PatchConvNet (its
+3 × 3 depthwise convs the depthwise-conv kernels), and trains the Darknet
+family and VoVNet with the full recipe (``train/``; TrivialAugment's
+geometric ops run the hand-written three-shear warp kernel,
+``ops/warp.py``). Kernel sources are in ``csrc/``, built with
 ``nvcc`` at first use. Models are built on the card unless ``device="cpu"``
 is passed. The JAX package is the reference the port is held against; this
 package imports ``torch`` and never ``jax``, and every random draw takes an

@@ -15,7 +15,7 @@ import torch
 from torch import Tensor, nn
 
 from ..nn.layers import LayerNorm
-from ..nn.norm import BatchNorm
+from ..nn.norm import BatchNorm, LinenBatchNorm
 
 
 class Backbone(nn.Module):
@@ -29,9 +29,9 @@ class Backbone(nn.Module):
         which its kernels read in f32) rounded to ``compute_dtype`` once, so
         that a served request pays no casts. The forward is unchanged (it
         rounds at use to the same values)."""
+        norms = (LayerNorm, BatchNorm, LinenBatchNorm)
         for m in self.modules():
-            if not isinstance(m, (LayerNorm, BatchNorm)) and not getattr(m, "keeps_f32_params",
-                                                                         False):
+            if not isinstance(m, norms) and not getattr(m, "keeps_f32_params", False):
                 for p in m.parameters(recurse=False):
                     p.data = p.data.to(self.compute_dtype)
         return self

@@ -80,13 +80,14 @@ class MLP(nn.Module):
 
 def fused_mlp_halfblock(
     x: Tensor, norm: LayerNorm, linear1: Linear, linear2: Linear, scale: LayerScale | None,
-    droppath: StochasticDepth, *, residual: Tensor | None = None, train: bool,
+    droppath: StochasticDepth | None, *, residual: Tensor | None = None, train: bool,
     plain: bool = False, generator: torch.Generator | None = None,
 ) -> Tensor:
     """LN → W1 → GELU → W2 → LayerScale → drop-path → residual through the
     fused MLP op (``ops/block_mlp.py``), reading the parameters of the same
     modules the unfused path uses (an ``MLP``'s two linears, or ConvNeXt's
-    ``pwconv1``/``pwconv2``): LN parameters, biases and γ rounded to
+    ``pwconv1``/``pwconv2``; the Mixer's channel mixing, which has no γ and
+    no drop-path): LN parameters, biases and γ rounded to
     ``x.dtype`` as the JAX package promotes them, weights as they are (the op
     rounds them to bf16). The residual is ``x`` unless ``residual`` is given
     (ConvNeXt adds the block input to the MLP of its depthwise conv's
@@ -97,7 +98,8 @@ def fused_mlp_halfblock(
         x, norm.weight.to(dt), norm.bias.to(dt),
         linear1.weight, as_dtype(linear1.bias, dt), linear2.weight, as_dtype(linear2.bias, dt),
         None if scale is None else as_dtype(scale.gamma, dt),
-        droppath.sample_scale(x.shape[0], train, generator, device=x.device),
+        None if droppath is None else droppath.sample_scale(x.shape[0], train, generator,
+                                                            device=x.device),
         residual=None if residual is None else as_dtype(residual, dt), eps=norm.eps,
         plain=plain,
     )

@@ -1,6 +1,7 @@
 """Core NN primitives — port of ``vision_toolbox_tpu/nn/layers.py``: the
 activation table, ``torch_pad``, ``Conv2d``, ``DepthwiseConv``,
-``ConvNormAct`` and ``SeparableConv2d`` for the convnets, and ``Linear``,
+``ConvNormAct``, ``SeparableConv2d``, ``max_pool_torch`` and the gates
+``ESEBlock`` and ``SqueezeExcitation`` for the convnets, and ``Linear``,
 ``LayerNorm`` (flax semantics), ``LayerScale``, ``StochasticDepth`` and the
 exact-erf GELU for the transformers.
 
@@ -28,6 +29,14 @@ def _gelu_exact(x: Tensor) -> Tensor:
     return F.gelu(x, approximate="none")
 
 
+def hard_sigmoid(x: Tensor) -> Tensor:
+    """``jax.nn.hard_sigmoid``, relu6(x + 3) / 6, at XLA's rounding points:
+    each step in x's type; in f32 XLA computes the division as a product
+    with 1/6, which this repeats (``F.hardsigmoid`` rounds elsewhere)."""
+    y = F.relu6(x + 3)
+    return y * (1 / 6) if x.dtype == torch.float32 else y / 6
+
+
 ACTIVATIONS: dict[str, Callable | None] = {
     "none": None,
     "relu": F.relu,
@@ -35,7 +44,7 @@ ACTIVATIONS: dict[str, Callable | None] = {
     "swish": F.silu,
     "silu": F.silu,
     "gelu": _gelu_exact,  # torch nn.GELU default is exact erf, not tanh approx
-    "hardsigmoid": F.hardsigmoid,
+    "hardsigmoid": hard_sigmoid,
     "hardswish": F.hardswish,
     "relu6": F.relu6,
 }
@@ -184,19 +193,19 @@ class SeparableConv2d(nn.Module):
 
 
 class Linear(nn.Module):
-    """nn.Linear with PyTorch's default init drawn from an explicit generator.
-    ``weight`` is (out_features, in_features). With ``dtype`` set, input and
-    parameters are cast to it at use."""
+    """nn.Linear, PyTorch's default init (or ``kernel_init``/``bias_init``)
+    drawn from an explicit generator. ``weight`` is (out_features,
+    in_features). With ``dtype`` set, input and parameters are cast to it at
+    use."""
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool = True, *,
+                 kernel_init: Callable = torch_default_kernel, bias_init: Callable | None = None,
                  dtype: torch.dtype | None = None, generator: torch.Generator):
         super().__init__()
         self.dtype = dtype
-        self.weight = nn.Parameter(torch_default_kernel((out_features, in_features), generator))
-        self.bias = (
-            nn.Parameter(torch_default_bias(in_features)((out_features,), generator))
-            if use_bias else None
-        )
+        self.weight = nn.Parameter(kernel_init((out_features, in_features), generator))
+        init = bias_init or torch_default_bias(in_features)
+        self.bias = nn.Parameter(init((out_features,), generator)) if use_bias else None
 
     def forward(self, x: Tensor) -> Tensor:
         if self.dtype is None:
@@ -252,10 +261,16 @@ class StochasticDepth(nn.Module):
 
     def forward(self, x: Tensor, train: bool = False,
                 generator: torch.Generator | None = None) -> Tensor:
+        """x·mask/keep_p at the JAX package's rounding points: XLA computes
+        the division as a product with 1/keep_p in f32, and divides by
+        keep_p rounded to x's type in bf16."""
         scale = self.sample_scale(x.shape[0], train, generator, device=x.device)
         if scale is None:
             return x
-        return x * scale.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype)
+        scale = scale.reshape((-1,) + (1,) * (x.ndim - 1))
+        if x.dtype == torch.float32:
+            return x * scale
+        return x * (scale != 0).to(x.dtype) / torch.tensor(1.0 - self.p, dtype=x.dtype)
 
 
 class LayerScale(nn.Module):
@@ -267,3 +282,39 @@ class LayerScale(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         return x * as_dtype(self.gamma, x.dtype)
+
+
+def max_pool_torch(x: Tensor, kernel_size: int, stride: int, padding: int) -> Tensor:
+    """torch.nn.MaxPool2d(k, s, p) on NHWC tensors: -inf padded, symmetric.
+    The JAX package runs XLA's reduce_window here (no Pallas kernel); both
+    send a tied window's gradient to its first maximum in row-major order."""
+    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size, stride, padding).permute(0, 2, 3, 1)
+
+
+class ESEBlock(nn.Module):
+    """Effective Squeeze-Excitation (VoVNet): global average pool → 1×1 conv
+    ``linear`` → hard-sigmoid gate, on NHWC tensors."""
+
+    def __init__(self, channels: int, *, dtype: torch.dtype | None = None,
+                 generator: torch.Generator):
+        super().__init__()
+        self.linear = Conv2d(channels, channels, 1, dtype=dtype, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x * hard_sigmoid(self.linear(x.mean((1, 2), keepdim=True)))
+
+
+class SqueezeExcitation(nn.Module):
+    """torchvision-style SE block on NHWC tensors: global average pool →
+    1×1 ``fc1`` → relu → 1×1 ``fc2`` → sigmoid gate, the JAX module's
+    defaults (PatchConvNet's)."""
+
+    def __init__(self, channels: int, squeeze_channels: int, *,
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
+        super().__init__()
+        self.fc1 = Conv2d(channels, squeeze_channels, 1, dtype=dtype, generator=generator)
+        self.fc2 = Conv2d(squeeze_channels, channels, 1, dtype=dtype, generator=generator)
+
+    def forward(self, x: Tensor) -> Tensor:
+        s = self.fc2(F.relu(self.fc1(x.mean((1, 2), keepdim=True))))
+        return x * torch.sigmoid(s)

@@ -1,4 +1,5 @@
-"""BatchNorm — port of ``vision_toolbox_tpu/nn/norm.py``, in plain PyTorch.
+"""BatchNorm — port of ``vision_toolbox_tpu/nn/norm.py``, in plain PyTorch,
+and ``LinenBatchNorm``, flax's own ``nn.BatchNorm`` (PatchConvNet's).
 
 Statistics in float32, applied in the compute dtype:
 
@@ -47,3 +48,36 @@ class BatchNorm(nn.Module):
         a = self.weight * torch.rsqrt(var + self.eps)
         b = self.bias - mean * a
         return x * a.to(x.dtype) + b.to(x.dtype)
+
+
+class LinenBatchNorm(nn.Module):
+    """flax ``linen.BatchNorm`` (``use_fast_variance``, f32 reductions), which
+    PatchConvNet's blocks use in the JAX package instead of the folded
+    ``BatchNorm`` above: statistics of x in f32 with the fast variance
+    ``max(E[x²] − μ², 0)``; ``(x − μ)·(rsqrt(var + ε)·γ) + β`` in f32, cast to
+    ``dtype`` (else x's type promoted with f32's); running statistics
+    ``ra = m·ra + (1 − m)·batch`` with the biased batch variance."""
+
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 dtype: torch.dtype | None = None):
+        super().__init__()
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: Tensor, train: bool = False) -> Tensor:
+        xf = x.float()
+        if train:
+            dims = tuple(range(x.ndim - 1))
+            mean = xf.mean(dims)
+            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(self.dtype or torch.promote_types(x.dtype, torch.float32))

@@ -9,8 +9,9 @@ for the port's module of the same name, with each layout fixed once here:
 - ``<conv>/kernel`` HWIO → ``<conv>.weight`` OIHW;
 - LayerNorm and BatchNorm ``scale`` → ``weight``;
 - BatchNorm statistics ``mean`` → ``running_mean``, ``var`` → ``running_var``;
-- ``block_<i>`` → ``blocks.<i>``, CaiT's ``sa_block_<i>`` → ``sa_blocks.<i>``
-  and ``ca_block_<i>`` → ``ca_blocks.<i>``, ConvNeXt's and Swin's
+- ``block_<i>`` → ``blocks.<i>`` (the Mixer's and PatchConvNet's too),
+  CaiT's ``sa_block_<i>`` → ``sa_blocks.<i>`` and ``ca_block_<i>`` →
+  ``ca_blocks.<i>``, ConvNeXt's, Swin's and VoVNet's
   ``stage_<i>_block_<j>`` → ``stages.<i>.<j>``;
 - everything else (``bias``, ``pe``, ``cls_token``, DeiT's ``dist_token``,
   ``gamma``, ``probe``, ``stem``, ``stage_<i>``, ``conv1``/``conv2``/
@@ -22,6 +23,19 @@ for the port's module of the same name, with each layout fixed once here:
   ``relative_pe_table`` (its (1, heads, (2w − 1)²) layout), and CaiT's (H, H) head
   mixes ``proj_l_kernel``/``proj_w_kernel`` with their biases, which are no
   Dense kernels: ``mix[g, h]`` on both sides) keeps its name and layout.
+
+The Mixer, PatchConvNet and VoVNet need no rule of their own:
+- the Mixer's ``patch_embed`` (a conv kernel), ``norm1``/``norm2``/``norm``
+  and the ``token_mixing``/``channel_mixing`` linears;
+- PatchConvNet's ``stem_<i>`` conv kernels, each block's ``norm`` (flax's
+  BatchNorm with its ``mean``/``var``, or a LayerNorm), ``mix1``/``mix2``
+  Dense kernels, ``dwconv`` (3, 3, 1, C) kernel, ``se/fc1``, ``se/fc2`` 1×1
+  conv kernels and ``layer_scale``; the head ``pool`` with ``cls_token``,
+  ``norm1``–``norm3``, ``{q,k,v,out}_proj``, ``layer_scale_1``/``_2`` and
+  ``mlp``;
+- VoVNet's ``stem_<i>``, ``conv_<i>`` and ``out_conv`` (each a ``conv``
+  kernel and a BatchNorm ``norm``) and ``ese/linear`` (a 1×1 conv kernel
+  with its bias).
 """
 
 from __future__ import annotations
