@@ -147,7 +147,22 @@ sm_90a, one process per source) and drives the port's paths:
   versions and an f32 reference; phase 42 runs vovnet57 on
   configs/base.yaml's recipe at bs512@176 (K1 once a step, its peak
   memory) and serves it. Each of the three prints its wall seconds, and
-  the script its total.
+  the script its total;
+- EfficientNet, MobileNetV3, ResNet, RegNet and the necks (slice 18):
+  phase 21 holds K9 at the MBConv shapes too (k = 3 and 5, 112² to 7²
+  maps, C = 16, 72, 144, 120, 200, 1152); phase 43 serves efficientnet_b0
+  (12 K9 a request, the program's node count printed), runs its bs128@224
+  step with drop-path 0.2 (12 + 12 K9 a step) and one step at bs8 against
+  the plain versions and an f32 reference, and times K9 at each of its
+  distinct stride-1 MBConv shapes at batch 128 beside cuDNN and the bound,
+  the timed operands held; phase 44 serves mobilenet_v3_large (11 K9 a
+  request), resnet50 (and runs its bs256@224 step: no kernel, one bf16
+  step against an f32 one printed), regnet_y_1_6gf and resnext50_32x4d;
+  phase 45 runs BiFPN(64, 3 layers) on efficientnet_b0's five taps at
+  bs8@224 forward and backward through K9 (12 + 24 a forward) against the
+  plain versions and an f32 reference, PAN(256) on darknet_yolov5s's last
+  four maps and DeformableConv2d (v2, stride 1 and 2) on the card against
+  the CPU in f32. Each prints its wall seconds.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -308,7 +323,11 @@ SIGLIP_TRAIN = dict(batch=64, img=512, classes=1000, warmup=3, steps=10, lr=0.1,
 CONVNEXT_STAGES = ((56, 96, 3), (28, 192, 3), (14, 384, 9), (7, 768, 3))
 DEPTHWISE_CASES = tuple((8, h, h, c, 7, 0) for h, c, _ in CONVNEXT_STAGES) + (
     (4, 28, 28, 64, 3, 0), (4, 19, 23, 48, 5, 0), (3, 13, 17, 20, 7, 0), (4, 11, 1, 64, 7, 0),
-    (2, 1, 13, 40, 5, 0), (2, 12, 20, 16, 9, 0), (1, 9, 9, 32, 21, 0), (8, 56, 56, 96, 7, 1))
+    (2, 1, 13, 40, 5, 0), (2, 12, 20, 16, 9, 0), (1, 9, 9, 32, 21, 0), (8, 56, 56, 96, 7, 1),
+    # the MBConv nets' (slice 18): k = 3 and 5, 112² to 7² maps, channel
+    # counts that are no multiple of K9's 32-channel group
+    (8, 112, 112, 16, 3, 0), (8, 56, 56, 72, 3, 0), (8, 56, 56, 144, 3, 0),
+    (8, 28, 28, 120, 5, 0), (8, 14, 14, 200, 3, 0), (8, 7, 7, 1152, 5, 0))
 DEPTHWISE_TIME_BATCH = 128
 # convnext_t's LayerScale init (1e-6) rounds every residual branch away in
 # bf16, as CaiT's does; its paths run with γ drawn around CAIT_LAYER_SCALE
@@ -440,6 +459,28 @@ PATCHCONV_DEPTHWISE = (128, 14, 384, 3)
 # at its batch, 512 at 176 px (14.2 GiB at cell (b)'s 256 on an H100 80 GB:
 # 512 fits)
 VOVNET_TRAIN = dict(model="vovnet57", batch=512, img=176, classes=1000, warmup=3, steps=10)
+# EfficientNet-B0 (slice 18, cell (r)): 16 MBConvs, 12 of them stride 1 with
+# their depthwise conv on K9; drop-path 0.2·i/16 (the model's published
+# rate); served at SERVE_BATCHES and trained at bs128@224 with the convnet
+# recipe of the other cells. Its distinct stride-1 depthwise shapes at
+# 224 px, (H = W, C, k, blocks), timed at batch 128
+EFFICIENTNET_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                          compare_batch=8)
+EFFICIENTNET_KW = dict(stochastic_depth=0.2)
+EFFICIENTNET_DEPTHWISE = ((112, 32, 3, 1), (56, 144, 3, 1), (28, 240, 5, 1), (14, 480, 3, 2),
+                          (14, 480, 5, 1), (14, 672, 5, 2), (7, 1152, 5, 3), (7, 1152, 3, 1))
+# the other families at full width (slice 18, cell (s)): resnet50's step at
+# bs256@224 on the same recipe (no kernel in the model: bf16 against f32)
+RESNET_TRAIN = dict(batch=256, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
+                    compare_batch=8)
+# the necks (slice 18): BiFPN(64, 3 layers) on efficientnet_b0's five taps at
+# bs8@224 (8 K9 a layer); PAN(256) on darknet_yolov5s's last four maps, the
+# README's composition (bs2@224, card vs CPU, f32); DeformableConv2d (v2, 3 ×
+# 3) at stride 1 and 2 on a 56² × 64 map, card vs CPU, f32
+BIFPN = dict(batch=8, out_channels=64, num_layers=3)
+PAN_NECK = dict(backbone="darknet_yolov5s", out_channels=256, batch=2)
+DEFORM_CASES = ((4, 56, 64, 128, 1), (4, 56, 64, 128, 2))  # (B, H = W, C, Co, stride)
+CARD_VS_CPU_REL_L2 = 1e-4  # f32 on both: summation order only
 BOUND = {torch.float32: 1e-3, torch.bfloat16: 2e-2}  # × max|plain|
 # K6 in f32 keeps every operand as three bf16 planes and p and ds as three,
 # so it is held closer (measured 1.07e-5); a control that rounds p and ds to
@@ -1209,6 +1250,10 @@ def train_transformer(report: dict, key: str, name: str, cfg: dict, per_step: di
     n = cfg.get("compare_batch", B)
     images, labels = images[:n], labels[:n]
     draws = step.sample_draws(g, tuple(images.shape))
+    if not any(per_step.values()):  # no kernel in the model: bf16 against f32 only
+        bf16_vs_f32_step(report, key, name, cfg, initial, step, images, labels, draws,
+                         **model_kw)
+        return launches
     res = kernel_vs_plain_step(name, cfg, initial, step, images, labels, draws, forward_kw,
                                **model_kw)
     report[f"{key}_vs_plain"] = res
@@ -1298,6 +1343,32 @@ def kernel_vs_plain_step(name: str, cfg: dict, state, step, images, labels, draw
                         plain_vs_f32=own, bound=max(GRAD_REL_L2, 2 * own),
                         kernel_vs_f32=rel_l2(kernel[n], f32[n], f32[v] if v else None))
     return dict(loss_kernel=losses[0], loss_plain=losses[1], loss_f32=losses[2], grads=grads)
+
+
+def bf16_vs_f32_step(report: dict, key: str, name: str, cfg: dict, state, step, images,
+                     labels, draws, **model_kw) -> None:
+    """For a model that runs no kernel: one bf16 step and one f32 step (the
+    same weights, TF32 off) from ``state`` and one set of draws; prints the
+    loss of each and every parameter gradient's rel L2 between them (there
+    is no plain path to hold: both are the plain ops), and fails on a
+    non-finite loss or gradient."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.train import ImageClassifier, TrainState, sgd_with_param_groups
+
+    ref_model = ImageClassifier(vtt.create_backbone(name, **model_kw), cfg["classes"])
+    ref_model.load_state_dict(state.model.state_dict())
+    states = [copy.deepcopy(state), TrainState(ref_model, sgd_with_param_groups(ref_model, 0.0))]
+    losses = [float(step(st, images, labels, draws=draws)["loss"]) for st in states]
+    bf16, f32 = ({n: p.grad for n, p in st.model.named_parameters()} for st in states)
+    errs = sorted((rel_l2(bf16[n], f32[n]), n) for n in f32)
+    finite = all(torch.isfinite(g).all() for g in bf16.values()) and all(map(math.isfinite, losses))
+    report[f"{key}_vs_f32"] = dict(loss_bf16=losses[0], loss_f32=losses[1],
+                                   grads={n: e for e, n in errs})
+    log(f"[{key.replace('_', '-')}] bf16 vs f32 step at bs{images.shape[0]} from one state and "
+        f"draws (no kernel in the model): loss {losses[0]:.6f} vs {losses[1]:.6f}; gradient rel "
+        f"L2 median {errs[len(errs) // 2][0]:.3e}, worst {[(n, '%.2e' % e) for e, n in errs[-3:]]}")
+    if not finite:
+        raise AssertionError(f"{name}: non-finite bf16 loss or gradient")
 
 
 def train_deit3(report: dict) -> None:
@@ -2096,8 +2167,8 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
     backward_ops = [t for t in targets if "bwd" in t or "backward" in t]
     served = program.module()
     log(f"[{tag}] export+load {time.perf_counter() - t0:.1f} s, artifact "
-        f"{len(blob) / 2**20:.1f} MiB; the program's custom-op calls {calls}, backward ops "
-        f"{backward_ops}")
+        f"{len(blob) / 2**20:.1f} MiB; {len(targets)} operator nodes; the program's custom-op "
+        f"calls {calls}, backward ops {backward_ops}")
     if calls != program_ops or backward_ops:
         raise AssertionError(f"exported program: {calls}, backward {backward_ops}")
     with torch.inference_mode():
@@ -2124,7 +2195,7 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
         log(f"[{tag}] batch {b:3d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
             f"rel L2 vs eager {e:.2e}  [{name_power}]")
     report[key] = dict(launches_per_forward=counts, rel_l2_vs_plain=err, plain_vs_f32=own,
-                       bound=bound_l2, requests=rows)
+                       bound=bound_l2, requests=rows, program_nodes=len(targets))
     return launches
 
 
@@ -3188,6 +3259,193 @@ def vovnet(report: dict, name_power: str) -> int:
     return launches
 
 
+def efficientnet(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 43 (cell (r)): efficientnet_b0 served (``serve_backbone``: 12 K9
+    forward launches a forward, 12 ``vtt::depthwise_conv2d`` calls in the
+    program, batches SERVE_BATCHES), its bs128@224 step with the convnet
+    recipe and drop-path 0.2 (3 warm-up + 10 timed steps, 12 + 12 K9 a step,
+    peak memory) and one step at bs8 through the kernels against the plain
+    versions and an f32 reference; then K9 at each distinct stride-1 MBConv
+    shape of efficientnet_b0 at batch 128 (``time_depthwise_case``: kernel,
+    plain, cuDNN's grouped conv, bound), the timed operands held (bf16 out
+    and dx bit-equal, a second backward bit-equal), and the sums over the
+    model's 12 calls. Returns the served requests' and the step's K9
+    launches."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    served = serve_backbone(report, "efficientnet_serve", "efficientnet_b0",
+                            {"depthwise_conv": 12}, {"depthwise_conv2d": 12}, SERVE_BATCHES,
+                            name_power, model_kw=EFFICIENTNET_KW)
+    watched = ("head.weight", "backbone.stem.conv.weight", "backbone.stages.0.0.dwconv.conv.weight",
+               "backbone.stages.5.3.se.fc1.bias", "backbone.stages.6.0.project.conv.weight",
+               "backbone.last_conv.norm.weight")
+    per_step = NO_LAUNCHES | dict.fromkeys(("depthwise_conv", "depthwise_conv_bwd"), 12)
+    launches = train_transformer(report, "efficientnet_train", "efficientnet_b0",
+                                 EFFICIENTNET_TRAIN, per_step, watched, name_power,
+                                 **EFFICIENTNET_KW)
+    g, B, rows, sums, checks = torch.Generator().manual_seed(43), DEPTHWISE_TIME_BATCH, [], {}, \
+        Checks()
+    with torch.no_grad():
+        for H, C, k, blocks in EFFICIENTNET_DEPTHWISE:
+            row, (x, w, dout) = time_depthwise_case(g, B, H, C, k, name_power,
+                                                    tag="effnet-depthwise")
+            row["blocks"] = blocks
+            rows.append(row)
+            for what in ("forward", "backward"):
+                for m in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                    sums[f"{what}/{m}"] = sums.get(f"{what}/{m}", 0.0) + blocks * row[what][m]
+            case = dict(kernel="depthwise_conv", B=B, H=H, W=H, C=C, k=k, dtype="bfloat16",
+                        route=dc.kernel_route(x, dout))
+            _, _, differ = hold_depthwise(checks, case, x, w, dout, second=True)
+            log(f"[effnet-depthwise] held B={B} {H}x{H}x{C} k={k} bf16: {checks.summary(case)}; "
+                f"bf16 elements differing from plain: out {differ[0]}, dx {differ[1]}")
+            del x, w, dout
+    for what in ("forward", "backward"):
+        log(f"[effnet-depthwise] {what} summed over efficientnet_b0's 12 calls at bs{B}: kernel "
+            f"{sums[what + '/ms']:.3f} ms, plain {sums[what + '/plain_ms']:.3f}, cuDNN "
+            f"{sums[what + '/library_ms']:.3f}, bound {sums[what + '/bound_ms']:.3f}  "
+            f"[{name_power}]")
+    report["efficientnet_depthwise"] = dict(shapes=rows, per_step=sums, held=checks.rows)
+    if not all(r["ok"] for r in checks.rows):
+        raise AssertionError(f"K9 at efficientnet_b0's shapes out of bounds: {checks.rows}")
+    return {"served": served["depthwise_conv"], "step": launches["depthwise_conv_bwd"]}
+
+
+def other_families(report: dict, name_power: str) -> None:
+    """Phase 44 (cell (s)): mobilenet_v3_large served (11 K9 a forward, 11
+    ``vtt::depthwise_conv2d`` calls); resnet50 served and its bs256@224 step
+    on the convnet recipe (no kernel in the model: launches none, and one
+    bf16 step against an f32 one, printed); regnet_y_1_6gf and
+    resnext50_32x4d served (no kernel)."""
+    serve_backbone(report, "mobilenet_serve", "mobilenet_v3_large", {"depthwise_conv": 11},
+                   {"depthwise_conv2d": 11}, SERVE_BATCHES, name_power)
+    serve_backbone(report, "resnet50_serve", "resnet50", {}, {}, SERVE_BATCHES, name_power)
+    watched = ("head.weight", "backbone.stem.conv.weight",
+               "backbone.layer1_block0.conv2.conv.weight",
+               "backbone.layer4_block2.conv3.norm.bias")
+    train_transformer(report, "resnet50_train", "resnet50", RESNET_TRAIN, NO_LAUNCHES, watched,
+                      name_power)
+    for name in ("regnet_y_1_6gf", "resnext50_32x4d"):
+        serve_backbone(report, f"{name}_serve", name, {}, {}, SERVE_BATCHES, name_power)
+
+
+def necks_on_card(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 45: BiFPN(64, 3 layers) on efficientnet_b0's five taps at
+    bs8@224, bf16, train mode: 12 + 24 K9 forward launches a forward and as
+    many backward, through the kernels against the plain versions and an f32
+    reference (outputs and every parameter gradient rel L2 ≤ max(GRAD_REL_L2,
+    2× the plain bf16 path's own distance from f32)); PAN(256) on
+    darknet_yolov5s's last four maps (the README's composition), f32, eval,
+    on the card against the same modules on the CPU; DeformableConv2d (v2,
+    3 × 3) at stride 1 and 2, f32, forward and backward on the card against
+    the CPU. Returns BiFPN's launches."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.models.necks import PAN, BiFPN
+    from vision_toolbox_tpu_torch.nn.layers import DeformableConv2d
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    B = BIFPN["batch"]
+    x = torch.rand(B, 224, 224, 3, generator=torch.Generator().manual_seed(45)).cuda()
+
+    def build(dtype):
+        gen = torch.Generator().manual_seed(0)
+        backbone = vtt.create_backbone("efficientnet_b0", dtype=dtype, generator=gen)
+        neck = BiFPN(backbone.out_channels_list, BIFPN["out_channels"], BIFPN["num_layers"],
+                     dtype=dtype, generator=gen)
+        return backbone, neck
+
+    paths = {"kernel": build(torch.bfloat16), "plain": build(torch.bfloat16),
+             "f32": build(None)}
+    cts = None
+    results, launches = {}, None
+    for path, (backbone, neck) in paths.items():
+        plain = path != "kernel"
+        drop = torch.Generator(device="cuda").manual_seed(5)  # one set of drop-path draws
+        _cuda.reset_launch_counts()
+        outs = neck(backbone.get_feature_maps(x, train=True, plain=plain, generator=drop),
+                    train=True, plain=plain)
+        if cts is None:
+            g = torch.Generator().manual_seed(46)
+            cts = [torch.randn(o.shape, generator=g).cuda() for o in outs]
+        sum((o.float() * c).sum() for o, c in zip(outs, cts)).backward()
+        torch.cuda.synchronize()
+        if path == "kernel":
+            launches = dict(_cuda.LAUNCHES)
+        grads = {f"backbone.{n}": p.grad for n, p in backbone.named_parameters()}
+        grads |= {f"neck.{n}": p.grad for n, p in neck.named_parameters()}
+        results[path] = ([o.detach().float() for o in outs], grads)
+    expected = NO_LAUNCHES | {"depthwise_conv": 36, "depthwise_conv_bwd": 36}
+    log(f"[bifpn] efficientnet_b0 + BiFPN({BIFPN['out_channels']}, {BIFPN['num_layers']} layers) "
+        f"bf16 bs{B}@224, train mode, forward and backward: launches {launches}")
+    if launches != expected:
+        raise AssertionError(f"BiFPN on efficientnet_b0: expected {expected}, got {launches}")
+    bad, rows = {}, {}
+    (k_out, k_grads), (p_out, p_grads), (f_out, f_grads) = (results[p] for p in paths)
+    for i, (ko, po, fo) in enumerate(zip(k_out, p_out, f_out)):
+        own = rel_l2(po, fo)
+        rows[f"out{i}"] = dict(kernel_vs_plain=rel_l2(ko, po), plain_vs_f32=own,
+                               bound=max(REL_L2_BOUND, 2 * own))
+    for n in k_grads:
+        own = rel_l2(p_grads[n], f_grads[n])
+        rows[n] = dict(kernel_vs_plain=rel_l2(k_grads[n], p_grads[n]), plain_vs_f32=own,
+                       bound=max(GRAD_REL_L2, 2 * own))
+    bad = {n: r for n, r in rows.items() if not r["kernel_vs_plain"] <= r["bound"]}
+    worst = sorted(rows.items(), key=lambda kv: -kv[1]["kernel_vs_plain"] / kv[1]["bound"])[:4]
+    log(f"[bifpn] kernel vs plain path: the five outputs rel L2 "
+        f"{['%.2e' % rows[f'out{i}']['kernel_vs_plain'] for i in range(len(k_out))]}; "
+        f"{len(rows) - len(k_out)} parameter gradients, worst against their bound "
+        f"{[(n, '%.2e' % r['kernel_vs_plain'], 'bound %.2e' % r['bound']) for n, r in worst]}")
+    report["bifpn"] = dict(launches=launches, rows=rows)
+    if bad:
+        raise AssertionError(f"BiFPN: the kernel path and the plain path disagree: {bad}")
+    del paths, results
+
+    # PAN on darknet_yolov5s's last four maps: the card against the CPU, f32
+    gen = torch.Generator().manual_seed(0)
+    backbone = vtt.create_backbone(PAN_NECK["backbone"], device="cpu", generator=gen).eval()
+    xs = torch.rand(PAN_NECK["batch"], 224, 224, 3, generator=torch.Generator().manual_seed(47))
+    with torch.no_grad():
+        channels = tuple(f.shape[-1] for f in backbone.get_feature_maps(xs[:1])[-4:])
+        neck = PAN(channels, PAN_NECK["out_channels"], device="cpu", generator=gen).eval()
+        want = neck(backbone.get_feature_maps(xs)[-4:])
+        backbone.cuda(), neck.cuda()
+        got = neck(backbone.get_feature_maps(xs.cuda())[-4:])
+    errs = [rel_l2(a.float().cpu(), b) for a, b in zip(got, want)]
+    log(f"[pan] {PAN_NECK['backbone']} → PAN({PAN_NECK['out_channels']}) f32 bs{PAN_NECK['batch']}"
+        f"@224 on the card vs the CPU: outputs {[tuple(t.shape) for t in got]}, rel L2 "
+        f"{['%.2e' % e for e in errs]} (bound {CARD_VS_CPU_REL_L2})")
+    report["pan"] = dict(channels=channels, rel_l2=errs)
+    if len(got) != 4 or not all(e <= CARD_VS_CPU_REL_L2 for e in errs):
+        raise AssertionError(f"PAN on the card disagrees with the CPU: {errs}")
+
+    # DeformableConv2d, v2: the card against the CPU, f32, forward and backward
+    rows = []
+    for Bd, H, C, Co, stride in DEFORM_CASES:
+        m = DeformableConv2d(C, Co, 3, stride, padding=1, generator=torch.Generator().manual_seed(1))
+        with torch.no_grad():
+            m.conv_offset.weight.mul_(8)  # offsets of a few pixels, some off the map
+        xd = torch.randn(Bd, H, H, C, generator=torch.Generator().manual_seed(2))
+        sides = []
+        for device in ("cpu", "cuda"):
+            md = copy.deepcopy(m).to(device)
+            xi = xd.to(device).detach().requires_grad_()
+            out = md(xi)
+            ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)).to(device)
+            out.backward(ct)
+            sides.append([out.detach().cpu(), xi.grad.cpu()] +
+                         [p.grad.cpu() for p in md.parameters()])
+        names = ["out", "dx"] + [n for n, _ in m.named_parameters()]
+        errs = {n: rel_l2(a, b) for n, a, b in zip(names, sides[1], sides[0])}
+        rows.append(dict(B=Bd, H=H, C=C, Co=Co, stride=stride, rel_l2=errs))
+        log(f"[deform] v2 3x3 stride {stride} ({Bd}, {H}, {H}, {C}) → {Co}, f32, card vs CPU rel "
+            f"L2: {', '.join(f'{n} {e:.2e}' for n, e in errs.items())} (bound "
+            f"{CARD_VS_CPU_REL_L2})")
+        if not all(e <= CARD_VS_CPU_REL_L2 for e in errs.values()):
+            raise AssertionError(f"DeformableConv2d on the card disagrees with the CPU: {errs}")
+    report["deform"] = rows
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3360,8 +3618,21 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_s[key] = time.perf_counter() - t0
         log(f"[{key}] phase wall {phase_s[key]:.1f} s")
-    report["phase_s"] = phase_s
     log(f"[phases 40-42] {sum(phase_s.values()):.1f} s together; the script so far "
+        f"{time.perf_counter() - script_start:.1f} s")
+
+    # phases 43-45: EfficientNet (K9 at 3 × 3 and 5 × 5 in its MBConvs), the
+    # other families at full width, the necks (BiFPN's separable convs on K9)
+    slice18 = {}
+    for key, phase in (("efficientnet", efficientnet), ("other_families", other_families),
+                       ("necks", necks_on_card)):
+        t0 = time.perf_counter()
+        slice18[key] = phase(report, name_power)
+        torch.cuda.synchronize()
+        phase_s[key] = time.perf_counter() - t0
+        log(f"[{key}] phase wall {phase_s[key]:.1f} s")
+    report["phase_s"] = phase_s
+    log(f"[phases 43-45] {sum(phase_s[k] for k in slice18):.1f} s together; the script so far "
         f"{time.perf_counter() - script_start:.1f} s")
 
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
@@ -3396,6 +3667,18 @@ def main() -> int:
              "block_attention_bwd": dict(core_rows_ms=core["rows"],
                                          core_keys_ms=core["keys"]),
              "warp_shear3": dict(wrapper_ms=report["warp"]["wrapper_ms"])}
+    # K9 on the MBConv and BiFPN paths (slice 18): their launches, and the
+    # kernel's time summed over efficientnet_b0's 12 calls at batch 128
+    effnet = report["efficientnet_depthwise"]["per_step"]
+    for k, what in (("depthwise_conv", "forward"), ("depthwise_conv_bwd", "backward")):
+        extra[k] = extra.get(k, {}) | dict(
+            efficientnet_b0_served_launches=slice18["efficientnet"]["served"] if k ==
+            "depthwise_conv" else None,
+            efficientnet_b0_step_launches=slice18["efficientnet"]["step"],
+            bifpn_launches=slice18["necks"][k],
+            efficientnet_b0_b128_ms=effnet[f"{what}/ms"],
+            efficientnet_b0_b128_bound_ms=effnet[f"{what}/bound_ms"],
+            efficientnet_b0_b128_library_ms=effnet[f"{what}/library_ms"])
     kernels = []
     for k in KERNELS:
         bound_ms, bound_by = bound(*work[k])

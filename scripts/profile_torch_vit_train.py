@@ -2,13 +2,15 @@
 
     python3 scripts/profile_torch_vit_train.py [vit_b_16 | cait_s_24 | vit_b_16_siglip512 | convnext_t
                                                 | swin_t | vit_b_16_unfused | mixer_b_16
-                                                | patchconvnet_s | vovnet57]
+                                                | patchconvnet_s | vovnet57
+                                                | efficientnet_b0 | resnet50]
 
 Builds the step of one of ``chip_smoke.py``'s training phases (vit_b_16 by
 default, or cait_s_24, bs128@224; or vit_b_16 SigLIP at 512 px with its MAP
 head and no cls token, bs64@512; or convnext_t with stochastic depth 0.1,
 or swin_t with stochastic depth 0.2, bs128@224; or vit_b_16 on the unfused
-block chain, mixer_b_16, or patchconvnet_s with drop-path 0.3, bs128@224;
+block chain, mixer_b_16, or patchconvnet_s with drop-path 0.3, or
+efficientnet_b0 with drop-path 0.2, bs128@224; or resnet50, bs256@224;
 bf16 compute, f32 parameters, CutMix⊕MixUp, label smoothing 0.1, SGD
 momentum 0.9 with weight decay 2e-5 in three groups; or vovnet57 on the
 full recipe of configs/base.yaml at its bs512@176, as cell (b) runs
@@ -171,6 +173,9 @@ def main() -> int:
                "vit_b_16_unfused": vit("vit_b_16", cs.VIT_UNFUSED_TRAIN, cs.UNFUSED),
                "mixer_b_16": vit("mixer_b_16", cs.MIXER_TRAIN),
                "patchconvnet_s": vit("patchconvnet_s", cs.PATCHCONV_TRAIN),
+               "efficientnet_b0": vit("efficientnet_b0", cs.EFFICIENTNET_TRAIN,
+                                      **cs.EFFICIENTNET_KW),
+               "resnet50": vit("resnet50", cs.RESNET_TRAIN),
                # the full recipe, cell (b)'s step
                "vovnet57": (cs.VOVNET_TRAIN,
                             functools.partial(cs.recipe_step_parts, cs.VOVNET_TRAIN))}

@@ -39,6 +39,9 @@ FAMILIES = {"vit_ti_16": (JaxViT, ViT), "deit_ti_16": (JaxDeiT, DeiT)}
 # every name runs at 224 px but swin_s3-s: its 14-token windows need a 14×14
 # last stage, so 448 px (at 224 px neither package runs it)
 IMG_SIZE = {"swin_s3-s": 448}
+# families without fused half-blocks: their gates are never asked
+NO_FUSED_BLOCKS = ("convnextv2", "patchconvnet", "vovnet", "efficientnet", "mobilenet_v3",
+                   "resnet", "resnext", "wide_resnet", "regnet")
 
 
 @pytest.fixture
@@ -91,8 +94,9 @@ def test_gates_are_the_jax_rules_at_every_registered_shape(gate_calls, monkeypat
     """A meta-device forward of ``name`` at 224 px (``IMG_SIZE``) records each
     block's gate calls; each answer equals the JAX rule's on the same
     shape with ``_FORCE_ON`` patched (its TPU test lifted). Darknets,
-    ConvNeXt v2 (GRN sits inside the MLP), PatchConvNet and VoVNet have no
-    fused blocks and record none."""
+    ConvNeXt v2 (GRN sits inside the MLP), PatchConvNet, VoVNet and the
+    MBConv nets, ResNets and RegNets have no fused blocks and record
+    none."""
     monkeypatch.setattr(jba, "_FORCE_ON", True)
     monkeypatch.setattr(jbm, "_FORCE_ON", True)
     with torch.device("meta"), torch.no_grad():
@@ -105,7 +109,7 @@ def test_gates_are_the_jax_rules_at_every_registered_shape(gate_calls, monkeypat
     differ = {call: got for call, got in seen.items()
               if got != jax_rule[call[0]](*call[1], **dict(call[2]))}
     assert not differ, f"{name}: the port's gate differs from the JAX rule at {differ}"
-    if "darknet" in name or name.startswith(("convnextv2", "patchconvnet", "vovnet")):
+    if "darknet" in name or name.startswith(NO_FUSED_BLOCKS):
         assert not seen
     else:
         assert any(gate == "use_fused_mlp" for gate, *_ in seen), name

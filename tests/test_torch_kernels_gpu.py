@@ -47,6 +47,8 @@ the second-plane controls (p, and ds, rounded to bf16 once), which the
 dtype's bound alone would not refuse.
 """
 
+import copy
+
 import pytest
 import torch
 
@@ -1482,11 +1484,15 @@ def test_mlp_kernels_at_mixer_shapes(cuda, dtype, B, T, D, Dh):
 @pytest.mark.parametrize("name,per_forward", [
     ("mixer_s_8", {"block_mlp": 8}), ("mixer_b_16", {"block_mlp": 12}),
     ("patchconvnet_s", {"depthwise_conv": 60}), ("vovnet57", {}),
+    ("efficientnet_b0", {"depthwise_conv": 12}), ("mobilenet_v3_large", {"depthwise_conv": 11}),
+    ("resnet50", {}), ("resnext50_32x4d", {}), ("regnet_y_1_6gf", {}),
 ])
 def test_new_families_build_on_the_card_and_run_their_kernels(cuda, name, per_forward):
     """bf16, 224 px: a served forward launches exactly ``per_forward`` (each
     Mixer block's channel half runs K3, each PatchConvNet block K9 at k = 3,
-    VoVNet none), and a train-mode forward and backward the same again
+    each stride-1 MBConv of efficientnet_b0 and mobilenet_v3_large K9 at
+    k = 3 or 5, VoVNet, the ResNets and RegNets none), and a train-mode
+    forward and backward the same again
     forward and as many backward; where a kernel runs, the kernel path
     against the plain path."""
     import vision_toolbox_tpu_torch as vtt
@@ -1535,3 +1541,83 @@ def test_max_pool_ties_on_the_card_match_the_cpu(cuda, dtype):
         assert torch.equal(out_card, out_cpu)
         assert torch.equal(dx_card != 0, dx_cpu != 0)
         torch.testing.assert_close(dx_card.float(), dx_cpu.float(), rtol=1e-2, atol=1e-6)
+
+
+# the MBConv nets' depthwise convs (efficientnet_b0, mobilenet_v3_large at 224
+# px): k = 3 and 5, maps from 112² to 7², channel counts that are no multiple
+# of K9's 32-channel group (16, 72, 120, 200) and k = 5 on a 7² map at 1152
+MBCONV_DEPTHWISE_SHAPES = [(8, 112, 112, 16, 3), (8, 56, 56, 72, 3), (8, 56, 56, 144, 3),
+                           (8, 28, 28, 120, 5), (8, 14, 14, 200, 3), (8, 7, 7, 1152, 5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,W,C,k", MBCONV_DEPTHWISE_SHAPES)
+def test_depthwise_conv_at_mbconv_shapes(cuda, dtype, B, H, W, C, k):
+    """K9 at the MBConv shapes: out and dx within the dtype's bound (bf16
+    bit-equal), dw by rel L2, a second backward bit-equal; both dtypes take
+    the wide route (C a multiple of 8 bf16, 4 f32 values)."""
+    from vision_toolbox_tpu_torch.ops import depthwise_conv as dc
+
+    test_depthwise_conv_kernels_match_plain(cuda, dtype, B, H, W, C, k)
+    if dtype == torch.bfloat16:
+        test_depthwise_conv_bf16_is_bit_equal_to_plain(cuda, B, H, W, C, k, 0)
+    test_depthwise_conv_second_backward_is_bit_equal(cuda, dtype, B, H, W, C, k)
+    x = torch.zeros(B, H, W, C, device=cuda, dtype=dtype)
+    assert dc.kernel_route(x, x) == "wide"
+
+
+def test_bifpn_on_efficientnet_b0_runs_k9(cuda):
+    """BiFPN(64, 3 layers) on efficientnet_b0's five taps, bf16, 224 px: 24
+    K9 forward launches (8 separable convs a layer), 24 + 24 in a train-mode
+    forward and backward, and the kernel path against the plain path."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.models.necks import BiFPN
+
+    backbone = vtt.create_backbone("efficientnet_b0", dtype=torch.bfloat16)
+    neck = BiFPN(backbone.out_channels_list, 64, 3, dtype=torch.bfloat16)
+    x = torch.rand(2, 224, 224, 3, device=cuda)
+    with torch.inference_mode():
+        taps = backbone.get_feature_maps(x)
+        _cuda.reset_launch_counts()
+        outs = neck(taps)
+        torch.cuda.synchronize()
+        assert dict(_cuda.LAUNCHES) == dict.fromkeys(_cuda.LAUNCHES, 0) | {"depthwise_conv": 24}
+        plain = neck(taps, plain=True)
+    assert [o.shape[1:] for o in outs] == [t.shape[1:3] + (64,) for t in taps]
+    for o, p in zip(outs, plain):
+        assert torch.isfinite(o.float()).all()
+        err = ((o.float() - p.float()).norm() / p.float().norm()).item()
+        assert err <= REL_L2, err
+    taps = [t.clone().requires_grad_() for t in taps]
+    _cuda.reset_launch_counts()
+    sum(o.float().sum() for o in neck(taps, train=True)).backward()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["depthwise_conv"] == _cuda.LAUNCHES["depthwise_conv_bwd"] == 24
+    assert all(torch.isfinite(t.grad.float()).all() for t in taps)
+
+
+@pytest.mark.parametrize("v2,stride", [(True, 1), (True, 2), (False, 1)])
+def test_deform_conv2d_on_the_card_matches_the_cpu(cuda, v2, stride):
+    """``DeformableConv2d`` (3×3, padding 1, f32) on the card against the
+    same module on the CPU: values and the gradients to x and every
+    parameter (gathers and their scatter-add backward summed in another
+    order)."""
+    from vision_toolbox_tpu_torch.nn.layers import DeformableConv2d
+
+    m = DeformableConv2d(32, 64, 3, stride, padding=1, v2=v2,
+                         generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        m.conv_offset.weight.mul_(8)  # offsets of a few pixels, some off the map
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 28, 28, 32, generator=g)
+    results = []
+    for device in ("cpu", cuda):
+        md = copy.deepcopy(m).to(device)
+        xd = x.to(device).detach().requires_grad_()
+        out = md(xd)
+        ct = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(device)
+        out.backward(ct)
+        results.append([out.detach().cpu(), xd.grad.cpu()] +
+                       [p.grad.cpu() for p in md.parameters()])
+    for got, want in zip(results[1], results[0]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item())

@@ -200,3 +200,73 @@ def test_linen_batch_norm_matches_flax(dtype):
         got = pm(torch.from_numpy(x).to(tdt))
     np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)),
                                rtol=tol, atol=tol)
+
+
+# --- the MBConv/RegNet/neck slice: hardswish, SE's act/gate pairs, avg pool ---
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_hard_swish_is_bit_equal_to_jax(dtype):
+    """``ACTIVATIONS["hardswish"]`` (x · hard_sigmoid(x), MobileNetV3's)
+    equals ``jax.nn.hard_swish`` bit for bit on 200,000 normal·4 samples,
+    jitted as a model runs it; ``F.hardswish`` rounds elsewhere."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    x = (np.random.default_rng(0).standard_normal(200_000) * 4).astype(np.float32)
+    want = np.asarray(jax.jit(jax.nn.hard_swish)(jnp.asarray(x, jdt)).astype(jnp.float32))
+    t = torch.from_numpy(x).to(tdt)
+    for fn in (layers.hard_swish, layers.ACTIVATIONS["hardswish"]):
+        assert np.array_equal(fn(t).float().numpy(), want)
+    assert not np.array_equal(torch.nn.functional.hardswish(t).float().numpy(), want)
+
+
+SE_PAIRS = [("relu", "sigmoid"), ("relu", "hardsigmoid"), ("silu", "sigmoid"),
+            ("hardswish", "hardsigmoid")]
+
+
+@pytest.mark.parametrize("act,gate", SE_PAIRS)
+def test_squeeze_excitation_act_and_gate_match_jax(act, gate):
+    """SE with each act/gate pair (PatchConvNet's and RegNetY's relu/sigmoid,
+    MobileNetV3's relu/hard sigmoid, EfficientNet's silu/sigmoid, and
+    hardswish/hard sigmoid), bridged, f32, values and input gradients."""
+    x = (np.random.default_rng(5).standard_normal((2, 5, 6, 16)) * 2).astype(np.float32)
+    jm = jlayers.SqueezeExcitation(4, act=act, gate=gate)
+    pm = layers.SqueezeExcitation(16, 4, act, gate, generator=torch.Generator().manual_seed(0))
+    variables = _bridged(jm, pm, x)
+    want, vjp = jax.vjp(lambda x: jm.apply(variables, x), jnp.asarray(x))
+    (want_dx,) = vjp(jnp.ones_like(want))
+    tx = torch.from_numpy(x).requires_grad_()
+    got = pm(tx)
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=TOL, atol=TOL)
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,s,p", [(3, 1, 1), (5, 1, 2), (3, 2, 1), (2, 2, 0)])
+def test_avg_pool_torch_matches_jax(k, s, p, dtype):
+    """``avg_pool_torch`` (count_include_pad: the zero-padded window sum,
+    divided by k² at JAX's rounding point) against the JAX function: f32
+    values and input gradients to 1e-6 (the window sums' order); bf16
+    values rel L2 ≤ 1e-2 (XLA sums a bf16 window in bf16, rounding each
+    add, where the port sums in f32 and rounds once: a few elements differ
+    by an ulp or two)."""
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16,
+                                                                        torch.bfloat16)
+    x = np.random.default_rng(6).standard_normal((2, 9, 8, 3)).astype(np.float32)
+    jfn = jax.jit(lambda x: jlayers.avg_pool_torch(x, k, s, p))
+    want = np.asarray(jfn(jnp.asarray(x, jdt)).astype(jnp.float32))
+    got = layers.avg_pool_torch(torch.from_numpy(x).to(tdt), k, s, p)
+    assert got.dtype == tdt and got.shape == want.shape
+    if dtype == "bfloat16":
+        got = got.float().numpy()
+        assert np.linalg.norm(got - want) <= 1e-2 * np.linalg.norm(want)
+        return
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+    ct = np.random.default_rng(7).standard_normal(want.shape).astype(np.float32)
+    # un-jitted: jax.jit of the generic reduce_window's VJP fails to linearize
+    _, vjp = jax.vjp(lambda x: jlayers.avg_pool_torch(x, k, s, p), jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(ct))
+    tx = torch.from_numpy(x).requires_grad_()
+    layers.avg_pool_torch(tx, k, s, p).backward(torch.from_numpy(ct))
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_dx), rtol=1e-6, atol=1e-6)

@@ -5,9 +5,10 @@ narrow ConvNeXt forward and train step (its depthwise convs through the K9
 op), a narrow Swin forward and train step (its window attention and
 shifted-window relayouts through the K7 and K8 ops), a tiny ViT on the
 unfused block chain at 64 (batch·head) pairs, forward and train step (its
-attention through the K2 op and autograd function), and one full-recipe
-train step of a narrow CSP Darknet, and must not have loaded ``jax`` or
-``flax``."""
+attention through the K2 op and autograd function), one full-recipe
+train step of a narrow CSP Darknet, a narrow EfficientNet's feature taps
+and train step (its depthwise convs through the K9 op) and a BiFPN on
+those taps, and must not have loaded ``jax`` or ``flax``."""
 
 import ast
 import pathlib
@@ -25,6 +26,8 @@ from vision_toolbox_tpu_torch.nn import norm
 from vision_toolbox_tpu_torch.ops import augment, cait_attention, depthwise_conv, flash_attention, trivial_augment, warp
 from vision_toolbox_tpu_torch.ops import short_attention, swin_attention, swin_relayout
 from vision_toolbox_tpu_torch.models import cait, convnext, darknet, swin
+from vision_toolbox_tpu_torch.models import efficientnet, mbconv, mobilenet, necks, regnet, resnet
+from vision_toolbox_tpu_torch.ops import deform_conv
 from vision_toolbox_tpu_torch import train
 from vision_toolbox_tpu_torch.train import classifier, optim, step
 m = vtt.models.ViT(128, 2, 4, 8, 32, device="cpu")
@@ -84,6 +87,20 @@ g = torch.Generator().manual_seed(0)
 images = torch.randint(0, 256, (4, 32, 32, 3), dtype=torch.uint8, generator=g)
 loss = fn(state, images, torch.tensor([1, 2, 3, 4]), g)["loss"]
 assert torch.isfinite(loss), loss
+e = efficientnet.EfficientNet(0.25, 0.25, dtype=torch.bfloat16, device="cpu")
+with torch.no_grad():
+    taps = e.get_feature_maps(torch.rand(2, 64, 64, 3))
+assert [t.shape[-1] for t in taps] == list(e.out_channels_list), [t.shape for t in taps]
+clf = train.ImageClassifier(e, 10, dtype=torch.bfloat16)
+state = train.TrainState(clf, train.sgd_with_param_groups(clf, 0.1))
+loss = train.make_train_step(10, compute_dtype=torch.bfloat16)(
+    state, torch.rand(2, 64, 64, 3), torch.tensor([1, 2]), torch.Generator().manual_seed(0))
+assert torch.isfinite(loss["loss"]), loss
+b = necks.BiFPN(e.out_channels_list, 16, 2, dtype=torch.bfloat16, device="cpu")
+with torch.no_grad():
+    outs = b([t.to(torch.bfloat16) for t in taps])
+assert [o.shape[-1] for o in outs] == [16] * len(taps) and all(
+    torch.isfinite(o.float()).all() for o in outs), [o.shape for o in outs]
 loaded = sorted(n for n in ("jax", "jaxlib", "flax") if n in sys.modules)
 print("LOADED", loaded)
 """

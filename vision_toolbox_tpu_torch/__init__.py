@@ -12,10 +12,14 @@ depthwise-conv kernels, ``ops/depthwise_conv.py``) and Swin (hand-written
 window-attention and shifted-window relayout kernels,
 ``ops/swin_attention.py``, ``ops/swin_relayout.py``), serves and trains
 MLP-Mixer (its channel halves the fused MLP kernels) and PatchConvNet (its
-3 × 3 depthwise convs the depthwise-conv kernels), and trains the Darknet
-family and VoVNet with the full recipe (``train/``; TrivialAugment's
-geometric ops run the hand-written three-shear warp kernel,
-``ops/warp.py``). Kernel sources are in ``csrc/``, built with
+3 × 3 depthwise convs the depthwise-conv kernels), EfficientNet and
+MobileNetV3 (their stride-1 MBConv depthwise convs the depthwise-conv
+kernels at 3 × 3 and 5 × 5), ResNet/ResNeXt/Wide-ResNet and RegNet X/Y,
+trains the Darknet family and VoVNet with the full recipe (``train/``;
+TrivialAugment's geometric ops run the hand-written three-shear warp
+kernel, ``ops/warp.py``), and holds the detection necks FPN, PAN and BiFPN
+(its separable convs on the depthwise-conv kernels, ``models/necks.py``)
+and the deformable conv (``ops/deform_conv.py``). Kernel sources are in ``csrc/``, built with
 ``nvcc`` at first use. Models are built on the card unless ``device="cpu"``
 is passed. The JAX package is the reference the port is held against; this
 package imports ``torch`` and never ``jax``, and every random draw takes an

@@ -1,7 +1,8 @@
 """Core NN primitives — port of ``vision_toolbox_tpu/nn/layers.py``: the
 activation table, ``torch_pad``, ``Conv2d``, ``DepthwiseConv``,
-``ConvNormAct``, ``SeparableConv2d``, ``max_pool_torch`` and the gates
-``ESEBlock`` and ``SqueezeExcitation`` for the convnets, and ``Linear``,
+``ConvNormAct``, ``SeparableConv2d``, ``max_pool_torch``, ``avg_pool_torch``,
+``SPPBlock``, the gates ``ESEBlock`` and ``SqueezeExcitation`` and
+``DeformableConv2d`` for the convnets and necks, and ``Linear``,
 ``LayerNorm`` (flax semantics), ``LayerScale``, ``StochasticDepth`` and the
 exact-erf GELU for the transformers.
 
@@ -21,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import Tensor, nn
 
+from ..ops.deform_conv import deform_conv2d
 from ..ops.depthwise_conv import depthwise_conv2d
 from .initializers import kaiming_normal, torch_default_bias, torch_default_kernel
 
@@ -37,6 +39,12 @@ def hard_sigmoid(x: Tensor) -> Tensor:
     return y * (1 / 6) if x.dtype == torch.float32 else y / 6
 
 
+def hard_swish(x: Tensor) -> Tensor:
+    """``jax.nn.hard_swish``, x · hard_sigmoid(x), at its rounding points
+    (``F.hardswish`` rounds elsewhere in f32 and bf16)."""
+    return x * hard_sigmoid(x)
+
+
 ACTIVATIONS: dict[str, Callable | None] = {
     "none": None,
     "relu": F.relu,
@@ -45,7 +53,7 @@ ACTIVATIONS: dict[str, Callable | None] = {
     "silu": F.silu,
     "gelu": _gelu_exact,  # torch nn.GELU default is exact erf, not tanh approx
     "hardsigmoid": hard_sigmoid,
-    "hardswish": F.hardswish,
+    "hardswish": hard_swish,
     "relu6": F.relu6,
 }
 
@@ -167,8 +175,10 @@ class ConvNormAct(nn.Module):
             raise ValueError(f"unsupported norm {norm}")
         self.act = ACTIVATIONS[act]
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
-        x = self.conv(x)
+    def forward(self, x: Tensor, train: bool = False, *, plain: bool = False) -> Tensor:
+        """``plain`` runs the depthwise branch's plain K9 versions on any
+        device."""
+        x = self.conv(x, plain=plain) if self.depthwise else self.conv(x)
         if self.norm is not None:
             x = self.norm(x, train=train)
         return x if self.act is None else self.act(x)
@@ -188,8 +198,8 @@ class SeparableConv2d(nn.Module):
         self.pw = ConvNormAct(in_channels, out_channels, 1, norm=norm, act=act, dtype=dtype,
                               generator=generator)
 
-    def forward(self, x: Tensor, train: bool = False) -> Tensor:
-        return self.pw(self.dw(x, train=train), train=train)
+    def forward(self, x: Tensor, train: bool = False, *, plain: bool = False) -> Tensor:
+        return self.pw(self.dw(x, train=train, plain=plain), train=train)
 
 
 class Linear(nn.Module):
@@ -291,6 +301,34 @@ def max_pool_torch(x: Tensor, kernel_size: int, stride: int, padding: int) -> Te
     return F.max_pool2d(x.permute(0, 3, 1, 2), kernel_size, stride, padding).permute(0, 2, 3, 1)
 
 
+def avg_pool_torch(x: Tensor, kernel_size: int, stride: int, padding: int) -> Tensor:
+    """torch.nn.AvgPool2d(k, s, p) with count_include_pad on NHWC tensors, as
+    the JAX package computes it: the zero-padded window sum, then the
+    division by k² in x's type (in f32 XLA makes it a product with 1/k²)."""
+    k2 = kernel_size * kernel_size
+    summed = F.avg_pool2d(x.permute(0, 3, 1, 2), kernel_size, stride, padding,
+                          divisor_override=1).permute(0, 2, 3, 1)
+    return summed * (1 / k2) if x.dtype == torch.float32 else summed / k2
+
+
+class SPPBlock(nn.Module):
+    """SPPF-style pooling: ``repeats`` chained k×k stride-1 pools (max or
+    avg), their outputs concatenated over channels (k = 5 three times is
+    parallel 5/9/13 pooling). No parameters."""
+
+    def __init__(self, kernel_size: int = 5, repeats: int = 3, pool: str = "max"):
+        super().__init__()
+        self.kernel_size, self.repeats = kernel_size, repeats
+        self.pool = {"max": max_pool_torch, "avg": avg_pool_torch}[pool]
+
+    def forward(self, x: Tensor) -> Tensor:
+        pad, outputs = (self.kernel_size - 1) // 2, []
+        for _ in range(self.repeats):
+            x = self.pool(x, self.kernel_size, 1, pad)
+            outputs.append(x)
+        return torch.cat(outputs, dim=-1)
+
+
 class ESEBlock(nn.Module):
     """Effective Squeeze-Excitation (VoVNet): global average pool → 1×1 conv
     ``linear`` → hard-sigmoid gate, on NHWC tensors."""
@@ -306,15 +344,52 @@ class ESEBlock(nn.Module):
 
 class SqueezeExcitation(nn.Module):
     """torchvision-style SE block on NHWC tensors: global average pool →
-    1×1 ``fc1`` → relu → 1×1 ``fc2`` → sigmoid gate, the JAX module's
-    defaults (PatchConvNet's)."""
+    1×1 ``fc1`` → ``act`` → 1×1 ``fc2`` → ``gate`` ("sigmoid", else the hard
+    sigmoid, as in the JAX module). The defaults relu/sigmoid are
+    PatchConvNet's and RegNetY's; MobileNetV3 uses relu/hardsigmoid,
+    EfficientNet silu/sigmoid."""
 
-    def __init__(self, channels: int, squeeze_channels: int, *,
-                 dtype: torch.dtype | None = None, generator: torch.Generator):
+    def __init__(self, channels: int, squeeze_channels: int, act: str = "relu",
+                 gate: str = "sigmoid", *, dtype: torch.dtype | None = None,
+                 generator: torch.Generator):
         super().__init__()
         self.fc1 = Conv2d(channels, squeeze_channels, 1, dtype=dtype, generator=generator)
         self.fc2 = Conv2d(squeeze_channels, channels, 1, dtype=dtype, generator=generator)
+        self.act = ACTIVATIONS[act]
+        self.gate = torch.sigmoid if gate == "sigmoid" else hard_sigmoid
 
     def forward(self, x: Tensor) -> Tensor:
-        s = self.fc2(F.relu(self.fc1(x.mean((1, 2), keepdim=True))))
-        return x * torch.sigmoid(s)
+        s = self.fc2(self.act(self.fc1(x.mean((1, 2), keepdim=True))))
+        return x * self.gate(s)
+
+
+class DeformableConv2d(nn.Module):
+    """DCN v1/v2 on NHWC tensors: a ``conv_offset`` conv (2k² channels: Δy,
+    Δx per tap), with ``v2`` a sigmoid ``conv_mask`` conv (k²), and the
+    deformable sampling ``ops/deform_conv.deform_conv2d`` with ``weight``
+    (out, in, k, k) (the bridge's layout of the JAX module's (k, k, in, out)
+    ``kernel``) and an optional ``bias``. The offset and mask convs run in
+    ``dtype``; the sampling in x's type, its products promoted with the f32
+    weight, as in the JAX module."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
+                 padding: int = 0, dilation: int = 1, bias: bool = True, v2: bool = True, *,
+                 dtype: torch.dtype | None = None, generator: torch.Generator):
+        super().__init__()
+        k = kernel_size
+        self.stride, self.padding, self.dilation = stride, padding, dilation
+        conv = dict(stride=stride, padding=padding, dilation=dilation, dtype=dtype,
+                    generator=generator)
+        self.conv_offset = Conv2d(in_channels, 2 * k * k, k, **conv)
+        self.conv_mask = Conv2d(in_channels, k * k, k, **conv) if v2 else None
+        self.weight = nn.Parameter(torch_default_kernel((out_channels, in_channels, k, k),
+                                                        generator))
+        self.bias = (nn.Parameter(torch_default_bias(in_channels * k * k)((out_channels,),
+                                                                          generator))
+                     if bias else None)
+
+    def forward(self, x: Tensor) -> Tensor:
+        offset = self.conv_offset(x)
+        mask = None if self.conv_mask is None else torch.sigmoid(self.conv_mask(x))
+        return deform_conv2d(x, self.weight, offset, mask, self.bias, stride=self.stride,
+                             padding=self.padding, dilation=self.dilation)

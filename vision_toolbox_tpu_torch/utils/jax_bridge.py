@@ -36,6 +36,22 @@ The Mixer, PatchConvNet and VoVNet need no rule of their own:
 - VoVNet's ``stem_<i>``, ``conv_<i>`` and ``out_conv`` (each a ``conv``
   kernel and a BatchNorm ``norm``) and ``ese/linear`` (a 1×1 conv kernel
   with its bias).
+
+The MBConv nets, ResNets, RegNets and necks need none either:
+- EfficientNet's and RegNet's ``stage_<i>_block_<j>`` and MobileNetV3's
+  ``block_<i>`` take the rules above; their ``stem``, ``last_conv``,
+  ``expand``, ``dwconv`` (a depthwise conv kernel by the HWIO rule),
+  ``project``, ``conv1``–``conv3``, ``downsample`` and ``se/fc1``,
+  ``se/fc2`` keep their names;
+- ResNet's ``layer<i>_block<j>`` keep theirs: the port's blocks are
+  attributes of that name, so no rule maps them;
+- the necks' ``lateral_<i>`` (BiFPN's a conv kernel with its bias, FPN's a
+  ``conv`` under it), ``out_conv_<i>``, ``top_down``, ``bottom_up``,
+  ``layer_<i>``, ``td_fuse_<i>``, ``out_fuse_<i>``, ``last_out_fuse``, the
+  fusions' ``weights`` vector and their ``conv`` block (``dw``/``pw``);
+- ``DeformableConv2d``'s ``conv_offset``, ``conv_mask`` and its raw
+  (k, k, C, Co) ``kernel``, which the HWIO rule turns into the port's
+  (Co, C, k, k) ``weight``.
 """
 
 from __future__ import annotations
