@@ -163,6 +163,25 @@ sm_90a, one process per source) and drives the port's paths:
   plain versions and an f32 reference, PAN(256) on darknet_yolov5s's last
   four maps and DeformableConv2d (v2, stride 1 and 2) on the card against
   the CPU in f32. Each prints its wall seconds.
+- the trainer and the data plane: phase 46 runs ``python -m
+  vision_toolbox_tpu_torch.train fit --config configs/base.yaml`` on 6
+  synthetic steps (vovnet57 bs512@176, bf16, the full recipe) and reads its
+  metrics.jsonl back (a finite loss and the schedule's lr at every step,
+  K1 once a step, train_ips, peak memory, val/*, a profiler trace of 3
+  steps for the idle share), its checkpoint and best/, then ``validate`` on
+  the checkpoint (the same val metrics within 1e-6); phase 47 writes a
+  seeded raw-shard corpus with the port's ``write_shard`` (4,096 images at
+  200 px in 2 shards, 512 at 224, 100 classes) and trains
+  configs/synth_hard_dev.yaml's cspdarknet53 at bs256@176 on it for 2
+  epochs with the uint8 store on the card (K1 exactly once a step, the
+  feed carrying the index vector alone), holds
+  ``random_resized_crop_flip`` on the card against the CPU, and resumes
+  from the epoch-1 checkpoint in a fresh Trainer (parameters, BN buffers
+  and momentum bit-equal, start_epoch 1); phase 48 feeds the same step from
+  the host's ``RawShardLoader`` through ``prefetch_to_device``, copies 4
+  fed batches back bit-equal to the host's, and prints the step times
+  (CUDA events), where the host waited and the idle share of both runs
+  beside the bare steps of phases 7 and 42. Each prints its wall seconds.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -3446,6 +3465,407 @@ def necks_on_card(report: dict, name_power: str) -> dict[str, int]:
     return launches
 
 
+# --- phases 46-48: the trainer and the data plane ---------------------------
+
+CLI_BASE = dict(config="configs/base.yaml", steps=6, batch=512)
+# the phase 47-48 corpus: raw shards written with the port's own write_shard
+CORPUS = dict(train=4096, train_px=200, shards=2, val=512, val_px=224, classes=100, seed=0)
+RESIDENT = dict(config="configs/synth_hard_dev.yaml", epochs=2, batch=256, crop=176)
+FEED_STEPS, FEED_CHECKED, TRACED_STEPS = 16, 4, 3
+RRC_BOUND = 1e-5  # max abs, [0, 1] images, f32 products with TF32 off on both sides
+
+
+def union_length(spans: list[tuple[float, float]]) -> float:
+    """Time (in the spans' unit) that at least one span covers."""
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(spans):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def trace_device(path: Path) -> dict:
+    """From a chrome trace of torch.profiler: the device's busy time (the
+    union of kernels, copies and sets), the window (first to last event) and
+    the host-to-device bytes, µs and bytes."""
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("ph") == "X" and "dur" in e]
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    h2d = [e for e in device if e.get("cat") == "gpu_memcpy" and "HtoD" in e.get("name", "")]
+    return dict(busy_us=union_length([(e["ts"], e["ts"] + e["dur"]) for e in device]),
+                window_us=max(e["ts"] + e["dur"] for e in events) - min(e["ts"] for e in events),
+                kernels=sum(e.get("cat") == "kernel" for e in device),
+                h2d_copies=len(h2d), h2d_bytes=sum(e.get("args", {}).get("bytes", 0) for e in h2d),
+                h2d_bytes_known=all("bytes" in e.get("args", {}) for e in h2d))
+
+
+def cli(*args: str, timeout: int = 900) -> subprocess.CompletedProcess:
+    """The port's training CLI in a process of its own, from the checkout."""
+    proc = subprocess.run([sys.executable, "-m", "vision_toolbox_tpu_torch.train", *args],
+                          cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise AssertionError(f"CLI {args[0]} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
+    return proc
+
+
+def cli_base_recipe(report: dict, name_power: str) -> int:
+    """Phase 46 (cell (t)): ``python -m vision_toolbox_tpu_torch.train fit
+    --config configs/base.yaml`` on synthetic data for 6 steps (vovnet57,
+    bs512@176, bf16, the full recipe with K1), its metrics.jsonl read back:
+    a finite loss and the schedule's lr at every step, the epoch's train_ips,
+    peak memory and K1 launches (one a step), val/* from the synthetic val
+    set at 224, a torch.profiler trace of steps 2-4 for the idle share; then
+    ``validate`` on its checkpoint through the CLI, equal to the fit's val
+    metrics within 1e-6. Returns K1's launches."""
+    import tempfile
+
+    from vision_toolbox_tpu_torch.train.optim import warmup_cosine_schedule
+
+    steps, B = CLI_BASE["steps"], CLI_BASE["batch"]
+    torch.cuda.empty_cache()  # the CLI's process needs its own ~28 GiB
+    with tempfile.TemporaryDirectory(prefix="vtt_cli_") as tmp:
+        out = Path(tmp) / "base"
+        sets = ["data.synthetic=true", f"data.train_size={steps * B}", "train.epochs=1",
+                "runtime.log_every=1", "runtime.profile_steps=3", f"runtime.out_dir={out}"]
+        common = ["--config", CLI_BASE["config"], *[a for s in sets for a in ("--set", s)]]
+        t0 = time.perf_counter()
+        cli("fit", *common)
+        fit_s = time.perf_counter() - t0
+        records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+        per_step = [r for r in records if "train/loss" in r]
+        epoch = records[-1]
+        schedule = warmup_cosine_schedule(0.25, 1, steps, 5, 0.01, 0.0)  # base.yaml's
+        lr_err = max(abs(r["lr"] - schedule(r["step"] - 1)) for r in per_step)
+        losses = [r["train/loss"] for r in per_step]
+        log(f"[cli_base] fit: {fit_s:.1f} s (process start, build load, {steps} steps, val, "
+            f"checkpoint); losses {['%.4f' % v for v in losses]}, lr max|err| {lr_err:.1e}")
+        trace = trace_device(out / "profile" / "trace.json")
+        traced_ms = trace["window_us"] / 1e3 / 3
+        idle = 1 - trace["busy_us"] / trace["window_us"]
+        log(f"[cli_base] epoch: {epoch['epoch_time_s']:.2f} s for {steps} steps (the first "
+            f"included), train_ips {epoch['train_ips']:.1f}, peak {epoch['peak_memory_gib']:.1f} "
+            f"GiB, K1 launches {epoch.get('launches/warp_shear3')}; traced steps 2-4: "
+            f"{traced_ms:.2f} ms a step (profiler on), idle share {idle:.3f}; val/loss "
+            f"{epoch['val/loss']:.6f} val/acc {epoch['val/acc']:.4f}  [{name_power}]")
+        if ([r["step"] for r in per_step] != list(range(1, steps + 1))
+                or not all(map(math.isfinite, losses)) or lr_err > 1e-9):
+            raise AssertionError(f"bad step records: {per_step}")
+        want_keys = {"train_ips", "peak_memory_gib", "val/loss", "val/acc", "val/acc5"}
+        if not want_keys <= epoch.keys() or epoch.get("launches/warp_shear3") != steps:
+            raise AssertionError(f"bad epoch record (K1 once a step expected): {epoch}")
+        ckpt = out / "checkpoints" / f"step_{steps}"
+        if not (ckpt / "state.pt").is_file() or not (out / "best" / "state.pt").is_file():
+            raise AssertionError(f"no checkpoint or best/ under {out}")
+        t0 = time.perf_counter()
+        proc = cli("validate", *common, "--set", f"runtime.resume={ckpt}")
+        validate_s = time.perf_counter() - t0
+        val = json.loads(proc.stdout.strip().splitlines()[-1])
+        val_err = max(abs(val[k] - epoch[k]) for k in ("val/loss", "val/acc", "val/acc5"))
+        log(f"[cli_base] validate: {validate_s:.1f} s, {val}; max|err| vs the fit's {val_err:.1e}")
+        if not val_err <= 1e-6:
+            raise AssertionError(f"validate disagrees with the fit: {val} vs {epoch}")
+    report["cli_base"] = dict(fit_s=fit_s, validate_s=validate_s, losses=losses, epoch=epoch,
+                              traced_ms_per_step=traced_ms, idle_share=idle, trace=trace,
+                              lr_max_abs_err=lr_err, validate_max_abs_err=val_err)
+    return epoch["launches/warp_shear3"]
+
+
+def write_corpus(root: Path) -> tuple[Path, Path]:
+    """CORPUS as raw shards (uint8, seeded) with the port's write_shard."""
+    import numpy as np
+
+    from vision_toolbox_tpu_torch.data.raw_shards import write_shard
+
+    rng = np.random.default_rng(CORPUS["seed"])
+    dirs = root / "train", root / "val"
+    for d in dirs:
+        d.mkdir(parents=True)
+    per, px = CORPUS["train"] // CORPUS["shards"], CORPUS["train_px"]
+    for s in range(CORPUS["shards"]):
+        write_shard(str(dirs[0] / f"{s:03d}.vtraw"),
+                    rng.integers(0, 256, (per, px, px, 3), dtype=np.uint8),
+                    rng.integers(0, CORPUS["classes"], per))
+    n, px = CORPUS["val"], CORPUS["val_px"]
+    write_shard(str(dirs[1] / "000.vtraw"), rng.integers(0, 256, (n, px, px, 3), dtype=np.uint8),
+                rng.integers(0, CORPUS["classes"], n))
+    return dirs
+
+
+def corpus_trainer(dirs: tuple[Path, Path], out: Path, *extra: str):
+    """A Trainer on configs/synth_hard_dev.yaml over the corpus."""
+    from vision_toolbox_tpu_torch.train.config import load_config
+    from vision_toolbox_tpu_torch.train.trainer import Trainer
+
+    sets = [f"data.train_dir={dirs[0]}", f"data.val_dir={dirs[1]}", f"runtime.out_dir={out}",
+            f"train.epochs={RESIDENT['epochs']}", "runtime.log_every=4", *extra]
+    return Trainer(load_config([str(ROOT / RESIDENT["config"])], sets))
+
+
+def state_arrays(trainer) -> dict[str, torch.Tensor]:
+    """Copies of the model's state (parameters, BN buffers) and of every
+    tensor of the optimizer's state."""
+    out = {f"model.{k}": v.detach().clone() for k, v in trainer.state.model.state_dict().items()}
+    for name, lists in trainer.state.optimizer.state_dict().items():
+        if isinstance(lists, list):
+            for gi, group in enumerate(lists):
+                for pi, t in enumerate(group):
+                    out[f"{name}.{gi}.{pi}"] = t.detach().clone()
+    return out
+
+
+def timed_steps(trainer, batches, n: int) -> dict:
+    """``n`` steps of ``trainer.train_batch`` on fed batches: CUDA-event ms
+    a step and the host's wall ms a step, and where the host waited: for the
+    next fed batch, and in ``host_rng``'s device-to-host read (the step's
+    one sync)."""
+    from vision_toolbox_tpu_torch.train import step as step_module
+
+    real, waited = step_module.host_rng, [0.0]
+
+    def timed_rng(generator):
+        t = time.perf_counter()
+        rng = real(generator)
+        waited[0] += time.perf_counter() - t
+        return rng
+
+    feed_wait = 0.0
+    step_module.host_rng = timed_rng
+    try:
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        for _ in range(n):
+            t = time.perf_counter()
+            batch = next(batches)
+            feed_wait += time.perf_counter() - t
+            trainer.train_batch(batch)
+        end.record()
+        end.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        step_module.host_rng = real
+    ms = start.elapsed_time(end) / n
+    B = trainer.cfg.data.batch_size
+    return dict(ms=ms, img_per_s=B / ms * 1e3, wall_ms=wall * 1e3 / n,
+                feed_wait_ms=feed_wait * 1e3 / n, rng_wait_ms=waited[0] * 1e3 / n)
+
+
+def traced_idle(trainer, batches, n: int, path: Path) -> dict:
+    """torch.profiler over ``n`` steps: the device's idle share of the host
+    window, and the host-to-device bytes a step."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    trainer.train_batch(next(batches))  # the feed primed outside the window
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            trainer.train_batch(next(batches))
+        torch.cuda.synchronize()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    prof.export_chrome_trace(str(path))
+    trace = trace_device(path)
+    return dict(idle_share=1 - trace["busy_us"] / 1e3 / window_ms, window_ms_per_step=window_ms / n,
+                busy_ms_per_step=trace["busy_us"] / 1e3 / n,
+                h2d_bytes_per_step=trace["h2d_bytes"] / n, h2d_copies_per_step=trace["h2d_copies"] / n,
+                h2d_bytes_known=trace["h2d_bytes_known"])
+
+
+def resident_trainer(report: dict, name_power: str, dirs: tuple[Path, Path], tmp: Path) -> int:
+    """Phase 47 (cell (u), device-resident): ``Trainer`` on
+    configs/synth_hard_dev.yaml (cspdarknet53, bs256@176, bf16, K1) over the
+    corpus for 2 epochs with the uint8 train store on the card: K1 launched
+    exactly once a step and no other kernel, the feed carrying the (B,)
+    int32 index vector alone (and a trace's host-to-device bytes a step
+    under one image's), ``random_resized_crop_flip`` on the card against
+    the CPU from the same boxes and flips (max abs ≤ RRC_BOUND); then a
+    fresh Trainer resumed from the epoch-1 checkpoint: parameters, BN
+    buffers and momentum bit-equal to the saved ones, start_epoch 1, and the
+    resumed epoch runs. Then the steps timed (CUDA events) and traced.
+    Returns K1's launches in the two epochs."""
+    from vision_toolbox_tpu_torch.data import prefetch_to_device
+    from vision_toolbox_tpu_torch.ops import _cuda, device_rrc
+
+    B, S = RESIDENT["batch"], RESIDENT["crop"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = corpus_trainer(dirs, tmp / "resident")
+    build_s = time.perf_counter() - t0
+    store = trainer._device_store[0]
+    saved = {}
+    save = trainer.save
+
+    def snapshot_save(epoch, val_acc=None):
+        path = save(epoch, val_acc)
+        saved.setdefault(epoch, (path, state_arrays(trainer)))
+        return path
+
+    trainer.save = snapshot_save
+    _cuda.reset_launch_counts()  # the main path: counts from 0 just before, read just after
+    t0 = time.perf_counter()
+    trainer.fit()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    n_steps = trainer.state.step
+    records = [json.loads(line) for line in
+               (tmp / "resident" / "metrics.jsonl").read_text().splitlines()]
+    epochs = [r for r in records if "epoch_time_s" in r]
+    feed_bytes = trainer.feed.bytes_copied / trainer.feed.batches
+    log(f"[resident] store {tuple(store.shape)} uint8 {store.numel() / 1e9:.3f} GB on the card, "
+        f"Trainer built in {build_s:.1f} s; fit {RESIDENT['epochs']} epochs, {n_steps} steps in "
+        f"{fit_s:.1f} s; launches {launches}; feed {feed_bytes:.0f} bytes a step")
+    for r in epochs:
+        log(f"[resident] epoch {r['epoch']}: {r['epoch_time_s']:.2f} s, train_ips "
+            f"{r['train_ips']:.1f}, peak {r.get('peak_memory_gib', math.nan):.1f} GiB, val/loss "
+            f"{r['val/loss']:.4f} val/acc {r['val/acc']:.4f}  [{name_power}]")
+    if n_steps != RESIDENT["epochs"] * CORPUS["train"] // B:
+        raise AssertionError(f"{n_steps} steps")
+    if launches != NO_LAUNCHES | {"warp_shear3": n_steps}:
+        raise AssertionError(f"expected exactly one K1 launch a step and no other kernel: {launches}")
+    if feed_bytes != B * 4:
+        raise AssertionError(f"the feed carried {feed_bytes} bytes a step, not the index vector")
+
+    # the device-side crop against the CPU's, same boxes and flips
+    g = torch.Generator().manual_seed(5)
+    idx = torch.randperm(store.shape[0], generator=g)[:B].to(store.device)
+    images = store.index_select(0, idx).float() / 255.0
+    draws = device_rrc.sample_rrc(g, B, store.shape[1], store.shape[2])
+    got = device_rrc.crop_resize_flip(images, *draws, S)
+    want = device_rrc.crop_resize_flip(images.cpu(), *draws, S)
+    rrc_err = (got.cpu() - want).abs().max().item()
+    d_card = device_rrc.RRCDraws(*(t.to(store.device) for t in draws))
+    rrc_ms = time_ms(lambda: device_rrc.crop_resize_flip(images, *d_card, S), iters=10)
+    log(f"[resident] random_resized_crop_flip bs{B} {store.shape[1]}→{S}: card vs CPU max|err| "
+        f"{rrc_err:.2e} (bound {RRC_BOUND}), {rrc_ms:.3f} ms on the card")
+    if not rrc_err <= RRC_BOUND:
+        raise AssertionError("device_rrc on the card disagrees with the CPU")
+
+    # resume from the epoch-1 checkpoint in a fresh Trainer
+    path, snapshot = saved[0]
+    resumed = corpus_trainer(dirs, tmp / "resident", f"runtime.resume={path}")
+    restored = state_arrays(resumed)
+    differ = sorted(k for k in snapshot if k not in restored or not torch.equal(snapshot[k], restored[k]))
+    start_epoch = resumed.state.step // resumed.steps_per_epoch
+    _cuda.reset_launch_counts()
+    resumed.fit()
+    torch.cuda.synchronize()
+    resumed_launches = _cuda.LAUNCHES["warp_shear3"]
+    tail = [json.loads(line) for line in
+            (tmp / "resident" / "metrics.jsonl").read_text().splitlines()][-1]
+    log(f"[resident] resumed from {Path(path).name}: {len(snapshot)} tensors, {len(differ)} "
+        f"differ; start_epoch {start_epoch}; the resumed epoch: {resumed.state.step} steps, "
+        f"{resumed_launches} K1, val/acc {tail.get('val/acc')}")
+    if differ or snapshot.keys() != restored.keys() or start_epoch != 1:
+        raise AssertionError(f"resume: differing {differ[:5]}, start_epoch {start_epoch}")
+    if resumed.state.step != n_steps or tail.get("epoch") != 1 or resumed_launches != n_steps // 2:
+        raise AssertionError(f"the resumed epoch did not run: {tail}")
+
+    index_batches = lambda: iter(prefetch_to_device(
+        ((i,) for i, _ in trainer.train_loader), "cuda"))
+    timed = timed_steps(trainer, index_batches(), FEED_STEPS)
+    traced = traced_idle(trainer, index_batches(), TRACED_STEPS, tmp / "resident_trace.json")
+    log(f"[resident] {FEED_STEPS} steps: {timed['ms']:.2f} ms a step ({timed['img_per_s']:.1f} "
+        f"img/s, CUDA events), host {timed['wall_ms']:.2f} ms a step, of it waiting for the "
+        f"feed {timed['feed_wait_ms']:.3f} and in host_rng's read {timed['rng_wait_ms']:.2f}; "
+        f"traced {TRACED_STEPS}: idle share {traced['idle_share']:.3f}, host-to-device "
+        f"{traced['h2d_bytes_per_step']:.0f} bytes in {traced['h2d_copies_per_step']:.1f} "
+        f"copies a step (bytes known: {traced['h2d_bytes_known']})  [{name_power}]")
+    if traced["h2d_bytes_known"] and not traced["h2d_bytes_per_step"] < S * S * 3:
+        raise AssertionError("an image crossed to the card in a device-resident step")
+    report["resident"] = dict(build_s=build_s, fit_s=fit_s, launches=launches, epochs=epochs,
+                              feed_bytes_per_step=feed_bytes, rrc_max_abs_err=rrc_err,
+                              rrc_ms=rrc_ms, resume_differing=len(differ),
+                              start_epoch=start_epoch, timed=timed, traced=traced)
+    return launches["warp_shear3"]
+
+
+def host_fed(report: dict, name_power: str, dirs: tuple[Path, Path], tmp: Path) -> int:
+    """Phase 48 (cell (u), host-fed): the same corpus and step through the
+    host's ``RawShardLoader`` and ``prefetch_to_device`` (page-locked
+    buffers, copies on a side stream): one epoch through ``fit``, then
+    FEED_STEPS steps timed (CUDA events) with the first FEED_CHECKED fed
+    batches copied back and held bit-equal to the host's arrays, and
+    TRACED_STEPS traced for the idle share; beside the device-resident run
+    and the bare steps of phases 7 and 42. Returns K1's launches."""
+    from vision_toolbox_tpu_torch.data import prefetch_to_device
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    trainer = corpus_trainer(dirs, tmp / "host", "train.epochs=1", "data.device_resident=false")
+    _cuda.reset_launch_counts()
+    trainer.fit()
+    torch.cuda.synchronize()
+    launches = _cuda.LAUNCHES["warp_shear3"]
+    epoch = [json.loads(line) for line in
+             (tmp / "host" / "metrics.jsonl").read_text().splitlines()][-1]
+
+    host, fed = [], []
+
+    def kept_host(batches):
+        for images, labels in batches:
+            if len(host) < FEED_CHECKED:
+                host.append((images.copy(), labels.copy()))
+            yield images, labels
+
+    def kept_fed(batches):
+        for batch in batches:
+            if len(fed) < FEED_CHECKED:
+                fed.append(tuple(t.clone() for t in batch))
+            yield batch
+
+    batches = kept_fed(iter(prefetch_to_device(kept_host(iter(trainer.train_loader)), "cuda")))
+    timed = timed_steps(trainer, batches, FEED_STEPS)
+    differ = [sum(int((got.cpu() != torch.from_numpy(want)).sum()) for got, want in zip(f, h))
+              for f, h in zip(fed, host)]
+    traced = traced_idle(trainer, iter(prefetch_to_device(iter(trainer.train_loader), "cuda")),
+                         TRACED_STEPS, tmp / "host_trace.json")
+    resident = report["resident"]["timed"]
+    log(f"[host_fed] fit 1 epoch: train_ips {epoch['train_ips']:.1f}, peak "
+        f"{epoch.get('peak_memory_gib', math.nan):.1f} GiB, {launches} K1 launches; {FEED_CHECKED} fed batches "
+        f"copied back: differing elements {differ}")
+    log(f"[host_fed] {FEED_STEPS} steps: {timed['ms']:.2f} ms a step ({timed['img_per_s']:.1f} "
+        f"img/s), host {timed['wall_ms']:.2f} ms a step, waiting for the feed "
+        f"{timed['feed_wait_ms']:.2f} and in host_rng's read {timed['rng_wait_ms']:.2f}; traced: "
+        f"idle share {traced['idle_share']:.3f}, host-to-device {traced['h2d_bytes_per_step']:.0f} "
+        f"bytes a step  [{name_power}]")
+    bare, bare_vov = report["train"], report["vovnet_train"]
+    log(f"[trainer vs bare step] cspdarknet53 bs256@176: bare (phase 7) {bare['ms_per_step']:.2f} "
+        f"ms, device-resident trainer {resident['ms']:.2f} ms, host-fed {timed['ms']:.2f} ms; "
+        f"vovnet57 bs512@176: bare (phase 42) {bare_vov['ms_per_step']:.2f} ms "
+        f"({bare_vov['img_per_s']:.1f} img/s), CLI epoch train_ips "
+        f"{report['cli_base']['epoch']['train_ips']:.1f} (first step included)")
+    if len(differ) != FEED_CHECKED or any(differ):
+        raise AssertionError(f"fed batches differ from the host's: {differ}")
+    if launches != len(trainer.train_loader):
+        raise AssertionError(f"{launches} K1 launches in {len(trainer.train_loader)} steps")
+    report["host_fed"] = dict(epoch=epoch, launches=launches, differing=differ, timed=timed,
+                              traced=traced)
+    return launches
+
+
+def trainer_phases(report: dict, name_power: str, phase_s: dict) -> dict[str, int]:
+    """Phases 46-48, each timed; the corpus in a temporary directory."""
+    import tempfile
+
+    launches = {}
+    t0 = time.perf_counter()
+    launches["cli_base"] = cli_base_recipe(report, name_power)
+    phase_s["cli_base"] = time.perf_counter() - t0
+    log(f"[cli_base] phase wall {phase_s['cli_base']:.1f} s")
+    with tempfile.TemporaryDirectory(prefix="vtt_corpus_") as tmp:
+        t0 = time.perf_counter()
+        dirs = write_corpus(Path(tmp))
+        log(f"[corpus] {CORPUS} written in {time.perf_counter() - t0:.1f} s")
+        for key, phase in (("resident", resident_trainer), ("host_fed", host_fed)):
+            launches[key] = phase(report, name_power, dirs, Path(tmp))
+            torch.cuda.synchronize()
+            phase_s[key] = time.perf_counter() - t0
+            log(f"[{key}] phase wall {phase_s[key]:.1f} s")
+            t0 = time.perf_counter()
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -3631,9 +4051,15 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_s[key] = time.perf_counter() - t0
         log(f"[{key}] phase wall {phase_s[key]:.1f} s")
-    report["phase_s"] = phase_s
     log(f"[phases 43-45] {sum(phase_s[k] for k in slice18):.1f} s together; the script so far "
         f"{time.perf_counter() - script_start:.1f} s")
+
+    # phases 46-48: the trainer through the CLI on base.yaml, the
+    # device-resident trainer and its resume, the host feed
+    trainer_launches = trainer_phases(report, name_power, phase_s)
+    report["phase_s"] = phase_s
+    log(f"[phases 46-48] {sum(phase_s[k] for k in trainer_launches):.1f} s together; the script "
+        f"so far {time.perf_counter() - script_start:.1f} s")
 
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
@@ -3666,7 +4092,8 @@ def main() -> int:
                                      core_served_ms=core["forward"]),
              "block_attention_bwd": dict(core_rows_ms=core["rows"],
                                          core_keys_ms=core["keys"]),
-             "warp_shear3": dict(wrapper_ms=report["warp"]["wrapper_ms"])}
+             "warp_shear3": dict(wrapper_ms=report["warp"]["wrapper_ms"],
+                                 trainer_launches=trainer_launches)}
     # K9 on the MBConv and BiFPN paths (slice 18): their launches, and the
     # kernel's time summed over efficientnet_b0's 12 calls at batch 128
     effnet = report["efficientnet_depthwise"]["per_step"]

@@ -8,7 +8,11 @@ unfused block chain at 64 (batch·head) pairs, forward and train step (its
 attention through the K2 op and autograd function), one full-recipe
 train step of a narrow CSP Darknet, a narrow EfficientNet's feature taps
 and train step (its depthwise convs through the K9 op) and a BiFPN on
-those taps, and must not have loaded ``jax`` or ``flax``."""
+those taps, a 2-step ``Trainer.fit`` on synthetic data and a device-resident
+one on a tiny raw-shard directory (the data package, the pinned feed's CPU
+path, ``ops/device_rrc.py``, checkpoints), and must not have loaded ``jax``,
+``flax``, ``optax``, ``orbax`` or ``vision_toolbox_tpu``. No source file of
+the package, nor ``chip_smoke.py``, imports one of them."""
 
 import ast
 import pathlib
@@ -16,6 +20,7 @@ import subprocess
 import sys
 
 PORT = pathlib.Path(__file__).resolve().parent.parent / "vision_toolbox_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "vision_toolbox_tpu")
 
 _PROBE = """
 import sys
@@ -29,7 +34,12 @@ from vision_toolbox_tpu_torch.models import cait, convnext, darknet, swin
 from vision_toolbox_tpu_torch.models import efficientnet, mbconv, mobilenet, necks, regnet, resnet
 from vision_toolbox_tpu_torch.ops import deform_conv
 from vision_toolbox_tpu_torch import train
-from vision_toolbox_tpu_torch.train import classifier, optim, step
+from vision_toolbox_tpu_torch.train import classifier, config, optim, step, tracking, trainer
+from vision_toolbox_tpu_torch.train import __main__ as cli
+from vision_toolbox_tpu_torch import data
+from vision_toolbox_tpu_torch.data import datasets, loader, native, raw_shards, transforms, wds_loader
+from vision_toolbox_tpu_torch.ops import device_rrc
+from vision_toolbox_tpu_torch.utils import checkpoint
 m = vtt.models.ViT(128, 2, 4, 8, 32, device="cpu")
 with torch.no_grad():
     out = m(torch.rand(2, 32, 32, 3))
@@ -101,14 +111,40 @@ with torch.no_grad():
     outs = b([t.to(torch.bfloat16) for t in taps])
 assert [o.shape[-1] for o in outs] == [16] * len(taps) and all(
     torch.isfinite(o.float()).all() for o in outs), [o.shape for o in outs]
-loaded = sorted(n for n in ("jax", "jaxlib", "flax") if n in sys.modules)
+import tempfile
+import numpy as np
+with tempfile.TemporaryDirectory() as tmp:
+    cfg = config.Config()
+    cfg.model.backbone, cfg.model.num_classes, cfg.model.bf16 = "darknet19", 10, False
+    cfg.data.synthetic, cfg.data.batch_size, cfg.data.train_size = True, 4, 8
+    cfg.data.train_crop_size = cfg.data.val_crop_size = 32
+    cfg.train.epochs, cfg.runtime.out_dir = 1, tmp + "/synthetic"
+    fit = trainer.Trainer(cfg, device="cpu")
+    assert fit.fit().step == 2
+    rng = np.random.default_rng(0)
+    for part, n in (("train", 8), ("val", 3)):
+        raw_shards.write_shard(f"{tmp}/{part}.vtraw", rng.integers(0, 256, (n, 24, 24, 3), np.uint8),
+                               rng.integers(0, 4, n))
+    import os
+    for part in ("train", "val"):
+        os.makedirs(f"{tmp}/{part}")
+        os.replace(f"{tmp}/{part}.vtraw", f"{tmp}/{part}/0.vtraw")
+    cfg.data.synthetic, cfg.data.raw_shards, cfg.data.device_resident = False, True, True
+    cfg.data.train_dir, cfg.data.val_dir = tmp + "/train", tmp + "/val"
+    cfg.data.train_crop_size, cfg.data.val_crop_size = 16, 24
+    cfg.runtime.out_dir = tmp + "/resident"
+    fit = trainer.Trainer(cfg, device="cpu")
+    assert fit.fit().step == 2 and fit._device_store is not None
+    assert os.path.isdir(tmp + "/resident/checkpoints/step_2")
+loaded = sorted(n for n in FORBIDDEN if n in sys.modules)
 print("LOADED", loaded)
 """
 
 
 def test_port_runs_without_loading_jax():
+    probe = f"FORBIDDEN = {FORBIDDEN!r}\n" + _PROBE
     proc = subprocess.run(
-        [sys.executable, "-c", _PROBE], capture_output=True, text=True, timeout=120,
+        [sys.executable, "-c", probe], capture_output=True, text=True, timeout=120,
         cwd=PORT.parent,
     )
     assert proc.returncode == 0, proc.stderr[-3000:]
@@ -116,7 +152,7 @@ def test_port_runs_without_loading_jax():
 
 
 def test_no_source_file_imports_jax():
-    for path in PORT.rglob("*.py"):
+    for path in [*PORT.rglob("*.py"), PORT.parent / "chip_smoke.py"]:
         for node in ast.walk(ast.parse(path.read_text())):
             if isinstance(node, ast.Import):
                 names = [a.name for a in node.names]
@@ -125,6 +161,6 @@ def test_no_source_file_imports_jax():
             else:
                 continue
             for name in names:
-                assert name.split(".")[0] not in ("jax", "jaxlib", "flax", "vision_toolbox_tpu"), (
+                assert name.split(".")[0] not in FORBIDDEN, (
                     f"{path.relative_to(PORT.parent)} imports {name}"
                 )

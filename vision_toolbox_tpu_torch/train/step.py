@@ -9,8 +9,11 @@ stats (updated during the forward). Every random draw comes from the
 (the tests pass the JAX package's draws this way). Images are NHWC, uint8 or
 float in [0, 1], on the model's device.
 
-Not ported yet: the device-resident step (``device_rrc``) and the sharded
-variants.
+``make_device_data_train_step`` runs the same step on a train set resident
+on the device (gather, /255, ``ops/device_rrc.py``'s RandomResizedCrop and
+flip, then the full recipe); ``make_eval_accumulate_step`` folds the eval
+metrics into a (4,) accumulator on the device. The sharded variants of the
+JAX package are not ported (one device).
 """
 
 from __future__ import annotations
@@ -31,15 +34,20 @@ from ..ops.augment import (
     sample_mix,
     sample_random_erasing,
 )
+from ..ops.device_rrc import RRCDraws, crop_resize_flip, sample_rrc
 from ..ops.trivial_augment import TADraws, sample_trivial_augment, trivial_augment_wide_apply
 from .classifier import cross_entropy
-from .optim import SGD
+from .optim import GroupedOptimizer, MultiSteps
 
 
 @dataclass
 class TrainState:
+    """The model, its optimizer and ``step``, the number of train-step calls
+    (micro-steps under gradient accumulation), as the JAX ``TrainState``
+    counts them."""
+
     model: nn.Module
-    optimizer: SGD
+    optimizer: GroupedOptimizer | MultiSteps
     step: int = 0
 
 
@@ -113,6 +121,59 @@ def make_train_step(
     return train_step
 
 
+class DeviceStepDraws(NamedTuple):
+    """The draws of one device-resident step: the crop boxes and flips, then
+    the recipe's."""
+
+    rrc: RRCDraws
+    step: StepDraws
+
+
+def make_device_data_train_step(
+    num_classes: int,
+    crop_size: int,
+    rrc_scale: tuple[float, float] = (0.08, 1.0),
+    rrc_ratio: tuple[float, float] = (3.0 / 4.0, 4.0 / 3.0),
+    hflip_p: float = 0.5,
+    **train_step_kwargs,
+):
+    """Train step over a train set resident on the device (decoded once into
+    device memory). Per step the host ships only a (B,) index vector; the
+    gather, RandomResizedCrop(crop_size) + flip (``ops/device_rrc.py``, two
+    batched products) and the full recipe of ``make_train_step`` all run on
+    the device.
+
+    ``step(state, store_images (N, S, S, C) uint8, store_labels (N,) int,
+    idx (B,) int, generator=None, draws=None) -> {"loss"}``: the crop draws
+    come first from ``generator``, then the recipe's; or both from
+    ``draws`` (a ``DeviceStepDraws``). ``step.sample_draws(generator, batch,
+    src_h, src_w)`` draws them alone."""
+    inner = make_train_step(num_classes, **train_step_kwargs)
+
+    def sample_draws(generator: torch.Generator, batch: int, src_h: int,
+                     src_w: int) -> DeviceStepDraws:
+        rrc = sample_rrc(generator, batch, src_h, src_w, rrc_scale, rrc_ratio, hflip_p)
+        shape = (batch, crop_size, crop_size, 3)
+        return DeviceStepDraws(rrc, inner.sample_draws(generator, shape))
+
+    def step(state: TrainState, store_images: Tensor, store_labels: Tensor, idx: Tensor,
+             generator: torch.Generator | None = None,
+             draws: DeviceStepDraws | None = None) -> dict[str, Tensor]:
+        idx = idx.to(store_images.device, torch.long)
+        images = store_images.index_select(0, idx).float() / 255.0
+        labels = store_labels.index_select(0, idx)
+        if draws is None:
+            if generator is None:
+                raise ValueError("the train step needs a torch.Generator or explicit draws")
+            _, H, W, _ = store_images.shape
+            draws = sample_draws(generator, idx.shape[0], H, W)
+        images = crop_resize_flip(images, *draws.rrc, crop_size)
+        return inner(state, images, labels, generator, draws.step)
+
+    step.sample_draws = sample_draws
+    return step
+
+
 def make_eval_step(compute_dtype: torch.dtype = torch.float32):
     """Mask-aware eval step: rows with ``label < 0`` are padding and are left
     out of loss and accuracy; ``count`` is the number of real rows."""
@@ -137,3 +198,20 @@ def make_eval_step(compute_dtype: torch.dtype = torch.float32):
         }
 
     return eval_step
+
+
+def make_eval_accumulate_step(compute_dtype: torch.dtype = torch.float32):
+    """Eval step that folds its metrics into an accumulator on the device:
+    ``acc`` is a (4,) float32 vector [loss_sum, correct, correct_top5,
+    count] (count-weighted sums, so a padded ragged batch adds exactly its
+    real rows); the trainer reads it back once per val epoch."""
+    eval_step = make_eval_step(compute_dtype)
+
+    @torch.no_grad()
+    def accumulate_step(state: TrainState, images: Tensor, labels: Tensor,
+                        acc: Tensor) -> Tensor:
+        m = eval_step(state, images, labels)
+        return acc + torch.stack([m["loss"] * m["count"], m["acc"] * m["count"],
+                                  m["acc5"] * m["count"], m["count"]])
+
+    return accumulate_step
