@@ -182,6 +182,25 @@ sm_90a, one process per source) and drives the port's paths:
   fed batches back bit-equal to the host's, and prints the step times
   (CUDA events), where the host waited and the idle share of both runs
   beside the bare steps of phases 7 and 42. Each prints its wall seconds.
+- checkpoint interop and the serving utilities: phase 49 writes
+  vit_b_16 (AugReg ``.npz``), deit_b_16, cait_s_24 (FB ``.pth``), swin_t
+  (MS ``.pth``) and convnext_t (FB ``.pth``) in their releases' layouts at
+  full size, seeded (``tests/official_ckpts.py``, torch and numpy only),
+  into a temporary ``VTT_CACHE_DIR``, loads each with ``load_pretrained``
+  in bf16 on the card and in f32 on the CPU (state dicts equal), holds the
+  bf16 logits at batch 8 against the plain path and the CPU's f32 plain
+  path (max(1e-2, 2× the plain bf16 path's own distance)) with exact
+  launches, and serves each (3 requests at batch 8; vit_b_16 at 1, 8 and
+  32, timed); phase 50 serves ``quantize_model`` of that vit_b_16 (72
+  ``Int8Linear``, its blocks on the module chain: 12 K2 a request at 8 and
+  32, none at 1, no K3/K4; one int8 product a quantized module a request
+  and no float one; mean |int8 − f32| / mean |f32| < 0.05), times it in
+  turns with the bf16 program, and holds one ``Int8Linear`` per shape class
+  on the card bit-equal to the CPU's (weights, x8, the int32 product, the
+  output; padded rows, k and n included); phase 51 runs ``profile_model``
+  on vit_b_16 and convnext_t at bs32 bf16 and holds its GFLOPs equal to the
+  plain path's count (the depthwise taps counted as the grouped
+  convolution). Each prints its wall seconds.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -203,6 +222,7 @@ import functools
 import inspect
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -211,6 +231,7 @@ from pathlib import Path
 from typing import NamedTuple
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROOT = Path(__file__).resolve().parent
 KERNELS = {
@@ -2135,11 +2156,8 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
     ``batches``, each against eager, a request at batch b launching
     ``per_batch[b]`` where given (K2's pair test), else ``per_forward``.
     Returns the served requests' launches."""
-    import io
-
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.ops import _cuda
-    from vision_toolbox_tpu_torch.utils.export import export_model
 
     tag, model_kw = key.replace("_", "-"), model_kw or {}
     model = vtt.create_backbone(name, dtype=torch.bfloat16,
@@ -2178,6 +2196,28 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
         raise AssertionError(f"{name} logits: shape {tuple(logits.shape)}, rel L2 {err}")
     del ref
 
+    launches, rows, nodes, _ = serve_program(tag, model, program_ops, batches, images,
+                                             per_batch, width, name_power)
+    report[key] = dict(launches_per_forward=counts, rel_l2_vs_plain=err, plain_vs_f32=own,
+                       bound=bound_l2, requests=rows, program_nodes=nodes)
+    return launches
+
+
+def serve_program(tag: str, model: torch.nn.Module, program_ops: dict[str, int],
+                  batches: tuple[int, ...], images: torch.Tensor,
+                  per_batch: dict[int, dict[str, int]], width: int, name_power: str):
+    """The serving half of ``serve_backbone``: export ``model`` (the program
+    calls each custom op of ``program_ops`` that many times, no backward
+    op) → load → three requests at each of ``batches``, each within 1e-3
+    rel L2 of eager, a request at batch b launching exactly
+    ``per_batch[b]``; then each batch timed (10 requests). Returns (the
+    served requests' launches, the timed rows, the program's operator node
+    count, the loaded program)."""
+    import io
+
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.utils.export import export_model
+
     t0 = time.perf_counter()
     blob = export_model(model, (8, 224, 224, 3))
     program = torch.export.load(io.BytesIO(blob))
@@ -2198,7 +2238,7 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
         launches = dict(_cuda.LAUNCHES)
     n_forwards = 3 * len(batches)
     log(f"[{tag}] {n_forwards} requests at batch {batches}: launches {launches}")
-    expected = {k: sum(3 * per_batch[b][k] for b in batches) for k in per_forward}
+    expected = {k: sum(3 * per_batch[b][k] for b in batches) for k in NO_LAUNCHES}
     if launches != expected:
         raise AssertionError(f"served path launched {launches}, expected {expected}")
     rows = []
@@ -2213,9 +2253,7 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
         rows.append(dict(batch=b, ms_per_batch=ms, rel_l2_vs_eager=e))
         log(f"[{tag}] batch {b:3d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
             f"rel L2 vs eager {e:.2e}  [{name_power}]")
-    report[key] = dict(launches_per_forward=counts, rel_l2_vs_plain=err, plain_vs_f32=own,
-                       bound=bound_l2, requests=rows, program_nodes=len(targets))
-    return launches
+    return launches, rows, len(targets), served
 
 
 def serve_convnext(report: dict, name_power: str) -> int:
@@ -3866,6 +3904,281 @@ def trainer_phases(report: dict, name_power: str, phase_s: dict) -> dict[str, in
     return launches
 
 
+# --- phases 49-51: checkpoints in the official layouts, int8 serving, the profiler
+
+# Phase 49's loaded models: name → (the release's layout, launches a request,
+# the program's custom-op calls); deit_b_16's (T = 198) are what the K3/K4
+# gates admit there (``deit_kernels``).
+LOADED = {
+    "vit_b_16": ("AugReg .npz", {"block_mlp": 12, "block_attention": 12},
+                 {"fused_mlp_block": 12, "fused_attention_block": 12}),
+    "deit_b_16": ("FB .pth", None, None),
+    "cait_s_24": ("FB .pth", {"talking_head": 24, "block_mlp": 24},
+                  {"talking_head_attention": 24, "fused_mlp_block": 24}),
+    "swin_t": ("MS .pth", {"swin_attention": 12, "swin_partition": 5, "swin_unpartition": 5,
+                           "block_mlp": 12},
+               {"swin_window_attention": 12, "swin_window_partition": 5,
+                "swin_window_unpartition": 5, "fused_mlp_block": 12}),
+    "convnext_t": ("FB .pth", {"depthwise_conv": 18, "block_mlp": 18},
+                   {"depthwise_conv2d": 18, "fused_mlp_block": 18}),
+}
+LOADED_BATCH = 8
+INT8_BOUND = 0.05  # mean |int8 − f32| / mean |f32|: the JAX package's test bound
+# Int8Linear's shape classes (rows, in, out): vit_b_16's q/k/v/out, fc1 and
+# fc2 at batch 8; CaiT's class token at batch 8 (rows ≤ 16); the Mixer's
+# token halves (in or out 196); all three pads at once
+INT8_CASES = ((1576, 768, 768), (1576, 768, 3072), (1576, 3072, 768), (8, 384, 384),
+              (6144, 196, 384), (6144, 384, 196), (5, 196, 196))
+PROFILE = dict(names=("vit_b_16", "convnext_t"), shape=(32, 224, 224, 3), n=10)
+
+
+def deit_kernels() -> tuple[dict[str, int], dict[str, int]]:
+    """deit_b_16's launches a request and program calls at T = 198 (cls,
+    dist and 196 patches): 12 K4 and 12 K3 where their gates admit the
+    shape; an attention half the K4 gate refused would run K2 on the module
+    chain (96 pairs at batch 8)."""
+    from vision_toolbox_tpu_torch.ops import block_attention, block_mlp
+
+    k4 = 12 * block_attention.use_fused_attention(768, 12, 198, 0.0, True)
+    k3 = 12 * block_mlp.use_fused_mlp(768, 3072, 198, 0.0)
+    log(f"[loaded-deit_b_16] T = 198: the K4 gate admits {bool(k4)}, the K3 gate {bool(k3)}")
+    return ({"block_mlp": k3, "block_attention": k4, "short_attention": 12 - k4},
+            {"fused_mlp_block": k3, "fused_attention_block": k4, "short_attention": 12 - k4})
+
+
+def loaded_and_served(report: dict, name_power: str, cache: Path) -> dict[str, dict]:
+    """Phase 49: each model of LOADED written in its release's layout at full
+    size (``tests/official_ckpts.py``, seeded) into the download cache
+    ``cache``, loaded with ``load_pretrained`` in bf16 on the card and in f32
+    on the CPU (state dicts equal), eager at batch 8 through the kernels
+    (exact launches; logits rel L2 to the plain path and to the CPU's f32
+    plain path ≤ max(REL_L2_BOUND, 2 × the plain bf16 path's own distance
+    from it)), then served (``serve_program``: 3 requests at batch 8,
+    vit_b_16 at 1, 8 and 32, each batch timed). Returns vit_b_16's and
+    convnext_t's model, served program and f32 logits for phases 50-51."""
+    import official_ckpts
+
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    images = torch.rand(max(SERVE_BATCHES), 224, 224, 3,
+                        generator=torch.Generator().manual_seed(1)).cuda()
+    kept = {}
+    for name, (layout, per_forward, program_ops) in LOADED.items():
+        tag = f"loaded-{name}"
+        if per_forward is None:
+            per_forward, program_ops = deit_kernels()
+        t0 = time.perf_counter()
+        path = official_ckpts.write(name, cache)
+        model = vtt.load_pretrained(name, dtype=torch.bfloat16).eval()
+        ref = vtt.load_pretrained(name, device="cpu").eval()
+        path.unlink()
+        load_s = time.perf_counter() - t0
+        sd, ref_sd = model.state_dict(), ref.state_dict()
+        unequal = [k for k in ref_sd if k not in sd or not torch.equal(sd[k].cpu(), ref_sd[k])]
+        if unequal or sd.keys() != ref_sd.keys():
+            raise AssertionError(f"{name}: card and CPU state dicts differ at {unequal[:5]}")
+        per_forward = NO_LAUNCHES | per_forward
+        with torch.inference_mode():
+            _cuda.reset_launch_counts()
+            logits = model(images[:LOADED_BATCH])
+            torch.cuda.synchronize()
+            counts = dict(_cuda.LAUNCHES)
+            plain = model(images[:LOADED_BATCH], plain=True)
+            t1 = time.perf_counter()
+            f32 = ref(images[:LOADED_BATCH].cpu(), **reference_kw(ref)).cuda()
+            ref_s = time.perf_counter() - t1
+        err, err_f32, own = rel_l2(logits, plain), rel_l2(logits, f32), rel_l2(plain, f32)
+        bound_l2 = max(REL_L2_BOUND, 2 * own)
+        log(f"[{tag}] {layout} {os.path.basename(path)} ({len(sd)} tensors, card = CPU) loaded "
+            f"in {load_s:.1f} s, the CPU reference in {ref_s:.1f} s; bf16 bs{LOADED_BATCH} "
+            f"launches {counts}; logits rel L2 to the plain path {err:.3e}, to the CPU's f32 "
+            f"plain path {err_f32:.3e} (bound {bound_l2:.3e}: the plain bf16 path is "
+            f"{own:.3e} from it)")
+        if counts != per_forward:
+            raise AssertionError(f"{name}: expected {per_forward}, got {counts}")
+        if logits.shape != f32.shape or not torch.isfinite(logits.float()).all() \
+                or not max(err, err_f32) <= bound_l2:
+            raise AssertionError(f"{name} logits: shape {tuple(logits.shape)}, rel L2 {err}, "
+                                 f"{err_f32} (bound {bound_l2})")
+        batches = SERVE_BATCHES if name == "vit_b_16" else (LOADED_BATCH,)
+        launches, rows, nodes, served = serve_program(
+            tag, model, program_ops, batches, images, dict.fromkeys(batches, per_forward),
+            model.last_out_channels, name_power)
+        report[f"loaded_{name}"] = dict(
+            layout=layout, load_s=load_s, launches_per_forward=counts, rel_l2_vs_plain=err,
+            rel_l2_vs_cpu_f32=err_f32, plain_vs_cpu_f32=own, bound=bound_l2, requests=rows,
+            program_nodes=nodes, served_launches=launches)
+        if name in ("vit_b_16", "convnext_t"):
+            kept[name] = dict(model=model, served=served, f32=f32, images=images)
+        del ref
+    return kept
+
+
+class Products(TorchDispatchMode):
+    """Counts the int8 and the float products a program runs (the ops it
+    calls, not what runs inside a custom op)."""
+
+    FLOAT = {"aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::matmul",
+             "aten::linear", "aten::einsum"}
+
+    def __init__(self):
+        super().__init__()
+        self.int8 = self.float = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func._schema.name
+        self.int8 += name == "aten::_int_mm"
+        self.float += name in self.FLOAT
+        return func(*args, **(kwargs or {}))
+
+
+def int8_served(report: dict, name_power: str, loaded: dict[str, dict]) -> None:
+    """Phase 50: ``quantize_model`` of phase 49's vit_b_16 (every q/k/v, out
+    and MLP Linear an ``Int8Linear``, the original untouched), eager at
+    batch 8 (its blocks on the module chain: 12 K2 launches, no K3/K4;
+    mean |int8 − f32| / mean |f32| < INT8_BOUND against the CPU's f32
+    logits), served at SERVE_BATCHES (``serve_program``: 12 K2 a request at
+    8 and 32, none at 1), each request running one int8 product a
+    quantized module and no float product; the int8 and bf16 programs timed
+    in turns; then one ``Int8Linear`` per shape class of INT8_CASES on the
+    card against the CPU's: the quantized weights, the int32 products and
+    the outputs bit-equal."""
+    from vision_toolbox_tpu_torch.nn.layers import Linear
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.utils.int8_serving import (
+        Int8Linear, _absmax_scale, _quantize, int8_matmul, quantize_model,
+    )
+
+    vit, tag = loaded["vit_b_16"], "int8-vit_b_16"
+    images, f32 = vit["images"], vit["f32"]
+    model = quantize_model(vit["model"])
+    n_q = sum(isinstance(m, Int8Linear) for m in model.modules())
+    if n_q != 12 * 6 or any(isinstance(m, Int8Linear) for m in vit["model"].modules()):
+        raise AssertionError(f"quantize_model: {n_q} Int8Linear, the original touched?")
+    per_forward = NO_LAUNCHES | {"short_attention": 12}
+    with torch.inference_mode():
+        _cuda.reset_launch_counts()
+        eager = model(images[:LOADED_BATCH])
+        torch.cuda.synchronize()
+        counts = dict(_cuda.LAUNCHES)
+    rel = ((eager.float() - f32).abs().mean() / f32.abs().mean()).item()
+    log(f"[{tag}] {n_q} Int8Linear; eager bs{LOADED_BATCH} launches {counts}; mean |int8 − f32| "
+        f"/ mean |f32| {rel:.4e} (bound {INT8_BOUND})")
+    if counts != per_forward or not rel < INT8_BOUND:
+        raise AssertionError(f"int8 vit_b_16: launches {counts}, error {rel}")
+    per_batch = {b: per_forward if b >= 8 else NO_LAUNCHES for b in SERVE_BATCHES}
+    launches, rows, nodes, served = serve_program(tag, model, {"short_attention": 12},
+                                                  SERVE_BATCHES, images, per_batch, 768,
+                                                  name_power)
+    products, timed = {}, []
+    with torch.inference_mode():
+        for b in SERVE_BATCHES:
+            with Products() as p:
+                served(images[:b])
+            products[b] = (p.int8, p.float)
+            if (p.int8, p.float) != (n_q, 0):
+                raise AssertionError(f"batch {b}: {p.int8} int8 and {p.float} float products, "
+                                     f"expected {n_q} and 0")
+            bf16_ms, int8_ms = alternate(lambda: vit["served"](images[:b]),
+                                         lambda: served(images[:b]), iters=10)
+            timed.append(dict(batch=b, bf16_ms=bf16_ms, int8_ms=int8_ms))
+            log(f"[{tag}] batch {b:2d}: int8 {int8_ms:.3f} ms, bf16 {bf16_ms:.3f} ms (in turns; "
+                f"int8 / bf16 {int8_ms / bf16_ms:.3f}); {p.int8} int8 products, {p.float} float "
+                f"[{name_power}]")
+
+    cases = []
+    for M, K, N in INT8_CASES:
+        g = torch.Generator().manual_seed(M * K + N)
+        linear = Linear(K, N, generator=g)
+        cpu, card = Int8Linear(linear), Int8Linear(copy.deepcopy(linear).cuda())
+        x = torch.randn(M, K, generator=g)
+        x8 = _quantize(x, _absmax_scale(x, -1))
+        x8_card = _quantize(x.cuda(), _absmax_scale(x.cuda(), -1))
+        with torch.inference_mode():
+            same = dict(
+                w8=torch.equal(card.w8.cpu(), cpu.w8), scale=torch.equal(card.scale.cpu(), cpu.scale),
+                x8=torch.equal(x8_card.cpu(), x8),
+                int32=torch.equal(int8_matmul(x8_card, card.w8).cpu(), int8_matmul(x8, cpu.w8)),
+                out=torch.equal(card(x.cuda()).cpu(), cpu(x)))
+        pads = dict(rows=M <= 16, k=K % 8 != 0, n=N % 8 != 0)
+        cases.append(dict(rows=M, k=K, n=N, padded=pads, bit_equal=same))
+        log(f"[{tag}] Int8Linear ({M}, {K}) → {N}: padded {pads}; card vs CPU bit-equal {same}")
+        if not all(same.values()):
+            raise AssertionError(f"Int8Linear ({M}, {K}, {N}): card differs from the CPU: {same}")
+    report["int8"] = dict(modules=n_q, eager_launches=counts, rel_err_vs_f32=rel, requests=rows,
+                          program_nodes=nodes, served_launches=launches, products=products,
+                          int8_vs_bf16=timed, linear_cases=cases)
+
+
+def profile_phase(report: dict, name_power: str, loaded: dict[str, dict]) -> None:
+    """Phase 51: ``profile_model`` of phase 49's vit_b_16 and convnext_t at
+    PROFILE's shape in bf16 (params, GFLOPs, fwd ms, fwd+bwd ms, peak
+    memory); the GFLOPs equal to the plain path's count, to which the
+    depthwise convs' taps (elementwise products, which the counter does not
+    see) are added as the grouped convolution that computes them."""
+    import torch.nn.functional as F
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vision_toolbox_tpu_torch.nn.layers import DepthwiseConv
+    from vision_toolbox_tpu_torch.utils.profile import flops, frozen, profile_model
+
+    report["profile"] = {}
+    for name in PROFILE["names"]:
+        model = loaded[name]["model"]
+        prof = profile_model(model, PROFILE["shape"], PROFILE["n"], torch.bfloat16)
+        x = torch.zeros(PROFILE["shape"], dtype=torch.bfloat16, device="cuda")
+        shapes = []
+        hooks = [m.register_forward_hook(lambda mod, inp, out: shapes.append(
+            (inp[0].shape, mod.weight.shape[-1]))) for m in model.modules()
+            if isinstance(m, DepthwiseConv)]
+        with frozen(model), torch.no_grad():
+            plain = flops(lambda: model(x, plain=True))
+        for h in hooks:
+            h.remove()
+        with FlopCounterMode(display=False) as taps:
+            for (B, H, W, C), k in shapes:
+                F.conv2d(torch.empty(B, C, H, W, device="meta"),
+                         torch.empty(C, 1, k, k, device="meta"), padding=k // 2, groups=C)
+        want = plain + taps.get_total_flops() / 1e9
+        log(f"[profile] {name} bf16 {PROFILE['shape']}: {prof['params_m']:.3f} M params, "
+            f"{prof['gflops']:.4f} GFLOPs (plain path {plain:.4f} + depthwise taps "
+            f"{taps.get_total_flops() / 1e9:.4f}), fwd {prof['fwd_ms']:.3f} ms, fwd+bwd "
+            f"{prof['fwd_bwd_ms']:.3f} ms, peak {prof.get('mem_peak_mb', float('nan')):.1f} MB "
+            f"of {prof.get('mem_limit_mb', float('nan')):.0f}  [{name_power}]")
+        if not math.isclose(prof["gflops"], want, rel_tol=1e-12):
+            raise AssertionError(f"{name}: {prof['gflops']} GFLOPs on the kernel path, {want} "
+                                 "on the plain path")
+        report["profile"][name] = prof | dict(plain_gflops=plain,
+                                              taps_gflops=taps.get_total_flops() / 1e9)
+
+
+def interop_phases(report: dict, name_power: str, phase_s: dict) -> None:
+    """Phases 49-51 in a temporary download cache (``VTT_CACHE_DIR``)."""
+    import tempfile
+
+    sys.path.insert(0, str(ROOT / "tests"))
+    old = os.environ.get("VTT_CACHE_DIR")
+    try:
+        with tempfile.TemporaryDirectory() as cache:
+            os.environ["VTT_CACHE_DIR"] = cache
+            t0 = time.perf_counter()
+            loaded = loaded_and_served(report, name_power, Path(cache))
+            phase_s["loaded"] = time.perf_counter() - t0
+            for key, phase in (("int8", int8_served), ("profile", profile_phase)):
+                t0 = time.perf_counter()
+                phase(report, name_power, loaded)
+                torch.cuda.synchronize()
+                phase_s[key] = time.perf_counter() - t0
+    finally:
+        if old is None:
+            os.environ.pop("VTT_CACHE_DIR", None)
+        else:
+            os.environ["VTT_CACHE_DIR"] = old
+    for key in ("loaded", "int8", "profile"):
+        log(f"[{key}] phase wall {phase_s[key]:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4057,9 +4370,15 @@ def main() -> int:
     # phases 46-48: the trainer through the CLI on base.yaml, the
     # device-resident trainer and its resume, the host feed
     trainer_launches = trainer_phases(report, name_power, phase_s)
-    report["phase_s"] = phase_s
     log(f"[phases 46-48] {sum(phase_s[k] for k in trainer_launches):.1f} s together; the script "
         f"so far {time.perf_counter() - script_start:.1f} s")
+
+    # phases 49-51: checkpoints in the official layouts loaded and served, int8
+    # serving, the profiler
+    interop_phases(report, name_power, phase_s)
+    report["phase_s"] = phase_s
+    log(f"[phases 49-51] {sum(phase_s[k] for k in ('loaded', 'int8', 'profile')):.1f} s "
+        f"together; the script so far {time.perf_counter() - script_start:.1f} s")
 
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)

@@ -1,12 +1,14 @@
 """Where the time of a served request goes, on one NVIDIA card.
 
-    python3 scripts/profile_torch_serve.py [cait_s_24 | vit_b_16 | vit_b_16_dropout | convnext_t
-                                            | mixer_b_16 | patchconvnet_s | vovnet57] [--root DIR]
+    python3 scripts/profile_torch_serve.py [cait_s_24 | vit_b_16 | vit_b_16_dropout | vit_b_16_int8
+                                            | convnext_t | mixer_b_16 | patchconvnet_s | vovnet57]
+                                           [--root DIR]
 
 Builds the seeded bf16 model of one of ``chip_smoke.py``'s serving phases
 (cait_s_24 by default, its LayerScale γs spread as there; vit_b_16, 12 K3
 and 12 K4 forwards a request; vit_b_16 built with dropout 0.1, whose blocks
-run the module chain and K2; or convnext_t,
+run the module chain and K2; vit_b_16 served in int8 (``quantize_model``:
+72 ``Int8Linear``, its blocks on the module chain, K2); or convnext_t,
 18 K9 and 18 K3 forwards a request, its γs spread around
 ``CONVNEXT_TRAIN["layer_scale"]``; mixer_b_16, 12 K3 forwards a request;
 patchconvnet_s, 60 K9 forwards a request, its γs spread around
@@ -44,8 +46,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profile_torch_serve: no CUDA device", file=sys.stderr)
         return 1
-    configs = ("cait_s_24", "vit_b_16", "vit_b_16_dropout", "convnext_t", "mixer_b_16",
-               "patchconvnet_s", "vovnet57")
+    configs = ("cait_s_24", "vit_b_16", "vit_b_16_dropout", "vit_b_16_int8", "convnext_t",
+               "mixer_b_16", "patchconvnet_s", "vovnet57")
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("model", nargs="?", default="cait_s_24", choices=configs)
     parser.add_argument("--root", type=Path, default=None,
@@ -62,6 +64,7 @@ def main() -> int:
         "cait_s_24": ("cait_s_24", {}, chip_smoke.CAIT_LAYER_SCALE),
         "vit_b_16": ("vit_b_16", {}, None),
         "vit_b_16_dropout": ("vit_b_16", chip_smoke.VIT_DROPOUT, None),
+        "vit_b_16_int8": ("vit_b_16", {}, None),
         "convnext_t": ("convnext_t", {}, chip_smoke.CONVNEXT_TRAIN["layer_scale"]),
         "mixer_b_16": ("mixer_b_16", {}, None),
         "patchconvnet_s": ("patchconvnet_s", {}, chip_smoke.PATCHCONV_TRAIN["layer_scale"]),
@@ -75,6 +78,10 @@ def main() -> int:
     if layer_scale is not None:
         chip_smoke.spread_layer_scale(model, layer_scale)
     model.eval()
+    if tag.endswith("_int8"):
+        from vision_toolbox_tpu_torch.utils.int8_serving import quantize_model
+
+        model = quantize_model(model)
     served = load_exported(export_model(model, (8, 224, 224, 3)))
     images = torch.rand(32, 224, 224, 3, generator=torch.Generator().manual_seed(1)).cuda()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]

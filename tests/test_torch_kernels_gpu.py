@@ -1693,3 +1693,65 @@ def test_device_resident_trainer_fit(cuda, tmp_path):
     with open(tmp_path / "run" / "metrics.jsonl") as f:
         losses = [r["train/loss"] for r in map(json.loads, f) if "train/loss" in r]
     assert len(losses) == 2 and all(np.isfinite(losses))
+
+
+@pytest.mark.parametrize("M,K,N", [(1576, 768, 768), (1576, 768, 3072), (1576, 3072, 768),
+                                   (8, 384, 384), (6144, 196, 384), (6144, 384, 196),
+                                   (5, 196, 196)])
+def test_int8_linear_on_the_card_matches_the_cpu(cuda, M, K, N):
+    """``Int8Linear`` (``utils/int8_serving.py``): the quantized weights, the
+    int32 product of ``torch._int_mm`` and the output bit-equal to the CPU's,
+    also where ``int8_matmul`` pads the operands (rows ≤ 16, k or n = 196:
+    CaiT's class token, the Mixer's token halves)."""
+    from vision_toolbox_tpu_torch.nn.layers import Linear
+    from vision_toolbox_tpu_torch.utils.int8_serving import (
+        Int8Linear, _absmax_scale, _quantize, int8_matmul,
+    )
+
+    g = torch.Generator().manual_seed(M + K + N)
+    linear = Linear(K, N, generator=g)
+    cpu, card = Int8Linear(linear), Int8Linear(copy.deepcopy(linear).to(cuda))
+    assert torch.equal(card.w8.cpu(), cpu.w8) and torch.equal(card.scale.cpu(), cpu.scale)
+    x = torch.randn(M, K, generator=g)
+    x8 = _quantize(x, _absmax_scale(x, -1))
+    x8_card = _quantize(x.to(cuda), _absmax_scale(x.to(cuda), -1))
+    assert torch.equal(x8_card.cpu(), x8)
+    assert torch.equal(int8_matmul(x8_card, card.w8).cpu(), int8_matmul(x8, cpu.w8))
+    with torch.inference_mode():
+        assert torch.equal(card(x.to(cuda)).cpu(), cpu(x))
+        assert torch.equal(card(x.to(cuda, torch.bfloat16)).cpu(), cpu(x.to(torch.bfloat16)))
+
+
+def test_flop_formulas_on_the_card(cuda):
+    """``utils/profile.flops`` on CUDA inputs, where the ``vtt::`` ops launch
+    the kernels: the same count as the same models on the CPU (their plain
+    versions) and as the plain path on the card (ConvNeXt's depthwise taps
+    counted as the grouped convolution, as the CPU tests hold)."""
+    import vision_toolbox_tpu_torch as vtt
+    from vision_toolbox_tpu_torch.models.cait import CaiT
+    from vision_toolbox_tpu_torch.models.convnext import ConvNeXt
+    from vision_toolbox_tpu_torch.models.swin import SwinTransformer
+    from vision_toolbox_tpu_torch.utils.profile import flops, frozen
+
+    models = {
+        "vit": (vtt.models.ViT(256, 2, 4, 16, 64, device="cpu"), {"block_attention": 2}),
+        "cait": (CaiT(192, 2, 1, 4, 16, 64, device="cpu"), {"talking_head": 2}),
+        "swin": (SwinTransformer(64, 32, 2, (2, 2), (4, 4), device="cpu"), {"swin_attention": 4}),
+        "convnext": (ConvNeXt(32, (1, 1, 1, 1), device="cpu"), {"depthwise_conv": 4}),
+    }
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    for name, (model, launched) in models.items():
+        card = copy.deepcopy(model).to(cuda)
+        with frozen(model), frozen(card), torch.no_grad():
+            on_cpu = flops(model, x)
+            _cuda.reset_launch_counts()
+            on_card = flops(card, x.to(cuda))
+            torch.cuda.synchronize()
+            counts = dict(_cuda.LAUNCHES)
+            plain = flops(lambda: card(x.to(cuda), plain=True))
+        assert all(counts[k] == n for k, n in launched.items()), (name, counts)
+        assert on_card == on_cpu, name
+        if name != "convnext":
+            assert on_card == plain, name
+        else:
+            assert on_card > plain, name

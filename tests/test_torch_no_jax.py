@@ -10,7 +10,10 @@ train step of a narrow CSP Darknet, a narrow EfficientNet's feature taps
 and train step (its depthwise convs through the K9 op) and a BiFPN on
 those taps, a 2-step ``Trainer.fit`` on synthetic data and a device-resident
 one on a tiny raw-shard directory (the data package, the pinned feed's CPU
-path, ``ops/device_rrc.py``, checkpoints), and must not have loaded ``jax``,
+path, ``ops/device_rrc.py``, checkpoints), loads a deit_ti_16 file written
+in FB's layout without JAX (``tests/official_ckpts.py``) through
+``load_pretrained``, quantizes a tiny ViT to int8 and counts its FLOPs,
+and must not have loaded ``jax``,
 ``flax``, ``optax``, ``orbax`` or ``vision_toolbox_tpu``. No source file of
 the package, nor ``chip_smoke.py``, imports one of them."""
 
@@ -136,6 +139,23 @@ with tempfile.TemporaryDirectory() as tmp:
     fit = trainer.Trainer(cfg, device="cpu")
     assert fit.fit().step == 2 and fit._device_store is not None
     assert os.path.isdir(tmp + "/resident/checkpoints/step_2")
+from vision_toolbox_tpu_torch.models import pretrained
+from vision_toolbox_tpu_torch.utils import (
+    download, flax_ckpt, int8_serving, profile, torch_interop, torch_pth,
+)
+sys.path.insert(0, "tests")
+import official_ckpts  # torch and numpy only
+with tempfile.TemporaryDirectory() as tmp:
+    os.environ["VTT_CACHE_DIR"] = tmp
+    official_ckpts.write("deit_ti_16", tmp)
+    d = vtt.load_pretrained("deit_ti_16", device="cpu")
+with torch.no_grad():
+    out = d(torch.rand(1, 224, 224, 3))
+assert out.shape == (1, 192) and torch.isfinite(out).all(), out.shape
+q = int8_serving.quantize_model(vtt.models.ViT(128, 2, 4, 8, 32, device="cpu"))
+assert sum(isinstance(m, int8_serving.Int8Linear) for m in q.modules()) == 12
+with profile.frozen(q), torch.no_grad():
+    assert profile.flops(q, torch.rand(2, 32, 32, 3)) > 0
 loaded = sorted(n for n in FORBIDDEN if n in sys.modules)
 print("LOADED", loaded)
 """

@@ -19,7 +19,10 @@ trains the Darknet family and VoVNet with the full recipe (``train/``;
 TrivialAugment's geometric ops run the hand-written three-shear warp
 kernel, ``ops/warp.py``), and holds the detection necks FPN, PAN and BiFPN
 (its separable convs on the depthwise-conv kernels, ``models/necks.py``)
-and the deformable conv (``ops/deform_conv.py``). Kernel sources are in ``csrc/``, built with
+and the deformable conv (``ops/deform_conv.py``); loads the published
+checkpoints (``load_pretrained``: the official ``.pth`` and ``.npz``
+layouts), serves them in int8 (``utils/int8_serving.py``) and profiles a
+model (``utils/profile.py``). Kernel sources are in ``csrc/``, built with
 ``nvcc`` at first use. Models are built on the card unless ``device="cpu"``
 is passed. The JAX package is the reference the port is held against; this
 package imports ``torch`` and never ``jax``, and every random draw takes an
@@ -28,9 +31,12 @@ explicit ``torch.Generator``.
     import torch, vision_toolbox_tpu_torch as vtt
     model = vtt.create_backbone("vit_b_16", dtype=torch.bfloat16)
     feats = model(torch.rand(8, 224, 224, 3, device="cuda"))  # NHWC in, (8, 768) out
+    model = vtt.load_pretrained("vit_b_16", dtype=torch.bfloat16)  # AugReg weights
 """
 
 from . import models
 from .models.base import Backbone, create_backbone, list_backbones, register_model
+from .models.pretrained import load_pretrained
 
-__all__ = ["Backbone", "create_backbone", "list_backbones", "models", "register_model"]
+__all__ = ["Backbone", "create_backbone", "list_backbones", "load_pretrained", "models",
+           "register_model"]

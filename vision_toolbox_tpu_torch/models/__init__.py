@@ -18,6 +18,7 @@ from .mlp_mixer import MLPMixer, mlp_mixer_from_config
 from .mobilenet import MobileNetV3, mobilenet_from_config
 from .necks import BiFPN, BiFPNLayer, FPN, PAN, WeightedFeatureFusion, resize_nearest
 from .patchconvnet import PatchConvNet, patchconvnet_from_config
+from .pretrained import load_pretrained
 from .regnet import RegNet, RegNetBlock, regnet_from_config
 from .resnet import BasicBlock, Bottleneck, ResNet, resnet_from_config
 from .swin import SwinTransformer, resize_window_tables, swin_from_config
@@ -30,9 +31,9 @@ __all__ = [
     "PatchConvNet", "RegNet", "RegNetBlock", "ResNet", "VIT_VARIANTS", "ViT", "VoVNet",
     "WeightedFeatureFusion", "cait", "cait_from_config", "convnext", "convnext_from_config",
     "create_backbone", "darknet", "deit", "efficientnet", "efficientnet_from_config",
-    "list_backbones", "make_divisible", "mlp_mixer", "mlp_mixer_from_config", "mobilenet",
-    "mobilenet_from_config", "necks", "patchconvnet", "patchconvnet_from_config", "regnet",
-    "regnet_from_config", "register_model", "resize_nearest", "resize_window_tables", "resnet",
-    "resnet_from_config", "swin", "swin_from_config", "SwinTransformer", "vit",
+    "list_backbones", "load_pretrained", "make_divisible", "mlp_mixer", "mlp_mixer_from_config",
+    "mobilenet", "mobilenet_from_config", "necks", "patchconvnet", "patchconvnet_from_config",
+    "regnet", "regnet_from_config", "register_model", "resize_nearest", "resize_window_tables",
+    "resnet", "resnet_from_config", "swin", "swin_from_config", "SwinTransformer", "vit",
     "vit_from_config", "vovnet", "vovnet_from_config",
 ]

@@ -30,7 +30,7 @@ from typing import Any
 import torch
 from torch import Tensor, nn
 
-from ..nn.attention import fused_mlp_halfblock
+from ..nn.attention import float_linears, fused_mlp_halfblock
 from ..nn.initializers import torch_default_bias
 from ..nn.layers import (
     Conv2d, DepthwiseConv, LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, as_dtype,
@@ -75,9 +75,11 @@ class ConvNeXtBlock(nn.Module):
 
     def fused_at(self, t: int) -> bool:
         """Whether the MLP half runs the fused kernel on maps of ``t`` tokens."""
+        if not (self.fusable and float_linears(self.pwconv1, self.pwconv2)):
+            return False
         hidden, d_model = self.pwconv1.weight.shape
-        return self.fusable and block_mlp.use_fused_mlp(d_model, hidden, t, 0.0, has_res=True,
-                                                        has_ls=self.layer_scale is not None)
+        return block_mlp.use_fused_mlp(d_model, hidden, t, 0.0, has_res=True,
+                                       has_ls=self.layer_scale is not None)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:

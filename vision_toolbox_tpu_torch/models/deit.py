@@ -25,7 +25,7 @@ class DeiT(ViT):
     """ViT with a cls and a distillation token, pooled as their mean."""
 
     def __init__(self, *args: Any, device: torch.device | str = "cuda", **kwargs: Any):
-        super().__init__(*args, device="cpu", **kwargs)
+        super().__init__(*args, device=device, **kwargs)
         self.dist_token = nn.Parameter(torch.zeros(1, 1, self.d_model))
         to_device(self, device)
 

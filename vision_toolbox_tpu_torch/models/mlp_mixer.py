@@ -24,7 +24,7 @@ from typing import Any
 import torch
 from torch import Tensor, nn
 
-from ..nn.attention import MLP, fused_mlp_halfblock
+from ..nn.attention import MLP, float_linears, fused_mlp_halfblock
 from ..nn.layers import Conv2d, LayerNorm
 from ..ops import block_mlp
 from .base import Backbone, register_model, to_device
@@ -45,7 +45,8 @@ class MixerBlock(nn.Module):
 
     def fused_at(self, t: int) -> bool:
         """Whether the channel half runs the fused kernel on ``t`` tokens."""
-        return block_mlp.use_fused_mlp(self.d_model, self.hidden, t, self.dropout)
+        return (float_linears(self.channel_mixing.linear1, self.channel_mixing.linear2)
+                and block_mlp.use_fused_mlp(self.d_model, self.hidden, t, self.dropout))
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
                 plain: bool = False, generator: torch.Generator | None = None) -> Tensor:

@@ -46,7 +46,7 @@ import numpy as np
 import torch
 from torch import Tensor, nn
 
-from ..nn.attention import MLP, fused_mlp_halfblock
+from ..nn.attention import MLP, float_linears, fused_mlp_halfblock
 from ..nn.initializers import trunc_normal
 from ..nn.layers import Conv2d, LayerNorm, LayerScale, Linear, StochasticDepth, dropout
 from ..ops import block_mlp
@@ -172,6 +172,8 @@ class SwinBlock(nn.Module):
 
     def fused_at(self, t: int) -> bool:
         """Whether the MLP half runs the fused kernel on maps of ``t`` tokens."""
+        if not float_linears(self.mlp.linear1, self.mlp.linear2):
+            return False
         hidden, d_model = self.mlp.linear1.weight.shape
         return block_mlp.use_fused_mlp(d_model, hidden, t, self.mlp.dropout,
                                        has_ls=self.mlp_scale is not None)

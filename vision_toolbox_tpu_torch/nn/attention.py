@@ -78,6 +78,13 @@ class MLP(nn.Module):
         return dropout(x, self.dropout, generator) if train else x
 
 
+def float_linears(*linears: nn.Module) -> bool:
+    """Whether each of ``linears`` is a float ``Linear``, whose weight the
+    fused half-block kernels read. A half-block whose projections were
+    quantized (``utils/int8_serving.Int8Linear``) takes its module chain."""
+    return all(isinstance(m, Linear) for m in linears)
+
+
 def fused_mlp_halfblock(
     x: Tensor, norm: LayerNorm, linear1: Linear, linear2: Linear, scale: LayerScale | None,
     droppath: StochasticDepth | None, *, residual: Tensor | None = None, train: bool,
@@ -144,8 +151,10 @@ class ViTBlock(nn.Module):
             if self.mha_scale is not None:
                 y = self.mha_scale(y)
             x = x + self.mha_droppath(y, train=train, generator=g)
-        elif fused and block_attention.use_fused_attention(
-                self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias):
+        elif (fused and float_linears(self.mha.q_proj, self.mha.k_proj, self.mha.v_proj,
+                                      self.mha.out_proj)
+              and block_attention.use_fused_attention(
+                  self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias)):
             a, dt = self.mha, x.dtype
             wb = [t for proj in (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
                   for t in (proj.weight, as_dtype(proj.bias, dt))]
@@ -161,8 +170,9 @@ class ViTBlock(nn.Module):
                 y = self.mha_scale(y)
             x = x + self.mha_droppath(y, train=train, generator=g)
 
-        if fused and block_mlp.use_fused_mlp(self.d_model, self.hidden, x.shape[1], self.dropout,
-                                             has_ls=self.mlp_scale is not None):
+        if (fused and float_linears(self.mlp.linear1, self.mlp.linear2)
+                and block_mlp.use_fused_mlp(self.d_model, self.hidden, x.shape[1], self.dropout,
+                                            has_ls=self.mlp_scale is not None)):
             return fused_mlp_halfblock(x, self.mlp_norm, self.mlp.linear1, self.mlp.linear2,
                                        self.mlp_scale, self.mlp_droppath, train=train,
                                        plain=plain, generator=g)

@@ -1,4 +1,5 @@
-"""Serving export, the JAX-package parameter bridge, and checkpoints."""
+"""Serving export and int8 serving, the JAX-package parameter bridge,
+checkpoints and the official checkpoint readers, profiling."""
 
 from .checkpoint import (  # noqa: F401
     extract_backbone,
