@@ -201,6 +201,25 @@ sm_90a, one process per source) and drives the port's paths:
   on vit_b_16 and convnext_t at bs32 bf16 and holds its GFLOPs equal to the
   plain path's count (the depthwise taps counted as the grouped
   convolution). Each prints its wall seconds.
+- the parallel axes, at world 1 (one card; NCCL refuses two ranks on one
+  device): phase 52 joins a one-rank NCCL world on 127.0.0.1 and a free
+  port (``parallel/mesh.init_process_group``, env://) with a
+  ``{"data": 1}`` mesh and runs phase 7's cspdarknet53 full-recipe step at
+  bs256@176 through ``shard_train_step`` (the gradient all-reduce and the
+  mix's ring exchange over NCCL, K1 once a step), held bit-equal after 3
+  steps (the loss and every parameter and BN buffer, cuDNN deterministic)
+  to the same step with no process group, then both timed in turns beside
+  phase 47's 134.98 ms; phase 53 runs vit_b_16 at bs128@224 (bf16 compute,
+  f32 parameters) under ``param_sharding`` tp on ``{"data": 1, "model":
+  1}`` and fsdp on ``{"data": 1}``, both through gather-at-use
+  (``parallel/sharding.py``), with 12 + 12 K3/K4 launches forward and
+  backward a step, bit-equal to the replicated step after 2 steps, the
+  three steps timed in turns beside PERF.md §6's 56.9 ms; phase 54 runs the CLI
+  under the launcher (``python -m torch.distributed.run --standalone
+  --nproc_per_node 1 -m vision_toolbox_tpu_torch.train fit`` on
+  configs/base.yaml with a ``{"data": 1}`` mesh and phase 46's short run):
+  it exits 0 and its metrics.jsonl has phase 46's fields. Each prints its
+  wall seconds.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -4179,6 +4198,248 @@ def interop_phases(report: dict, name_power: str, phase_s: dict) -> None:
         log(f"[{key}] phase wall {phase_s[key]:.1f} s")
 
 
+# --- phases 52-54: the parallel axes at world 1 -------------------------------
+
+DP_STEPS, TIMED_STEPS = 3, 10  # phase 52: steps held bit-equal; steps timed in each turn
+PHASE47_MS = 134.98  # PERF.md §5: phase 47's device-resident step, as recorded there
+TP_FSDP = dict(batch=128, img=224, classes=1000, steps=2, lr=0.1)
+VIT_STEP_MS = 56.9  # PERF.md §5-6: the vit_b_16 bs128@224 step, as recorded there
+LAUNCHED = dict(steps=6, batch=512)  # phase 54: phase 46's short run
+
+
+@contextlib.contextmanager
+def one_rank_world():
+    """A one-rank NCCL world on 127.0.0.1 and a free port, joined through
+    the port's own ``init_process_group`` (env://); torn down after."""
+    import socket
+
+    import torch.distributed as dist
+
+    from vision_toolbox_tpu_torch.parallel import init_process_group
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK="0", WORLD_SIZE="1",
+               LOCAL_RANK="0")
+    os.environ.update(env)
+    try:
+        init_process_group("cuda")
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the card's backend is {dist.get_backend()}, not NCCL")
+        yield
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k in env:
+            os.environ.pop(k, None)
+
+
+def snapshot(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def differing(a: dict[str, torch.Tensor], b: dict[str, torch.Tensor]) -> list[str]:
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or not torch.equal(a[k], b[k]))
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    prev = torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = False, True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.benchmark, torch.backends.cudnn.deterministic = prev
+
+
+def dp_recipe(report: dict, name_power: str) -> int:
+    """Phase 52: phase 7's full-recipe cspdarknet53 step through
+    ``shard_train_step`` on a ``{"data": 1}`` mesh of the one-rank NCCL
+    world against the same step with no process group: DP_STEPS steps each
+    from one seeded state and generator seed, cuDNN deterministic; the
+    losses and every parameter and BN buffer bit-equal, K1 once a step on
+    the sharded path; then both timed in turns (TIMED_STEPS steps, CUDA
+    events, cuDNN's benchmark mode as in phase 7). Returns K1's launches on
+    the sharded path."""
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.parallel import create_mesh
+    from vision_toolbox_tpu_torch.train import shard_train_step
+
+    mesh = create_mesh(("data",), (1,))
+    if mesh.groups is None:
+        raise AssertionError("the mesh holds no process group")
+    runs = {}
+    with deterministic_cudnn():
+        for kind in ("bare", "sharded"):
+            state, step, images, labels, g = recipe_step_parts(TRAIN)
+            if kind == "sharded":
+                step = shard_train_step(step, mesh)
+            _cuda.reset_launch_counts()  # the main path: counts from 0 just before
+            losses = [step(state, images, labels, g)["loss"] for _ in range(DP_STEPS)]
+            torch.cuda.synchronize()
+            runs[kind] = dict(state=state, step=step, images=images, labels=labels, g=g,
+                              losses=torch.stack(losses), launches=dict(_cuda.LAUNCHES),
+                              params=snapshot(state.model))
+    bare, sharded = runs["bare"], runs["sharded"]
+    differ = differing(bare["params"], sharded["params"])
+    same_loss = torch.equal(bare["losses"], sharded["losses"])
+    log(f"[dp] cspdarknet53 bs{TRAIN['batch']}@{TRAIN['img']} full recipe, {DP_STEPS} steps: "
+        f"losses {bare['losses'].tolist()} bare, {sharded['losses'].tolist()} sharded, "
+        f"bit-equal {same_loss}; {len(bare['params'])} parameters and buffers, "
+        f"{len(differ)} differ {differ[:4]}; sharded launches {sharded['launches']}")
+    if not same_loss or differ:
+        raise AssertionError(f"the sharded step differs from the bare one: {differ[:8]}")
+    if sharded["launches"] != NO_LAUNCHES | {"warp_shear3": DP_STEPS}:
+        raise AssertionError(f"expected one K1 launch a step: {sharded['launches']}")
+    step_of = lambda r: (lambda: r["step"](r["state"], r["images"], r["labels"], r["g"]))
+    bare_ms, sharded_ms = alternate(step_of(bare), step_of(sharded), iters=TIMED_STEPS)
+    log(f"[dp] step {bare_ms:.2f} ms bare, {sharded_ms:.2f} ms sharded (CUDA events, "
+        f"{TIMED_STEPS} steps in turns; sharded / bare {sharded_ms / bare_ms:.4f}; phase 47's "
+        f"{PHASE47_MS} ms, sharded / that {sharded_ms / PHASE47_MS:.4f})  [{name_power}]")
+    report["dp"] = dict(losses=sharded["losses"].tolist(), tensors=len(bare["params"]),
+                        differing=len(differ), launches=sharded["launches"], bare_ms=bare_ms,
+                        sharded_ms=sharded_ms, phase47_ms=PHASE47_MS)
+    return sharded["launches"]["warp_shear3"]
+
+
+def tp_fsdp(report: dict, name_power: str) -> dict[str, dict[str, int]]:
+    """Phase 53: vit_b_16 at bs128@224 (bf16 compute, f32 parameters) with
+    the replicated step, then under ``param_sharding`` tp on ``{"data": 1,
+    "model": 1}`` and fsdp on ``{"data": 1}`` (``shard_train_state`` at the
+    default min_size, every shard whole at world 1 and gathered at use over
+    NCCL; ``shard_train_step``): TP_FSDP["steps"] steps each from one seeded
+    state, 12 + 12 K3/K4 launches forward and backward a step, the loss and
+    every parameter bit-equal to the replicated run's (cuDNN deterministic
+    for the patch embedding); then the three steps timed in turns
+    (replicated, tp, fsdp, fsdp, tp, replicated; TIMED_STEPS steps a turn
+    after 3, CUDA events, the host clock beside). Returns each run's
+    launches."""
+    from vision_toolbox_tpu_torch.ops import _cuda
+    from vision_toolbox_tpu_torch.parallel import create_mesh, shard_train_state
+    from vision_toolbox_tpu_torch.parallel.sharding import shard_of
+    from vision_toolbox_tpu_torch.train import shard_train_step
+
+    n = TP_FSDP["steps"]
+    per_step = NO_LAUNCHES | dict.fromkeys(BLOCK_KERNELS, 12)
+    kinds = ("replicated", "tp", "fsdp")
+    runs, out = {}, {}
+    for kind in kinds:
+        state, step, images, labels, g = vit_step_parts("vit_b_16", TP_FSDP)
+        sharded = 0
+        if kind != "replicated":
+            mesh = (create_mesh(("data", "model"), (1, 1)) if kind == "tp"
+                    else create_mesh(("data",), (1,)))
+            shard_train_state(state, mesh, fsdp=kind == "fsdp")
+            step = shard_train_step(step, mesh)
+            sharded = sum(shard_of(p) is not None for p in state.model.parameters())
+        with deterministic_cudnn():
+            _cuda.reset_launch_counts()  # the main path: counts from 0 just before
+            losses = torch.stack([step(state, images, labels, g)["loss"] for _ in range(n)])
+            torch.cuda.synchronize()
+            launches = dict(_cuda.LAUNCHES)
+        params = snapshot(state.model)
+        runs[kind] = dict(losses=losses, run=functools.partial(step, state, images, labels, g))
+        differ = differing(runs["replicated"].setdefault("params", params), params)
+        same_loss = torch.equal(runs["replicated"]["losses"], losses)
+        log(f"[tp-fsdp] vit_b_16 {kind}: {sharded} parameters sharded; {n} steps, losses "
+            f"{losses.tolist()}, launches {launches}; vs replicated: losses bit-equal "
+            f"{same_loss}, {len(differ)} of {len(params)} tensors differ {differ[:4]}")
+        if launches != {k: c * n for k, c in per_step.items()}:
+            raise AssertionError(f"{kind}: expected {per_step} launches a step: {launches}")
+        if not same_loss or differ:
+            raise AssertionError(f"{kind} differs from the replicated step: {differ[:8]}")
+        if kind != "replicated" and not sharded:
+            raise AssertionError(f"{kind}: no parameter sharded")
+        out[kind] = launches
+        report[f"parallel_{kind}"] = dict(losses=losses.tolist(), launches=launches,
+                                          sharded=sharded, differing=len(differ), ms=[],
+                                          host_ms=[])
+    runs["replicated"].pop("params")
+    for kind in (*kinds, *reversed(kinds)):  # in turns
+        t0 = time.perf_counter()
+        ms = time_ms(runs[kind]["run"], iters=TIMED_STEPS)
+        host_ms = (time.perf_counter() - t0) * 1e3 / (TIMED_STEPS + 3)
+        report[f"parallel_{kind}"]["ms"].append(ms)
+        report[f"parallel_{kind}"]["host_ms"].append(host_ms)
+    base = sum(report["parallel_replicated"]["ms"]) / 2
+    for kind in kinds:
+        r = report[f"parallel_{kind}"]
+        ms = sum(r["ms"]) / 2
+        log(f"[tp-fsdp] vit_b_16 {kind}: {ms:.2f} ms a step (CUDA events, {TIMED_STEPS} steps "
+            f"in each of two turns: {r['ms'][0]:.2f}, {r['ms'][1]:.2f}; host clock with the "
+            f"warm-up {r['host_ms'][0]:.2f}, {r['host_ms'][1]:.2f}); / replicated "
+            f"{ms / base:.4f}, / PERF.md §6's {VIT_STEP_MS} ms {ms / VIT_STEP_MS:.4f}  "
+            f"[{name_power}]")
+    return out
+
+
+def launched_cli(report: dict, name_power: str) -> int:
+    """Phase 54: ``python -m torch.distributed.run --standalone
+    --nproc_per_node 1 -m vision_toolbox_tpu_torch.train fit`` on
+    configs/base.yaml with a ``{"data": 1}`` mesh and phase 46's short run
+    (LAUNCHED): the launcher exits 0, its rank joins an NCCL world and
+    trains through the sharded step, and metrics.jsonl has phase 46's
+    fields: every step's finite loss, the epoch's train_ips, peak memory,
+    val/* and K1 once a step. Returns K1's launches."""
+    import tempfile
+
+    steps, B = LAUNCHED["steps"], LAUNCHED["batch"]
+    torch.cuda.empty_cache()  # the launched process needs its own ~28 GiB
+    with tempfile.TemporaryDirectory(prefix="vtt_launched_") as tmp:
+        out = Path(tmp) / "launched"
+        sets = ["data.synthetic=true", f"data.train_size={steps * B}", "train.epochs=1",
+                "runtime.log_every=1", 'runtime.mesh_shape={"data": 1}',
+                f"runtime.out_dir={out}"]
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")}
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "vision_toolbox_tpu_torch.train", "fit", "--config", CLI_BASE["config"],
+             *[a for s in sets for a in ("--set", s)]],
+            cwd=ROOT, capture_output=True, text=True, timeout=600, env=env)
+        fit_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"the launched CLI exited {proc.returncode}:\n"
+                                 f"{proc.stderr[-4000:]}")
+        records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    per_step = [r for r in records if "train/loss" in r]
+    epoch = records[-1]
+    losses = [r["train/loss"] for r in per_step]
+    log(f"[launched] torchrun, 1 process: fit {fit_s:.1f} s (launcher, process start, NCCL, "
+        f"{steps} steps, val, checkpoint); losses {['%.4f' % v for v in losses]}; epoch "
+        f"train_ips {epoch.get('train_ips', math.nan):.1f}, peak "
+        f"{epoch.get('peak_memory_gib', math.nan):.1f} GiB, K1 "
+        f"{epoch.get('launches/warp_shear3')}, val/acc {epoch.get('val/acc')}  [{name_power}]")
+    want_keys = {"train_ips", "peak_memory_gib", "val/loss", "val/acc", "val/acc5"}
+    if ([r["step"] for r in per_step] != list(range(1, steps + 1))
+            or not all(map(math.isfinite, losses))):
+        raise AssertionError(f"bad step records: {per_step}")
+    if not want_keys <= epoch.keys() or epoch.get("launches/warp_shear3") != steps:
+        raise AssertionError(f"bad epoch record (K1 once a step expected): {epoch}")
+    report["launched"] = dict(fit_s=fit_s, losses=losses, epoch=epoch)
+    return epoch["launches/warp_shear3"]
+
+
+def parallel_phases(report: dict, name_power: str, phase_s: dict) -> dict:
+    """Phases 52-54, each timed; 52 and 53 in one one-rank NCCL world."""
+    out = {}
+    with one_rank_world():
+        for key, phase in (("dp", dp_recipe), ("tp_fsdp", tp_fsdp)):
+            t0 = time.perf_counter()
+            out[key] = phase(report, name_power)
+            torch.cuda.synchronize()
+            phase_s[key] = time.perf_counter() - t0
+            log(f"[{key}] phase wall {phase_s[key]:.1f} s")
+    t0 = time.perf_counter()
+    out["launched"] = launched_cli(report, name_power)
+    phase_s["launched"] = time.perf_counter() - t0
+    log(f"[launched] phase wall {phase_s['launched']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4376,8 +4637,13 @@ def main() -> int:
     # phases 49-51: checkpoints in the official layouts loaded and served, int8
     # serving, the profiler
     interop_phases(report, name_power, phase_s)
-    report["phase_s"] = phase_s
     log(f"[phases 49-51] {sum(phase_s[k] for k in ('loaded', 'int8', 'profile')):.1f} s "
+        f"together; the script so far {time.perf_counter() - script_start:.1f} s")
+
+    # phases 52-54: the parallel axes at world 1 (DP, TP, FSDP, the launcher)
+    parallel = parallel_phases(report, name_power, phase_s)
+    report["phase_s"] = phase_s
+    log(f"[phases 52-54] {sum(phase_s[k] for k in ('dp', 'tp_fsdp', 'launched')):.1f} s "
         f"together; the script so far {time.perf_counter() - script_start:.1f} s")
 
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
@@ -4412,7 +4678,13 @@ def main() -> int:
              "block_attention_bwd": dict(core_rows_ms=core["rows"],
                                          core_keys_ms=core["keys"]),
              "warp_shear3": dict(wrapper_ms=report["warp"]["wrapper_ms"],
-                                 trainer_launches=trainer_launches)}
+                                 trainer_launches=trainer_launches,
+                                 dp_step_launches=parallel["dp"],
+                                 launched_cli_launches=parallel["launched"])}
+    # K3/K4 on the TP and FSDP steps (phase 53)
+    for k in BLOCK_KERNELS:
+        extra[k] = extra.get(k, {}) | {f"{kind}_step_launches": parallel["tp_fsdp"][kind][k]
+                                       for kind in ("tp", "fsdp")}
     # K9 on the MBConv and BiFPN paths (slice 18): their launches, and the
     # kernel's time summed over efficientnet_b0's 12 calls at batch 128
     effnet = report["efficientnet_depthwise"]["per_step"]

@@ -4,6 +4,8 @@ summation order differs, so 1e-5. Also the dispatch: which shapes go to the
 short-attention kernel (K2), which to the flash kernel (K6) and which to the
 plain ``jax.nn`` math, as the JAX package sends them."""
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -7,6 +7,8 @@ may keep an f32 intermediate where PyTorch rounds); CutMix boxes and
 RandomErasing masks exact.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -8,6 +8,8 @@ summation order differs: tolerance as in tests/torch_parity.py (most
 elements within 1e-4, all within 1e-2).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import re
 from pathlib import Path
 

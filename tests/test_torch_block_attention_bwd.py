@@ -13,6 +13,8 @@ through the public op is held against ``jax.grad``, and the op without
 gradients is shown to run the inference op.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

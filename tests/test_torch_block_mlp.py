@@ -8,6 +8,8 @@ accumulation), so only the f32 summation order differs: tolerance as in
 tests/torch_parity.py (most elements within 1e-4, all within 1e-2).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -18,6 +18,8 @@ held against ``jax.grad`` through the JAX one, and the op without gradients
 is shown to run the inference op, not the save-forward.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

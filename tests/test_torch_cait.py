@@ -27,6 +27,8 @@ Tolerances, as the ViT tests hold them:
   held to ≤ 1e-3 of a neighbour's momentum instead.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import optax
 import pytest

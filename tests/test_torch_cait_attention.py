@@ -9,6 +9,8 @@ q/k/v both round the output once to bf16, and a summation-order flip moves
 an element by one bf16 ulp: held by tests/torch_parity.py's rule.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -25,6 +25,8 @@ Tolerances, as the CaiT and ViT tests hold them:
   against its f32 step where that is larger.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import numpy as np

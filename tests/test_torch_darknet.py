@@ -8,6 +8,8 @@ package's, carried over as numpy. Tolerance: f32 at rtol = atol = 1e-4
 (only f32 summation order differs: convolutions and batch statistics).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -13,6 +13,8 @@ package's), ``process_rank`` from ``torch.distributed``, and
 All of it is host numpy, PIL and the stdlib on both sides: no tolerance.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 import random
 import tarfile

@@ -8,6 +8,8 @@ as tests/test_torch_vit.py: ≥ 75% of elements within 1e-3 and all within
 the bf16-flip bound (tests/torch_parity.py).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,8 @@ nn/layers.py ``DepthwiseConv``) vs the JAX package's on CPU.
   rel L2 ≤ 1e-2.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

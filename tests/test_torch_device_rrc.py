@@ -21,6 +21,8 @@ ops/device_rrc.py) and its device-resident train step (train/step.py
   package holds the same, tests/test_device_rrc.py:125).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -37,6 +37,8 @@ against JAX's K9 by tests/torch_parity.py's rule (≥ 75% of elements within
 train steps as tests/torch_convnets.py sets out.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import numpy as np

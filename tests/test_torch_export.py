@@ -3,6 +3,8 @@ export → bytes → load gives the eager model's outputs exactly on CPU, at
 batch sizes other than the one traced, with the fused half-blocks carried
 through the program as custom ops."""
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import torch

@@ -10,6 +10,8 @@ output once to bf16, held by tests/torch_parity.py's rule, and the bf16
 gradients to rel L2 ≤ 1e-2. lse is f32 on both sides (1e-5).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -12,6 +12,8 @@ gate calls recorded on the meta device and held to the JAX rules with
 ``_FORCE_ON`` patched (the shape terms only).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -4,6 +4,8 @@ all), and the training-mode draws of the ViT path (stochastic depth,
 dropout, attention dropout) follow the generator they are given and
 ignore ``torch.manual_seed``."""
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import ast
 import pathlib
 

@@ -26,6 +26,8 @@
   to 17 below that).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import re
 
 import jax

@@ -47,6 +47,8 @@ the second-plane controls (p, and ds, rounded to bf16 once), which the
 dtype's bound alone would not refuse.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import copy
 
 import pytest

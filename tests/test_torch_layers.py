@@ -12,6 +12,8 @@ atol = 1e-5 (f32 summation order of the convolution and the batch
 statistics); input gradients 1e-4; ``LinenBatchNorm`` in bf16 1e-2.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

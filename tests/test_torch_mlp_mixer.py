@@ -28,6 +28,8 @@ Tolerances, as the ConvNeXt and ViT tests hold them:
   instead of channels), as chip_smoke.py holds the key-projection bias.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import numpy as np

@@ -30,6 +30,8 @@ composition 5e-4 (a chain of BNs); bf16 rel L2 ≤ 1e-2, against JAX's K9 by
 tests/torch_parity.py's rule.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,8 @@ and must not have loaded ``jax``,
 ``flax``, ``optax``, ``orbax`` or ``vision_toolbox_tpu``. No source file of
 the package, nor ``chip_smoke.py``, imports one of them."""
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import ast
 import pathlib
 import subprocess
@@ -43,6 +45,8 @@ from vision_toolbox_tpu_torch import data
 from vision_toolbox_tpu_torch.data import datasets, loader, native, raw_shards, transforms, wds_loader
 from vision_toolbox_tpu_torch.ops import device_rrc
 from vision_toolbox_tpu_torch.utils import checkpoint
+from vision_toolbox_tpu_torch import parallel
+from vision_toolbox_tpu_torch.parallel import mesh, sharding
 m = vtt.models.ViT(128, 2, 4, 8, 32, device="cpu")
 with torch.no_grad():
     out = m(torch.rand(2, 32, 32, 3))

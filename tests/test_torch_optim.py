@@ -11,6 +11,8 @@ chain; a lr read one ulp apart would show here; the trust ratios' norms sum
 in another order, Adam's bias corrections are f32 powers in two libraries).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import optax
 import pytest

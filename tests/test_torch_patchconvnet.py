@@ -32,6 +32,8 @@ key-projection bias, whose gradient is zero in exact arithmetic, is
 measured against the value bias's tensor.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import numpy as np

@@ -15,6 +15,8 @@
   repo's parity rule (``tests/torch_parity.py``; measured 4.6e-5 max abs).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import argparse
 import pickle
 import sys

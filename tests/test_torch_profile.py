@@ -19,6 +19,8 @@ the port's own plain paths.
   11,096,112 FLOPs, held exactly.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import jax
 import jax.numpy as jnp
 import pytest

@@ -23,6 +23,8 @@
   the unpadded result and gradients.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import contextlib
 
 import numpy as np

@@ -31,6 +31,8 @@ amplify bf16 rounding flips in both packages); train steps as
 tests/torch_convnets.py sets out.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import numpy as np

@@ -26,6 +26,8 @@ short_attention.py, K2) vs the JAX package's on CPU.
   any launch.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -20,6 +20,8 @@ and in bf16 a tensor may exceed 1e-2 by up to twice the JAX package's own
 bf16 error for it.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import functools
 import io
 

@@ -21,6 +21,8 @@ Tolerances, as the ConvNeXt and CaiT tests hold them:
   against its f32 step where that is larger.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import functools
 import io
 

@@ -17,6 +17,8 @@ that path, with the same keep masks fed to both sides (JAX's
 numpy stream). f32 to 1e-5, bf16 by rel L2 ≤ 1e-2.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import functools
 
 import numpy as np

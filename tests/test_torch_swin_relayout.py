@@ -9,6 +9,8 @@ must equal the JAX kernels bit for bit, in f32 and bf16, for windows 4 and
 the other direction. Inputs are made from a seed with numpy and fed to both.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -23,6 +23,8 @@ package's own bf16 error: rel L2(port, JAX) ≤ rel L2(JAX bf16, JAX f32)
 (measured 0.14 against 0.3).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

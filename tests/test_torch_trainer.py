@@ -8,9 +8,11 @@ trainer.py, config.py, __main__.py) vs the JAX package's, on the CPU.
   bs16@32, f32, synthetic data) with no TrivialAugment, erasing or mix, so
   that neither run draws anything: the JAX Trainer's initial variables are
   copied into the port's model, both fit one epoch (10 steps), and every
-  record of metrics.jsonl agrees (train/loss and val/loss rel ≤ 1e-4, lr
+  record of metrics.jsonl agrees (train/loss and val/loss rel ≤ 3.5e-4, lr
   within 1e-7, val/acc and val/acc5 within 1e-6: f32 with the JAX side's
-  batch sharded over 8 CPU devices, so sums run in another order). The
+  batch sharded over 8 CPU devices, so sums run in another order; the
+  port's own losses spread up to 1.73e-4 over torch's thread counts, and
+  the bound is twice that). The
   parameters and BatchNorm statistics after the first step agree tensor by
   tensor (rel L2 ≤ 1e-4; measured ≤ 1.2e-5, the BN biases, whose gradients
   pass leaky-ReLU kinks that f32 noise flips). The final ones are held
@@ -23,9 +25,12 @@ trainer.py, config.py, __main__.py) vs the JAX package's, on the CPU.
   1 + resume + 1), start_epoch, metrics.jsonl truncated on a fresh start and
   appended on a resume, best/, echo, the ragged val batch, the val cache,
   SIGTERM, the refused meta mismatch, the drop overrides, the
-  device-resident store, the CLI, the refused parallel configurations and
-  the default device.
+  device-resident store, the CLI, the refused parallel configurations, tp
+  and fsdp at world 1 and the default device (the multi-rank trainer:
+  tests/test_torch_multiprocess.py).
 """
+
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
 
 import json
 import os
@@ -51,6 +56,11 @@ from vision_toolbox_tpu_torch.utils.jax_bridge import flax_to_state_dict
 
 CONFIGS = sorted((Path(__file__).resolve().parent.parent / "configs").glob("*.yaml"))
 REL = 1e-4
+# the logged losses against JAX: twice the port's own largest spread over
+# torch's thread counts (1.73e-4 of the loss, at step 10 over 1, 2, 3, 4, 6
+# and 8 threads, from one state: scripts/trainer_thread_spread.py), since
+# the fit memorizes one batch and each summation order drifts its own way
+LOSS_REL = 3.5e-4
 
 
 def _smoke(cfg, tmp_path, name="run", steps=None):
@@ -175,7 +185,7 @@ def test_trainer_matches_jax(jax_run, tmp_path):
         assert got.keys() == want.keys(), (got, want)
         for key in ("train/loss", "val/loss"):
             if key in want:
-                assert abs(got[key] - want[key]) <= REL * abs(want[key]), (key, got, want)
+                assert abs(got[key] - want[key]) <= LOSS_REL * abs(want[key]), (key, got, want)
         if "lr" in want:
             assert abs(got["lr"] - want["lr"]) <= 1e-7, (got, want)
         for key in ("val/acc", "val/acc5", "epoch", "step"):
@@ -427,18 +437,43 @@ def test_cli_fit_and_validate(tmp_path, capsys):
     assert [json.loads(line) for line in open(out_dir / "metrics.jsonl")] == records
 
 
-@pytest.mark.parametrize("setting", ["tp", "fsdp", "pipe", "model", "world"])
-def test_parallel_configs_raise(tmp_path, monkeypatch, setting):
+@pytest.mark.parametrize("setting", ["pipe", "model", "world", "param_sharding"])
+def test_parallel_configs_raise(tmp_path, setting):
+    """A pipe axis is not ported; a mesh whose axis sizes do not multiply to
+    the world size (one process here) and an unknown placement are
+    refused."""
     cfg = _cfg(tmp_path)
-    if setting in ("tp", "fsdp"):
-        cfg.runtime.param_sharding = setting
+    error, match = ValueError, "needs 2 ranks, the world has 1"
+    if setting == "pipe":
+        cfg.runtime.mesh_shape = {"data": 1, "pipe": 2}
+        error, match = NotImplementedError, "slice 22"
+    elif setting == "model":
+        cfg.runtime.mesh_shape = {"data": 1, "model": 2}
     elif setting == "world":
-        monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-        monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
+        cfg.runtime.mesh_shape = {"data": 2}
     else:
-        cfg.runtime.mesh_shape = {"data": 1, setting: 2}
-    with pytest.raises(NotImplementedError, match="item 12"):
+        cfg.runtime.param_sharding, match = "zero2", "replicated|tp|fsdp"
+    with pytest.raises(error, match=match):
         Trainer(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("sharding", ["tp", "fsdp"])
+def test_tp_and_fsdp_build_and_step_at_world_1(tmp_path, sharding):
+    """At world 1 (no process group) every parameter the rule picks is
+    sharded into one whole piece and gathered at use; one epoch runs and
+    its records equal the replicated run's."""
+    cfg = _cfg(tmp_path, sharding)
+    cfg.runtime.param_sharding, cfg.runtime.sharding_min_size = sharding, 4096
+    cfg.runtime.mesh_shape = {"data": 1, "model": 1}
+    trainer = Trainer(cfg, device="cpu")
+    sharded = [n for n, p in trainer.model.named_parameters() if hasattr(p, "_vtt_shard")]
+    assert sharded and "head.weight" in sharded
+    trainer.fit()
+    replicated = _cfg(tmp_path, "replicated")
+    Trainer(replicated, device="cpu").fit()
+    for got, want in zip(_records(cfg), _records(replicated), strict=True):
+        assert {k: v for k, v in got.items() if "time" not in k and "ips" not in k} == \
+            {k: v for k, v in want.items() if "time" not in k and "ips" not in k}
 
 
 def test_default_device_is_the_card(tmp_path, monkeypatch):

@@ -9,6 +9,8 @@ max abs 1e-6 (the sharpness blur sums its 3×3 taps in another order;
 measured ≤ 1.2e-7).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

@@ -6,6 +6,8 @@ is initialised by the JAX package, its params go through
 both, for each pool type.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import pytest
 import torch

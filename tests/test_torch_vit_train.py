@@ -31,6 +31,8 @@ exceptions, both rounding noise and not faults (ROADMAP Queue 3):
   for it.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import numpy as np
 import optax
 import pytest

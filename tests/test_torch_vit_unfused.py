@@ -26,6 +26,8 @@ tensors.
   each through the branch the JAX dispatch takes.
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import functools
 import io
 

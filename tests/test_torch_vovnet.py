@@ -24,6 +24,8 @@ against its f32 step (the BN backward cancels in bf16, as
 tests/test_torch_train_step.py sets out).
 """
 
+import torch_threads  # noqa: F401  (one torch CPU thread per test process)
+
 import io
 
 import numpy as np

@@ -12,7 +12,8 @@ Multi-process: ``shard_for_host`` slices the shard list per process — the
 replacement for both the world-size batch division (data.py:65-66) and wds
 ``ddp_equalize`` (data.py:76-77): each process streams a disjoint 1/N of the
 shards. Its rank and world size come from ``torch.distributed`` when it is
-initialized (``process_rank``), else 0 and 1.
+initialized (``process_rank``), else 0 and 1; the trainer passes its
+loaders the rank's data-axis coordinate and the data axis's size instead.
 """
 
 from __future__ import annotations

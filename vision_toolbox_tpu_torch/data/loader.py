@@ -5,9 +5,12 @@ Replaces the reference's torch DataLoader(num_workers=8, pin_memory) +
 per-rank batch split (data.py:63-86). Decode + per-sample host transforms run
 in a thread pool (PIL releases the GIL during JPEG decode/resize), with the
 JAX package's per-epoch shuffle and per-sample ``random.Random`` seeds, so
-the same seed and epoch give bit-equal batches. ``prefetch_to_device`` feeds
-the card: a producer thread stages each host batch in page-locked memory
-and copies it on a side CUDA stream while the current step runs.
+the same seed and epoch give bit-equal batches. Over several processes
+each takes its rows of every global batch (``split_batches``), so that the
+processes' batches of a step make up the one-process batch of that step.
+``prefetch_to_device`` feeds the card: a producer thread stages each host
+batch in page-locked memory and copies it on a side CUDA stream while the
+current step runs.
 """
 
 from __future__ import annotations
@@ -20,13 +23,40 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
-from .datasets import ImageFolder
+from .datasets import ImageFolder, process_rank
+
+
+def count_batches(n: int, batch_size: int, process_index: int, process_count: int,
+                  drop_last: bool) -> int:
+    """The batches of ``split_batches`` over ``n`` samples."""
+    full, rest = divmod(n, batch_size * process_count)
+    return full + int(not drop_last and rest > process_index * batch_size)
+
+
+def split_batches(order: list, batch_size: int, process_index: int, process_count: int,
+                  drop_last: bool) -> Iterator[tuple[list, slice]]:
+    """``order`` in global batches of ``batch_size × process_count``: each
+    global batch's samples and this process's rows of them (``batch_size``,
+    those of its index). The order is the same on every process, so their
+    rows are disjoint and together make up each global batch. A ragged last
+    global batch is dropped with ``drop_last``, and ends this process's
+    epoch where it holds none of its rows."""
+    rows = slice(process_index * batch_size, (process_index + 1) * batch_size)
+    step = batch_size * process_count
+    for start in range(0, len(order), step):
+        idxs = order[start : start + step]
+        if (drop_last and len(idxs) < step) or not idxs[rows]:
+            return
+        yield idxs, rows
 
 
 class DataLoader:
     """Batches an indexable dataset with a per-epoch shuffle.
 
-    ``transform(rng, sample.image) -> HWC float array``.
+    ``transform(rng, sample.image) -> HWC float array``. ``batch_size`` is
+    this process's; ``process_index``/``process_count`` (default
+    ``datasets.process_rank``) say which rows of each global batch it takes
+    (``split_batches``).
     """
 
     def __init__(
@@ -38,7 +68,12 @@ class DataLoader:
         drop_last: bool = False,
         num_workers: int = 8,
         seed: int = 0,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
+        if process_index is None:
+            process_index, process_count = process_rank()
+        self.process_index, self.process_count = process_index, process_count
         self.dataset = dataset
         self.batch_size = batch_size
         self.transform = transform
@@ -49,10 +84,8 @@ class DataLoader:
         self.epoch = 0
 
     def __len__(self) -> int:
-        n = len(self.dataset)
-        if self.drop_last:
-            return n // self.batch_size
-        return (n + self.batch_size - 1) // self.batch_size
+        return count_batches(len(self.dataset), self.batch_size, self.process_index,
+                             self.process_count, self.drop_last)
 
     def __iter__(self) -> Iterator[tuple[np.ndarray, np.ndarray]]:
         order = list(range(len(self.dataset)))
@@ -70,12 +103,10 @@ class DataLoader:
         import concurrent.futures as cf
 
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
-            for start in range(0, len(order), self.batch_size):
-                idxs = order[start : start + self.batch_size]
-                if self.drop_last and len(idxs) < self.batch_size:
-                    break
-                seeds = [rng.getrandbits(32) for _ in idxs]
-                results = list(pool.map(load_one, zip(idxs, seeds)))
+            for idxs, rows in split_batches(order, self.batch_size, self.process_index,
+                                            self.process_count, self.drop_last):
+                seeds = [rng.getrandbits(32) for _ in idxs]  # the global batch's
+                results = list(pool.map(load_one, list(zip(idxs, seeds))[rows]))
                 images = np.stack([r[0] for r in results])
                 labels = np.asarray([r[1] for r in results], np.int32)
                 yield images, labels

@@ -18,6 +18,9 @@ import subprocess
 
 import numpy as np
 
+from .datasets import process_rank
+from .loader import count_batches, split_batches
+
 _LIB = None
 _NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
 _LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libvttdata.so"))
@@ -179,11 +182,18 @@ def crop_flip_batch(
 class NativeJPEGLoader:
     """Train loader over an ImageFolder of JPEGs: reads raw bytes, samples RRC
     boxes + flips on the host, then decode+crop+resize in the C++ thread pool.
-    Yields (uint8 NHWC batch, int32 labels)."""
+    Yields (uint8 NHWC batch, int32 labels). Over several processes each
+    takes its rows of every global batch (``loader.split_batches``;
+    ``process_index``/``process_count`` default to ``datasets.process_rank``)
+    and draws its boxes and flips from a generator of its own."""
 
     def __init__(self, dataset, batch_size: int, crop_size: int = 176,
                  shuffle: bool = True, drop_last: bool = True,
-                 num_threads: int = 8, seed: int = 0):
+                 num_threads: int = 8, seed: int = 0,
+                 process_index: int | None = None, process_count: int | None = None):
+        if process_index is None:
+            process_index, process_count = process_rank()
+        self.process_index, self.process_count = process_index, process_count
         self.dataset = dataset  # ImageFolder: .samples [(path, label)]
         self.batch_size = batch_size
         self.crop_size = crop_size
@@ -195,21 +205,23 @@ class NativeJPEGLoader:
         self._size_cache: dict[str, tuple[int, int]] = {}
 
     def __len__(self):
-        n = len(self.dataset.samples)
-        return n // self.batch_size if self.drop_last else (n + self.batch_size - 1) // self.batch_size
+        return count_batches(len(self.dataset.samples), self.batch_size, self.process_index,
+                             self.process_count, self.drop_last)
 
     def __iter__(self):
         rng = random.Random((self.seed, self.epoch).__hash__())
+        if self.process_count > 1:  # the order alike on every process, the draws its own
+            draws = random.Random((self.seed, self.epoch, self.process_index).__hash__())
+        else:
+            draws = rng
         self.epoch += 1
         order = list(range(len(self.dataset.samples)))
         if self.shuffle:
             rng.shuffle(order)
-        for start in range(0, len(order), self.batch_size):
-            idxs = order[start : start + self.batch_size]
-            if self.drop_last and len(idxs) < self.batch_size:
-                break
+        for idxs, rows in split_batches(order, self.batch_size, self.process_index,
+                                        self.process_count, self.drop_last):
             jpegs, labels, boxes, sizes, flips = [], [], [], [], []
-            for i in idxs:
+            for i in idxs[rows]:
                 path, label = self.dataset.samples[i]
                 with open(path, "rb") as f:
                     data = f.read()
@@ -220,9 +232,9 @@ class NativeJPEGLoader:
                 W, H = wh
                 jpegs.append(data)
                 labels.append(label)
-                boxes.append(sample_rrc_box(rng, W, H))
+                boxes.append(sample_rrc_box(draws, W, H))
                 sizes.append((W, H))
-                flips.append(1 if rng.random() < 0.5 else 0)
+                flips.append(1 if draws.random() < 0.5 else 0)
             batch = decode_batch(
                 jpegs, np.asarray(boxes), np.asarray(sizes),
                 np.asarray(flips, np.uint8), self.crop_size, self.num_threads,

@@ -49,8 +49,11 @@ class WebDatasetLoader:
         num_streams: int = 1,
         native_crop_size: int | None = None,
         decode_threads: int = 8,
+        process_index: int | None = None,
+        process_count: int | None = None,
     ):
-        self.shards = shard_for_host(shards) if per_host else list(shards)
+        self.shards = (shard_for_host(shards, process_index, process_count) if per_host
+                       else list(shards))
         self.batch_size = batch_size
         self.transform = transform
         self.training = training

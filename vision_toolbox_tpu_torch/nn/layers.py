@@ -24,6 +24,7 @@ from torch import Tensor, nn
 
 from ..ops.deform_conv import deform_conv2d
 from ..ops.depthwise_conv import depthwise_conv2d
+from ..parallel.mesh import draw_rows
 from .initializers import kaiming_normal, torch_default_bias, torch_default_kernel
 
 
@@ -71,13 +72,17 @@ def torch_pad(kernel_size: int, stride: int = 1) -> int:
 
 
 def dropout(x: Tensor, p: float, generator: torch.Generator | None) -> Tensor:
-    """Inverted dropout with keep probability 1 − p, mask from ``generator``;
-    the division by 1 − p in x's type, as JAX rounds the Python scalar."""
+    """Inverted dropout with keep probability 1 − p, mask from ``generator``
+    (in a sharded step drawn for the global batch, dim 0, and this rank's
+    rows kept: ``parallel/mesh.draw_rows``); the division by 1 − p in x's
+    type, as JAX rounds the Python scalar."""
     if p == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in training needs an explicit torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) >= p
+    keep = draw_rows(lambda n: torch.rand((n, *x.shape[1:]), generator=generator,
+                                          device=generator.device), x.shape[0])
+    keep = keep.to(x.device) >= p
     return x * keep / torch.tensor(1.0 - p, dtype=x.dtype)
 
 
@@ -260,13 +265,15 @@ class StochasticDepth(nn.Module):
     def sample_scale(self, batch: int, train: bool = False,
                      generator: torch.Generator | None = None, *, device=None) -> Tensor | None:
         """(batch, 1) f32 mask/keep_p scale for the fused kernels, drawn from
-        ``generator``, or None when this is an identity."""
+        ``generator`` (for the global batch in a sharded step), or None when
+        this is an identity."""
         if not train or self.p == 0.0:
             return None
         if generator is None:
             raise ValueError("stochastic depth in training needs an explicit torch.Generator")
         keep_p = 1.0 - self.p
-        mask = torch.rand((batch, 1), generator=generator, device=generator.device) < keep_p
+        mask = draw_rows(lambda n: torch.rand((n, 1), generator=generator,
+                                              device=generator.device), batch) < keep_p
         return (mask.float() / keep_p).to(device)
 
     def forward(self, x: Tensor, train: bool = False,

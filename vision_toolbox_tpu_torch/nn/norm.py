@@ -13,7 +13,18 @@ Statistics in float32, applied in the compute dtype:
   variance, ε = 1e-5.
 
 ``F.batch_norm`` and cuDNN normalise in f32 and round elsewhere, so they do
-not give these numbers. Input is NHWC (channels last) in the compute dtype
+not give these numbers (nor does ``torch.nn.SyncBatchNorm``, which
+normalises as ``F.batch_norm`` does).
+
+Under a data axis above 1 (inside a sharded train step,
+``parallel/mesh.data_parallel``) both modules take the statistics of the
+global batch, as the JAX package gets them from GSPMD: the f32 sums of x
+and x² and the row count are all-reduced over the data axis (an autograd
+function whose backward all-reduces their gradients, so dx is the
+global-batch dx), μ and E[x²] come from those sums, the variance is the
+fast one, and ``BatchNorm``'s unbiased running variance takes the global
+n. Ranks that differ only on ``model`` hold the same rows and take part in
+no reduction. Input is NHWC (channels last) in the compute dtype
 the conv produced; ``weight`` is flax's ``scale``.
 """
 
@@ -21,6 +32,28 @@ from __future__ import annotations
 
 import torch
 from torch import Tensor, nn
+
+from ..parallel.mesh import active_data_axis, all_reduce_sum
+
+
+def batch_moments(x: Tensor) -> tuple[Tensor, Tensor, int | Tensor]:
+    """(μ, fast variance, n) of x over every axis but the last, in f32: over
+    the local rows, or over the global batch inside a sharded step whose
+    data axis is above 1 (n then a 0-d tensor, read by no host sync)."""
+    dims = tuple(range(x.ndim - 1))
+    xf = x.float()
+    axis = active_data_axis()
+    if axis is None or axis.size == 1:
+        mean = xf.mean(dims)
+        return mean, torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0), \
+            x.numel() // x.shape[-1]
+    c = x.shape[-1]
+    local = torch.cat([xf.sum(dims), (xf * xf).sum(dims),
+                       xf.new_full((1,), x.numel() // c)])
+    sums = all_reduce_sum(local, axis)
+    n = sums[-1]
+    mean = sums[:c] / n
+    return mean, torch.clamp(sums[c:2 * c] / n - mean * mean, min=0.0), n
 
 
 class BatchNorm(nn.Module):
@@ -34,15 +67,12 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: Tensor, train: bool = False) -> Tensor:
         if train:
-            dims = tuple(range(x.ndim - 1))
-            xf = x.float()
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            mean, var, n = batch_moments(x)
             with torch.no_grad():
-                n = x.numel() // x.shape[-1]
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)
-                self.running_var.copy_(m * self.running_var + (1 - m) * (var * (n / max(n - 1, 1))))
+                unbiased = n / (max(n - 1, 1) if isinstance(n, int) else torch.clamp(n - 1, min=1))
+                self.running_var.copy_(m * self.running_var + (1 - m) * (var * unbiased))
         else:
             mean, var = self.running_mean, self.running_var
         a = self.weight * torch.rsqrt(var + self.eps)
@@ -70,9 +100,7 @@ class LinenBatchNorm(nn.Module):
     def forward(self, x: Tensor, train: bool = False) -> Tensor:
         xf = x.float()
         if train:
-            dims = tuple(range(x.ndim - 1))
-            mean = xf.mean(dims)
-            var = torch.clamp((xf * xf).mean(dims) - mean * mean, min=0.0)
+            mean, var, _ = batch_moments(x)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.copy_(m * self.running_mean + (1 - m) * mean)

@@ -4,7 +4,8 @@ per-batch CutMix⊕MixUp coin, and RandomErasing.
 
 Each op is split into *draws* (``sample_*``, from an explicit
 ``torch.Generator``) and *apply given draws*, so the tests can feed the JAX
-package's draws to the port. Semantics: pairing by ``roll(1, dim=0)``; one
+package's draws to the port. Semantics: pairing by ``roll(1, dim=0)`` (of
+the global batch inside a sharded step, ``parallel/mesh.rolled_rows``); one
 Beta(α, α) λ per batch; the CutMix box has a uniform centre and half-size
 ``0.5·√(1−λ)``, is clamped to the image, and λ is recomputed from the box's
 area; RandomErasing draws one box per image and fills it with N(0, 1) noise.
@@ -25,6 +26,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import Tensor
+
+from ..parallel.mesh import active_data_axis, rolled_rows
 
 
 def one_hot_labels(labels: Tensor, num_classes: int, dtype: torch.dtype = torch.float32) -> Tensor:
@@ -65,13 +68,18 @@ def sample_mix(rng: np.random.Generator, height: int, width: int, cutmix_alpha: 
     return MixDraws(True, lam, int(rng.integers(0, width)), int(rng.integers(0, height)))
 
 
+def _roll(t: Tensor) -> Tensor:
+    """Each row's partner: ``roll(1, 0)`` of the (global) batch."""
+    return rolled_rows(t, active_data_axis())
+
+
 def mixup(images: Tensor, targets: Tensor, lam: float) -> tuple[Tensor, Tensor]:
     """Batch MixUp with the given λ. λ is rounded to the images' dtype first
     and used so rounded for the targets too, as in the JAX package."""
     lam_i = torch.tensor(lam, dtype=torch.float32).to(images.dtype)  # 0-d: 1 − λ rounds as images
     lam_t = lam_i.to(targets.dtype)
-    images = images * lam_i.to(images.device) + images.roll(1, 0) * (1.0 - lam_i).to(images.device)
-    targets = targets * lam_t.item() + targets.roll(1, 0) * (1.0 - lam_t).item()
+    images = images * lam_i.to(images.device) + _roll(images) * (1.0 - lam_i).to(images.device)
+    targets = targets * lam_t.item() + _roll(targets) * (1.0 - lam_t).item()
     return images, targets
 
 
@@ -91,10 +99,10 @@ def cutmix(images: Tensor, targets: Tensor, lam: float, r_x: int, r_y: int) -> t
     _, H, W, _ = images.shape
     x1, y1, x2, y2 = cutmix_box(H, W, lam, r_x, r_y)
     images = images.clone()
-    images[:, y1:y2, x1:x2] = images.roll(1, 0)[:, y1:y2, x1:x2]
+    images[:, y1:y2, x1:x2] = _roll(images)[:, y1:y2, x1:x2]
     area = np.float32((x2 - x1) * (y2 - y1)) / np.float32(W * H)
     lam_adj = torch.tensor(np.float32(1.0) - area).to(targets.dtype)
-    targets = targets * lam_adj.item() + targets.roll(1, 0) * (1.0 - lam_adj).item()
+    targets = targets * lam_adj.item() + _roll(targets) * (1.0 - lam_adj).item()
     return images, targets
 
 

@@ -27,7 +27,9 @@ values), ``dy2 = dh·W1`` in f32, the LayerNorm backward from the saved bf16
 the kernel, as XLA computes them in the JAX package (``_fused_mlp_bwd``):
 ``dW1 = dhᵀ·y2``, ``dW2 = doutsᵀ·g`` with ``douts = dout·(dp·γ_ls)`` in
 ``dout``'s type, both accumulated in f32 and rounded to bf16, the kernel's
-weight type; every gradient comes back in its operand's dtype.
+weight type (in a sharded step over a data axis above 1, after the ranks'
+f32 sums are all-reduced, as GSPMD reduces before JAX's cast); every
+gradient comes back in its operand's dtype.
 
 Weights are in the ``nn.Linear`` layout: ``w1`` (Dh, D), ``w2`` (D, Dh).
 """
@@ -40,6 +42,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from ..parallel.mesh import reduced_bf16
 from . import _cuda
 
 _SQRT_2 = math.sqrt(2.0)
@@ -160,14 +163,17 @@ def layer_norm_bwd(dy: Tensor, xhat: Tensor, rstd: Tensor, ln_scale: Tensor,
 
 def weight_grad(a: Tensor, b: Tensor, like: Tensor) -> Tensor:
     """``aᵀ·b`` over all rows, accumulated in f32 and rounded to bf16 (the
-    kernels' weight type), returned in ``like.dtype``."""
+    kernels' weight type), returned in ``like.dtype``; in a sharded step
+    over a data axis above 1, rounded after the ranks' sums are reduced
+    (``parallel/mesh.reduced_bf16``: ``like`` is the weight whose gradient
+    this is)."""
     a, b = a.reshape(-1, a.shape[-1]), b.reshape(-1, b.shape[-1])
     if a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
         # an f32 output: a bf16 one would let cuBLAS reduce split-K partials in bf16
         g = torch.mm(a.t(), b, out_dtype=torch.float32)
     else:
         g = a.float().t() @ b.float()
-    return g.to(torch.bfloat16).to(like.dtype)
+    return reduced_bf16(g, like).to(like.dtype)
 
 
 class MLPSaves(NamedTuple):

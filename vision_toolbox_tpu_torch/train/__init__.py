@@ -20,4 +20,5 @@ from .step import (  # noqa: F401
     make_eval_accumulate_step,
     make_eval_step,
     make_train_step,
+    shard_train_step,
 )

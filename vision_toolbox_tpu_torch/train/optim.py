@@ -15,6 +15,9 @@
   rate, then momentum). Each reads the learning rate from the schedule at
   its count of updates before the update, and each step is the separately
   rounded f32 chain that optax computes.
+- Each buffer is made like its parameter, so under TP or FSDP
+  (``parallel/sharding.py``) it follows the parameter's shard; the trust
+  ratio of LAMB and LARS takes ‖p‖ and ‖u‖ over the whole parameter.
 - Gradient accumulation with ``optax.MultiSteps``' semantics
   (``MultiSteps``): the running mean of k micro-gradients is applied every
   k micro-steps.
@@ -28,7 +31,10 @@ import math
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 from torch import Tensor, nn
+
+from ..parallel.sharding import shard_of
 
 GROUPS = ("other", "norm", "bias")
 
@@ -152,12 +158,24 @@ def _trace(buffers: list[Tensor], updates: list[Tensor], momentum: float) -> Non
     torch._foreach_add_(buffers, updates)
 
 
+def _norms(p: Tensor, u: Tensor) -> tuple[Tensor, Tensor]:
+    """‖p‖ and ‖u‖ over the whole parameter: a shard's sums of squares are
+    summed over its axis (``parallel/sharding.py``)."""
+    s = shard_of(p)
+    if s is None or s.group is None or s.size == 1:
+        return torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+    sq = torch.stack([p.float().square().sum(), u.float().square().sum()])
+    dist.all_reduce(sq, group=s.group)
+    return sq[0].sqrt(), sq[1].sqrt()
+
+
 def _trust_ratio(ps: list[Tensor], updates: list[Tensor], coefficient: float) -> list[Tensor]:
     """optax ``scale_by_trust_ratio``: u · c‖p‖/‖u‖ per tensor, u itself
-    where either norm is 0."""
+    where either norm is 0; the norms are the whole parameter's where it is
+    sharded."""
     out = []
     for p, u in zip(ps, updates):
-        pn, un = torch.linalg.vector_norm(p), torch.linalg.vector_norm(u)
+        pn, un = _norms(p, u)
         ratio = torch.where((pn == 0) | (un == 0), 1.0, coefficient * pn / un)
         out.append(u * ratio)
     return out

@@ -12,8 +12,19 @@ float in [0, 1], on the model's device.
 ``make_device_data_train_step`` runs the same step on a train set resident
 on the device (gather, /255, ``ops/device_rrc.py``'s RandomResizedCrop and
 flip, then the full recipe); ``make_eval_accumulate_step`` folds the eval
-metrics into a (4,) accumulator on the device. The sharded variants of the
-JAX package are not ported (one device).
+metrics into a (4,) accumulator on the device.
+
+``shard_train_step`` (the JAX package's ``shard_train_step``) runs the
+full-recipe step on a rank's rows of the global batch over a mesh of ranks
+(``parallel/mesh.py``): the step's draws are made for the global batch from
+the step's generator, seeded alike on every rank, and each rank takes its
+rows (dropout and drop-path in the model too), so a step on n ranks gives
+the one-process step's numbers; the mix pairs each row with ``roll(1, 0)``
+of the global batch, one row crossing each rank boundary
+(``parallel/mesh.rolled_rows``); BatchNorm takes global statistics; the
+gradients are all-reduced to the global mean over the data axis and the
+reported loss is the global one. The device-resident step stays
+single-process.
 """
 
 from __future__ import annotations
@@ -36,6 +47,8 @@ from ..ops.augment import (
 )
 from ..ops.device_rrc import RRCDraws, crop_resize_flip, sample_rrc
 from ..ops.trivial_augment import TADraws, sample_trivial_augment, trivial_augment_wide_apply
+from ..parallel.mesh import Mesh, data_parallel
+from ..parallel.sharding import reduce_gradients
 from .classifier import cross_entropy
 from .optim import GroupedOptimizer, MultiSteps
 
@@ -118,7 +131,50 @@ def make_train_step(
 
     train_step.sample_draws = sample_draws
     train_step.augment = augment
+    train_step.label_smoothing = label_smoothing
     return train_step
+
+
+def _rows(draws: StepDraws, rows: slice) -> StepDraws:
+    """The per-image draws of ``rows`` of the batch; the per-batch ones as
+    they are."""
+    take = lambda d: None if d is None else type(d)(*(t[rows] for t in d))
+    return StepDraws(ta=take(draws.ta), erase=take(draws.erase), mix=draws.mix)
+
+
+def shard_train_step(train_step, mesh: Mesh, data_axis: str = "data"):
+    """``train_step`` (from ``make_train_step``) over ``mesh``: ``step(state,
+    images, labels, generator=None, draws=None)`` takes this rank's rows of
+    the global batch (``parallel/mesh.batch_rows``) and, where given, the
+    draws of the global batch. Every rank of the mesh calls it, in step."""
+    axis = mesh.axis(data_axis)
+
+    def step(state: TrainState, images: Tensor, labels: Tensor,
+             generator: torch.Generator | None = None,
+             draws: StepDraws | None = None) -> dict[str, Tensor]:
+        B = images.shape[0]
+        if draws is None:
+            if generator is None:
+                raise ValueError("the train step needs a torch.Generator or explicit draws")
+            draws = train_step.sample_draws(generator, (B * axis.size, *images.shape[1:]))
+        draws = _rows(draws, slice(axis.coord * B, (axis.coord + 1) * B))
+        state.optimizer.zero_grad()
+        with data_parallel(mesh, data_axis):
+            images, targets = train_step.augment(images, labels, draws)
+            logits = state.model(images, train=True, generator=generator)
+            loss = cross_entropy(logits, targets, train_step.label_smoothing)
+            loss.backward()
+        reduce_gradients(state.model, mesh, data_axis)
+        state.optimizer.step()
+        state.step += 1
+        loss = loss.detach()
+        if axis.group is not None:
+            loss = loss.clone()
+            torch.distributed.all_reduce(loss, group=axis.group)
+            loss = loss / axis.size
+        return {"loss": loss}
+
+    return step
 
 
 class DeviceStepDraws(NamedTuple):

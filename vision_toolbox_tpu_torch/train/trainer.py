@@ -1,6 +1,6 @@
 """Trainer: the full fit loop replacing Lightning's Trainer + callbacks
-(SURVEY.md §2.2) — port of ``vision_toolbox_tpu/train/trainer.py``, on one
-device. One object wires model, data, the train and eval steps, metrics
+(SURVEY.md §2.2) — port of ``vision_toolbox_tpu/train/trainer.py``. One
+object wires the mesh, model, data, the train and eval steps, metrics
 logging (JSONL + stdout), per-epoch checkpoints with best-val/acc tracking,
 and resume.
 
@@ -17,13 +17,26 @@ The port's choices:
   and no generator state is checkpointed.
 - ``metrics.jsonl`` is truncated on a fresh start and appended to only when
   ``runtime.resume`` is set.
-- Parallel configurations (a ``pipe`` or ``model`` mesh axis, a data axis
-  over several devices, ``param_sharding`` tp/fsdp, a ``torch.distributed``
-  world above 1) raise ``NotImplementedError``: they are not ported.
+- Parallel runs: one rank is one process on one device, under a launcher
+  (``torchrun``; ``parallel/mesh.init_process_group``), and the mesh
+  (``runtime.mesh_shape``, else ``runtime.mesh_axes`` over the world) spans
+  the ranks. A rank loads the rows of its data-axis coordinate
+  (``data.batch_size`` / the data axis's size each; a remainder raises;
+  each loader is given that coordinate and the axis's size), runs
+  ``shard_train_step`` on them, and shards its parameters after any
+  resume by ``runtime.param_sharding`` (replicated, tp or fsdp,
+  ``parallel/sharding.py``); the eval accumulator is all-reduced once per
+  epoch over the data axis. Rank 0 alone writes ``metrics.jsonl``, the
+  saved config, checkpoints (whole tensors, gathered by every rank),
+  ``best/`` and the trackers; a SIGTERM stops every rank at the same step
+  (a flag all-reduced after each step over a gloo group, on the host: no
+  device sync). A ``pipe`` axis above 1 and the device-resident store at a
+  world above 1 raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import shutil
@@ -33,9 +46,12 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.base import create_backbone
 from ..ops import _cuda
+from ..parallel.mesh import batch_rows, create_mesh, world
+from ..parallel.sharding import shard_train_state
 from .classifier import ImageClassifier
 from .config import Config, _to_dict, save_config
 from .optim import MultiSteps, make_optimizer, warmup_cosine_schedule
@@ -44,20 +60,25 @@ from .step import (
     make_device_data_train_step,
     make_eval_accumulate_step,
     make_train_step,
+    shard_train_step,
 )
 from .tracking import make_tracker
 
-NOT_PORTED = "not ported (ROADMAP Queue 1 item 12: the parallel axes)"
+NOT_PORTED = "not ported (ROADMAP Queue 1: pipeline parallelism, slice 22)"
 
 
 class SyntheticData:
-    """Random-data stand-in for smoke runs and benches (data.synthetic=true)."""
+    """Random-data stand-in for smoke runs and benches (data.synthetic=true):
+    one global batch of ``batch_size`` rows, of which ``rows`` are yielded
+    (this rank's; all by default)."""
 
-    def __init__(self, batch_size: int, crop: int, num_classes: int, steps: int):
-        self.batch_size, self.crop, self.num_classes, self.steps = batch_size, crop, num_classes, steps
+    def __init__(self, batch_size: int, crop: int, num_classes: int, steps: int,
+                 rows: slice = slice(None)):
+        self.crop, self.num_classes, self.steps = crop, num_classes, steps
         rng = np.random.default_rng(0)
-        self._images = rng.random((batch_size, crop, crop, 3), np.float32)
-        self._labels = rng.integers(0, num_classes, batch_size).astype(np.int32)
+        self._images = rng.random((batch_size, crop, crop, 3), np.float32)[rows]
+        self._labels = rng.integers(0, num_classes, batch_size).astype(np.int32)[rows]
+        self.batch_size = len(self._labels)
 
     def __len__(self):
         return self.steps
@@ -67,27 +88,19 @@ class SyntheticData:
             yield self._images, self._labels
 
 
-def _world_size() -> int:
-    import torch.distributed as dist
-
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
-
-
-def _refuse_parallel(cfg: Config) -> None:
-    """Raise for every configuration that would need more than one device."""
+def _build_mesh(cfg: Config):
+    """The mesh of ``runtime.mesh_shape`` (else ``runtime.mesh_axes`` over
+    the world), after the JAX trainer's checks."""
     rt = cfg.runtime
-    for axis, size in (rt.mesh_shape or {}).items():
-        if int(size) > 1:
-            raise NotImplementedError(
-                f"runtime.mesh_shape axis {axis!r} of size {size}: {NOT_PORTED}")
-    if rt.param_sharding in ("tp", "fsdp"):
-        raise NotImplementedError(f"runtime.param_sharding={rt.param_sharding!r}: {NOT_PORTED}")
-    if rt.param_sharding != "replicated":
+    if rt.param_sharding not in ("replicated", "tp", "fsdp"):
         raise ValueError(f"runtime.param_sharding must be replicated|tp|fsdp, "
                          f"got {rt.param_sharding!r}")
-    if _world_size() > 1:
-        raise NotImplementedError(
-            f"torch.distributed world size {_world_size()}: {NOT_PORTED}")
+    pipe = int((rt.mesh_shape or {}).get("pipe", 1))
+    if pipe > 1:
+        raise NotImplementedError(f"runtime.mesh_shape axis 'pipe' of size {pipe}: {NOT_PORTED}")
+    if rt.mesh_shape:
+        return create_mesh(tuple(rt.mesh_shape), tuple(int(v) for v in rt.mesh_shape.values()))
+    return create_mesh(rt.mesh_axes)
 
 
 def _build_backbone(cfg: Config, dtype: torch.dtype, device: torch.device,
@@ -127,7 +140,15 @@ class Trainer:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"Trainer: device {str(self.device)!r} asked for and no CUDA "
                                "device is available; pass device='cpu' to train on the CPU")
-        _refuse_parallel(cfg)
+        self.rank, self.world = world()
+        if self.device.type == "cuda" and self.device.index is None and self.world > 1:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.mesh = _build_mesh(cfg)
+        # the preemption flag's group: gloo, on the host, so that its
+        # all-reduce after each step waits on no device work
+        self._flag_group = dist.new_group(backend="gloo") if self.world > 1 else None
+        # a process group makes the step the sharded one, also at world 1
+        self.distributed = self.mesh.groups is not None
         compute_dtype = torch.bfloat16 if cfg.model.bf16 else torch.float32
         gen = torch.Generator().manual_seed(cfg.train.seed)
         backbone, self.backbone_overrides = _build_backbone(cfg, compute_dtype, self.device, gen)
@@ -166,14 +187,18 @@ class Trainer:
                 cfg.model.num_classes, cfg.data.train_crop_size, **step_kwargs)
         else:
             self.train_step = make_train_step(cfg.model.num_classes, **step_kwargs)
+            if self.distributed:
+                self.train_step = shard_train_step(self.train_step, self.mesh)
         self.eval_step = make_eval_accumulate_step(compute_dtype)
 
-        os.makedirs(cfg.runtime.out_dir, exist_ok=True)
-        save_config(cfg, cfg.runtime.out_dir)
+        if self.rank == 0:
+            os.makedirs(cfg.runtime.out_dir, exist_ok=True)
+            save_config(cfg, cfg.runtime.out_dir)
         self._log_file = None  # opened at the first record (see _log)
         # optional experiment-tracker mirror (ref configs/base.yaml:25-32 —
         # WandbLogger role); JSONL + stdout stay the source of truth
-        self.tracker = make_tracker(cfg.runtime.tracker, cfg.runtime.out_dir, _to_dict(cfg))
+        self.tracker = make_tracker(cfg.runtime.tracker if self.rank == 0 else "none",
+                                    cfg.runtime.out_dir, _to_dict(cfg))
         self._tracker_step = 0
         self.best_acc = -1.0
 
@@ -181,7 +206,11 @@ class Trainer:
             from ..utils.checkpoint import restore_train_state
 
             restore_train_state(cfg.runtime.resume, self.state, expect_meta=self._meta())
-            print(f"resumed from {cfg.runtime.resume} at step {self.state.step}")
+            self._print(f"resumed from {cfg.runtime.resume} at step {self.state.step}")
+        # shard after any resume: the checkpoint holds whole tensors
+        if cfg.runtime.param_sharding != "replicated":
+            shard_train_state(self.state, self.mesh, fsdp=cfg.runtime.param_sharding == "fsdp",
+                              min_size=cfg.runtime.sharding_min_size)
 
     def _meta(self) -> dict:
         return {"grad_accum_steps": self.grad_accum, "optimizer": self.cfg.train.optimizer.lower()}
@@ -189,25 +218,53 @@ class Trainer:
     # ------------------------------------------------------------------
     @property
     def _local_batch(self) -> int:
-        """Per-process rows of the global batch (the reference's per-rank
-        batch division, data.py:65-66)."""
-        world = _world_size()
-        if self.cfg.data.batch_size % world != 0:
+        """This rank's rows of the global batch: ``data.batch_size`` over the
+        data axis's size (the reference's per-rank batch division,
+        data.py:65-66)."""
+        data = self.mesh.axis_size("data")
+        if self.cfg.data.batch_size % data != 0:
             raise ValueError(
                 f"data.batch_size={self.cfg.data.batch_size} must be divisible "
-                f"by the world size {world}: a silent floor would "
+                f"by the data axis's size {data}: a silent floor would "
                 "shrink the effective global batch while steps_per_epoch and "
                 "the lr schedule still assume the configured one"
             )
-        return max(1, self.cfg.data.batch_size // world)
+        return max(1, self.cfg.data.batch_size // data)
+
+    def _print(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg)
+
+    def _all_reduce(self, t: torch.Tensor, op=None, axis: str | None = None) -> torch.Tensor:
+        """``t`` reduced over the world (or over mesh ``axis``) when the run
+        is distributed; ``t`` itself otherwise."""
+        if self.distributed:
+            group = None if axis is None else self.mesh.group(axis)
+            dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+        return t
 
     def _build_data(self):
+        train, val, steps = self._build_loaders()
+        if self.distributed and steps:
+            # every rank runs the same number of steps, or the collectives hang
+            n = torch.tensor([steps], dtype=torch.float32, device=self.device)
+            steps = int(self._all_reduce(n, dist.ReduceOp.MIN).item())
+        return train, val, steps
+
+    def _build_loaders(self):
         cfg = self.cfg
         local_bs = self._local_batch
+        # each loader's share: this rank's data-axis coordinate (ranks that
+        # differ only on ``model`` read the same rows)
+        shard = dict(process_index=self.mesh.coord("data"),
+                     process_count=self.mesh.axis_size("data"))
         if cfg.data.synthetic or cfg.data.train_dir is None:
             steps = max(1, cfg.data.train_size // max(cfg.data.batch_size, 1)) if cfg.data.train_size else 10
-            train = SyntheticData(local_bs, cfg.data.train_crop_size, cfg.model.num_classes, steps)
-            val = SyntheticData(local_bs, cfg.data.val_crop_size, cfg.model.num_classes, 2)
+            rows = batch_rows(self.mesh, cfg.data.batch_size)
+            train = SyntheticData(cfg.data.batch_size, cfg.data.train_crop_size,
+                                  cfg.model.num_classes, steps, rows)
+            val = SyntheticData(cfg.data.batch_size, cfg.data.val_crop_size,
+                                cfg.model.num_classes, 2, rows)
             return train, val, len(train)
 
         from ..data import DataLoader, ImageFolder, train_transform, val_transform
@@ -220,6 +277,11 @@ class Trainer:
         if cfg.data.raw_shards:
             from ..data.raw_shards import DeviceIndexLoader, RawShardDataset, RawShardLoader
 
+            if cfg.data.device_resident and self.world > 1:
+                raise NotImplementedError(
+                    "data.device_resident is single-process (per-host "
+                    "stores are future work)"
+                )
             train_ds = RawShardDataset(cfg.data.train_dir, preload=cfg.data.raw_preload)
             if cfg.data.device_resident:
                 images = np.concatenate([np.asarray(s.images) for s in train_ds.shards])
@@ -236,13 +298,14 @@ class Trainer:
             else:
                 train = RawShardLoader(
                     train_ds, local_bs, cfg.data.train_crop_size,
-                    training=True, seed=cfg.train.seed,
+                    training=True, seed=cfg.train.seed, **shard,
                 )
             val = None
             if cfg.data.val_dir:
                 val_ds = RawShardDataset(cfg.data.val_dir, preload=cfg.data.raw_preload)
                 val = RawShardLoader(
                     val_ds, local_bs, min(cfg.data.val_crop_size, val_ds.h), training=False,
+                    **shard,
                 )
             return train, val, len(train)
 
@@ -261,6 +324,7 @@ class Trainer:
                 transform=lambda r, im: train_transform(r, im, cfg.data.train_crop_size),
                 training=True, num_batches=num_batches, seed=cfg.train.seed,
                 num_streams=cfg.data.num_workers,  # ref num_workers: 8 (base.yaml)
+                **shard,
             )
             val = (
                 WebDatasetLoader(
@@ -273,6 +337,7 @@ class Trainer:
                     if cfg.data.val_size
                     else None,
                     num_streams=cfg.data.num_workers,
+                    **shard,
                 )
                 if val_shards
                 else None
@@ -290,14 +355,14 @@ class Trainer:
                                    "is unavailable (run `make -C native`)")
             train = NativeJPEGLoader(
                 train_ds, local_bs, cfg.data.train_crop_size,
-                num_threads=cfg.data.num_workers, seed=cfg.train.seed,
+                num_threads=cfg.data.num_workers, seed=cfg.train.seed, **shard,
             )
         else:
             train = DataLoader(
                 train_ds, local_bs,
                 transform=lambda r, im: train_transform(r, im, cfg.data.train_crop_size),
                 shuffle=True, drop_last=True, num_workers=cfg.data.num_workers,
-                seed=cfg.train.seed,
+                seed=cfg.train.seed, **shard,
             )
         val = (
             DataLoader(
@@ -305,7 +370,7 @@ class Trainer:
                 transform=lambda r, im: val_transform(
                     im, cfg.data.val_resize_size, cfg.data.val_crop_size
                 ),
-                num_workers=cfg.data.num_workers,
+                num_workers=cfg.data.num_workers, **shard,
             )
             if val_ds
             else None
@@ -314,6 +379,8 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def _log(self, record: dict):
+        if self.rank != 0:
+            return
         if self._log_file is None:
             # a fresh start truncates the log; only a resume appends to it
             mode = "a" if self.cfg.runtime.resume else "w"
@@ -351,6 +418,8 @@ class Trainer:
         from ..data.loader import prefetch_to_device
 
         batches = iter(self.train_loader)
+        if self.distributed:
+            batches = itertools.islice(batches, self.steps_per_epoch // max(1, self.cfg.data.echo))
         if self._device_store is not None:
             batches = ((idx,) for idx, _ in batches)
         self.feed = prefetch_to_device(batches, self.device)
@@ -401,6 +470,9 @@ class Trainer:
             self._profiled = True
         elif step == 2 + n and self._profiler is not None:
             self._profiler.stop()
+            if self.rank != 0:
+                self._profiler = None
+                return
             path = os.path.join(self.cfg.runtime.out_dir, "profile", "trace.json")
             os.makedirs(os.path.dirname(path), exist_ok=True)
             self._profiler.export_chrome_trace(path)
@@ -425,8 +497,12 @@ class Trainer:
             for batch in self._train_feed():
                 self._profile(self.state.step)
                 metrics = self.train_batch(batch)
-                n_images += batch[0].shape[0]
+                n_images += batch[0].shape[0] * self.mesh.axis_size("data")
                 step = self.state.step
+                if self.world > 1:  # every rank stops at the same step
+                    flag = torch.tensor([float(self._preempted)])
+                    dist.all_reduce(flag, dist.ReduceOp.MAX, group=self._flag_group)
+                    self._preempted = bool(flag.item())
                 if self._preempted:
                     path = self.save(epoch)
                     self._log({"preempted_at_step": step, "checkpoint": path})
@@ -463,14 +539,15 @@ class Trainer:
     def evaluate(self) -> dict:
         if self.val_loader is None:
             # reference CLI degrades gracefully without val data (Lightning)
-            print("evaluate: no validation data configured (data.val_dir unset)")
+            self._print("evaluate: no validation data configured (data.val_dir unset)")
             return {}
         # device-side accumulator [loss_sum, correct, correct5, count]: the
-        # whole val epoch runs with no host sync, ONE readback at the end
+        # whole val epoch runs with no host sync, ONE readback at the end,
+        # after one all-reduce over the data axis
         acc = torch.zeros((4,), dtype=torch.float32, device=self.device)
         for images, labels in self._val_batches():
             acc = self.eval_step(self.state, images, labels, acc)
-        loss_sum, acc_sum, acc5_sum, total = acc.tolist()
+        loss_sum, acc_sum, acc5_sum, total = self._all_reduce(acc, axis="data").tolist()
         if total == 0:
             return {}
         return {
@@ -499,7 +576,16 @@ class Trainer:
         batches = []
         nominal = self._local_batch
 
+        n_batches = 0
+        if self.distributed:
+            # a rank with fewer val batches runs all-padding ones: the
+            # gathers of sharded parameters are collective
+            n = torch.tensor([len(self.val_loader)], dtype=torch.float32, device=self.device)
+            n_batches = int(self._all_reduce(n, dist.ReduceOp.MAX).item())
+
         def padded():
+            s = self.cfg.data.val_crop_size
+            images = np.zeros((0, s, s, 3), np.float32)
             for images, labels in self.val_loader:
                 images, labels = np.asarray(images), np.asarray(labels, np.int32)
                 b = images.shape[0]
@@ -510,6 +596,9 @@ class Trainer:
                         [images, np.zeros((nominal - b, *images.shape[1:]), images.dtype)])
                     labels = np.concatenate([labels, np.full((nominal - b,), -1, np.int32)])
                 yield images, labels
+            for _ in range(n_batches - len(self.val_loader)):
+                yield (np.zeros((nominal, *images.shape[1:]), images.dtype),
+                       np.full((nominal,), -1, np.int32))
 
         for images, labels in prefetch_to_device(padded(), self.device):
             if collect:
@@ -532,6 +621,8 @@ class Trainer:
         # ModelCheckpoint(monitor=val/acc, mode=max) equivalent (configs/base.yaml:33-36)
         if val_acc is not None and val_acc > self.best_acc:
             self.best_acc = val_acc
+            if self.rank != 0:
+                return path
             best = os.path.join(self.cfg.runtime.out_dir, "best")
             if os.path.isdir(best):
                 shutil.rmtree(best)

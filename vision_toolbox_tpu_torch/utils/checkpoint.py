@@ -6,7 +6,9 @@ Replaces the reference's formats (SURVEY.md §5.4):
       state dict (parameters and BatchNorm buffers), the optimizer's state
       (momentum buffers, Adam moments, the accumulation buffers) and the
       step, under ``<dir>/step_<n>/state.pt``, with ``vtt_meta.json`` beside
-      it;
+      it; whole tensors (a sharded parameter and its buffers gathered), so
+      that a checkpoint of a tp or fsdp run restores into a replicated run
+      and the reverse, written by rank 0;
   (b) backbone-only .pth with sha-suffix naming (extras.py:112-128) →
       ``extract_backbone`` + ``save_params_pth`` (``{name}-{sha256[:8]}.pth``
       of the backbone's state dict, the ``backbone.`` prefix stripped as the
@@ -22,6 +24,7 @@ import os
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
 STATE_FILE = "state.pt"
 META_FILE = "vtt_meta.json"
@@ -38,21 +41,51 @@ def save_train_state(ckpt_dir: str, state: Any, step: int | None = None,
     path = os.path.abspath(ckpt_dir)
     if step is not None:
         path = os.path.join(path, f"step_{step}")
+    from ..parallel.mesh import world
+
+    payload = {**whole_state(state), "step": int(state.step)}
+    rank, size = world()
+    if rank != 0:
+        dist.barrier()
+        return path
     os.makedirs(path, exist_ok=True)
-    payload = {"model": state.model.state_dict(), "optimizer": state.optimizer.state_dict(),
-               "step": int(state.step)}
     tmp = os.path.join(path, STATE_FILE + ".tmp")
     torch.save(payload, tmp)
     os.replace(tmp, os.path.join(path, STATE_FILE))  # no torn checkpoint on preemption
     if meta:
         with open(os.path.join(path, META_FILE), "w") as f:
             json.dump(meta, f)
+    if size > 1:
+        dist.barrier()
     return path
+
+
+def whole_state(state: Any) -> dict:
+    """The model's state dict and the optimizer's state with every sharded
+    parameter and each of its buffers gathered whole
+    (``parallel/sharding.py``; collective: every rank calls it)."""
+    from ..parallel.sharding import optimizer_buffers, whole
+
+    params = dict(state.model.named_parameters())
+    model = {k: whole(v, params[k]) if k in params else v
+             for k, v in state.model.state_dict().items()}
+    opt = state.optimizer.state_dict()
+    gathered = {id(lst[j]): whole(lst[j], p) for p, lst, j in optimizer_buffers(state.optimizer)}
+
+    def swap(x):
+        if isinstance(x, dict):
+            return {k: swap(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [swap(v) for v in x]
+        return gathered.get(id(x), x)
+
+    return {"model": model, "optimizer": swap(opt)}
 
 
 def restore_train_state(ckpt_path: str, state: Any, expect_meta: dict | None = None) -> Any:
     """Load a ``save_train_state`` checkpoint into ``state`` (built the same
-    way as at save time), onto its model's device, and return it.
+    way as at save time, and not yet sharded: the trainer shards after
+    resume), onto its model's device, and return it.
 
     ``expect_meta`` is checked against the saved meta before anything is
     loaded, turning a structural mismatch (e.g. a changed

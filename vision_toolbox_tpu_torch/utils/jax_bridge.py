@@ -93,6 +93,17 @@ def _convert(path: tuple[str, ...], value: np.ndarray) -> tuple[str, np.ndarray]
     return ".".join(parts), value
 
 
+def jax_dims(name: str, ndim: int) -> tuple[int, ...]:
+    """The port dim of each dim of parameter ``name``'s JAX layout, by the
+    rules above: a 2-D or 4-D ``weight`` is a Dense kernel (in, out) of the
+    port's (out, in), or a conv kernel HWIO of the port's OIHW; every other
+    parameter keeps its layout. So the JAX shape of a port tensor ``t`` is
+    ``[t.shape[d] for d in jax_dims(name, t.ndim)]``."""
+    if name.rsplit(".", 1)[-1] == "weight" and ndim in (2, 4):
+        return (1, 0) if ndim == 2 else (2, 3, 1, 0)
+    return tuple(range(ndim))
+
+
 def flax_to_state_dict(params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any] | None = None) -> dict[str, torch.Tensor]:
     """Map a JAX-package param tree and its BatchNorm statistics (numpy
