@@ -162,7 +162,9 @@ sm_90a, one process per source) and drives the port's paths:
   bs8@224 forward and backward through K9 (12 + 24 a forward) against the
   plain versions and an f32 reference, PAN(256) on darknet_yolov5s's last
   four maps and DeformableConv2d (v2, stride 1 and 2) on the card against
-  the CPU in f32. Each prints its wall seconds.
+  the CPU in f32. Each prints its wall seconds. Their served requests are
+  held once a batch and timed over 3, their steps timed over 3 after 2
+  (``LIGHT_SERVING``, ``LIGHT_STEPS``: the phases are host-bound).
 - the trainer and the data plane: phase 46 runs ``python -m
   vision_toolbox_tpu_torch.train fit --config configs/base.yaml`` on 6
   synthetic steps (vovnet57 bs512@176, bf16, the full recipe) and reads its
@@ -190,8 +192,8 @@ sm_90a, one process per source) and drives the port's paths:
   in bf16 on the card and in f32 on the CPU (state dicts equal), holds the
   bf16 logits at batch 8 against the plain path and the CPU's f32 plain
   path (max(1e-2, 2× the plain bf16 path's own distance)) with exact
-  launches, and serves each (3 requests at batch 8; vit_b_16 at 1, 8 and
-  32, timed); phase 50 serves ``quantize_model`` of that vit_b_16 (72
+  launches, and serves each (one request at batch 8; vit_b_16 at 1, 8 and
+  32; timed over 3); phase 50 serves ``quantize_model`` of that vit_b_16 (72
   ``Int8Linear``, its blocks on the module chain: 12 K2 a request at 8 and
   32, none at 1, no K3/K4; one int8 product a quantized module a request
   and no float one; mean |int8 − f32| / mean |f32| < 0.05), times it in
@@ -220,6 +222,22 @@ sm_90a, one process per source) and drives the port's paths:
   configs/base.yaml with a ``{"data": 1}`` mesh and phase 46's short run):
   it exits 0 and its metrics.jsonl has phase 46's fields. Each prints its
   wall seconds.
+- pipeline and sequence parallelism, at world 1 (the relay between ranks
+  runs on CPU gloo processes in the tests): phase 55 takes the seeded
+  vit_b_16 and cait_s_24 classifiers (bs128@224, bf16 compute, f32
+  parameters) to the stacked pipeline layout, loads them into
+  ``make_classifier_pipeline_apply`` on a one-rank ``{"data": 1, "pipe":
+  1}`` NCCL world and runs one ``shard_train_step`` with and one without
+  remat, each bit-equal in its loss, gradients and parameters to the
+  sequential step (12 + 12 K3/K4, or 24 + 24 K5 and K3, a step; remat
+  launches each block's forward kernels once more), timed in turns beside
+  the sequential step alone and through ``shard_train_step``, and takes
+  vit_b_16's state dict to the layout at 4 stages × 3 chunks and back,
+  bit-equal; phase 56 runs vit_b_16 with ``token_sharding`` on a one-rank
+  ``{"data": 1, "seq": 1}`` world (12 + 12 K2 a step, 12 K/V gathers a
+  forward), bit-equal to the ``force_unfused`` step and timed in turns
+  beside it, alone and through ``shard_train_step``. Each prints its wall
+  seconds.
 
 Every phase prints what it found; any failure raises and exits non-zero.
 Needs a CUDA card: without one it exits 1 and prints no result.
@@ -525,6 +543,12 @@ VOVNET_TRAIN = dict(model="vovnet57", batch=512, img=176, classes=1000, warmup=3
 # 224 px, (H = W, C, k, blocks), timed at batch 128
 EFFICIENTNET_TRAIN = dict(batch=128, img=224, classes=1000, warmup=3, steps=10, lr=0.1,
                           compare_batch=8)
+# phases 43-45 and 49 are host-bound (export, load, requests one operator
+# at a time): each served request is held once a batch and timed over 3,
+# and their train steps timed over 3 after 2 (every hold and launch count
+# is kept; the times are PERF.md §5's)
+LIGHT_SERVING = dict(repeats=1, timed=3)
+LIGHT_STEPS = dict(warmup=2, steps=3)
 EFFICIENTNET_KW = dict(stochastic_depth=0.2)
 EFFICIENTNET_DEPTHWISE = ((112, 32, 3, 1), (56, 144, 3, 1), (28, 240, 5, 1), (14, 480, 3, 2),
                           (14, 480, 5, 1), (14, 672, 5, 2), (7, 1152, 5, 3), (7, 1152, 3, 1))
@@ -2162,7 +2186,8 @@ def time_narrow_mlp(report: dict, name_power: str) -> None:
 def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int],
                    program_ops: dict[str, int], batches: tuple[int, ...], name_power: str,
                    layer_scale: float | None = None, model_kw: dict | None = None,
-                   per_batch: dict[int, dict[str, int]] | None = None) -> dict[str, int]:
+                   per_batch: dict[int, dict[str, int]] | None = None,
+                   **serving: int) -> dict[str, int]:
     """A seeded bf16 ``name`` (224 px, built with ``model_kw``; LayerScale
     γs spread around ``layer_scale`` where given; its output (B, width) or,
     for a convnet's feature map, (B, h, w, width)), eager at batch 8 through
@@ -2173,8 +2198,9 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
     served: export (the program calls each custom op of ``program_ops`` that
     many times, no backward op) → load → three requests at each of
     ``batches``, each against eager, a request at batch b launching
-    ``per_batch[b]`` where given (K2's pair test), else ``per_forward``.
-    Returns the served requests' launches."""
+    ``per_batch[b]`` where given (K2's pair test), else ``per_forward``
+    (``serving``: ``serve_program``'s ``repeats`` and ``timed``). Returns
+    the served requests' launches."""
     import vision_toolbox_tpu_torch as vtt
     from vision_toolbox_tpu_torch.ops import _cuda
 
@@ -2216,7 +2242,7 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
     del ref
 
     launches, rows, nodes, _ = serve_program(tag, model, program_ops, batches, images,
-                                             per_batch, width, name_power)
+                                             per_batch, width, name_power, **serving)
     report[key] = dict(launches_per_forward=counts, rel_l2_vs_plain=err, plain_vs_f32=own,
                        bound=bound_l2, requests=rows, program_nodes=nodes)
     return launches
@@ -2224,14 +2250,15 @@ def serve_backbone(report: dict, key: str, name: str, per_forward: dict[str, int
 
 def serve_program(tag: str, model: torch.nn.Module, program_ops: dict[str, int],
                   batches: tuple[int, ...], images: torch.Tensor,
-                  per_batch: dict[int, dict[str, int]], width: int, name_power: str):
+                  per_batch: dict[int, dict[str, int]], width: int, name_power: str,
+                  repeats: int = 3, timed: int = 10):
     """The serving half of ``serve_backbone``: export ``model`` (the program
     calls each custom op of ``program_ops`` that many times, no backward
-    op) → load → three requests at each of ``batches``, each within 1e-3
-    rel L2 of eager, a request at batch b launching exactly
-    ``per_batch[b]``; then each batch timed (10 requests). Returns (the
-    served requests' launches, the timed rows, the program's operator node
-    count, the loaded program)."""
+    op) → load → ``repeats`` requests at each of ``batches``, each within
+    1e-3 rel L2 of eager, a request at batch b launching exactly
+    ``per_batch[b]``; then each batch timed (``timed`` requests). Returns
+    (the served requests' launches, the timed rows, the program's operator
+    node count, the loaded program)."""
     import io
 
     from vision_toolbox_tpu_torch.ops import _cuda
@@ -2252,12 +2279,12 @@ def serve_program(tag: str, model: torch.nn.Module, program_ops: dict[str, int],
     with torch.inference_mode():
         eager = {b: model(images[:b]) for b in batches}
         _cuda.reset_launch_counts()
-        answers = {b: [served(images[:b]) for _ in range(3)] for b in batches}
+        answers = {b: [served(images[:b]) for _ in range(repeats)] for b in batches}
         torch.cuda.synchronize()
         launches = dict(_cuda.LAUNCHES)
-    n_forwards = 3 * len(batches)
+    n_forwards = repeats * len(batches)
     log(f"[{tag}] {n_forwards} requests at batch {batches}: launches {launches}")
-    expected = {k: sum(3 * per_batch[b][k] for b in batches) for k in NO_LAUNCHES}
+    expected = {k: sum(repeats * per_batch[b][k] for b in batches) for k in NO_LAUNCHES}
     if launches != expected:
         raise AssertionError(f"served path launched {launches}, expected {expected}")
     rows = []
@@ -2268,7 +2295,7 @@ def serve_program(tag: str, model: torch.nn.Module, program_ops: dict[str, int],
                     or not torch.isfinite(out.float()).all() or e > 1e-3:
                 raise AssertionError(f"served batch {b} disagrees with eager: rel L2 {e}")
         with torch.inference_mode():
-            ms = time_ms(lambda: served(images[:b]), iters=10)
+            ms = time_ms(lambda: served(images[:b]), iters=timed)
         rows.append(dict(batch=b, ms_per_batch=ms, rel_l2_vs_eager=e))
         log(f"[{tag}] batch {b:3d}: {ms:.3f} ms/batch ({b / ms * 1e3:.1f} img/s), "
             f"rel L2 vs eager {e:.2e}  [{name_power}]")
@@ -3351,13 +3378,13 @@ def efficientnet(report: dict, name_power: str) -> dict[str, int]:
 
     served = serve_backbone(report, "efficientnet_serve", "efficientnet_b0",
                             {"depthwise_conv": 12}, {"depthwise_conv2d": 12}, SERVE_BATCHES,
-                            name_power, model_kw=EFFICIENTNET_KW)
+                            name_power, model_kw=EFFICIENTNET_KW, **LIGHT_SERVING)
     watched = ("head.weight", "backbone.stem.conv.weight", "backbone.stages.0.0.dwconv.conv.weight",
                "backbone.stages.5.3.se.fc1.bias", "backbone.stages.6.0.project.conv.weight",
                "backbone.last_conv.norm.weight")
     per_step = NO_LAUNCHES | dict.fromkeys(("depthwise_conv", "depthwise_conv_bwd"), 12)
     launches = train_transformer(report, "efficientnet_train", "efficientnet_b0",
-                                 EFFICIENTNET_TRAIN, per_step, watched, name_power,
+                                 EFFICIENTNET_TRAIN | LIGHT_STEPS, per_step, watched, name_power,
                                  **EFFICIENTNET_KW)
     g, B, rows, sums, checks = torch.Generator().manual_seed(43), DEPTHWISE_TIME_BATCH, [], {}, \
         Checks()
@@ -3394,15 +3421,17 @@ def other_families(report: dict, name_power: str) -> None:
     bf16 step against an f32 one, printed); regnet_y_1_6gf and
     resnext50_32x4d served (no kernel)."""
     serve_backbone(report, "mobilenet_serve", "mobilenet_v3_large", {"depthwise_conv": 11},
-                   {"depthwise_conv2d": 11}, SERVE_BATCHES, name_power)
-    serve_backbone(report, "resnet50_serve", "resnet50", {}, {}, SERVE_BATCHES, name_power)
+                   {"depthwise_conv2d": 11}, SERVE_BATCHES, name_power, **LIGHT_SERVING)
+    serve_backbone(report, "resnet50_serve", "resnet50", {}, {}, SERVE_BATCHES, name_power,
+                   **LIGHT_SERVING)
     watched = ("head.weight", "backbone.stem.conv.weight",
                "backbone.layer1_block0.conv2.conv.weight",
                "backbone.layer4_block2.conv3.norm.bias")
-    train_transformer(report, "resnet50_train", "resnet50", RESNET_TRAIN, NO_LAUNCHES, watched,
-                      name_power)
+    train_transformer(report, "resnet50_train", "resnet50", RESNET_TRAIN | LIGHT_STEPS,
+                      NO_LAUNCHES, watched, name_power)
     for name in ("regnet_y_1_6gf", "resnext50_32x4d"):
-        serve_backbone(report, f"{name}_serve", name, {}, {}, SERVE_BATCHES, name_power)
+        serve_backbone(report, f"{name}_serve", name, {}, {}, SERVE_BATCHES, name_power,
+                       **LIGHT_SERVING)
 
 
 def necks_on_card(report: dict, name_power: str) -> dict[str, int]:
@@ -3973,7 +4002,8 @@ def loaded_and_served(report: dict, name_power: str, cache: Path) -> dict[str, d
     (exact launches; logits rel L2 to the plain path and to the CPU's f32
     plain path ≤ max(REL_L2_BOUND, 2 × the plain bf16 path's own distance
     from it)), then served (``serve_program``: 3 requests at batch 8,
-    vit_b_16 at 1, 8 and 32, each batch timed). Returns vit_b_16's and
+    vit_b_16 at 1, 8 and 32, each batch timed; LIGHT_SERVING's one request a
+    batch, timed over 3). Returns vit_b_16's and
     convnext_t's model, served program and f32 logits for phases 50-51."""
     import official_ckpts
 
@@ -4023,7 +4053,7 @@ def loaded_and_served(report: dict, name_power: str, cache: Path) -> dict[str, d
         batches = SERVE_BATCHES if name == "vit_b_16" else (LOADED_BATCH,)
         launches, rows, nodes, served = serve_program(
             tag, model, program_ops, batches, images, dict.fromkeys(batches, per_forward),
-            model.last_out_channels, name_power)
+            model.last_out_channels, name_power, **LIGHT_SERVING)
         report[f"loaded_{name}"] = dict(
             layout=layout, load_s=load_s, launches_per_forward=counts, rel_l2_vs_plain=err,
             rel_l2_vs_cpu_f32=err_f32, plain_vs_cpu_f32=own, bound=bound_l2, requests=rows,
@@ -4440,6 +4470,196 @@ def parallel_phases(report: dict, name_power: str, phase_s: dict) -> dict:
     return out
 
 
+# --- phases 55-56: the pipeline's stage path and sequence parallelism at world 1
+
+PIPE_TIMED = 5  # steps timed in each turn of phases 55-56, after 3
+PIPE_LAYOUT = dict(stages=4, interleave=3)  # phase 55's full-width layout round trip
+
+
+def grads_of(model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+            if p.grad is not None}
+
+
+def held_step(kind: str, state, step, images, labels, g) -> dict:
+    """One step of ``step`` from its seeded state (cuDNN deterministic):
+    the loss, every gradient and parameter, the launches, and a closure that
+    runs further steps for the timing."""
+    from vision_toolbox_tpu_torch.ops import _cuda
+
+    with deterministic_cudnn():
+        _cuda.reset_launch_counts()  # the main path: counts from 0 just before
+        loss = step(state, images, labels, g)["loss"]
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+    return dict(kind=kind, loss=loss, grads=grads_of(state.model), params=snapshot(state.model),
+                launches=launches, run=functools.partial(step, state, images, labels, g))
+
+
+def against(tag: str, runs: dict[str, dict], base: str) -> None:
+    """Each run's loss, gradients and parameters bit-equal to run ``base``'s."""
+    ref = runs[base]
+    for kind, r in runs.items():
+        if kind == base:
+            continue
+        grads, params = differing(ref["grads"], r["grads"]), differing(ref["params"], r["params"])
+        same_loss = torch.equal(ref["loss"], r["loss"])
+        log(f"[{tag}] {kind} vs {base}: loss {float(r['loss']):.6f} bit-equal {same_loss}; "
+            f"{len(grads)} of {len(ref['grads'])} gradients and {len(params)} of "
+            f"{len(ref['params'])} parameters differ {(grads + params)[:4]}; launches "
+            f"{r['launches']}")
+        if not same_loss or grads or params or r["grads"].keys() != ref["grads"].keys():
+            raise AssertionError(f"{tag}: {kind} differs from {base}: {(grads + params)[:8]}")
+
+
+def timed_in_turns(tag: str, runs: dict[str, dict], base: str, name_power: str) -> dict:
+    """The runs' steps timed in turns (a, b, …, …, b, a; PIPE_TIMED steps a
+    turn after 3, CUDA events), each beside ``base``'s."""
+    ms = {k: [] for k in runs}
+    for kind in (*runs, *reversed(runs)):
+        ms[kind].append(time_ms(runs[kind]["run"], iters=PIPE_TIMED))
+    out = {k: sum(v) / len(v) for k, v in ms.items()}
+    for kind, v in ms.items():
+        log(f"[{tag}] {kind}: {out[kind]:.2f} ms a step (CUDA events, {PIPE_TIMED} steps in each "
+            f"of two turns: {v[0]:.2f}, {v[1]:.2f}); / {base} {out[kind] / out[base]:.4f}  "
+            f"[{name_power}]")
+    return out
+
+
+def stage_path(report: dict, name_power: str) -> dict[str, dict[str, int]]:
+    """Phase 55: the pipeline's stage path on a one-rank ``{"data": 1,
+    "pipe": 1}`` NCCL world. For vit_b_16 (12 K3/K4 forward and backward a
+    step) and cait_s_24 (24 K5 and K3 forward and backward; LayerScale γs
+    spread around CAIT_TRAIN's 0.1) at bs128@224, bf16 compute and f32
+    parameters: the seeded classifier's state dict taken to the stacked
+    pipeline layout (``classifier_params_to_pipeline``) and loaded into
+    ``make_classifier_pipeline_apply``'s classifier (``load_pipeline_state``),
+    one ``shard_train_step`` with ``remat=False`` and one with ``remat=True``,
+    each bit-equal in its loss, every gradient and every updated parameter
+    to the sequential step on the same parameters, batch and draws, as is
+    the sequential classifier through ``shard_train_step`` (the DP step's
+    own cost, apart from the pipeline's); the launches exact (remat runs
+    each block's forward kernels once more); the four steps timed in
+    turns. Then vit_b_16's full-width state dict
+    to the pipeline layout at PIPE_LAYOUT and back, bit-equal. Returns each
+    pipelined run's launches."""
+    from vision_toolbox_tpu_torch.parallel import create_mesh
+    from vision_toolbox_tpu_torch.parallel.pipeline import (
+        classifier_params_from_pipeline, classifier_params_to_pipeline,
+        make_classifier_pipeline_apply, pipeline_block_prefix,
+    )
+    from vision_toolbox_tpu_torch.train import TrainState, sgd_with_param_groups, shard_train_step
+
+    mesh = create_mesh(("data", "pipe"), (1, 1))
+    if mesh.groups is None:
+        raise AssertionError("the mesh holds no process group")
+    out = {}
+    for name, cfg, per_block in (
+            ("vit_b_16", TP_FSDP, dict.fromkeys(BLOCK_KERNELS, 12)),
+            ("cait_s_24", CAIT_TRAIN, dict.fromkeys(
+                ("talking_head", "talking_head_bwd", "block_mlp", "block_mlp_bwd"), 24))):
+        tag = f"pipeline-{name}"
+        runs = {}
+        for kind in ("sequential", "sequential_sharded", "pipeline", "pipeline_remat"):
+            state, step, images, labels, g = vit_step_parts(name, cfg)
+            if kind == "sequential_sharded":  # the DP step's own cost, apart
+                step = shard_train_step(step, mesh)
+            elif kind != "sequential":
+                prefix = pipeline_block_prefix(state.model.backbone)
+                layout = classifier_params_to_pipeline(state.model.state_dict(), prefix)
+                model = make_classifier_pipeline_apply(state.model, mesh,
+                                                       remat=kind.endswith("remat"))
+                opt = sgd_with_param_groups(model, cfg["lr"], momentum=0.9, weight_decay=2e-5)
+                model.load_pipeline_state({"model": layout, "optimizer": opt.state_dict()}, opt)
+                state, step = TrainState(model, opt), shard_train_step(step, mesh)
+            runs[kind] = held_step(kind, state, step, images, labels, g)
+        against(tag, runs, "sequential")
+        forward = {k: n for k, n in per_block.items() if not k.endswith("_bwd")}
+        want = dict.fromkeys(("sequential", "sequential_sharded", "pipeline"),
+                             NO_LAUNCHES | per_block)
+        want["pipeline_remat"] = NO_LAUNCHES | {k: n + forward.get(k, 0)
+                                                for k, n in per_block.items()}
+        for kind, r in runs.items():
+            if r["launches"] != want[kind]:
+                raise AssertionError(f"{tag} {kind}: expected {want[kind]}, got {r['launches']}")
+        ms = timed_in_turns(tag, runs, "sequential", name_power)
+        report[f"pipeline_{name}"] = {k: dict(loss=float(r["loss"]), launches=r["launches"],
+                                              ms=ms[k]) for k, r in runs.items()}
+        out[name] = {k: runs[k]["launches"] for k in ("pipeline", "pipeline_remat")}
+        del runs
+        torch.cuda.empty_cache()
+
+    state, *_ = vit_step_parts("vit_b_16", TP_FSDP)
+    sd = state.model.state_dict()
+    layout = classifier_params_to_pipeline(sd, "blocks.", **PIPE_LAYOUT)
+    back = classifier_params_from_pipeline(layout, "blocks.", **PIPE_LAYOUT)
+    differ = differing(sd, back)
+    stacked = {k: tuple(v.shape) for k, v in layout.items() if k.startswith("backbone_stacked.")}
+    log(f"[pipeline-layout] vit_b_16 state dict ({len(sd)} tensors) to the pipeline layout at "
+        f"{PIPE_LAYOUT} ({len(stacked)} stacked entries, e.g. "
+        f"{next(iter(stacked.items()))}) and back: {len(differ)} differ")
+    if differ or back.keys() != sd.keys():
+        raise AssertionError(f"the pipeline layout does not round-trip: {differ[:8]}")
+    report["pipeline_layout"] = dict(tensors=len(sd), stacked=len(stacked), differing=len(differ))
+    return out
+
+
+def sequence_parallel(report: dict, name_power: str) -> dict[str, int]:
+    """Phase 56: vit_b_16 at bs128@224 (its default cls-token config, T =
+    197) with ``token_sharding`` over a one-rank ``{"data": 1, "seq": 1}``
+    NCCL world through ``shard_train_step``: the blocks on the module chain,
+    12 K2 forward and 12 backward a step, 12 K/V all-gathers and one token
+    gather a forward; one step bit-equal in its loss, every gradient and
+    every updated parameter to the ``force_unfused`` step (phase 37's
+    chain) from the same seeded state and draws, as is that step through
+    ``shard_train_step`` (the DP step's own cost); the three timed in turns.
+    Returns the token-sharded run's launches."""
+    from vision_toolbox_tpu_torch.parallel import create_mesh
+    from vision_toolbox_tpu_torch.parallel.mesh import GATHERS, TokenSharding
+    from vision_toolbox_tpu_torch.train import shard_train_step
+
+    mesh = create_mesh(("data", "seq"), (1, 1))
+    if mesh.groups is None:
+        raise AssertionError("the mesh holds no process group")
+    runs = {}
+    state, step, images, labels, g = vit_step_parts("vit_b_16", TP_FSDP, UNFUSED)
+    runs["force_unfused"] = held_step("force_unfused", state, step, images, labels, g)
+    state, step, images, labels, g = vit_step_parts("vit_b_16", TP_FSDP, UNFUSED)
+    runs["force_unfused_sharded"] = held_step("force_unfused_sharded", state,
+                                              shard_train_step(step, mesh), images, labels, g)
+    state, step, images, labels, g = vit_step_parts("vit_b_16", TP_FSDP,
+                                                    token_sharding=TokenSharding(mesh))
+    GATHERS.clear()
+    runs["token_sharded"] = held_step("token_sharded", state, shard_train_step(step, mesh),
+                                      images, labels, g)
+    gathers = dict(GATHERS)
+    against("seq-parallel", runs, "force_unfused")
+    per_step = NO_LAUNCHES | dict.fromkeys(("short_attention", "short_attention_bwd"), 12)
+    log(f"[seq-parallel] gathers in the token-sharded step: {gathers}")
+    for kind, r in runs.items():
+        if r["launches"] != per_step:
+            raise AssertionError(f"seq-parallel {kind}: expected {per_step}, got {r['launches']}")
+    if gathers != {"kv": 12, "tokens": 1}:
+        raise AssertionError(f"expected 12 K/V gathers and one token gather: {gathers}")
+    ms = timed_in_turns("seq-parallel", runs, "force_unfused", name_power)
+    report["seq_parallel"] = {k: dict(loss=float(r["loss"]), launches=r["launches"], ms=ms[k])
+                              for k, r in runs.items()} | {"gathers": gathers}
+    return runs["token_sharded"]["launches"]
+
+
+def slice22_phases(report: dict, name_power: str, phase_s: dict) -> dict:
+    """Phases 55-56 in one one-rank NCCL world, each timed."""
+    out = {}
+    with one_rank_world():
+        for key, phase in (("pipeline", stage_path), ("seq_parallel", sequence_parallel)):
+            t0 = time.perf_counter()
+            out[key] = phase(report, name_power)
+            torch.cuda.synchronize()
+            phase_s[key] = time.perf_counter() - t0
+            log(f"[{key}] phase wall {phase_s[key]:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -4642,9 +4862,14 @@ def main() -> int:
 
     # phases 52-54: the parallel axes at world 1 (DP, TP, FSDP, the launcher)
     parallel = parallel_phases(report, name_power, phase_s)
-    report["phase_s"] = phase_s
     log(f"[phases 52-54] {sum(phase_s[k] for k in ('dp', 'tp_fsdp', 'launched')):.1f} s "
         f"together; the script so far {time.perf_counter() - script_start:.1f} s")
+
+    # phases 55-56: the pipeline's stage path and sequence parallelism at world 1
+    slice22 = slice22_phases(report, name_power, phase_s)
+    report["phase_s"] = phase_s
+    log(f"[phases 55-56] {phase_s['pipeline'] + phase_s['seq_parallel']:.1f} s together; the "
+        f"script so far {time.perf_counter() - script_start:.1f} s")
 
     B8, B128, T = 8, VIT_TRAIN["batch"], 197
     cait = dict(T=CAIT_S["T"], S=CAIT_S["T"], H=CAIT_S["H"], D=CAIT_S["D"], x_bytes=2)
@@ -4685,6 +4910,15 @@ def main() -> int:
     for k in BLOCK_KERNELS:
         extra[k] = extra.get(k, {}) | {f"{kind}_step_launches": parallel["tp_fsdp"][kind][k]
                                        for kind in ("tp", "fsdp")}
+    # K3/K4/K5 on the pipeline's stage path (phase 55), K2 under token_sharding (phase 56)
+    for name, runs in slice22["pipeline"].items():
+        for kind, launches in runs.items():
+            for k, n in launches.items():
+                if n:
+                    extra[k] = extra.get(k, {}) | {f"{kind}_{name}_step_launches": n}
+    for k in ("short_attention", "short_attention_bwd"):
+        extra[k] = extra.get(k, {}) | {
+            "token_sharded_step_launches": slice22["seq_parallel"][k]}
     # K9 on the MBConv and BiFPN paths (slice 18): their launches, and the
     # kernel's time summed over efficientnet_b0's 12 calls at batch 128
     effnet = report["efficientnet_depthwise"]["per_step"]

@@ -181,11 +181,20 @@ class CaiT(Backbone):
         ``force_unfused`` keeps the MLP halves on the module chain;
         ``plain`` runs the kernels' plain versions instead of the kernels
         (for checking them on the card)."""
-        dt = self.compute_dtype
-        patches = self.patch_embed(as_dtype(x, dt)) + as_dtype(self.pe, dt)
+        patches = self._tokens(x)
         for block in self.sa_blocks:
             patches = block(patches, train, force_unfused=force_unfused, plain=plain,
                             generator=generator)
+        return self._pool(patches, train, generator)
+
+    def _tokens(self, x: Tensor) -> Tensor:
+        """NHWC image → (B, H·W, D) patch tokens + PE, in the compute type."""
+        dt = self.compute_dtype
+        return self.patch_embed(as_dtype(x, dt)) + as_dtype(self.pe, dt)
+
+    def _pool(self, patches: Tensor, train: bool = False,
+              generator: torch.Generator | None = None) -> Tensor:
+        """The class-attention stage over the patches, then the norm."""
         cls = as_dtype(self.cls_token, patches.dtype).expand(patches.shape[0], -1, -1)
         for block in self.ca_blocks:
             cls = block(patches, cls, train=train, generator=generator)

@@ -36,11 +36,8 @@ class DeiT(ViT):
                      for t in (self.cls_token, self.dist_token))
         return torch.cat([cls, dist, out], dim=1)
 
-    def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
-                plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
-        out = self._tokens(x)
-        for block in self.blocks:
-            out = block(out, train, force_unfused=force_unfused, plain=plain, generator=generator)
+    def _pool(self, out: Tensor, train: bool = False,
+              generator: torch.Generator | None = None) -> Tensor:
         return self.norm(out[:, :2]).mean(dim=1)
 
 

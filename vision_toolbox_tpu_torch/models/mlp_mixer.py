@@ -88,11 +88,18 @@ class MLPMixer(Backbone):
         """(B, H, W, 3) NHWC → (B, d). ``force_unfused`` keeps the channel
         halves on the module chain; ``plain`` runs the fused op's plain
         versions (for checking the kernels)."""
-        x = self.patch_embed(x)
-        x = x.reshape(x.shape[0], -1, self.d_model)
+        x = self._tokens(x)
         for block in self.blocks:
             x = block(x, train, force_unfused=force_unfused, plain=plain, generator=generator)
-        return self.norm(x).mean(1)
+        return self._pool(x)
+
+    def _tokens(self, x: Tensor) -> Tensor:
+        x = self.patch_embed(x)
+        return x.reshape(x.shape[0], -1, self.d_model)
+
+    def _pool(self, out: Tensor, train: bool = False,
+              generator: torch.Generator | None = None) -> Tensor:
+        return self.norm(out).mean(1)
 
     @property
     def last_out_channels(self) -> int:

@@ -10,7 +10,28 @@ embedding, PE and tokens are rounded to it at use, where flax's
 ``promote_dtype`` rounds them, and LayerNorms apply theirs in f32.
 ``resize_pe`` carries a position table to another image size (a 224 px
 table to a 512 px SigLIP model, T = 1024, whose attention runs the flash
-kernel). Not ported yet: ``token_sharding`` (sequence parallelism).
+kernel).
+
+``token_sharding`` (a ``parallel/mesh.TokenSharding``: the ``seq`` axis of
+a mesh of ranks, and its batch axis) is sequence parallelism, JAX's
+``token_sharding`` hook, which adds no parameter. Each rank embeds its
+batch rows, pads T with zero tokens to a multiple of the seq axis where it
+does not divide (a −1e9 key bias masks the pad, so that the padded
+attention is the unpadded one: JAX's ``_blocks``), keeps its slice of the
+tokens, runs the blocks on the module chain (JAX keeps them off the fused
+kernels when activations are sharded), all-gathers K and V over ``seq``
+around each attention, and gathers the tokens whole before the final norm
+and the pooling. The kernels' rules are decided on the unsharded shape,
+as JAX's GSPMD trace sees it (``ops/attention.py``): unbiased, a rank's
+attention is K2 with T/n queries over T keys; the padded cls-token config
+is biased and takes ``dense_attention``; at a seq axis of 1 the model
+computes the ``force_unfused`` model bit for bit. The parameters used
+before the token gather (the embedding and every block) get partial
+gradients on each rank, summed over ``seq`` by
+``parallel/sharding.reduce_gradients`` (``partial_gradients``); the norm
+and the pooler are used alike on every seq rank. Dropout under
+``token_sharding`` raises ``ValueError`` in training: JAX draws its masks
+for the padded global shape, which the port does not reproduce.
 """
 
 from __future__ import annotations
@@ -24,6 +45,7 @@ from torch import Tensor, nn
 from ..nn.attention import MHAPooling, ViTBlock
 from ..nn.initializers import normal, torch_default_bias, torch_default_kernel
 from ..nn.layers import LayerNorm, as_dtype
+from ..parallel.mesh import SeqShard, TokenSharding, gather_tokens
 from .base import Backbone, register_model, to_device
 
 POOL_TYPES = ("cls_token", "gap", "mha")
@@ -53,6 +75,7 @@ class ViT(Backbone):
         cls_token: bool = True, pool_type: str = "cls_token", bias: bool = True,
         mlp_ratio: float = 4.0, dropout: float = 0.0, layer_scale_init: float | None = None,
         stochastic_depth: float = 0.0, norm_eps: float = 1e-6, *,
+        token_sharding: TokenSharding | None = None,
         dtype: torch.dtype | None = None, device: torch.device | str = "cuda",
         generator: torch.Generator | None = None,
     ):
@@ -61,7 +84,8 @@ class ViT(Backbone):
             raise ValueError(f"unsupported pool_type {pool_type}")
         gen = torch.Generator().manual_seed(0) if generator is None else generator
         self.d_model, self.patch_size, self.img_size = d_model, patch_size, img_size
-        self.pool_type = pool_type
+        self.pool_type, self.dropout = pool_type, dropout
+        self.token_sharding = token_sharding
         self.compute_dtype = torch.float32 if dtype is None else dtype
 
         self.patch_embed = PatchEmbed(d_model, patch_size, generator=gen)
@@ -103,14 +127,55 @@ class ViT(Backbone):
         kernels through their plain PyTorch versions instead of the kernels
         (for checking the kernels on the card); ``generator`` feeds dropout
         and stochastic depth in training."""
-        out = self._tokens(x)
-        for block in self.blocks:
-            out = block(out, train, force_unfused=force_unfused, plain=plain, generator=generator)
+        out = self._blocks(self._tokens(x), train, force_unfused=force_unfused, plain=plain,
+                           generator=generator)
+        return self._pool(out, train, generator)
+
+    def _pool(self, out: Tensor, train: bool = False,
+              generator: torch.Generator | None = None) -> Tensor:
+        """The final norm and the pooling of (B, T, D) tokens."""
         if self.pool_type == "cls_token":
             return self.norm(out[:, 0])
         if self.pool_type == "gap":
             return self.norm(out).mean(dim=1)
         return self.pooler(self.norm(out), train=train, generator=generator)
+
+    def _blocks(self, x: Tensor, train: bool, **kw) -> Tensor:
+        """The blocks over (B, T, D) tokens; under ``token_sharding`` on this
+        rank's token slice, gathered whole after the last block."""
+        ts = self.token_sharding
+        if ts is None:
+            for block in self.blocks:
+                x = block(x, train, **kw)
+            return x
+        if train and self.dropout > 0:
+            raise ValueError("token_sharding draws no dropout masks (JAX draws them for the "
+                             f"padded global shape); got dropout={self.dropout} in training")
+        axis = ts.mesh.axis(ts.seq)
+        B, T, _ = x.shape
+        pad = -T % axis.size
+        bias = None
+        if pad:  # zero tokens, masked as keys: exp(s − 1e9) is 0.0 in float
+            x = F.pad(x, (0, 0, 0, pad))
+            bias = torch.where(torch.arange(T + pad, device=x.device) < T, 0.0,
+                               -1e9)[None, None, None, :]
+        n = (T + pad) // axis.size
+        x = x[:, axis.coord * n:(axis.coord + 1) * n]
+        seq = SeqShard(axis, B * (ts.mesh.axis_size(ts.batch) if ts.batch else 1), T + pad)
+        kw["force_unfused"] = True
+        for block in self.blocks:
+            x = block(x, train, attn_bias=bias, seq=seq, **kw)
+        return gather_tokens(x, axis, False, "tokens")[:, :T]
+
+    def partial_gradients(self) -> dict[str, list[nn.Parameter]]:
+        """Under ``token_sharding``: the parameters used before the token
+        gather, whose gradients each seq rank holds a part of (summed over
+        the axis by ``parallel/sharding.reduce_gradients``)."""
+        if self.token_sharding is None:
+            return {}
+        after = {id(p) for m in (self.norm, self.pooler) if m is not None
+                 for p in m.parameters()}
+        return {self.token_sharding.seq: [p for p in self.parameters() if id(p) not in after]}
 
     @property
     def last_out_channels(self) -> int:

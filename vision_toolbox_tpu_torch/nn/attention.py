@@ -29,6 +29,7 @@ from torch import Tensor, nn
 
 from ..ops import block_attention, block_mlp
 from ..ops.attention import dot_product_attention
+from ..parallel.mesh import SeqShard, gather_tokens
 from .layers import (
     LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, as_dtype, dropout,
 )
@@ -49,15 +50,23 @@ class MHA(nn.Module):
 
     def forward(self, q: Tensor, k: Tensor | None = None, v: Tensor | None = None, *,
                 attn_bias: Tensor | None = None, train: bool = False, plain: bool = False,
-                generator: torch.Generator | None = None) -> Tensor:
+                generator: torch.Generator | None = None, seq: SeqShard | None = None) -> Tensor:
         """``plain`` runs the attention kernels' plain PyTorch versions on any
-        device (for checking the kernels)."""
+        device (for checking the kernels). ``seq``: the tokens are this
+        rank's slice of a token-sharded sequence; K and V are all-gathered
+        over its axis (one collective), and the kernels are dispatched on
+        its unsharded shape."""
         k = q if k is None else k
         v = k if v is None else v
+        k, v = self._split(self.k_proj(k)), self._split(self.v_proj(v))
+        unsharded = None
+        if seq is not None:
+            k, v = gather_tokens(torch.cat([k, v], -1), seq.axis, True, "kv").chunk(2, -1)
+            unsharded = (seq.rows, seq.tokens)
         out = dot_product_attention(
-            self._split(self.q_proj(q)), self._split(self.k_proj(k)), self._split(self.v_proj(v)),
-            bias=attn_bias, dropout_rate=self.dropout if train else 0.0, generator=generator,
-            plain=plain,
+            self._split(self.q_proj(q)), k, v, bias=attn_bias,
+            dropout_rate=self.dropout if train else 0.0, generator=generator, plain=plain,
+            unsharded=unsharded,
         )
         return self.out_proj(out.reshape(*out.shape[:-2], self.d_model))
 
@@ -140,12 +149,15 @@ class ViTBlock(nn.Module):
         self.mlp_droppath = StochasticDepth(stochastic_depth)
 
     def forward(self, x: Tensor, train: bool = False, *, force_unfused: bool = False,
-                plain: bool = False, generator: torch.Generator | None = None) -> Tensor:
+                plain: bool = False, generator: torch.Generator | None = None,
+                attn_bias: Tensor | None = None, seq: SeqShard | None = None) -> Tensor:
         """``plain`` routes the fused halves and the attention kernels
         through their plain PyTorch versions (forward and backward) instead of
-        the kernels."""
+        the kernels. ``attn_bias`` and ``seq`` (sequence parallelism:
+        ``MHA``) reach the attention of the module chain; a block given
+        ``seq`` takes that chain."""
         g = generator
-        fused = x.ndim == 3 and not force_unfused
+        fused = x.ndim == 3 and not force_unfused and seq is None
         if self.custom_attention:
             y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g)
             if self.mha_scale is not None:
@@ -165,7 +177,8 @@ class ViTBlock(nn.Module):
                 eps=self.mha_norm.eps, plain=plain,
             )
         else:
-            y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g)
+            y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g,
+                         attn_bias=attn_bias, seq=seq)
             if self.mha_scale is not None:
                 y = self.mha_scale(y)
             x = x + self.mha_droppath(y, train=train, generator=g)

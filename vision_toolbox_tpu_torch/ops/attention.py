@@ -12,6 +12,12 @@ sequences to the flash kernel (K6, ``ops/flash_attention.py``); the rest to
 kernels' ops run their hand-written CUDA kernels on CUDA tensors and their
 plain versions on CPU tensors. With attention dropout, the JAX package's
 manual path below.
+
+The rules are decided on the unsharded attention, as JAX's GSPMD trace
+sees it: inside a sharded step the pair test counts the global batch (q's
+rows times the data axis's size, ``parallel/mesh.active_data_axis``), and
+a token-sharded ViT passes its unsharded batch and length (``unsharded``),
+so that n ranks run the kernels one process runs.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 from torch import Tensor
 
 from ..nn.layers import dropout
+from ..parallel.mesh import data_axis_size
 from .flash_attention import flash_attention, use_flash_attention
 from .short_attention import dense_attention, short_attention_packed, short_shape
 
@@ -27,20 +34,26 @@ from .short_attention import dense_attention, short_attention_packed, short_shap
 def dot_product_attention(
     q: Tensor, k: Tensor, v: Tensor, bias: Tensor | None = None, dropout_rate: float = 0.0,
     generator: torch.Generator | None = None, *, plain: bool = False,
+    unsharded: tuple[int, int] | None = None,
 ) -> Tensor:
-    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) operands. Attention
-    dropout draws its mask from ``generator``; ``plain`` runs the K2 and K6
-    kernels' plain versions on any device (for checking the kernels).
+    """softmax(q·kᵀ/√d + bias)·v on (B, T, N, H) q and (B, S, N, H) k, v.
+    Attention dropout draws its mask from ``generator``; ``plain`` runs the
+    K2 and K6 kernels' plain versions on any device (for checking the
+    kernels); ``unsharded`` is the (batch, query length) the kernels' rules
+    are decided on (by default q's length and its rows times the data
+    axis's size).
 
     Rounding points are the JAX package's: K2's (f32 p, ``short_attention``)
     and K6's where they run, ``dense_attention``'s elsewhere. With dropout,
     the JAX package's manual path: q·scale, the logits and the softmax in
     the input type."""
     B, T, N, H = q.shape
+    rows, t = unsharded or (B * data_axis_size(), T)
     if dropout_rate == 0.0:
-        if bias is None and short_shape(T, k.shape[1], H):
-            return short_attention_packed(q, k, v, plain=plain)
-        if use_flash_attention(T):
+        if bias is None and short_shape(t, k.shape[1], H):
+            pairs = None if (rows, t) == (B, T) else rows * N
+            return short_attention_packed(q, k, v, plain=plain, pairs=pairs)
+        if use_flash_attention(t):
             return flash_attention(q, k, v, bias, plain=plain)
         return dense_attention(q, k, v, bias)
     # manual path with attention dropout, in the input type (the scale too,

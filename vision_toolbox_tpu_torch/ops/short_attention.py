@@ -219,12 +219,23 @@ def _(q, k, v):
     return torch.empty_like(q)
 
 
-def short_attention_packed(q: Tensor, k: Tensor, v: Tensor, *, plain: bool = False) -> Tensor:
+def short_attention_packed(q: Tensor, k: Tensor, v: Tensor, *, plain: bool = False,
+                           pairs: int | None = None) -> Tensor:
     """K2 on (B, T, N, H) operands inside ``short_shape``: at ≥ MIN_PAIRS
     (batch·head) pairs the kernels, else ``dense_attention``. Returns
     (B, T, N, H) in q's type. Differentiable; ``plain`` runs the plain
-    PyTorch versions on any device (for checking the kernels)."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+    PyTorch versions on any device (for checking the kernels). ``pairs``:
+    the pair count of the unsharded attention, where the caller decides
+    the rule on a shape that is not q's (a data or sequence axis; the
+    shape terms are then the caller's, and q may hold a single token)."""
+    grad = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
+    if pairs is not None:
+        if pairs < MIN_PAIRS:
+            return dense_attention(q, k, v)
+        if grad:
+            return ShortAttentionFunction.apply(q, k, v, plain)
+        return (short_attention_plain if plain or not q.is_cuda else short_attention_cuda)(q, k, v)
+    if grad:
         B, T, N, H = q.shape
         if not use_short(T, k.shape[1], H, B * N):
             return dense_attention(q, k, v)

@@ -20,13 +20,24 @@ and no collective runs.
 
 ``data_parallel(mesh)`` marks the span of a sharded train step in which
 the modules see the data axis (``active_data_axis``): BatchNorm reduces its
-statistics over it (``nn/norm.py``), and dropout and drop-path draw their
+statistics over it (``nn/norm.py``), dropout and drop-path draw their
 masks for the global batch and keep this rank's rows (``draw_rows``), so a
-step on n ranks draws what the step on one process draws.
+step on n ranks draws what the step on one process draws, and the
+attention core decides its kernels' pair test on the global batch
+(``ops/attention.py``). ``local_rows()`` hides the data axis again, as
+JAX's ``shard_map`` shows each device its local rows: the pipeline's
+stages run inside it (``parallel/pipeline.py``).
+
+The pipeline and sequence parallelism add two kinds of collective:
+``exchange`` posts one schedule step's sends and receives between pipe
+neighbours as one batched call (NCCL matches point-to-point calls in
+order, so no posting order can deadlock), and ``gather_tokens`` all-gathers
+token slices over a ``seq`` axis (``TokenSharding``).
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import math
 import os
@@ -145,23 +156,41 @@ def batch_rows(mesh: Mesh, batch: int, axis: str = "data") -> slice:
     return slice(c * per, (c + 1) * per)
 
 
-_ACTIVE: list[Axis] = []
+_ACTIVE: list[Axis | None] = []
 
 
 @contextlib.contextmanager
-def data_parallel(mesh: Mesh, axis: str = "data") -> Iterator[None]:
-    """Within this block the modules see ``mesh``'s data axis
-    (``active_data_axis``)."""
-    _ACTIVE.append(mesh.axis(axis))
+def _active(axis: Axis | None) -> Iterator[None]:
+    _ACTIVE.append(axis)
     try:
         yield
     finally:
         _ACTIVE.pop()
 
 
+def data_parallel(mesh: Mesh, axis: str = "data"):
+    """Within this block the modules see ``mesh``'s data axis
+    (``active_data_axis``)."""
+    return _active(mesh.axis(axis))
+
+
+def local_rows():
+    """Within this block no data axis is seen: the modules work on the
+    rows they are given, as inside JAX's ``shard_map`` (the pipeline's
+    stages: K3/K4 round each microbatch's local weight gradient to bf16, and
+    the data axis is reduced once, after the step's backward)."""
+    return _active(None)
+
+
 def active_data_axis() -> Axis | None:
     """The data axis of the sharded step that is running, else None."""
     return _ACTIVE[-1] if _ACTIVE else None
+
+
+def data_axis_size() -> int:
+    """The size of the active data axis (1 outside a sharded step)."""
+    axis = active_data_axis()
+    return 1 if axis is None else axis.size
 
 
 def draw_rows(draw: Callable[[int], Tensor], batch: int) -> Tensor:
@@ -236,3 +265,80 @@ def rolled_rows(t: Tensor, axis: Axis | None) -> Tensor:
     rows = [torch.empty_like(last) for _ in range(axis.size)]
     dist.all_gather(rows, last, group=axis.group)
     return torch.cat([rows[(axis.coord - 1) % axis.size], t[:-1]])
+
+
+def exchange(axis: Axis, send: Tensor | None = None, recv: Tensor | None = None,
+             step: int = 1) -> None:
+    """One step of a ring relay over ``axis``: ``send`` goes to the rank
+    ``step`` coordinates on (around the ring) and ``recv`` is filled from the
+    rank ``step`` coordinates back, both posted in one ``batch_isend_irecv``
+    and waited on (``step=-1``: against the ring, the pipeline's backward).
+    A rank passes None for a message the schedule does not have; the
+    schedule makes every send meet its receive."""
+    peer = lambda k: dist.get_global_rank(axis.group, (axis.coord + k) % axis.size)
+    ops = []
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, send.contiguous(), peer(step), axis.group))
+    if recv is not None:
+        ops.append(dist.P2POp(dist.irecv, recv, peer(-step), axis.group))
+    for work in dist.batch_isend_irecv(ops) if ops else ():
+        work.wait()
+
+
+class TokenSharding(NamedTuple):
+    """(B, T, D) token activations split over ``mesh``'s ``seq`` axis along
+    the tokens and its ``batch`` axis along the rows: JAX's
+    ``NamedSharding(mesh, P("data", "seq"))`` for ``ViT.token_sharding``.
+    Ranks that differ only on ``seq`` hold the same rows."""
+
+    mesh: Mesh
+    seq: str = "seq"
+    batch: str | None = "data"
+
+
+class SeqShard(NamedTuple):
+    """One token-sharded attention as a rank sees it: the ``axis`` its K
+    and V are gathered over, and the unsharded (``rows``, ``tokens``) its
+    kernels' rules are decided on (what JAX's GSPMD trace sees)."""
+
+    axis: Axis
+    rows: int
+    tokens: int
+
+
+GATHERS: collections.Counter = collections.Counter()  # token all-gathers by kind, counted
+
+
+def _all_gather_dim1(t: Tensor, axis: Axis) -> Tensor:
+    parts = [torch.empty_like(t) for _ in range(axis.size)]
+    dist.all_gather(parts, t.contiguous(), group=axis.group)
+    return torch.cat(parts, dim=1)
+
+
+class _GatherTokens(torch.autograd.Function):
+    """All-gather along dim 1 over a seq axis. ``summed``: every rank's
+    use of the whole differs (K and V under each rank's queries), so the
+    backward sums the ranks' gradients, then keeps this rank's slice; else
+    every rank uses the whole alike (the tokens before the norm), so the
+    backward keeps the slice of its own gradient."""
+
+    @staticmethod
+    def forward(ctx, t: Tensor, axis: Axis, summed: bool) -> Tensor:
+        ctx.axis, ctx.summed, ctx.n = axis, summed, t.shape[1]
+        return _all_gather_dim1(t, axis)
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        axis = ctx.axis
+        if ctx.summed:  # gloo has no reduce-scatter: all-reduce, then slice
+            grad = grad.contiguous().clone()
+            dist.all_reduce(grad, group=axis.group)
+        return grad[:, axis.coord * ctx.n:(axis.coord + 1) * ctx.n], None, None
+
+
+def gather_tokens(t: Tensor, axis: Axis, summed: bool, kind: str) -> Tensor:
+    """``t`` (B, T/n, ...) gathered whole along dim 1 over ``axis`` (see
+    ``_GatherTokens`` for ``summed``); counted under ``kind`` in
+    ``GATHERS``."""
+    GATHERS[kind] += 1
+    return t if axis.group is None else _GatherTokens.apply(t, axis, summed)

@@ -260,13 +260,38 @@ def whole(t: Tensor, p: Tensor) -> Tensor:
     return t if s is None or s.group is None else _gather(t.detach(), s)
 
 
+def _sum_flat(params: list[Tensor], group) -> None:
+    """Sum the gradients of ``params`` over ``group`` in one flat buffer (a
+    missing gradient as a zero one)."""
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    flat = torch.cat([p.grad.reshape(-1) for p in params])
+    dist.all_reduce(flat, group=group)
+    for p, g in zip(params, flat.split([p.numel() for p in params])):
+        p.grad.copy_(g.view_as(p.grad))
+
+
 def reduce_gradients(model: nn.Module, mesh: Mesh, data_axis: str = "data") -> None:
-    """The global-batch mean of the gradients over the data axis (equal
-    local batches): one all-reduce, in one flat buffer, of every gradient
-    that was not summed in a gather's backward or reduced where it was made
-    (``parallel/mesh.grad_reduced``), then a division by the axis size of
-    every gradient that is not yet a mean. A parameter without a gradient
-    counts as a zero one, so that every rank reduces the same buffer."""
+    """The whole gradients, as their global-batch mean over the data axis
+    (equal local batches). First the partial ones: a module's
+    ``partial_gradients()`` names, per mesh axis, the parameters whose
+    gradient each rank of that axis holds a part of (a pipe axis's
+    replicated parameters, ``parallel/pipeline.py``; the tokens' parameters
+    under a ``seq`` axis, ``models/vit.py``), summed over it in one flat
+    buffer. Then one all-reduce over the data axis, in one flat buffer, of
+    every gradient that was not summed in a gather's backward or reduced
+    where it was made (``parallel/mesh.grad_reduced``), and a division by
+    the axis size of every gradient that is not yet a mean. A parameter
+    without a gradient counts as a zero one, so that every rank reduces the
+    same buffers."""
+    partial: dict[str, list[Tensor]] = {}
+    for m in model.modules():
+        for name, ps in getattr(m, "partial_gradients", dict)().items():
+            partial.setdefault(name, []).extend(ps)
+    for name, ps in partial.items():
+        if mesh.group(name) is not None and ps:
+            _sum_flat(ps, mesh.group(name))
     axis = mesh.axis(data_axis)
     if axis.group is None:
         return
@@ -278,10 +303,7 @@ def reduce_gradients(model: nn.Module, mesh: Mesh, data_axis: str = "data") -> N
     summed = [p for p in params
               if id(p) not in reduced and not (shard_of(p) and shard_of(p).reduce)]
     if summed:
-        flat = torch.cat([p.grad.reshape(-1) for p in summed])
-        dist.all_reduce(flat, group=axis.group)
-        for p, g in zip(summed, flat.split([p.numel() for p in summed])):
-            p.grad.copy_(g.view_as(p.grad))
+        _sum_flat(summed, axis.group)
     for p in params:
         if id(p) not in reduced:
             p.grad.div_(axis.size)

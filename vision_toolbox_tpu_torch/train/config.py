@@ -6,8 +6,8 @@ Mirrors the reference's LightningCLI contract (SURVEY.md §5.6): every field is
 a flag, later ``--config`` files override earlier ones, dotted CLI overrides
 (``--set train.lr=0.1``) beat files, and the final merged config is archived
 next to the checkpoints as ``saved_config.yaml``. The parallel fields
-(``mesh_shape`` with a ``pipe`` or ``model`` axis, ``param_sharding`` tp/fsdp,
-the pipeline's) still parse; the port's trainer refuses them
+(``mesh_shape`` with a ``data``, ``model`` or ``pipe`` axis,
+``param_sharding`` tp/fsdp, the pipeline's) drive the trainer's mesh
 (``train/trainer.py``).
 """
 

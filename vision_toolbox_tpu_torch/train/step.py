@@ -146,7 +146,11 @@ def shard_train_step(train_step, mesh: Mesh, data_axis: str = "data"):
     """``train_step`` (from ``make_train_step``) over ``mesh``: ``step(state,
     images, labels, generator=None, draws=None)`` takes this rank's rows of
     the global batch (``parallel/mesh.batch_rows``) and, where given, the
-    draws of the global batch. Every rank of the mesh calls it, in step."""
+    draws of the global batch. Every rank of the mesh calls it, in step.
+    Ranks that differ only on another axis (``model``, ``pipe``, ``seq``)
+    hold the same rows; the gradients that such an axis splits are summed
+    over it first (``reduce_gradients``: a pipeline's replicated rest, a
+    token-sharded ViT's embedding and blocks)."""
     axis = mesh.axis(data_axis)
 
     def step(state: TrainState, images: Tensor, labels: Tensor,

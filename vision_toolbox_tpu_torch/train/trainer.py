@@ -30,8 +30,23 @@ The port's choices:
   saved config, checkpoints (whole tensors, gathered by every rank),
   ``best/`` and the trackers; a SIGTERM stops every rank at the same step
   (a flag all-reduced after each step over a gloo group, on the host: no
-  device sync). A ``pipe`` axis above 1 and the device-resident store at a
-  world above 1 raise ``NotImplementedError``.
+  device sync); the eval runs inside the data axis, so that its attention
+  kernels are chosen for the global batch, as JAX's jitted eval sees it.
+  The device-resident store at a world above 1 raises
+  ``NotImplementedError``.
+- A ``pipe`` axis above 1 is pipeline parallelism (``parallel/pipeline.py``,
+  JAX's ``_setup_pipeline``): a stacked-transformer backbone
+  (ViT/DeiT/DeiT3/CaiT/MLP-Mixer) without dropout or drop-path, a ``data``
+  axis, replicated parameters, and ``runtime.pipeline_microbatches`` (0:
+  the first of 4S, 2S, S that splits the batch over the data axis; S,
+  S/2, 1 with ``runtime.pipeline_interleave`` above 1), each refused with
+  JAX's message otherwise. The model becomes a ``PipelineClassifier``
+  (each rank holds its own blocks and their optimizer state), trained and
+  evaluated through the pipeline (``runtime.pipeline_remat`` checkpoints
+  each layer). Its checkpoints are the pipeline layout, gathered whole to
+  rank 0; ``pipeline_stages`` and ``pipeline_interleave`` join the
+  checkpoint's metadata, and ``classifier_params_from_pipeline`` takes a
+  checkpoint's model to the layout the sequential model loads.
 """
 
 from __future__ import annotations
@@ -50,7 +65,7 @@ import torch.distributed as dist
 
 from ..models.base import create_backbone
 from ..ops import _cuda
-from ..parallel.mesh import batch_rows, create_mesh, world
+from ..parallel.mesh import batch_rows, create_mesh, data_parallel, world
 from ..parallel.sharding import shard_train_state
 from .classifier import ImageClassifier
 from .config import Config, _to_dict, save_config
@@ -63,8 +78,6 @@ from .step import (
     shard_train_step,
 )
 from .tracking import make_tracker
-
-NOT_PORTED = "not ported (ROADMAP Queue 1: pipeline parallelism, slice 22)"
 
 
 class SyntheticData:
@@ -95,9 +108,6 @@ def _build_mesh(cfg: Config):
     if rt.param_sharding not in ("replicated", "tp", "fsdp"):
         raise ValueError(f"runtime.param_sharding must be replicated|tp|fsdp, "
                          f"got {rt.param_sharding!r}")
-    pipe = int((rt.mesh_shape or {}).get("pipe", 1))
-    if pipe > 1:
-        raise NotImplementedError(f"runtime.mesh_shape axis 'pipe' of size {pipe}: {NOT_PORTED}")
     if rt.mesh_shape:
         return create_mesh(tuple(rt.mesh_shape), tuple(int(v) for v in rt.mesh_shape.values()))
     return create_mesh(rt.mesh_axes)
@@ -144,6 +154,9 @@ class Trainer:
         if self.device.type == "cuda" and self.device.index is None and self.world > 1:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.mesh = _build_mesh(cfg)
+        # pipeline parallelism: a "pipe" axis above 1 (parallel/pipeline.py)
+        self.pp_stages = int((cfg.runtime.mesh_shape or {}).get("pipe", 1))
+        self.pp_microbatches = 0
         # the preemption flag's group: gloo, on the host, so that its
         # all-reduce after each step waits on no device work
         self._flag_group = dist.new_group(backend="gloo") if self.world > 1 else None
@@ -154,6 +167,8 @@ class Trainer:
         backbone, self.backbone_overrides = _build_backbone(cfg, compute_dtype, self.device, gen)
         self.model = ImageClassifier(backbone, cfg.model.num_classes, dtype=compute_dtype,
                                      generator=gen)
+        if self.pp_stages > 1:
+            self.model = self._setup_pipeline()
 
         self._device_store = None
         self.feed = None  # the last epoch's DeviceFeed
@@ -213,7 +228,67 @@ class Trainer:
                               min_size=cfg.runtime.sharding_min_size)
 
     def _meta(self) -> dict:
-        return {"grad_accum_steps": self.grad_accum, "optimizer": self.cfg.train.optimizer.lower()}
+        return {"grad_accum_steps": self.grad_accum, "optimizer": self.cfg.train.optimizer.lower(),
+                "pipeline_stages": self.pp_stages,
+                "pipeline_interleave": self.cfg.runtime.pipeline_interleave}
+
+    def _setup_pipeline(self):
+        """Check that the config supports pipeline training (JAX's
+        ``_setup_pipeline``, its messages) and put the classifier on the
+        pipeline. Returns the ``PipelineClassifier``."""
+        from ..models.cait import CaiT
+        from ..models.deit import DeiT
+        from ..models.mlp_mixer import MLPMixer
+        from ..models.vit import ViT
+        from ..nn.layers import StochasticDepth
+        from ..nn.norm import BatchNorm, LinenBatchNorm
+        from ..parallel.pipeline import make_classifier_pipeline_apply
+
+        cfg = self.cfg
+        backbone = self.model.backbone
+        if "data" not in self.mesh.axis_names:
+            raise ValueError(
+                "pipeline parallelism needs a 'data' axis in runtime.mesh_shape "
+                "(size 1 is fine) — the batch is sharded over it"
+            )
+        if type(backbone) not in (ViT, DeiT, CaiT, MLPMixer):
+            raise ValueError(
+                "pipeline parallelism covers the stacked-transformer families "
+                f"ViT/DeiT/DeiT3/CaiT/MLP-Mixer; got {type(backbone).__name__}"
+            )
+        rates = {"dropout": max((getattr(m, "dropout", 0.0) for m in backbone.modules()),
+                                default=0.0),
+                 "stochastic_depth": max((m.p for m in backbone.modules()
+                                          if isinstance(m, StochasticDepth)), default=0.0)}
+        for f, rate in rates.items():
+            if rate:
+                raise ValueError(
+                    "pipeline stages carry no rng streams; set model.drop_out / "
+                    f"model.drop_path to 0 (backbone.{f}={rate})"
+                )
+        if any(isinstance(m, (BatchNorm, LinenBatchNorm)) for m in backbone.modules()):
+            raise ValueError("pipelined backbones must be norm-stat-free")
+        if cfg.runtime.param_sharding != "replicated":
+            raise ValueError(
+                "pipeline parallelism composes with data parallelism only; "
+                "set runtime.param_sharding=replicated"
+            )
+        S, dp, B = self.pp_stages, self.mesh.axis_size("data"), cfg.data.batch_size
+        v = cfg.runtime.pipeline_interleave
+        M = cfg.runtime.pipeline_microbatches
+        if not M:
+            # interleave caps M at S (collision-free window); plain GPipe
+            # prefers 4S for bubble amortization
+            candidates = (S, S // 2, 1) if v > 1 else (4 * S, 2 * S, S)
+            M = next((m for m in candidates if m and B % m == 0 and (B // m) % dp == 0), 0)
+            if not M:
+                raise ValueError(
+                    f"no feasible microbatch count for batch {B} over {S} stages "
+                    f"x dp={dp}; set runtime.pipeline_microbatches explicitly"
+                )
+        self.pp_microbatches = M
+        return make_classifier_pipeline_apply(self.model, self.mesh, num_microbatches=M,
+                                              remat=cfg.runtime.pipeline_remat, interleave=v)
 
     # ------------------------------------------------------------------
     @property
@@ -545,8 +620,9 @@ class Trainer:
         # whole val epoch runs with no host sync, ONE readback at the end,
         # after one all-reduce over the data axis
         acc = torch.zeros((4,), dtype=torch.float32, device=self.device)
-        for images, labels in self._val_batches():
-            acc = self.eval_step(self.state, images, labels, acc)
+        with data_parallel(self.mesh):
+            for images, labels in self._val_batches():
+                acc = self.eval_step(self.state, images, labels, acc)
         loss_sum, acc_sum, acc5_sum, total = self._all_reduce(acc, axis="data").tolist()
         if total == 0:
             return {}

@@ -8,7 +8,9 @@ Replaces the reference's formats (SURVEY.md §5.4):
       step, under ``<dir>/step_<n>/state.pt``, with ``vtt_meta.json`` beside
       it; whole tensors (a sharded parameter and its buffers gathered), so
       that a checkpoint of a tp or fsdp run restores into a replicated run
-      and the reverse, written by rank 0;
+      and the reverse, written by rank 0; a pipeline run's
+      (``parallel/pipeline.PipelineClassifier``) in the pipeline layout,
+      its blocks stacked whole (``pipeline_state``);
   (b) backbone-only .pth with sha-suffix naming (extras.py:112-128) →
       ``extract_backbone`` + ``save_params_pth`` (``{name}-{sha256[:8]}.pth``
       of the backbone's state dict, the ``backbone.`` prefix stripped as the
@@ -66,6 +68,8 @@ def whole_state(state: Any) -> dict:
     (``parallel/sharding.py``; collective: every rank calls it)."""
     from ..parallel.sharding import optimizer_buffers, whole
 
+    if hasattr(state.model, "pipeline_state"):
+        return state.model.pipeline_state(state.optimizer)
     params = dict(state.model.named_parameters())
     model = {k: whole(v, params[k]) if k in params else v
              for k, v in state.model.state_dict().items()}
@@ -106,8 +110,11 @@ def restore_train_state(ckpt_path: str, state: Any, expect_meta: dict | None = N
                     )
     device = next(state.model.parameters()).device
     payload = torch.load(os.path.join(path, STATE_FILE), map_location=device, weights_only=True)
-    state.model.load_state_dict(payload["model"])
-    state.optimizer.load_state_dict(payload["optimizer"])
+    if hasattr(state.model, "load_pipeline_state"):
+        state.model.load_pipeline_state(payload, state.optimizer)
+    else:
+        state.model.load_state_dict(payload["model"])
+        state.optimizer.load_state_dict(payload["optimizer"])
     state.step = int(payload["step"])
     return state
 
