@@ -520,12 +520,14 @@ def test_backbone_export(tmp_path):
 
 def test_profile_steps_trace(tmp_path):
     """runtime.profile_steps=2: a torch.profiler trace of steps 2 and 3,
-    written and logged, and closed."""
+    written and logged, and closed; each step is a ``vtt:step`` range in it
+    (utils/tracing.py)."""
     cfg = _cfg(tmp_path, steps=5)
     cfg.runtime.profile_steps = 2
     trainer = Trainer(cfg, device="cpu")
     trainer.fit()
     trace = tmp_path / "run" / "profile" / "trace.json"
-    assert trace.is_file() and json.loads(trace.read_text())["traceEvents"]
+    events = json.loads(trace.read_text())["traceEvents"]
+    assert events and [e.get("name") for e in events].count("vtt:step") == 2
     logged = [r["profile_trace"] for r in _records(cfg) if "profile_trace" in r]
     assert logged == [str(trace)] and trainer._profiler is None

@@ -23,6 +23,7 @@ from typing import Callable, Iterator
 import numpy as np
 import torch
 
+from ..utils import tracing
 from .datasets import ImageFolder, process_rank
 
 
@@ -124,10 +125,11 @@ class DeviceFeed:
     (``record_stream``), so the allocator keeps their memory until that
     stream's work is done. A page-locked buffer is written again only after
     the event of its last copy has completed. ``bytes_copied`` and
-    ``batches`` count what crossed to the card. On ``device="cpu"`` the
-    batches come back as tensors and nothing else happens; asked for
-    ``"cuda"`` without a card, it raises. An error in the producer is raised
-    in the consumer.
+    ``batches`` count what crossed to the card; the consumer's wait for a
+    staged batch is a ``feed_wait`` span (``utils/tracing.py``). On
+    ``device="cpu"`` the batches come back as tensors and nothing else
+    happens; asked for ``"cuda"`` without a card, it raises. An error in the
+    producer is raised in the consumer.
     """
 
     def __init__(self, it: Iterator, device: torch.device | str = "cuda", size: int = 2):
@@ -202,7 +204,8 @@ class DeviceFeed:
         thread.start()
         try:
             while True:
-                batch, out, event = q.get()
+                with tracing.span("feed_wait"):
+                    batch, out, event = q.get()
                 if batch is done:
                     if out is not None:
                         raise RuntimeError("prefetch_to_device: the host loader failed") from out

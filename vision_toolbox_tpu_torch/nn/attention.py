@@ -17,7 +17,8 @@ as the JAX package leaves them to XLA on that chain. Parameters are
 float32; ``dtype`` is the compute type, to which they are rounded at use
 where the JAX package promotes them (LayerNorms apply theirs in f32 on the
 unfused path, as flax does). Dropout, attention dropout and stochastic depth draw from the
-``generator`` threaded through ``forward``.
+``generator`` threaded through ``forward``. A ``ViTBlock``'s forward runs inside a
+``block`` span (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from torch import Tensor, nn
 from ..ops import block_attention, block_mlp
 from ..ops.attention import dot_product_attention
 from ..parallel.mesh import SeqShard, gather_tokens
+from ..utils import tracing
 from .layers import (
     LayerNorm, LayerScale, Linear, StochasticDepth, _gelu_exact, as_dtype, dropout,
 )
@@ -156,43 +158,44 @@ class ViTBlock(nn.Module):
         the kernels. ``attn_bias`` and ``seq`` (sequence parallelism:
         ``MHA``) reach the attention of the module chain; a block given
         ``seq`` takes that chain."""
-        g = generator
-        fused = x.ndim == 3 and not force_unfused and seq is None
-        if self.custom_attention:
-            y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g)
-            if self.mha_scale is not None:
-                y = self.mha_scale(y)
-            x = x + self.mha_droppath(y, train=train, generator=g)
-        elif (fused and float_linears(self.mha.q_proj, self.mha.k_proj, self.mha.v_proj,
-                                      self.mha.out_proj)
-              and block_attention.use_fused_attention(
-                  self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias)):
-            a, dt = self.mha, x.dtype
-            wb = [t for proj in (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
-                  for t in (proj.weight, as_dtype(proj.bias, dt))]
-            x = block_attention.fused_attention_block(
-                x, self.mha_norm.weight.to(dt), self.mha_norm.bias.to(dt), *wb, self.n_heads,
-                None if self.mha_scale is None else as_dtype(self.mha_scale.gamma, dt),
-                self.mha_droppath.sample_scale(x.shape[0], train, g, device=x.device),
-                eps=self.mha_norm.eps, plain=plain,
-            )
-        else:
-            y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g,
-                         attn_bias=attn_bias, seq=seq)
-            if self.mha_scale is not None:
-                y = self.mha_scale(y)
-            x = x + self.mha_droppath(y, train=train, generator=g)
+        with tracing.span("block"):
+            g = generator
+            fused = x.ndim == 3 and not force_unfused and seq is None
+            if self.custom_attention:
+                y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g)
+                if self.mha_scale is not None:
+                    y = self.mha_scale(y)
+                x = x + self.mha_droppath(y, train=train, generator=g)
+            elif (fused and float_linears(self.mha.q_proj, self.mha.k_proj, self.mha.v_proj,
+                                          self.mha.out_proj)
+                  and block_attention.use_fused_attention(
+                      self.d_model, self.n_heads, x.shape[1], self.dropout, self.bias)):
+                a, dt = self.mha, x.dtype
+                wb = [t for proj in (a.q_proj, a.k_proj, a.v_proj, a.out_proj)
+                      for t in (proj.weight, as_dtype(proj.bias, dt))]
+                x = block_attention.fused_attention_block(
+                    x, self.mha_norm.weight.to(dt), self.mha_norm.bias.to(dt), *wb, self.n_heads,
+                    None if self.mha_scale is None else as_dtype(self.mha_scale.gamma, dt),
+                    self.mha_droppath.sample_scale(x.shape[0], train, g, device=x.device),
+                    eps=self.mha_norm.eps, plain=plain,
+                )
+            else:
+                y = self.mha(self.mha_norm(x), train=train, plain=plain, generator=g,
+                             attn_bias=attn_bias, seq=seq)
+                if self.mha_scale is not None:
+                    y = self.mha_scale(y)
+                x = x + self.mha_droppath(y, train=train, generator=g)
 
-        if (fused and float_linears(self.mlp.linear1, self.mlp.linear2)
-                and block_mlp.use_fused_mlp(self.d_model, self.hidden, x.shape[1], self.dropout,
-                                            has_ls=self.mlp_scale is not None)):
-            return fused_mlp_halfblock(x, self.mlp_norm, self.mlp.linear1, self.mlp.linear2,
-                                       self.mlp_scale, self.mlp_droppath, train=train,
-                                       plain=plain, generator=g)
-        y = self.mlp(self.mlp_norm(x), train=train, generator=g)
-        if self.mlp_scale is not None:
-            y = self.mlp_scale(y)
-        return x + self.mlp_droppath(y, train=train, generator=g)
+            if (fused and float_linears(self.mlp.linear1, self.mlp.linear2)
+                    and block_mlp.use_fused_mlp(self.d_model, self.hidden, x.shape[1],
+                                                self.dropout, has_ls=self.mlp_scale is not None)):
+                return fused_mlp_halfblock(x, self.mlp_norm, self.mlp.linear1, self.mlp.linear2,
+                                           self.mlp_scale, self.mlp_droppath, train=train,
+                                           plain=plain, generator=g)
+            y = self.mlp(self.mlp_norm(x), train=train, generator=g)
+            if self.mlp_scale is not None:
+                y = self.mlp_scale(y)
+            return x + self.mlp_droppath(y, train=train, generator=g)
 
 
 class MHAPooling(nn.Module):

@@ -10,7 +10,9 @@ here runs at import: the CPU tests import every module on machines that
 have neither ``nvcc`` nor a card.
 
 ``LAUNCHES`` counts, per kernel, the wrapper calls that launched it, so a
-run can show that its main path went through the kernels.
+run can show that its main path went through the kernels; it is the
+``launches`` section of the counters' registry (``utils/tracing.py``), and a
+build counts in its ``kernel_builds`` and runs inside a ``build`` span.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils import tracing
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = CSRC / "_build"
 NVCC_FLAGS = (
@@ -33,13 +37,13 @@ NVCC_FLAGS = (
 )
 LIB_NAME = "libvtt_kernels.so"
 
-LAUNCHES: dict[str, int] = {
-    "block_mlp": 0, "block_attention": 0, "block_mlp_bwd": 0, "block_attention_bwd": 0,
-    "warp_shear3": 0, "talking_head": 0, "talking_head_bwd": 0, "flash_attention": 0,
-    "flash_attention_bwd": 0, "depthwise_conv": 0, "depthwise_conv_bwd": 0,
-    "swin_attention": 0, "swin_attention_bwd": 0, "swin_partition": 0, "swin_unpartition": 0,
-    "short_attention": 0, "short_attention_bwd": 0,
-}
+LAUNCHES: dict[str, int] = tracing.section("launches", (
+    "block_mlp", "block_attention", "block_mlp_bwd", "block_attention_bwd",
+    "warp_shear3", "talking_head", "talking_head_bwd", "flash_attention",
+    "flash_attention_bwd", "depthwise_conv", "depthwise_conv_bwd",
+    "swin_attention", "swin_attention_bwd", "swin_partition", "swin_unpartition",
+    "short_attention", "short_attention_bwd",
+))
 
 _lib: ctypes.CDLL | None = None
 
@@ -202,6 +206,13 @@ def library_path() -> Path:
     out = BUILD_ROOT / _digest() / LIB_NAME
     if out.exists():
         return out
+    tracing.count("kernel_builds")
+    with tracing.span("build"):
+        _build(out)
+    return out
+
+
+def _build(out: Path) -> None:
     out.parent.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), os.getpid()
     tmp = out.with_name(f"{LIB_NAME}.{tag}.tmp")
@@ -239,7 +250,6 @@ def library_path() -> Path:
     if errors:
         raise RuntimeError("nvcc failed:\n" + "\n".join(errors))
     os.replace(tmp, out)  # atomic: concurrent builders never load a partial file
-    return out
 
 
 def lib() -> ctypes.CDLL:

@@ -13,8 +13,8 @@ area; RandomErasing draws one box per image and fills it with N(0, 1) noise.
 Per-batch scalars (coin, λ, box centre) are drawn on the host: PyTorch's
 Beta and Gamma samplers take no generator, so a numpy ``Generator`` seeded
 from the step's generator draws them (on a CUDA generator that seed is one
-device-to-host read per step). Images are NHWC; labels are int class ids or
-already-one-hot float arrays.
+device-to-host read per step, counted in ``tracing``'s ``host_syncs``).
+Images are NHWC; labels are int class ids or already-one-hot float arrays.
 """
 
 from __future__ import annotations
@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from ..parallel.mesh import active_data_axis, rolled_rows
+from ..utils import tracing
 
 
 def one_hot_labels(labels: Tensor, num_classes: int, dtype: torch.dtype = torch.float32) -> Tensor:
@@ -37,9 +38,10 @@ def one_hot_labels(labels: Tensor, num_classes: int, dtype: torch.dtype = torch.
 
 
 def host_rng(generator: torch.Generator) -> np.random.Generator:
-    """A numpy generator seeded from ``generator`` (one draw from it)."""
+    """A numpy generator seeded from ``generator`` (one draw from it; on a
+    CUDA generator the host waits for the device to read it: a ``sync``)."""
     seed = torch.randint(0, 2**62, (1,), generator=generator, device=generator.device)
-    return np.random.default_rng(int(seed.item()))
+    return np.random.default_rng(int(tracing.to_host(seed)[0]))
 
 
 class MixDraws(NamedTuple):

@@ -23,6 +23,8 @@
   k micro-steps.
 - Linear warmup then cosine annealing, per epoch (``epoch_granularity``) or
   per step, evaluated in float32 as the JAX schedule is.
+- ``step`` and ``zero_grad`` run inside an ``optim`` span
+  (``utils/tracing.py``).
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ import torch.distributed as dist
 from torch import Tensor, nn
 
 from ..parallel.sharding import shard_of
+from ..utils import tracing
 
 GROUPS = ("other", "norm", "bias")
 
@@ -101,9 +104,10 @@ class GroupedOptimizer:
             setattr(self, name, None)
 
     def zero_grad(self) -> None:
-        for _, ps in self.groups:
-            for p in ps:
-                p.grad = None
+        with tracing.span("optim"):
+            for _, ps in self.groups:
+                for p in ps:
+                    p.grad = None
 
     def current_lr(self) -> float:
         """The learning rate of the next update (the count before it, as
@@ -113,11 +117,12 @@ class GroupedOptimizer:
 
     @torch.no_grad()
     def step(self) -> None:
-        lr = self.current_lr()
-        for i, (wd, ps) in enumerate(self.groups):
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
-            self._update(i, wd, ps, grads, lr)
-        self.count += 1
+        with tracing.span("optim"):
+            lr = self.current_lr()
+            for i, (wd, ps) in enumerate(self.groups):
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
+                self._update(i, wd, ps, grads, lr)
+            self.count += 1
 
     def _update(self, i: int, wd: float, ps: list[Tensor], grads: list[Tensor],
                 lr: float) -> None:
@@ -323,21 +328,22 @@ class MultiSteps:
 
     @torch.no_grad()
     def step(self) -> None:
-        if self.acc is None:
-            self.acc = [[torch.zeros_like(p) for p in ps] for _, ps in self.groups]
-        for acc, (_, ps) in zip(self.acc, self.groups):
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
-            delta = torch._foreach_sub(grads, acc)
-            torch._foreach_div_(delta, self.mini_step + 1)
-            torch._foreach_add_(acc, delta)
-        if self.mini_step == self.every_k - 1:
+        with tracing.span("optim"):
+            if self.acc is None:
+                self.acc = [[torch.zeros_like(p) for p in ps] for _, ps in self.groups]
             for acc, (_, ps) in zip(self.acc, self.groups):
-                for p, a in zip(ps, acc):
-                    p.grad = a
-            self.inner.step()
-            self.inner.zero_grad()
-            self.acc = None
-        self.mini_step = (self.mini_step + 1) % self.every_k
+                grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in ps]
+                delta = torch._foreach_sub(grads, acc)
+                torch._foreach_div_(delta, self.mini_step + 1)
+                torch._foreach_add_(acc, delta)
+            if self.mini_step == self.every_k - 1:
+                for acc, (_, ps) in zip(self.acc, self.groups):
+                    for p, a in zip(ps, acc):
+                        p.grad = a
+                self.inner.step()
+                self.inner.zero_grad()
+                self.acc = None
+            self.mini_step = (self.mini_step + 1) % self.every_k
 
     def state_dict(self) -> dict:
         return {"mini_step": self.mini_step, "acc": self.acc, "inner": self.inner.state_dict()}

@@ -25,6 +25,11 @@ of the global batch, one row crossing each rank boundary
 gradients are all-reduced to the global mean over the data axis and the
 reported loss is the global one. The device-resident step stays
 single-process.
+
+A step marks its parts with ``utils/tracing.py`` spans: ``draws``, ``input``
+(the gather, crop, augmentation and mix), ``forward`` (the model and the
+loss), ``backward`` and, in ``shard_train_step``, ``allreduce``; the
+optimizer marks ``optim`` itself.
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..ops.device_rrc import RRCDraws, crop_resize_flip, sample_rrc
 from ..ops.trivial_augment import TADraws, sample_trivial_augment, trivial_augment_wide_apply
 from ..parallel.mesh import Mesh, data_parallel
 from ..parallel.sharding import reduce_gradients
+from ..utils import tracing
 from .classifier import cross_entropy
 from .optim import GroupedOptimizer, MultiSteps
 
@@ -90,27 +96,29 @@ def make_train_step(
 
     def sample_draws(generator: torch.Generator, shape: tuple[int, int, int, int]) -> StepDraws:
         B, H, W, _ = shape
-        return StepDraws(
-            ta=sample_trivial_augment(generator, B) if trivial_augment else None,
-            erase=(sample_random_erasing(generator, shape, random_erasing_p)
-                   if random_erasing_p > 0 else None),
-            mix=(sample_mix(host_rng(generator), H, W, cutmix_alpha, mixup_alpha)
-                 if mix else None),
-        )
+        with tracing.span("draws"):
+            return StepDraws(
+                ta=sample_trivial_augment(generator, B) if trivial_augment else None,
+                erase=(sample_random_erasing(generator, shape, random_erasing_p)
+                       if random_erasing_p > 0 else None),
+                mix=(sample_mix(host_rng(generator), H, W, cutmix_alpha, mixup_alpha)
+                     if mix else None),
+            )
 
     def augment(images: Tensor, labels: Tensor, draws: StepDraws) -> tuple[Tensor, Tensor]:
         """The step's input pipeline: (images in compute dtype, soft targets)."""
-        if images.dtype == torch.uint8:
-            images = images.float() / 255.0
-        if trivial_augment:
-            images = trivial_augment_wide_apply(images.float(), draws.ta)
-        if random_erasing_p > 0:
-            images = random_erasing(images.float(), draws.erase)
-        images = images.to(compute_dtype)
-        targets = one_hot_labels(labels.to(images.device), num_classes)
-        if mix:
-            images, targets = cutmix_mixup(images, targets, draws.mix)
-        return images, targets
+        with tracing.span("input"):
+            if images.dtype == torch.uint8:
+                images = images.float() / 255.0
+            if trivial_augment:
+                images = trivial_augment_wide_apply(images.float(), draws.ta)
+            if random_erasing_p > 0:
+                images = random_erasing(images.float(), draws.erase)
+            images = images.to(compute_dtype)
+            targets = one_hot_labels(labels.to(images.device), num_classes)
+            if mix:
+                images, targets = cutmix_mixup(images, targets, draws.mix)
+            return images, targets
 
     def train_step(state: TrainState, images: Tensor, labels: Tensor,
                    generator: torch.Generator | None = None,
@@ -122,9 +130,11 @@ def make_train_step(
         images, targets = augment(images, labels, draws)
 
         state.optimizer.zero_grad()
-        logits = state.model(images, train=True, generator=generator)
-        loss = cross_entropy(logits, targets, label_smoothing)
-        loss.backward()
+        with tracing.span("forward"):
+            logits = state.model(images, train=True, generator=generator)
+            loss = cross_entropy(logits, targets, label_smoothing)
+        with tracing.span("backward"):
+            loss.backward()
         state.optimizer.step()
         state.step += 1
         return {"loss": loss.detach()}
@@ -165,17 +175,21 @@ def shard_train_step(train_step, mesh: Mesh, data_axis: str = "data"):
         state.optimizer.zero_grad()
         with data_parallel(mesh, data_axis):
             images, targets = train_step.augment(images, labels, draws)
-            logits = state.model(images, train=True, generator=generator)
-            loss = cross_entropy(logits, targets, train_step.label_smoothing)
-            loss.backward()
-        reduce_gradients(state.model, mesh, data_axis)
+            with tracing.span("forward"):
+                logits = state.model(images, train=True, generator=generator)
+                loss = cross_entropy(logits, targets, train_step.label_smoothing)
+            with tracing.span("backward"):
+                loss.backward()
+        with tracing.span("allreduce"):
+            reduce_gradients(state.model, mesh, data_axis)
         state.optimizer.step()
         state.step += 1
         loss = loss.detach()
         if axis.group is not None:
-            loss = loss.clone()
-            torch.distributed.all_reduce(loss, group=axis.group)
-            loss = loss / axis.size
+            with tracing.span("allreduce"):
+                loss = loss.clone()
+                torch.distributed.all_reduce(loss, group=axis.group)
+                loss = loss / axis.size
         return {"loss": loss}
 
     return step
@@ -212,22 +226,24 @@ def make_device_data_train_step(
 
     def sample_draws(generator: torch.Generator, batch: int, src_h: int,
                      src_w: int) -> DeviceStepDraws:
-        rrc = sample_rrc(generator, batch, src_h, src_w, rrc_scale, rrc_ratio, hflip_p)
-        shape = (batch, crop_size, crop_size, 3)
-        return DeviceStepDraws(rrc, inner.sample_draws(generator, shape))
+        with tracing.span("draws"):
+            rrc = sample_rrc(generator, batch, src_h, src_w, rrc_scale, rrc_ratio, hflip_p)
+            shape = (batch, crop_size, crop_size, 3)
+            return DeviceStepDraws(rrc, inner.sample_draws(generator, shape))
 
     def step(state: TrainState, store_images: Tensor, store_labels: Tensor, idx: Tensor,
              generator: torch.Generator | None = None,
              draws: DeviceStepDraws | None = None) -> dict[str, Tensor]:
-        idx = idx.to(store_images.device, torch.long)
-        images = store_images.index_select(0, idx).float() / 255.0
-        labels = store_labels.index_select(0, idx)
         if draws is None:
             if generator is None:
                 raise ValueError("the train step needs a torch.Generator or explicit draws")
             _, H, W, _ = store_images.shape
             draws = sample_draws(generator, idx.shape[0], H, W)
-        images = crop_resize_flip(images, *draws.rrc, crop_size)
+        with tracing.span("input"):
+            idx = idx.to(store_images.device, torch.long)
+            images = store_images.index_select(0, idx).float() / 255.0
+            labels = store_labels.index_select(0, idx)
+            images = crop_resize_flip(images, *draws.rrc, crop_size)
         return inner(state, images, labels, generator, draws.step)
 
     step.sample_draws = sample_draws

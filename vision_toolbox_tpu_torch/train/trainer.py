@@ -16,7 +16,9 @@ The port's choices:
   step count into its key: a resumed run draws what an unbroken run draws,
   and no generator state is checkpointed.
 - ``metrics.jsonl`` is truncated on a fresh start and appended to only when
-  ``runtime.resume`` is set.
+  ``runtime.resume`` is set. An epoch's record carries the counters
+  (``utils/tracing.py``) that its steps moved: ``launches/<kernel>``,
+  ``host_syncs``, ``kernel_builds``.
 - Parallel runs: one rank is one process on one device, under a launcher
   (``torchrun``; ``parallel/mesh.init_process_group``), and the mesh
   (``runtime.mesh_shape``, else ``runtime.mesh_axes`` over the world) spans
@@ -64,9 +66,9 @@ import torch
 import torch.distributed as dist
 
 from ..models.base import create_backbone
-from ..ops import _cuda
 from ..parallel.mesh import batch_rows, create_mesh, data_parallel, world
 from ..parallel.sharding import shard_train_state
+from ..utils import tracing
 from .classifier import ImageClassifier
 from .config import Config, _to_dict, save_config
 from .optim import MultiSteps, make_optimizer, warmup_cosine_schedule
@@ -323,7 +325,7 @@ class Trainer:
         if self.distributed and steps:
             # every rank runs the same number of steps, or the collectives hang
             n = torch.tensor([steps], dtype=torch.float32, device=self.device)
-            steps = int(self._all_reduce(n, dist.ReduceOp.MIN).item())
+            steps = int(tracing.to_host(self._all_reduce(n, dist.ReduceOp.MIN))[0])
         return train, val, steps
 
     def _build_loaders(self):
@@ -460,7 +462,8 @@ class Trainer:
             # a fresh start truncates the log; only a resume appends to it
             mode = "a" if self.cfg.runtime.resume else "w"
             self._log_file = open(os.path.join(self.cfg.runtime.out_dir, "metrics.jsonl"), mode)
-        record = {k: (float(v) if hasattr(v, "item") else v) for k, v in record.items()}
+        record = {k: (float(tracing.to_host(v)) if isinstance(v, torch.Tensor)
+                      else float(v) if hasattr(v, "item") else v) for k, v in record.items()}
         self._log_file.write(json.dumps(record) + "\n")
         self._log_file.flush()
         if "step" in record:
@@ -479,11 +482,12 @@ class Trainer:
         its own step's draws. ``batch`` is (images, labels) on the device,
         or (idx,) with the device-resident store."""
         for _ in range(max(1, self.cfg.data.echo)):
-            g = self.step_generator(self.state.step)
-            if self._device_store is not None:
-                metrics = self.train_step(self.state, *self._device_store, batch[0], g)
-            else:
-                metrics = self.train_step(self.state, batch[0], batch[1], g)
+            with tracing.span("step"):
+                g = self.step_generator(self.state.step)
+                if self._device_store is not None:
+                    metrics = self.train_step(self.state, *self._device_store, batch[0], g)
+                else:
+                    metrics = self.train_step(self.state, batch[0], batch[1], g)
         return metrics
 
     def _train_feed(self):
@@ -532,7 +536,8 @@ class Trainer:
     def _profile(self, step: int) -> None:
         """``runtime.profile_steps``: a torch.profiler trace of that many
         steps from step 2 (past the first steps' kernel builds and cuDNN
-        choices), written to <out_dir>/profile/trace.json."""
+        choices), written to <out_dir>/profile/trace.json; a step's ``vtt:``
+        spans (``utils/tracing.py``) are ranges of that trace."""
         n = self.cfg.runtime.profile_steps
         if not n:
             return
@@ -564,7 +569,7 @@ class Trainer:
         # mid-epoch preemption checkpoint restarts its epoch from the top.
         start_epoch = min(self.state.step // max(1, self.steps_per_epoch), cfg.train.epochs)
         for epoch in range(start_epoch, cfg.train.epochs):
-            launches = dict(_cuda.LAUNCHES)
+            counters = tracing.snapshot()
             if self.device.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(self.device)
             t0 = time.time()
@@ -599,9 +604,9 @@ class Trainer:
             record = {"epoch": epoch, "epoch_time_s": dt, "train_ips": n_images / dt}
             if self.device.type == "cuda":
                 record["peak_memory_gib"] = torch.cuda.max_memory_allocated(self.device) / 2**30
-            # the hand-written kernels this epoch's steps launched
-            record.update({f"launches/{k}": n - launches[k] for k, n in _cuda.LAUNCHES.items()
-                           if n != launches[k]})
+            # the counters this epoch moved: the hand-written kernels its steps
+            # launched (launches/<kernel>), host_syncs, kernel_builds
+            record.update(tracing.delta(counters))
 
             if self.val_loader is not None:
                 record.update(self.evaluate())
@@ -623,7 +628,7 @@ class Trainer:
         with data_parallel(self.mesh):
             for images, labels in self._val_batches():
                 acc = self.eval_step(self.state, images, labels, acc)
-        loss_sum, acc_sum, acc5_sum, total = self._all_reduce(acc, axis="data").tolist()
+        loss_sum, acc_sum, acc5_sum, total = tracing.to_host(self._all_reduce(acc, axis="data"))
         if total == 0:
             return {}
         return {
@@ -657,7 +662,7 @@ class Trainer:
             # a rank with fewer val batches runs all-padding ones: the
             # gathers of sharded parameters are collective
             n = torch.tensor([len(self.val_loader)], dtype=torch.float32, device=self.device)
-            n_batches = int(self._all_reduce(n, dist.ReduceOp.MAX).item())
+            n_batches = int(tracing.to_host(self._all_reduce(n, dist.ReduceOp.MAX))[0])
 
         def padded():
             s = self.cfg.data.val_crop_size

@@ -18,22 +18,27 @@ on CUDA inputs and their plain versions on CPU inputs; importing this module
 registers them. Every backbone is exported from a copy whose parameters are
 stored in its compute type (``Backbone.cast_for_serving``; CaiT's head
 mixes stay f32, as its kernels read them), so that a request pays no casts.
+
+A call of the loaded program is a ``serve`` span (``utils/tracing.py``) split
+in two: ``serve.prologue`` from the call to the end of the loaded module's
+forward pre-hooks (its input-constraint check), ``serve.graph`` from there
+to its forward hooks (the input's flattening, the guards, the graph).
 """
 
 from __future__ import annotations
 
 import copy
 import io
-from typing import Callable
+import threading
 
 import torch
-from torch import Tensor
 
 from ..models.base import Backbone
 from ..ops import (  # noqa: F401  (registers the custom ops)
     block_attention, block_mlp, cait_attention, depthwise_conv, flash_attention, short_attention,
     swin_attention, swin_relayout,
 )
+from . import tracing
 
 
 def export_model(model: Backbone, input_shape: tuple[int, ...],
@@ -51,6 +56,37 @@ def export_model(model: Backbone, input_shape: tuple[int, ...],
     return buf.getvalue()
 
 
-def load_exported(blob: bytes) -> Callable[[Tensor], Tensor]:
+class ServedProgram:
+    """A loaded program, called as ``program(x)``; ``module`` is the loaded
+    ``torch.export`` module."""
+
+    def __init__(self, module: torch.nn.Module):
+        self.module = module
+        self._part = threading.local()  # the serve.* span open in this thread's call
+        module.register_forward_pre_hook(self._graph_starts)  # after the module's own
+        module.register_forward_hook(self._graph_ends, prepend=True)
+
+    def _switch(self, name: str | None) -> None:
+        part = getattr(self._part, "span", None)
+        if part is not None:
+            part.__exit__(None, None, None)
+        self._part.span = None if name is None else tracing.span(name).__enter__()
+
+    def _graph_starts(self, module, args) -> None:
+        self._switch("serve.graph")
+
+    def _graph_ends(self, module, args, out) -> None:
+        self._switch(None)
+
+    def __call__(self, *args, **kwargs):
+        with tracing.span("serve"):
+            self._switch("serve.prologue")
+            try:
+                return self.module(*args, **kwargs)
+            finally:
+                self._switch(None)
+
+
+def load_exported(blob: bytes) -> ServedProgram:
     """Deserialise an exported artifact into a callable(x) -> output."""
-    return torch.export.load(io.BytesIO(blob)).module()
+    return ServedProgram(torch.export.load(io.BytesIO(blob)).module())
